@@ -5,13 +5,21 @@ Same module layout and function names as the JAX package
 ported piece is tested against. This package imports `torch` and never
 `jax` or `photobundle_tpu`.
 
-Layer map (the ported slice: one sliding-window solve):
-    entry          — problem generator + solve entry point (twin of
-                     __graft_entry__)
-    convert        — numpy <-> port conversion of a whole problem
+Layer map (ported so far: the sliding-window engine, its frame ingest and
+its window solve):
+    core.engine    — PhotometricBundleAdjustment.add_frame: ingest, then
+                     the window solve once the window is full
+    config         — PBAConfig and the .cfg parser (backend 'auto' |
+                     'cuda' | 'torch')
+    entry          — problem and scene generators + solve entry point
+                     (twin of __graft_entry__)
+    convert        — numpy <-> port conversion of a problem or an
+                     engine's state
     geometry       — SE(3), pinhole camera
-    image          — bilinear sampling, patches
-    core           — residuals, Schur complement, Levenberg-Marquardt
+    image          — pyramid, descriptors, saliency, bilinear and
+                     Catmull-Rom sampling, patches
+    core           — state, tracking, selection, residuals, Schur
+                     complement, Levenberg-Marquardt
     ops            — hand-written CUDA kernels (csrc/) and their loaders
 """
 

@@ -4,8 +4,10 @@ The JAX package and the port are held against each other by solving the
 very same problem: `problem_from_numpy` takes a problem as numpy arrays
 (for instance the JAX package's `(cam, offsets, args)`, converted with
 `np.asarray`) and returns the port's; `stats_to_numpy` brings an
-`LMStats` back. This module does not import jax: anything `np.asarray`
-accepts will do.
+`LMStats` back. `engine_state_from_numpy` / `engine_state_to_numpy` carry
+an engine's state (`PointTable`, `Window`) across, so that the port's
+ingest or solve can start from the JAX engine's exact state. This module
+does not import jax: anything `np.asarray` accepts will do.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .core.lm import LMStats
+from .core.state import PointTable, Window
 from .geometry.camera import Camera
 
 
@@ -38,3 +41,20 @@ def problem_from_numpy(cam, offsets, arrays, device="cpu"):
 def stats_to_numpy(stats: LMStats) -> LMStats:
     """LMStats of tensors -> LMStats of numpy arrays (on the host)."""
     return LMStats(*(t.detach().cpu().numpy() for t in stats))
+
+
+def engine_state_from_numpy(points, window, device="cpu"):
+    """(points, window), any objects with the fields of `PointTable` and
+    `Window` (for instance the JAX engine's, fetched to numpy) -> the
+    port's `PointTable` and `Window` on `device`, dtypes kept."""
+    return (PointTable(*(to_torch(getattr(points, k), device)
+                         for k in PointTable._fields)),
+            Window(*(to_torch(getattr(window, k), device)
+                     for k in Window._fields)))
+
+
+def engine_state_to_numpy(points: PointTable, window: Window):
+    """The port's (PointTable, Window) -> the same NamedTuples of numpy
+    arrays on the host."""
+    return (PointTable(*(t.detach().cpu().numpy() for t in points)),
+            Window(*(t.detach().cpu().numpy() for t in window)))

@@ -122,12 +122,15 @@ def lm_solve(
 ):
     """Run LM to convergence. Returns (t_wc, x_world, LMStats).
 
-    backend: 'torch' (gather path) or 'cuda' (the fused patch-stats kernel
-    for tensors on a card; its plain version for CPU tensors)."""
+    backend: 'torch' (gather path) or 'cuda' (the fused statistics kernel
+    of the gradient mode, K1 for 'sampled' and K2 for 'bicubic', for
+    tensors on a card; its plain version for CPU tensors)."""
     dtype, dev = t_wc.dtype, t_wc.device
     obs_mask = obs_mask & point_valid[:, None]
-    # The cuda backend's texel planes are loop-invariant: build once.
-    eval_ctx = make_cuda_ctx(channels, grads) if backend == "cuda" else None
+    # The cuda backend's planes (by gradient mode) are loop-invariant:
+    # build once.
+    eval_ctx = (make_cuda_ctx(channels, grads, gradient_mode)
+                if backend == "cuda" else None)
 
     def eval_stats(t, x) -> CompressedResiduals:
         return evaluate_compressed(cam, t, x, patch, channels, grads,

@@ -20,13 +20,18 @@ reference-frame observation.
 
 Two backends:
 - backend="torch": the gather path (twin of the JAX `xla` backend): per
-  frame, bilinear sampling of stacked value / gradient planes with
-  per-sample bounds checks (a sample may sit on the last pixel column).
-- backend="cuda": the fused kernel path (twin of the JAX `pallas` backend's
-  grouped-stats branch): ops/patch_warp.patch_stats samples, subtracts,
-  centres and reduces in one kernel on a card, or runs its plain version
-  for CPU tensors. It copies the Pallas path's whole-patch margins,
+  frame, sampling of the whole patch with per-sample bounds checks:
+  bilinear over stacked value / gradient planes ('sampled'), the bilinear
+  surface and its derivative ('exact'), or the Catmull-Rom surface and its
+  derivative ('bicubic').
+- backend="cuda": the fused kernel path (twin of the JAX `pallas` backend):
+  ops/patch_warp.patch_stats (bilinear, 'sampled') or
+  ops/patch_bicubic.bicubic_stats ('bicubic') sample, subtract, centre and
+  reduce in one kernel on a card, or run their plain versions for CPU
+  tensors. They copy the Pallas path's whole-patch margins. Bilinear:
   pr <= u <= W - 2 - pr, one pixel tighter than the gather path's.
+  Bicubic: pr + 1 <= u <= W - 3 - pr, which is the gather path's own
+  per-sample validity, so the two backends accept the same observations.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..image import interp
 from ..image import patches as patches_mod
+from ..ops import patch_bicubic as pb_mod
 from ..ops import patch_warp as pw_mod
 
 
@@ -138,7 +144,12 @@ def _sample_patches(channels_f, grads_f, uv, offsets, gradient_mode: str):
     channels_f (C, H, W), grads_f (C, H, W, 2), uv (N, 2), offsets (P, 2).
     Returns s (N, C, P), g (N, C, P, 2), valid (N,)."""
     pts = uv[:, None, :] + offsets                        # (N, P, 2)
-    if gradient_mode == "exact":
+    if gradient_mode == "bicubic":
+        # Ceres-parity mode: the Catmull-Rom surface and its exact gradient.
+        s, g, ok = interp.bicubic_with_grad(channels_f, pts)
+        s = torch.movedim(s, 0, 1)
+        g = torch.movedim(g, 0, 1)
+    elif gradient_mode == "exact":
         s, g, ok = interp.bilinear_with_grad(channels_f, pts)
         s = torch.movedim(s, 0, 1)
         g = torch.movedim(g, 0, 1)
@@ -152,8 +163,8 @@ def _sample_patches(channels_f, grads_f, uv, offsets, gradient_mode: str):
         s = vals[:, :c]
         g = torch.stack([vals[:, c:2 * c], vals[:, 2 * c:]], dim=-1)
     else:
-        raise ValueError(f"gradient_mode '{gradient_mode}' is not ported "
-                         "(want 'sampled' or 'exact')")
+        raise ValueError(f"unknown gradient_mode '{gradient_mode}' (want "
+                         "'sampled', 'exact' or 'bicubic')")
     return s, g, torch.all(ok, dim=-1)
 
 
@@ -221,27 +232,42 @@ def _prior_terms_pm(r_cw, y, valid, depth_prior, dtype):
     return rp, jp
 
 
-def make_cuda_ctx(channels, grads):
-    """Sampling context of the cuda backend: the (W, C, H, Wi, 4) texel
-    planes of ops/patch_warp. Loop-invariant: build once per solve and pass
-    to every evaluate_compressed call (twin of `make_pallas_ctx`)."""
-    return pw_mod.build_planes(channels, grads)
+CUDA_MODES = ("sampled", "bicubic")
+
+
+def make_cuda_ctx(channels, grads, mode: str = "sampled"):
+    """Sampling context of the cuda backend, (mode, planes): the
+    (W, C, H, Wi, 4) texel planes of ops/patch_warp for mode='sampled',
+    the value-only (W, C, H, Wi) planes of ops/patch_bicubic for
+    mode='bicubic' (the kernel computes the surface gradients itself).
+    Loop-invariant: build once per solve and pass to every
+    evaluate_compressed call (twin of `make_pallas_ctx`)."""
+    if mode == "bicubic":
+        return mode, pb_mod.build_value_planes(channels)
+    if mode == "sampled":
+        return mode, pw_mod.build_planes(channels, grads)
+    raise ValueError(f"cuda backend implements gradient_mode "
+                     f"{CUDA_MODES}, not '{mode}'")
 
 
 def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
     """Robust IRLS weights applied to the (W, ..., N) statistics; `valid`
-    (W, N). Invalid observations contribute exact zeros."""
+    (W, N). Invalid observations contribute exact zeros: they are selected
+    away, not multiplied by 0, since the gather path samples a NaN
+    coordinate to NaN (XLA turns the JAX package's multiply by the mask
+    into the same select)."""
     vf = valid.to(gtg.dtype)
-    rnorm2 = rnorm2 * vf
+    rnorm2 = torch.where(valid, rnorm2, 0.0)
     w_robust, rho = robust_weight(rnorm2, huber_delta, robust_kind)
     wv = w_robust * vf        # J^T J / J^T r carry the squared whitening
     sw = torch.sqrt(w_robust) * vf
+    v = valid[:, None, :]
     return CompressedResiduals(
         a=a,
-        gtg=gtg * wv[:, None, None, :],
-        gtr=gtr * wv[:, None, :],
-        jp=jp * sw[:, None, :],
-        rp=rp * sw,
+        gtg=torch.where(v[:, None], gtg * wv[:, None, None, :], 0.0),
+        gtr=torch.where(v, gtr * wv[:, None, :], 0.0),
+        jp=torch.where(v, jp * sw[:, None, :], 0.0),
+        rp=torch.where(valid, rp * sw, 0.0),
         valid=valid.T,
         cost=0.5 * torch.sum(rho * vf),
         n_residuals=torch.sum(valid, dtype=torch.int32),
@@ -251,12 +277,13 @@ def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
 def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               obs_mask, huber_delta: float,
                               depth_prior: tuple | None, ctx,
-                              normalize, robust_kind: str
-                              ) -> CompressedResiduals:
-    """Kernel path (twin of the grouped-stats branch of the JAX package's
-    `_evaluate_compressed_pallas`): the fused kernel returns the six
-    un-whitened sums per observation; the prior row and the whitening are
-    added here, outside it."""
+                              normalize, robust_kind: str,
+                              mode: str = "sampled") -> CompressedResiduals:
+    """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`:
+    its grouped-stats branch for mode='sampled', its bicubic branch for
+    mode='bicubic'): the fused kernel returns the six un-whitened sums per
+    observation; the prior row and the whitening are added here, outside
+    it."""
     n, w = obs_mask.shape
     pr = (int(round(patch.shape[2] ** 0.5)) - 1) // 2     # P = (2R+1)^2
     norm_mode = patches_mod.norm_mode(normalize)
@@ -264,7 +291,9 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
         raise ValueError(f"cuda backend implements patch normalization "
                          f"'mean' or 'off', not '{norm_mode}'")
     img_h, img_w = channels.shape[-2], channels.shape[-1]
-    lo, hi = pr, 2 + pr       # whole-patch bilinear support, Pallas margins
+    # Whole-patch support, the Pallas margins: bilinear needs 2x2 taps per
+    # sample, bicubic 4x4 (one more pixel on each side).
+    lo, hi = (pr + 1, 3 + pr) if mode == "bicubic" else (pr, 2 + pr)
 
     y_pm, uv, in_front, a, r_cw = _observation_geometry_pm(cam, t_wc,
                                                            x_world)
@@ -278,10 +307,15 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
         jp = torch.zeros((w, 9, n), dtype=uv.dtype, device=uv.device)
 
     if ctx is None:
-        ctx = make_cuda_ctx(channels, grads)
-    stats = pw_mod.patch_stats(
-        ctx, uv.permute(2, 0, 1).contiguous(), valid.T.contiguous(),
-        patch.contiguous(), pr, center=(norm_mode == "mean"))   # (6, W, N)
+        ctx = make_cuda_ctx(channels, grads, mode)
+    ctx_mode, planes = ctx
+    if ctx_mode != mode:
+        raise ValueError(f"cuda ctx built for mode '{ctx_mode}', evaluation "
+                         f"requested '{mode}'")
+    kernel = pb_mod.bicubic_stats if mode == "bicubic" else pw_mod.patch_stats
+    stats = kernel(planes, uv.permute(2, 0, 1).contiguous(),
+                   valid.T.contiguous(), patch.contiguous(), pr,
+                   center=(norm_mode == "mean"))                 # (6, W, N)
     g00, g01, g11, gxr, gyr, rr = stats
     gtg = torch.stack([torch.stack([g00, g01], dim=1),
                        torch.stack([g01, g11], dim=1)], dim=1)  # (W,2,2,N)
@@ -358,18 +392,20 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
       depth_prior: optional (ref_slot (N,) int, inv_depth_seed (N,),
         weight float): the inverse-depth prior row on each point's
         reference-frame observation.
-      backend: 'torch' (gather path) or 'cuda' (fused kernel; gradient_mode
-        'sampled' with 'mean'/'off' normalization only).
-      ctx: for backend='cuda', the planes from `make_cuda_ctx`, built once
-        per solve (built here when None).
+      backend: 'torch' (gather path) or 'cuda' (fused kernels;
+        gradient_mode 'sampled' or 'bicubic' with 'mean'/'off'
+        normalization only).
+      ctx: for backend='cuda', the (mode, planes) of `make_cuda_ctx`,
+        built once per solve (built here when None).
     """
     if backend == "cuda":
-        if gradient_mode != "sampled":
+        if gradient_mode not in CUDA_MODES:
             raise ValueError(f"cuda backend implements gradient_mode "
-                             f"'sampled', not '{gradient_mode}'")
+                             f"{CUDA_MODES}, not '{gradient_mode}'")
         return _evaluate_compressed_cuda(
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
-            huber_delta, depth_prior, ctx, normalize, robust_kind)
+            huber_delta, depth_prior, ctx, normalize, robust_kind,
+            mode=gradient_mode)
     if backend != "torch":
         raise ValueError(f"unknown backend '{backend}' (want one of "
                          f"{BACKENDS})")

@@ -1,0 +1,157 @@
+"""Static-shape BA state: fixed-capacity point table + window ring buffer.
+
+Twin of photobundle_tpu/core/state.py. Every "dynamic" behaviour
+(selection, culling, window slide) is a masked update at a fixed shape, so
+the engine's state is a tuple of tensors that stays on the device.
+Layout (N = cfg.maxNumPoints, W = cfg.slidingWindowSize, C = channels,
+P = patch pixels):
+
+    PointTable
+        x_world   (N, 3)    point positions, world frame
+        patch     (N, C, P) normalized reference descriptor patch
+        ref_frame (N,)      global frame id of the reference frame
+        last_seen (N,)      ingest ordinal of the newest observation
+        active    (N,)      slot occupancy
+        obs       (N, W)    visibility against window *slots*
+        inv_depth_seed (N,) 1/z at creation (stereo prior anchor)
+
+    Window (slot 0 = oldest, slot W-1 = newest)
+        channels  (W, C, H, W_img)   descriptor channels at refinement level
+        grads     (W, C, H, W_img, 2)
+        saliency  (W, H, W_img)
+        t_wc      (W, 4, 4)          world-from-camera poses
+        t_vo      (W, 4, 4)          raw VO input poses (never refined)
+        frame_ids (W,)               global frame ids (-1 = empty slot)
+        depth     (W, H, W_img)      metric depth (for new-point init)
+        depth_ok  (W, H, W_img)      depth validity
+        count     ()                 number of occupied slots
+
+The JAX package decides with `lax.cond` on the device-side count whether
+the ring slides; here the caller passes its host mirror of that count, so
+no step reads the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import PBAConfig
+
+
+class PointTable(NamedTuple):
+    x_world: torch.Tensor
+    patch: torch.Tensor
+    ref_frame: torch.Tensor
+    last_seen: torch.Tensor
+    active: torch.Tensor
+    obs: torch.Tensor
+    inv_depth_seed: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.x_world.shape[0]
+
+    def num_active(self) -> torch.Tensor:
+        return torch.sum(self.active, dtype=torch.int32)
+
+
+class Window(NamedTuple):
+    channels: torch.Tensor
+    grads: torch.Tensor
+    saliency: torch.Tensor
+    t_wc: torch.Tensor
+    t_vo: torch.Tensor
+    frame_ids: torch.Tensor
+    depth: torch.Tensor
+    depth_ok: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def size(self) -> int:
+        return self.channels.shape[0]
+
+
+def init_point_table(cfg: PBAConfig, device="cpu",
+                     dtype=torch.float32) -> PointTable:
+    n = cfg.maxNumPoints
+    c = cfg.num_channels
+    p = cfg.patch_size * cfg.patch_size
+    w = cfg.slidingWindowSize
+    return PointTable(
+        x_world=torch.zeros((n, 3), dtype=dtype, device=device),
+        patch=torch.zeros((n, c, p), dtype=dtype, device=device),
+        ref_frame=torch.full((n,), -1, dtype=torch.int32, device=device),
+        last_seen=torch.full((n,), -1, dtype=torch.int32, device=device),
+        active=torch.zeros((n,), dtype=torch.bool, device=device),
+        obs=torch.zeros((n, w), dtype=torch.bool, device=device),
+        inv_depth_seed=torch.ones((n,), dtype=dtype, device=device),
+    )
+
+
+def init_window(cfg: PBAConfig, image_shape, device="cpu",
+                dtype=torch.float32) -> Window:
+    h, wimg = image_shape
+    w = cfg.slidingWindowSize
+    c = cfg.num_channels
+    eye = torch.eye(4, dtype=dtype, device=device).expand(w, 4, 4)
+    return Window(
+        channels=torch.zeros((w, c, h, wimg), dtype=dtype, device=device),
+        grads=torch.zeros((w, c, h, wimg, 2), dtype=dtype, device=device),
+        saliency=torch.zeros((w, h, wimg), dtype=dtype, device=device),
+        t_wc=eye.clone(),
+        t_vo=eye.clone(),
+        frame_ids=torch.full((w,), -1, dtype=torch.int32, device=device),
+        depth=torch.zeros((w, h, wimg), dtype=dtype, device=device),
+        depth_ok=torch.zeros((w, h, wimg), dtype=torch.bool, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def push_frame(win: Window, channels, grads, saliency, t_wc, frame_id: int,
+               depth, depth_ok, points: PointTable, count: int):
+    """Append a frame to the newest slot; if the ring is full, slide (drop
+    the oldest). `count` is the host's mirror of `win.count`.
+
+    Sliding shifts slot indices down by one, so the point table's per-slot
+    observation mask rolls with it (slot 0's column is discarded and the new
+    slot W-1 column cleared). Returns new tensors; the inputs are not
+    modified."""
+    w = win.size
+    full = count >= w
+    idx = min(count, w - 1)
+
+    def put(arr, value):
+        arr = torch.roll(arr, -1, dims=0) if full else arr.clone()
+        arr[w - 1 if full else idx] = value
+        return arr
+
+    new_win = Window(
+        channels=put(win.channels, channels),
+        grads=put(win.grads, grads),
+        saliency=put(win.saliency, saliency),
+        t_wc=put(win.t_wc, t_wc),
+        # The incoming pose is the caller's raw VO estimate; t_wc gets
+        # refined by window solves while t_vo keeps the original.
+        t_vo=put(win.t_vo, t_wc),
+        frame_ids=put(win.frame_ids, frame_id),
+        depth=put(win.depth, depth),
+        depth_ok=put(win.depth_ok, depth_ok),
+        count=torch.clamp(win.count + 1, max=w),
+    )
+    obs = points.obs
+    if full:
+        obs = torch.roll(obs, -1, dims=1)
+        obs[:, w - 1] = False
+    return new_win, points._replace(obs=obs)
+
+
+def cull_points(points: PointTable, oldest_frame_id: torch.Tensor,
+                min_obs: int = 1) -> PointTable:
+    """Deactivate points whose reference frame has left the window, or that
+    have no remaining window observations."""
+    n_obs = torch.sum(points.obs, dim=1)
+    keep = (points.active & (points.ref_frame >= oldest_frame_id)
+            & (n_obs >= min_obs))
+    return points._replace(active=keep, obs=points.obs & keep[:, None])

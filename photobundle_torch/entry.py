@@ -1,9 +1,16 @@
-"""Problem generator and solve entry point (twin of __graft_entry__.py).
+"""Problem generators and solve entry point (twin of __graft_entry__.py).
 
 `make_problem` builds the synthetic smooth-texture window problem of the
 JAX package's `_make_problem` from the same numpy draws, so both packages
 get identical inputs for one seed. `entry` returns one full window solve
 and its arguments.
+
+`make_sequence` renders the textured-sphere scene of the repository's
+tests (`tests/synthetic.py`) without jax: a camera track, its images and
+ground-truth depths, from the same numpy draws. It takes the image shape,
+the intrinsics and a texture scale, so the same scene can be rendered at
+KITTI's size and focal length; `drift_poses` gives a VO-like drifted
+initialization of the track.
 """
 
 from __future__ import annotations
@@ -82,3 +89,111 @@ def entry(device="cpu"):
         )
 
     return ba_solve_step, args
+
+
+SPHERE_C = np.array([0.0, 0.0, 10.0])
+SPHERE_R = 6.0
+
+
+def make_texture(rng, n_waves=64, min_wavelength=0.4, max_wavelength=2.5):
+    """Smooth analytic 3D texture: a random mixture of 3D sinusoids.
+    Returns (freqs (K, 3), phases (K,), amps (K,)) in f64."""
+    wl = rng.uniform(min_wavelength, max_wavelength, size=n_waves)
+    d = rng.standard_normal((n_waves, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    freqs = (2 * np.pi / wl)[:, None] * d
+    phases = rng.uniform(0, 2 * np.pi, size=n_waves)
+    amps = rng.uniform(0.3, 1.0, size=n_waves) / np.sqrt(n_waves)
+    return freqs, phases, amps
+
+
+def sample_texture3d(tex, pts):
+    """World points (..., 3) -> texture value in ~[0, 1], f32."""
+    freqs, phases, amps = tex
+    phase = np.asarray(pts, np.float64) @ freqs.T + phases   # (..., K)
+    return (0.5 + 0.5 * np.tanh(np.sin(phase) @ amps)).astype(np.float32)
+
+
+def render_view(tex, intrinsics, t_wc: np.ndarray, shape,
+                mark_misses: bool = False):
+    """Image + ground-truth z-depth of the sphere seen from pose t_wc
+    (4x4), by exact ray-sphere intersection (front surface).
+    intrinsics = (fx, fy, cx, cy). A ray that misses the sphere sees the
+    texture at its closest approach; its depth is that point's, as in
+    tests/synthetic.py, or with `mark_misses` 0 (invalid: no surface, as
+    a stereo matcher finds none), which a field of view wider than the
+    sphere needs so that no point is seeded off it."""
+    h, w = shape
+    fx, fy, cx, cy = intrinsics
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    d_cam = np.stack([(xs - cx) / fx, (ys - cy) / fy,
+                      np.ones_like(xs, np.float64)], axis=-1)
+    r = t_wc[:3, :3].astype(np.float64)
+    o = t_wc[:3, 3].astype(np.float64)
+    d_world = d_cam @ r.T                       # (H, W, 3), unnormalized
+    oc = o - SPHERE_C
+    a = (d_world ** 2).sum(-1)
+    b = 2.0 * (d_world @ oc)
+    c = oc @ oc - SPHERE_R ** 2
+    disc = b * b - 4 * a * c
+    t = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a)  # front intersection
+    img = sample_texture3d(tex, o + t[..., None] * d_world)
+    depth = t * d_cam[..., 2]
+    if mark_misses:
+        depth = np.where(disc >= 0, depth, 0.0)
+    return img, depth.astype(np.float32)
+
+
+def _se3_exp_np(xi: np.ndarray) -> np.ndarray:
+    return se3.se3_exp(torch.as_tensor(xi)).numpy()
+
+
+def make_sequence(rng, n_frames=6, shape=(96, 144), motion_scale=0.1,
+                  rot_scale=0.002, fx=100.0, fy=None, cx=None, cy=None,
+                  baseline=0.2, texture_scale=1.0, mark_misses=False):
+    """Ground-truth camera track + rendered frames of the textured sphere.
+
+    Returns (cam, images, depths, poses_gt) with cam a CPU `Camera` and
+    world-from-camera poses. The principal point defaults to the image
+    centre. `texture_scale` multiplies the texture's wavelengths: at
+    fx = 100 the default features span ~10-80 px, and 100 / fx keeps that
+    pixel size at another focal length. `mark_misses` gives rays past the
+    sphere depth 0 (see `render_view`)."""
+    h, w = shape
+    fy = fx if fy is None else fy
+    cx = w / 2 - 0.5 if cx is None else cx
+    cy = h / 2 - 0.5 if cy is None else cy
+    cam = cam_mod.Camera.create(fx=fx, fy=fy, cx=cx, cy=cy,
+                                baseline=baseline)
+    tex = make_texture(rng, min_wavelength=0.4 * texture_scale,
+                       max_wavelength=2.5 * texture_scale)
+    intrinsics = tuple(float(v) for v in cam[:4])
+    poses, images, depths = [], [], []
+    t_wc = np.eye(4, dtype=np.float32)
+    for _ in range(n_frames):
+        poses.append(t_wc.copy())
+        img, depth = render_view(tex, intrinsics, t_wc, shape, mark_misses)
+        images.append(img)
+        depths.append(depth)
+        xi = np.concatenate([
+            rng.standard_normal(3) * motion_scale
+            + np.array([motion_scale, 0, 0]),
+            rng.standard_normal(3) * rot_scale,
+        ]).astype(np.float32)
+        t_wc = (t_wc @ _se3_exp_np(xi)).astype(np.float32)
+    return cam, images, depths, np.stack(poses)
+
+
+def drift_poses(rng, poses, trans_sigma=0.01, rot_sigma=0.002, keep_first=1):
+    """VO-like error: a random-walk drift composed into the trajectory, so
+    each frame's relative motion carries a small error that accumulates."""
+    out = poses.copy()
+    err = np.eye(4, dtype=np.float64)
+    for i in range(keep_first, len(poses)):
+        xi = np.concatenate([
+            rng.standard_normal(3) * trans_sigma,
+            rng.standard_normal(3) * rot_sigma,
+        ]).astype(np.float32)
+        err = err @ _se3_exp_np(xi).astype(np.float64)
+        out[i] = (err @ poses[i].astype(np.float64)).astype(poses.dtype)
+    return out

@@ -1,11 +1,12 @@
 """Bilinear image sampling with analytic spatial gradients.
 
-Twin of photobundle_tpu/image/interp.py (bicubic sampling is not ported
-yet). Two gradient modes:
+Twin of photobundle_tpu/image/interp.py. Three gradient modes:
 - 'exact': the true derivative of the bilinear surface
   (`bilinear_with_grad`).
 - 'sampled': bilinearly interpolate precomputed central-difference
   gradient images (`bilinear` over stacked planes); the solver default.
+- 'bicubic': the Catmull-Rom surface and its exact derivative
+  (`bicubic_with_grad`), Ceres' BiCubicInterpolator semantics.
 
 Sampling is a gather on the flattened image. Out-of-bounds coordinates are
 clamped and reported through a validity mask, so values stay finite for
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -100,6 +102,62 @@ def bilinear_with_grad(img: torch.Tensor, uv: torch.Tensor):
               + v11 * fx * fy)
     gx = (v01 - v00) * (1.0 - fy) + (v11 - v10) * fy
     gy = (v10 - v00) * (1.0 - fx) + (v11 - v01) * fx
+    return values, torch.stack([gx, gy], dim=-1), valid
+
+
+def catmull_rom_weights(t: torch.Tensor):
+    """Catmull-Rom weights for taps at offsets (-1, 0, 1, 2), t in [0, 1):
+    the cubic Hermite spline Ceres' BiCubicInterpolator evaluates."""
+    t2 = t * t
+    t3 = t2 * t
+    return (0.5 * (-t3 + 2.0 * t2 - t),
+            0.5 * (3.0 * t3 - 5.0 * t2 + 2.0),
+            0.5 * (-3.0 * t3 + 4.0 * t2 + t),
+            0.5 * (t3 - t2))
+
+
+def catmull_rom_dweights(t: torch.Tensor):
+    """d/dt of `catmull_rom_weights` (analytic spatial gradients)."""
+    t2 = t * t
+    return (0.5 * (-3.0 * t2 + 4.0 * t - 1.0),
+            0.5 * (9.0 * t2 - 10.0 * t),
+            0.5 * (-9.0 * t2 + 8.0 * t + 1.0),
+            0.5 * (3.0 * t2 - 2.0 * t))
+
+
+def bicubic_with_grad(img: torch.Tensor, uv: torch.Tensor):
+    """Catmull-Rom bicubic sample + analytic surface gradient.
+
+    img: (H, W) or (C, H, W); uv (..., 2) as [x, y]. Returns (values,
+    grad (..., 2), valid) like `bilinear_with_grad`. `valid` is True where
+    the full 4x4 support is interior (1 <= x <= W - 3); out-of-range
+    coordinates are clamped (finite values, masked downstream). Rows are
+    interpolated first (value and d/dx), then combined over columns, in
+    the JAX package's tap order."""
+    h, w = img.shape[-2], img.shape[-1]
+    x = uv[..., 0]
+    y = uv[..., 1]
+    valid = (x >= 1) & (x <= w - 3) & (y >= 1) & (y <= h - 3)
+    # The upper clamp is formed in f32, as (W - 3) - 1e-5 is there.
+    xc = torch.clamp(x, 1.0, float(np.float32(w - 3) - np.float32(1e-5)))
+    yc = torch.clamp(y, 1.0, float(np.float32(h - 3) - np.float32(1e-5)))
+    x0 = torch.floor(xc).long()
+    y0 = torch.floor(yc).long()
+    tx = xc - x0.to(img.dtype)
+    ty = yc - y0.to(img.dtype)
+    wx, dwx = catmull_rom_weights(tx), catmull_rom_dweights(tx)
+    wy, dwy = catmull_rom_weights(ty), catmull_rom_dweights(ty)
+
+    rows, drows = [], []
+    for j in range(4):
+        yj = torch.clamp(y0 + (j - 1), 0, h - 1)
+        taps = [_gather2d(img, yj, torch.clamp(x0 + (i - 1), 0, w - 1))
+                for i in range(4)]
+        rows.append(sum(a * p for a, p in zip(wx, taps)))
+        drows.append(sum(d * p for d, p in zip(dwx, taps)))
+    values = sum(a * r for a, r in zip(wy, rows))
+    gx = sum(a * r for a, r in zip(wy, drows))
+    gy = sum(d * r for d, r in zip(dwy, rows))
     return values, torch.stack([gx, gy], dim=-1), valid
 
 

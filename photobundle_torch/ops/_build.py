@@ -52,29 +52,54 @@ def nvcc() -> str:
                        "are built from csrc/ with the CUDA toolkit")
 
 
-def library(name: str) -> Built:
-    """Build (when its hash-named library is missing) and load
-    `csrc/<name>.cu`. Loaded once per process."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"{name}_{digest}.so"
-    log, seconds = "", 0.0
-    if not path.exists():
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build_all(names) -> dict[str, Built]:
+    """Build (one `nvcc` per source, all started together) and load every
+    `csrc/<name>.cu` of `names`. Each library is loaded once per process;
+    a hash-named library that already exists is not rebuilt. A loaded
+    library costs one dict lookup (wrappers call this at every launch):
+    its source is hashed only when it is first loaded."""
+    pending = {}
+    for name in names:
+        if name in _LOADED:
+            continue
+        path = _library_path(name)
+        if path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = (proc.stdout + proc.stderr).strip()
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, tmp, path, time.perf_counter())
+    logs = {}
+    # Every nvcc is waited for before any failure is raised, so none
+    # outlives the call.
+    for name, (proc, tmp, path, t0) in pending.items():
+        out, _ = proc.communicate()
+        logs[name] = (out.strip(), time.perf_counter() - t0)
+    for name, (proc, tmp, path, t0) in pending.items():
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+            raise RuntimeError(f"nvcc failed to build {CSRC / name}.cu:\n"
+                               f"{logs[name][0]}")
         os.replace(tmp, path)    # atomic: concurrent builds never see
                                  # a half-written library
-    built = Built(ctypes.CDLL(str(path)), path, log, seconds)
-    _LOADED[name] = built
-    return built
+    for name in names:
+        if name not in _LOADED:
+            path = _library_path(name)
+            log, seconds = logs.get(name, ("", 0.0))
+            _LOADED[name] = Built(ctypes.CDLL(str(path)), path, log, seconds)
+    return {name: _LOADED[name] for name in names}
+
+
+def library(name: str) -> Built:
+    """Build (when its hash-named library is missing) and load
+    `csrc/<name>.cu`. Loaded once per process."""
+    return build_all([name])[name]

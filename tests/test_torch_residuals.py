@@ -128,9 +128,27 @@ def test_backend_and_mode_errors(problem):
     with pytest.raises(ValueError, match="backend"):
         tres.evaluate_compressed(*args, HUBER, backend="xla")
     with pytest.raises(ValueError, match="gradient_mode"):
-        tres.evaluate_compressed(*args, HUBER, "bicubic")
+        tres.evaluate_compressed(*args, HUBER, "bogus")
     with pytest.raises(ValueError, match="gradient_mode"):
         tres.evaluate_compressed(*args, HUBER, "exact", backend="cuda")
     with pytest.raises(ValueError, match="normalization"):
         tres.evaluate_compressed(*args, HUBER, backend="cuda",
                                  normalize="affine")
+
+
+@pytest.mark.parametrize("mode", ["sampled", "exact", "bicubic"])
+def test_gather_path_nan_point_is_masked(problem, mode):
+    """A NaN point samples to NaN on the gather path. Its observations are
+    invalid: their statistics are exact zeros and the cost is the JAX
+    package's, finite (XLA selects the masked terms away; a multiply by
+    the 0/1 mask would keep the NaN)."""
+    cam, t_wc, x, patch, ch, g, obs, off = problem
+    nan_problem = (cam, t_wc, x.at[3].set(jnp.nan), patch, ch, g, obs, off)
+    out, ref = both(nan_problem, mode, prior=prior_arrays(12))
+    assert not to_np(out.valid)[3].any()
+    for name in ("gtg", "gtr", "jp", "rp"):
+        got = to_np(getattr(out, name))
+        assert np.isfinite(got).all(), name
+        assert (got[..., 3] == 0).all(), name
+    assert np.isfinite(float(ref.cost))
+    np.testing.assert_allclose(float(out.cost), float(ref.cost), rtol=1e-5)
