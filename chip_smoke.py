@@ -7,16 +7,15 @@ Drives the port's paths at the repository's full size (370x1226 images,
 4096 points, 5-frame window, 5x5 patches, C = 1), from seeds:
 
   1. the card: torch's device name, and nvidia-smi's name and power limit;
-  2. build: both kernels compiled from photobundle_torch/csrc/ (one nvcc
-     per source, started together);
+  2. build: the three kernel sources compiled from photobundle_torch/csrc/
+     (one nvcc per source, started together), ptxas registers and spills;
   3. kernel K1 (csrc/patch_warp.cu) vs its plain PyTorch version on a
      synthetic window solve's own inputs, with the median time of each;
   4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations; K1's
      launch count over that run; then the same solve on the plain torch
      backend, LM iterations/s of both, and a parity solve of the two;
-  5. kernel K2 (csrc/patch_bicubic.cu): its ptxas registers and spills,
-     then K2 vs its plain version on phase 3's inputs within the bicubic
-     margins, with the median time of each;
+  5. kernel K2 (csrc/patch_bicubic.cu) vs its plain version on phase 3's
+     inputs within the bicubic margins, with the median time of each;
   6. the engine: PhotometricBundleAdjustment.add_frame over 15 frames of
      the textured-sphere scene (entry.make_sequence) at KITTI 00's
      left-camera intrinsics, drifted VO poses in, in the reference-exact
@@ -25,7 +24,26 @@ Drives the port's paths at the repository's full size (370x1226 images,
      keyframes/s, window-solve ms and the first window's cost on both
      backends from the same state;
   7. the same engine in the default configuration (bilinear, sampled:
-     K1) over 8 frames.
+     K1) over 8 frames;
+  8. kernel K3 (csrc/patch_scaled.cu, the warped grid of patchWarp=scale)
+     vs its plain version on phase 3's inputs with a scale rho per
+     observation (numpy seed 1, uniform in [0.45, 2.3], clamped) inside
+     K3's margins;
+  9. the affine modes (patchNormalization=affine) vs their plain versions
+     on the same inputs: K1's (the port's K4), K3's (K5) and K2's;
+ 10. the engine on phase 6's scene, 8 frames each, with patchWarp=scale
+     (K3), patchNormalization=affine (K1's affine mode), both (K3's
+     affine mode) and the reference-exact configuration with affine
+     normalization (K2's affine mode): launch counts, costs, ATE,
+     keyframes/s, window-solve ms, and the first window's cost on both
+     backends, the torch run restricted to the cuda path's valid set.
+
+Each kernel comparison reports the kernel's and the plain version's median
+time per call (CUDA events), the kernel's device time per launch
+(torch.profiler) and its bound on this card. Every engine run zeroes the
+launch counts just before it and checks, just after, that its kernel ran
+in its normalization mode once per LM iteration plus once per window and
+that no other kernel or mode ran.
 
 Prints a JSON line of kernel results, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}. Any failed phase
@@ -34,6 +52,7 @@ one it exits non-zero before doing anything.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -46,8 +65,9 @@ ITERS = 8                 # fixed-length solve, tolerances zeroed (bench.py)
 HUBER_DELTA = 0.05
 TIMED_SOLVES = 5
 KERNEL_CALLS = 50
-# Kernel vs plain version: f32 sums of (2R+1)^2 products taken in another
-# order (and with fused multiply-adds) on the card.
+PROFILED_CALLS = 20
+# Kernel vs plain version: the same f32 samples (the kernels are built
+# without multiply-add contraction), reduced in another order.
 KERNEL_RTOL, KERNEL_ATOL_ROW = 1e-4, 1e-6
 SOLVE_RTOL = 1e-4
 # The parity solve keeps observations this many pixels inside both
@@ -62,9 +82,25 @@ PARITY_MARGIN_PX, PARITY_LAMBDA = 24, 1.0
 # first pose): rays past the sphere get invalid depth, so no point is
 # seeded on them.
 KITTI_FX, KITTI_CX, KITTI_CY, KITTI_BASELINE = 718.856, 607.19, 185.22, 0.537
-ENGINE_FRAMES, DEFAULT_FRAMES, SCENE_SEED = 15, 8, 0
+ENGINE_FRAMES, DEFAULT_FRAMES, WARP_FRAMES, SCENE_SEED = 15, 8, 8, 0
 DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
+RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
+# One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bandwidth and f32 rate
+# outside the tensor cores.
+H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
+# Operations per patch pixel (multiplies and adds, counted once each):
+# sampling value, d/dx and d/dy (bilinear: 3 planes x 4 taps; scaled:
+# 3 planes x two row blends and one column blend; bicubic: the separable
+# 4-tap filters, rows amortized over the patch), then the epilogue
+# (off: residual and six products; mean: plus the three means and
+# centring; affine: plus the norm, the projection and two divisions).
+SAMPLE_FLOPS = {"bilinear": 21, "scaled": 27, "bicubic": 43}
+NORM_FLOPS = {"off": 13, "mean": 20, "affine": 36}
+# Bytes per texel the function needs: value, d/dx and d/dy for the bilinear
+# kernels (their float4 texel's fourth lane is padding), the value alone
+# for the bicubic one.
+GRAD_TEXEL_BYTES, VALUE_TEXEL_BYTES = 12, 4
 
 
 def say(msg: str) -> None:
@@ -100,17 +136,70 @@ def median_ms(fn, calls: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def print_ptxas(built) -> None:
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+def device_us_per_launch(fn, calls: int = PROFILED_CALLS):
+    """Device time per launch of the port's kernels (the `*stats_kernel`
+    entries of a torch.profiler trace) over `calls` calls of fn; None if
+    the trace has no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if "stats_kernel" in evt.key:
+            total += (getattr(evt, "self_device_time_total", 0.0)
+                      or getattr(evt, "self_cuda_time_total", 0.0))
+    return total / calls if total > 0 else None
+
+
+def ptxas_table(log: str) -> dict:
+    """{(R, normalization code): (registers, spill-store bytes)} of every
+    kernel instance in a `ptxas -v` log (instances are named
+    <kernel><R, NORM> in the mangled entry names; a kernel templated on R
+    alone, with the normalization a runtime argument, is listed as
+    (R, None))."""
+    table, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"\w*?[a-z_]+_kernelILi(\d+)E(?:Li(\d+)E)?", line)
+        if m:
+            current = (int(m.group(1)),
+                       None if m.group(2) is None else int(m.group(2)))
+            regs, spill = table.get(current, (None, None))
+            table[current] = (regs, spill)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            table[current] = (table[current][0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            table[current] = (int(m.group(1)), table[current][1])
+    return table
+
+
+def print_ptxas(name: str, built) -> None:
+    """One line per normalization mode: registers / spill-store bytes for
+    R = 1..4 (nothing if the library was not built in this process)."""
+    from photobundle_torch.ops import _common
+
+    table = ptxas_table(built.log)
+    for code, norm in enumerate(_common.NORMS):
+        cells = [table.get((r, code), (None, None)) for r in _common.RADII]
+        say(f"  ptxas {name} {norm}: registers/spill bytes for R = 1..4: "
+            + ", ".join(f"{g}/{b}" for g, b in cells))
 
 
 def compare_with_plain(got, want, valid_nm):
     """Kernel sums (6, W, N) against the plain version's: finite, exact
     zeros for invalid observations, |d| <= 1e-4 |plain| + 1e-6 row max.
     Returns (max abs error, max relative error over entries above 1e-3
-    of their row's max)."""
+    of their row's max, max of |d| over that bound)."""
     torch.cuda.synchronize()
     v = valid_nm.T                                               # (W, N)
     check(bool(torch.isfinite(got).all()), "kernel output not finite")
@@ -122,10 +211,89 @@ def compare_with_plain(got, want, valid_nm):
     max_abs = float(err.max())
     big = want.abs() > 1e-3 * row_max
     max_rel = float((err[big] / want.abs()[big]).max())
-    check(bool((err <= bound).all()),
+    worst = float(torch.where(err > 0, err / bound, 0.0).max())
+    check(worst <= 1.0,
           f"kernel disagrees with plain version: max abs {max_abs:.3e}, "
-          f"max rel {max_rel:.3e}")
-    return max_abs, max_rel
+          f"max rel {max_rel:.3e}, {worst:.3f} of the tolerance")
+    return max_abs, max_rel, worst
+
+
+def window_texels(uv_nm, valid_nm, pr, win, back, h, wi):
+    """Flat (frame, y, x) indices of every texel in the fixed-grid windows
+    of the valid observations: win x win from (floor(u) - back), clamped
+    inside the image as the kernels clamp it."""
+    q = uv_nm[valid_nm]                                          # (M, 2)
+    f = torch.nonzero(valid_nm)[:, 1]
+    x0 = torch.clamp(torch.floor(q[:, 0]).long() - back, 0, wi - win)
+    y0 = torch.clamp(torch.floor(q[:, 1]).long() - back, 0, h - win)
+    k = torch.arange(win, device=uv_nm.device)
+    return ((f[:, None, None] * h + y0[:, None, None] + k[:, None]) * wi
+            + x0[:, None, None] + k)
+
+
+def scaled_texels(uv_nm, rho_nm, valid_nm, pr, h, wi):
+    """Flat (frame, y, x) indices of every texel the warped-grid kernel
+    reads for the valid observations: its tap rows {ty, ty + 1} times its
+    tap columns {tx, tx + 1}."""
+    from photobundle_torch.ops import patch_scaled as ps
+
+    ty, _, tx, _ = ps.scaled_taps(uv_nm, rho_nm, valid_nm, pr, h, wi)
+    f = torch.arange(valid_nm.shape[1], device=uv_nm.device)[None, :, None]
+    rows = torch.cat([ty, ty + 1], dim=-1)                       # (N, W, 2ps)
+    cols = torch.cat([tx, tx + 1], dim=-1)
+    lin = (f * h + rows)[..., :, None] * wi + cols[..., None, :]
+    return lin[valid_nm]
+
+
+def kernel_bound(texels, texel_bytes, valid_nm, channels, pr, sample, norm,
+                 with_rho=False):
+    """Least time the card could take for one call: the larger of the
+    bytes the call must move over HBM bandwidth
+    and its f32 operations over the f32 rate. Bytes: each distinct texel
+    the valid observations need (per channel, `texel_bytes` each: what the
+    function reads, not the kernel's padded layout), the validity flags, uv
+    (and rho) of the valid observations, the descriptors of the points
+    with a valid observation, and the (6, W, N) output. Operations:
+    SAMPLE_FLOPS + NORM_FLOPS per patch pixel per channel of each valid
+    observation."""
+    n, w = valid_nm.shape
+    p = (2 * pr + 1) ** 2
+    n_valid = int(valid_nm.sum())
+    n_points = int(valid_nm.any(dim=1).sum())
+    distinct = int(torch.unique(texels.reshape(-1)).numel())
+    nbytes = (distinct * channels * texel_bytes + n * w
+              + n_valid * (8 + (4 if with_rho else 0))
+              + n_points * channels * p * 4 + 6 * w * n * 4)
+    flops = n_valid * channels * p * (SAMPLE_FLOPS[sample] + NORM_FLOPS[norm])
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def kernel_phase(tag, label, kernel, plain, valid_nm, bound):
+    """Hold one kernel (or mode) against its plain version and time both.
+    Returns its numbers for the JSON line."""
+    max_abs, max_rel, worst = compare_with_plain(kernel(), plain(),
+                                                 valid_nm)
+    ms = median_ms(kernel, KERNEL_CALLS)
+    plain_ms = median_ms(plain, KERNEL_CALLS)
+    dev_us = device_us_per_launch(kernel)
+    torch.cuda.synchronize()
+    dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
+    say(f"phase {tag} {label} vs plain at {N_PTS}x{W} obs "
+        f"({int(valid_nm.sum())} valid), R={PATCH_RADIUS}: max abs err "
+        f"{max_abs:.3e}, max rel err {max_rel:.3e}, {worst:.3f} of the "
+        f"tolerance |d| <= {KERNEL_RTOL:g}|plain| + {KERNEL_ATOL_ROW:g} row "
+        f"max | median "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over {KERNEL_CALLS} "
+        f"calls | device time per launch {dev} (profiler, {PROFILED_CALLS} "
+        f"launches) | bound {bound['bound_ms'] * 1e3:.3f} us by "
+        f"{bound['bound_by']} ({bound['bytes'] / 1e6:.2f} MB, "
+        f"{bound['flops'] / 1e6:.2f} MFLOP)")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                library_ms=None)
 
 
 def ate(poses, gt) -> float:
@@ -135,20 +303,24 @@ def ate(poses, gt) -> float:
     return float(np.sqrt((d * d).sum(-1).mean()))
 
 
-def run_engine(tag, cfg, scene, init, n_frames, counted, idle,
+def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
                ate_must_fall=True):
     """Drive PhotometricBundleAdjustment.add_frame over the scene's first
-    `n_frames` frames on the card, from the drifted poses `init`. Checks
-    that every window solve launched the `counted` kernel once per LM
-    iteration plus once for its initial point and never the `idle` one,
-    that no solve raised its cost, and (with `ate_must_fall`) that the
-    refined trajectory beats the initial one. Prints the engine's numbers and returns them, with
-    the state the first window solve started from."""
+    `n_frames` frames on the card, from the drifted poses `init`.
+    `counted` = (kernel wrapper, normalization mode). Zeroes every kernel's
+    launch counts just before the run and checks, just after, that every
+    window solve launched the counted kernel in its mode once per LM
+    iteration plus once for its initial point, that no other kernel or
+    mode ran, that no solve raised its cost, and (with `ate_must_fall`)
+    that the refined trajectory beats the initial one. Prints the engine's
+    numbers and returns them, with the state the first window solve
+    started from."""
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
+    from photobundle_torch.ops import _common
 
     cam, images, depths, gt = scene
-    pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg,
-                                      device="cuda")
+    pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
+    check(pba.device.type == "cuda", f"engine runs on {pba.device}")
     check(pba.backend == "cuda", f"engine resolved backend {pba.backend}")
     first_state = []
     optimize = pba._optimize
@@ -164,7 +336,8 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, idle,
     results, frame_s = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counted.launches = idle.launches = 0
+    for k in kernels:
+        _common.reset_launches(k)
     for i in range(n_frames):
         if i == window_size:
             t_keyframes = time.perf_counter()
@@ -177,26 +350,31 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, idle,
             refined[res.frame_ids] = res.poses
             results.append(res)
     keyframes_s = time.perf_counter() - t_keyframes
-    launches, idle_launches = counted.launches, idle.launches
+    counts = {(k.__name__, m): k.launches[m] for k in kernels
+              for m in _common.NORMS}
     peak = torch.cuda.max_memory_allocated() / 2**20
 
+    fn, norm = counted
+    launches = counts.pop((fn.__name__, norm))
+    others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
     expected = sum(r.iterations + 1 for r in results)
     its = [r.iterations for r in results]
     say(f"phase {tag} engine ({cfg.interpolation}, "
-        f"{cfg.resolve_gradient_mode()}): {n_frames} frames "
+        f"{cfg.resolve_gradient_mode()}, patchWarp "
+        f"{cfg.resolve_patch_warp()}, normalization "
+        f"{cfg.resolve_normalization()}): {n_frames} frames "
         f"{images[0].shape[0]}x{images[0].shape[1]}, {len(results)} "
         f"windows, {pba.num_active_points} active points "
-        f"(capacity {cfg.maxNumPoints}); {counted.__name__} launches "
-        f"{launches} (sum of iterations + 1: {expected}), "
-        f"{idle.__name__} launches {idle_launches}")
+        f"(capacity {cfg.maxNumPoints}); {fn.__name__}/{norm} launches "
+        f"{launches} (sum of iterations + 1: {expected}), other kernels "
+        f"and modes {others or 'none'}")
     for r in results:
         say(f"  {r.message()}, solve {r.solve_time_s * 1e3:.1f} ms")
     check(len(results) == n_frames - window_size + 1,
           f"{len(results)} window solves ran")
-    check(launches == expected, f"{counted.__name__} launched {launches} "
-          f"times, expected {expected}")
-    check(idle_launches == 0, f"{idle.__name__} launched {idle_launches} "
-          f"times")
+    check(launches == expected > 0, f"{fn.__name__}/{norm} launched "
+          f"{launches} times, expected {expected}")
+    check(not others, f"other kernels or modes launched: {others}")
     for r in results:
         check(np.isfinite(r.final_cost) and r.final_cost <= r.initial_cost,
               f"window {r.frame_ids.tolist()} cost {r.initial_cost} -> "
@@ -218,23 +396,55 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, idle,
                 launches=launches)
 
 
-def first_window_cost(pba, state, backend):
-    """Initial cost and observation count of a window solve's start state,
-    evaluated on `backend` (the configuration has no prior terms)."""
+def first_window_cost(pba, state, backend, restrict=None):
+    """Initial cost, observation count and (N, W) valid set of a window
+    solve's start state, evaluated on `backend` with the solve's own terms
+    (depth prior, patch warp); `restrict` (N, W) narrows the observations.
+    The configuration has no pose priors, so this is the solve's initial
+    cost."""
     from photobundle_torch.core import residuals as res_mod
 
     cfg = pba.cfg
-    check(cfg.depthPriorWeight == 0 and cfg.motionPriorWeight == 0
-          and cfg.posePriorWeight == 0, "expected a prior-free config")
+    check(cfg.motionPriorWeight == 0 and cfg.posePriorWeight <= 0
+          and cfg.posePriorRotWeight <= 0, "expected no pose priors")
     window, points = state
-    point_valid = points.active & (points.obs.sum(1) >= 2)
+    point_valid, _, depth_prior, patch_warp = pba.solve_terms(window, points)
+    obs = points.obs & point_valid[:, None]
+    if restrict is not None:
+        obs = obs & restrict
+    if patch_warp is not None:
+        patch_warp = (patch_warp[0], *res_mod.patch_warp_ref_geometry(
+            window.t_wc, points.x_world, patch_warp[1]))
     res = res_mod.evaluate_compressed(
         pba.camera, window.t_wc, points.x_world, points.patch,
-        window.channels, window.grads, points.obs & point_valid[:, None],
-        pba.offsets, cfg.robustThreshold, cfg.resolve_gradient_mode(),
+        window.channels, window.grads, obs, pba.offsets, cfg.robustThreshold,
+        cfg.resolve_gradient_mode(), depth_prior=depth_prior,
         backend=backend, normalize=cfg.resolve_normalization(),
-        robust_kind=cfg.robustLoss)
-    return float(res.cost), int(res.n_residuals)
+        robust_kind=cfg.robustLoss, patch_warp=patch_warp)
+    return float(res.cost), int(res.n_residuals), res.valid
+
+
+def check_first_window(tag, run, restrict_torch):
+    """The first window's initial cost on both backends from the state its
+    solve started from: equal observation counts (the torch run restricted
+    to the cuda path's valid set when `restrict_torch`), costs within
+    ENGINE_COST_RTOL, and the cuda cost equal to the solve's own."""
+    cc, nc, valid = first_window_cost(run["engine"], run["first_state"],
+                                      "cuda")
+    ct, nt, _ = first_window_cost(run["engine"], run["first_state"], "torch",
+                                  valid if restrict_torch else None)
+    rel = abs(ct / cc - 1)
+    say(f"phase {tag} first window initial cost: cuda {cc:.6f} ({nc} obs), "
+        f"torch {ct:.6f} ({nt} obs"
+        f"{', restricted to the cuda valid set' if restrict_torch else ''}),"
+        f" rel diff {rel:.3e} (rtol {ENGINE_COST_RTOL:g})")
+    check(nc == nt, "backends take different observations in the first "
+          "window")
+    check(rel <= ENGINE_COST_RTOL, f"first window cost rel diff {rel:.3e}")
+    first = run["results"][0].initial_cost
+    check(abs(cc / first - 1) <= ENGINE_COST_RTOL,
+          f"first window cost {cc:.6f} differs from its solve's initial "
+          f"cost {first:.6f}")
 
 
 def main() -> None:
@@ -245,22 +455,25 @@ def main() -> None:
     from photobundle_torch.config import ConfigFile, PBAConfig
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
-    from photobundle_torch.ops import _build
+    from photobundle_torch.image import patches as patches_mod
+    from photobundle_torch.ops import _build, _common
     from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_scaled as ps
     from photobundle_torch.ops import patch_warp as pw
 
+    kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     say(f"phase 1 device: {name} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    # -- phase 2: build both kernels from the checkout's sources ---------
-    builds = _build.build_all(["patch_warp", "patch_bicubic"])
+    # -- phase 2: build every kernel from the checkout's sources ---------
+    builds = _build.build_all(["patch_warp", "patch_bicubic", "patch_scaled"])
     for built in builds.values():
         say(f"phase 2 build: {built.path.name} for sm_90a in "
             f"{built.seconds:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    print_ptxas(builds["patch_warp"])
+    print_ptxas("patch_warp", builds["patch_warp"])
 
     # -- phase 3: kernel vs plain version on the solve's inputs ----------
     cam, offsets, args = entry.make_problem(N_PTS, W, H, WI, PATCH_RADIUS,
@@ -274,22 +487,12 @@ def main() -> None:
     valid_nm = (obs.T & in_front & in_bounds).T.contiguous()   # (N, W)
     uv_nm = uv.permute(2, 0, 1).contiguous()                    # (N, W, 2)
     planes = pw.build_planes(channels, grads)
-
-    def kernel():
-        return pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
-
-    def plain():
-        return pw.patch_stats_reference(planes, uv_nm, valid_nm, patch, pr)
-
-    max_abs, max_rel = compare_with_plain(kernel(), plain(), valid_nm)
-    ms = median_ms(kernel, KERNEL_CALLS)
-    plain_ms = median_ms(plain, KERNEL_CALLS)
-    torch.cuda.synchronize()
-    say(f"phase 3 K1 vs plain at {N_PTS}x{W} obs ({int(valid_nm.sum())} "
-        f"valid), R={pr}: max abs err {max_abs:.3e}, max rel err "
-        f"{max_rel:.3e} (tol |d| <= {KERNEL_RTOL:g}|plain| + "
-        f"{KERNEL_ATOL_ROW:g} row max) | median kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms over {KERNEL_CALLS} calls")
+    win1 = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
+    k1 = kernel_phase(
+        "3", "K1", lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr),
+        lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm, patch, pr),
+        valid_nm, kernel_bound(win1, GRAD_TEXEL_BYTES, valid_nm, 1, pr,
+                               "bilinear", "mean"))
 
     # -- phase 4: the slice ----------------------------------------------
     kw = dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
@@ -301,10 +504,11 @@ def main() -> None:
                            obs_mask, point_valid, frozen, offsets,
                            backend=backend, **kw, **extra)
 
-    pw.patch_stats.launches = 0
+    for k in kernels:
+        _common.reset_launches(k)
     t_out, x_out, st = solve("cuda")
     torch.cuda.synchronize()
-    launches = pw.patch_stats.launches
+    launches = pw.patch_stats.launches["mean"]
     iters = int(st.iterations)
     c0, c1 = float(st.initial_cost), float(st.final_cost)
     logs = st.cost_log[:iters]
@@ -313,6 +517,8 @@ def main() -> None:
         f"{launches}")
     check(launches == iters + 1,
           f"kernel launched {launches} times, expected {iters + 1}")
+    check(sum(sum(k.launches.values()) for k in kernels) == launches,
+          "another kernel or mode ran in the default solve")
     check(iters == ITERS, f"solve ran {iters} iterations, not {ITERS}")
     check(bool(torch.isfinite(logs).all()), "non-finite cost in the log")
     check(c1 < c0, "final cost did not decrease")
@@ -375,28 +581,19 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     # -- phase 5: K2 vs its plain version on phase 3's inputs ------------
-    say(f"phase 5 K2 build: {builds['patch_bicubic'].path.name}")
-    print_ptxas(builds["patch_bicubic"])
     in_bicubic = ((uv[:, 0] >= pr + 1) & (uv[:, 0] <= WI - 3 - pr)
                   & (uv[:, 1] >= pr + 1) & (uv[:, 1] <= H - 3 - pr))
     valid_bc = (obs.T & in_front & in_bicubic).T.contiguous()   # (N, W)
     value_planes = pb.build_value_planes(channels)
-
-    def kernel2():
-        return pb.bicubic_stats(value_planes, uv_nm, valid_bc, patch, pr)
-
-    def plain2():
-        return pb.bicubic_stats_reference(value_planes, uv_nm, valid_bc,
-                                          patch, pr)
-
-    max_abs2, max_rel2 = compare_with_plain(kernel2(), plain2(), valid_bc)
-    ms2 = median_ms(kernel2, KERNEL_CALLS)
-    plain_ms2 = median_ms(plain2, KERNEL_CALLS)
-    say(f"phase 5 K2 vs plain at {N_PTS}x{W} obs ({int(valid_bc.sum())} "
-        f"valid), R={pr}: max abs err {max_abs2:.3e}, max rel err "
-        f"{max_rel2:.3e} (tol |d| <= {KERNEL_RTOL:g}|plain| + "
-        f"{KERNEL_ATOL_ROW:g} row max) | median kernel {ms2:.4f} ms, plain "
-        f"{plain_ms2:.4f} ms over {KERNEL_CALLS} calls")
+    print_ptxas("patch_bicubic", builds["patch_bicubic"])
+    win2 = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4, pr + 1, H, WI)
+    k2 = kernel_phase(
+        "5", "K2",
+        lambda: pb.bicubic_stats(value_planes, uv_nm, valid_bc, patch, pr),
+        lambda: pb.bicubic_stats_reference(value_planes, uv_nm, valid_bc,
+                                           patch, pr),
+        valid_bc, kernel_bound(win2, VALUE_TEXEL_BYTES, valid_bc, 1, pr,
+                               "bicubic", "mean"))
 
     # -- phase 6: the engine, reference-exact configuration (K2) ---------
     scene = entry.make_sequence(
@@ -409,40 +606,95 @@ def main() -> None:
     exact_cfg = PBAConfig.from_config_file(
         ConfigFile("configs/reference_exact.cfg"))
     run6 = run_engine("6", exact_cfg, scene, drifted, ENGINE_FRAMES,
-                      counted=pb.bicubic_stats, idle=pw.patch_stats)
-    # The first window's initial cost on both backends, from the state
-    # its solve started from.
-    costs = {be: first_window_cost(run6["engine"], run6["first_state"], be)
-             for be in ("cuda", "torch")}
-    (cc, nc), (ct6, nt) = costs["cuda"], costs["torch"]
-    rel6 = abs(ct6 / cc - 1)
-    say(f"phase 6 first window initial cost: cuda {cc:.6f} ({nc} obs), "
-        f"torch {ct6:.6f} ({nt} obs), rel diff {rel6:.3e} "
-        f"(rtol {ENGINE_COST_RTOL:g})")
-    check(nc == nt, "backends take different observations in the first "
-          "window")
-    check(rel6 <= ENGINE_COST_RTOL, f"first window cost rel diff {rel6:.3e}")
-    first = run6["results"][0].initial_cost
-    check(abs(cc / first - 1) <= ENGINE_COST_RTOL,
-          f"first window cost {cc:.6f} differs from its solve's initial "
-          f"cost {first:.6f}")
+                      (pb.bicubic_stats, "mean"), kernels)
+    # Both port backends take the same observations under the bicubic
+    # margins.
+    check_first_window("6", run6, restrict_torch=False)
 
     # -- phase 7: the engine, default configuration (K1) -----------------
     run_engine("7", PBAConfig(), scene, drifted, DEFAULT_FRAMES,
-               counted=pw.patch_stats, idle=pb.bicubic_stats,
-               ate_must_fall=False)
+               (pw.patch_stats, "mean"), kernels, ate_must_fall=False)
+
+    # -- phase 8: K3 vs its plain version on phase 3's inputs ------------
+    rho_np = np.random.default_rng(RHO_SEED).uniform(
+        RHO_LO, RHO_HI, size=(N_PTS, W)).astype(np.float32)
+    rho_nm = torch.as_tensor(np.clip(rho_np, 0.5, 2.0), device=dev)
+    ext = rho_nm.T * pr                                          # (W, N)
+    in_scaled = ((uv[:, 0] >= 1 + ext) & (uv[:, 0] <= (WI - 2) - ext)
+                 & (uv[:, 1] >= 1 + ext) & (uv[:, 1] <= (H - 2) - ext))
+    valid_sc = (obs.T & in_front & in_scaled).T.contiguous()    # (N, W)
+    print_ptxas("patch_scaled", builds["patch_scaled"])
+    win3 = scaled_texels(uv_nm, rho_nm, valid_sc, pr, H, WI)
+    k3 = kernel_phase(
+        "8", "K3",
+        lambda: ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc, patch, pr),
+        lambda: ps.scaled_stats_reference(planes, uv_nm, rho_nm, valid_sc,
+                                          patch, pr),
+        valid_sc, kernel_bound(win3, GRAD_TEXEL_BYTES, valid_sc, 1, pr,
+                               "scaled", "mean", with_rho=True))
+
+    # -- phase 9: the affine modes vs their plain versions ---------------
+    patch_aff = patches_mod.affine_normalize(patch).contiguous()
+    k4 = kernel_phase(
+        "9", "K1 affine (K4)",
+        lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch_aff, pr,
+                               "affine"),
+        lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm, patch_aff,
+                                         pr, "affine"),
+        valid_nm, kernel_bound(win1, GRAD_TEXEL_BYTES, valid_nm, 1, pr,
+                               "bilinear", "affine"))
+    k5 = kernel_phase(
+        "9", "K3 affine (K5)",
+        lambda: ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc, patch_aff,
+                                pr, "affine"),
+        lambda: ps.scaled_stats_reference(planes, uv_nm, rho_nm, valid_sc,
+                                          patch_aff, pr, "affine"),
+        valid_sc, kernel_bound(win3, GRAD_TEXEL_BYTES, valid_sc, 1, pr,
+                               "scaled", "affine", with_rho=True))
+    k2a = kernel_phase(
+        "9", "K2 affine",
+        lambda: pb.bicubic_stats(value_planes, uv_nm, valid_bc, patch_aff,
+                                 pr, "affine"),
+        lambda: pb.bicubic_stats_reference(value_planes, uv_nm, valid_bc,
+                                           patch_aff, pr, "affine"),
+        valid_bc, kernel_bound(win2, VALUE_TEXEL_BYTES, valid_bc, 1, pr,
+                               "bicubic", "affine"))
+
+    # -- phase 10: the engine with the warp and affine normalization -----
+    runs10 = {}
+    for tag, cfg, counted in (
+            ("10a", PBAConfig(patchWarp="scale"), (ps.scaled_stats, "mean")),
+            ("10b", PBAConfig(patchNormalization="affine"),
+             (pw.patch_stats, "affine")),
+            ("10c", PBAConfig(patchWarp="scale", patchNormalization="affine"),
+             (ps.scaled_stats, "affine")),
+            ("10d", exact_cfg.replace(patchNormalization="affine"),
+             (pb.bicubic_stats, "affine"))):
+        runs10[tag] = run_engine(tag, cfg, scene, drifted, WARP_FRAMES,
+                                 counted, kernels, ate_must_fall=False)
+        # The kernel path's margins are tighter than the gather path's
+        # per-sample validity (bilinear and warped grids): hold the torch
+        # run to the cuda path's valid set.
+        check_first_window(tag, runs10[tag], restrict_torch=True)
+
+    def entry_json(name, source, replaces, launches, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"photobundle_torch/csrc/{source}",
+                "replaces": f"photobundle_tpu/ops/patch_warp.py:{replaces}",
+                "launches": launches, **numbers}
 
     print(json.dumps({"kernels": [
-        {"name": "patch_stats", "route": "cuda",
-         "source": "photobundle_torch/csrc/patch_warp.cu",
-         "replaces": "photobundle_tpu/ops/patch_warp.py:350",
-         "launches": launches, "max_abs_err": max_abs, "ms": ms,
-         "plain_ms": plain_ms},
-        {"name": "bicubic_stats", "route": "cuda",
-         "source": "photobundle_torch/csrc/patch_bicubic.cu",
-         "replaces": "photobundle_tpu/ops/patch_warp.py:176",
-         "launches": run6["launches"], "max_abs_err": max_abs2, "ms": ms2,
-         "plain_ms": plain_ms2},
+        entry_json("patch_stats", "patch_warp.cu", 350, launches, k1),
+        entry_json("bicubic_stats", "patch_bicubic.cu", 176,
+                   run6["launches"], k2),
+        entry_json("scaled_stats", "patch_scaled.cu", 775,
+                   runs10["10a"]["launches"], k3),
+        entry_json("patch_stats/affine", "patch_warp.cu", 100,
+                   runs10["10b"]["launches"], k4),
+        entry_json("scaled_stats/affine", "patch_scaled.cu", 613,
+                   runs10["10c"]["launches"], k5),
+        entry_json("bicubic_stats/affine", "patch_bicubic.cu", 176,
+                   runs10["10d"]["launches"], k2a),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .ops._common import RADII
+
 
 class ConfigFile:
     """Parser for the reference's ``key = value`` config format.
@@ -118,11 +120,11 @@ class PBAConfig:
                                           # scale change under forward
                                           # motion — BASELINE.md "Texture-
                                           # sharpness probe"); scale clamped
-                                          # to [0.5, 2]. Not ported to
-                                          # this package yet: the engine
-                                          # raises NotImplementedError for
-                                          # any warp (ROADMAP.md queue 1
-                                          # item 4; kernels K3 and K5).
+                                          # to [0.5, 2]. 'scale' runs on
+                                          # the warped-grid kernel on a
+                                          # card (csrc/patch_scaled.cu);
+                                          # 'affine' has no kernel and
+                                          # runs on the gather path.
     patchScale: bool = False              # DEPRECATED alias for
                                           # patchWarp = scale. The round-4
                                           # frozen-seed variant this key
@@ -442,57 +444,44 @@ class PBAConfig:
         hand-written kernels) or 'torch' (the gather path).
 
         'auto' -> 'cuda' when `device` is a card and the configuration has
-        a ported kernel: bilinear + gradientMode='sampled' (K1,
-        csrc/patch_warp.cu) or interpolation='bicubic' (K2,
-        csrc/patch_bicubic.cu); 'torch' otherwise. A configuration whose
-        kernel is still to be ported raises NotImplementedError on a card
-        rather than running the plain path there (explicit
-        solverBackend='torch' still runs it)."""
+        a kernel path, 'torch' otherwise. The kernel paths (every
+        patchNormalization: off, mean or affine):
+          - bilinear + gradientMode='sampled' (csrc/patch_warp.cu: K1,
+            and K4 with affine normalization);
+          - interpolation='bicubic' (csrc/patch_bicubic.cu: K2);
+          - patchWarp='scale' with bilinear + 'sampled'
+            (csrc/patch_scaled.cu: K3, and K5 with affine normalization).
+        patchWarp='affine' has no kernel in either package: it resolves to
+        'torch', as the JAX package runs it on XLA. The kernels are built
+        for patchRadius in ops/_common.RADII; a kernel-path
+        configuration outside that range raises ValueError rather than
+        running the gather path instead."""
         if self.solverBackend == "torch":
             return "torch"
         on_card = torch.device(device).type == "cuda"
         if self.solverBackend == "auto" and not on_card:
             return "torch"
         pw = self.resolve_patch_warp()
+        bilinear_sampled = (self.interpolation == "bilinear"
+                            and self.gradientMode == "sampled")
         if pw is None:
-            fast_path = ((self.interpolation == "bilinear"
-                          and self.gradientMode == "sampled")
-                         or self.interpolation == "bicubic")
+            fast_path = bilinear_sampled or self.interpolation == "bicubic"
         else:
-            # 'scale' has a (not yet ported) kernel for bilinear/sampled;
-            # 'affine', a full 2-D warp, has none in either package.
-            fast_path = (pw == "scale" and self.interpolation == "bilinear"
-                         and self.gradientMode == "sampled"
-                         and self.patchRadius <= 9)
+            fast_path = pw == "scale" and bilinear_sampled
         if not fast_path:
             if self.solverBackend == "cuda":
                 raise ValueError("this sampling configuration has no kernel "
                                  "path (the cuda backend runs bilinear "
-                                 "gradientMode='sampled' and "
-                                 "interpolation='bicubic'); set "
-                                 "solverBackend to auto or torch")
+                                 "gradientMode='sampled', "
+                                 "interpolation='bicubic' and "
+                                 "patchWarp='scale'); set solverBackend to "
+                                 "auto or torch")
             return "torch"
-        missing = self._missing_kernel()
-        if missing is not None:
-            raise NotImplementedError(
-                f"{missing} is not ported to CUDA yet (ROADMAP.md queue 2); "
-                f"set solverBackend=torch to run this configuration on the "
-                f"plain torch path")
+        if self.patchRadius not in RADII:
+            raise ValueError(f"the cuda kernels are built for patchRadius "
+                             f"in {RADII}, not {self.patchRadius}; set "
+                             f"solverBackend=torch to run the gather path")
         return "cuda"
-
-    def _missing_kernel(self) -> str | None:
-        """The unported TPU kernel this configuration's kernel path needs,
-        or None (photobundle_tpu/ops/patch_warp.py names)."""
-        norm = self.resolve_normalization()
-        if self.resolve_patch_warp() == "scale":
-            if norm == "affine":
-                return "K5 `_gather_kernel_scaled` (patchWarp=scale with " \
-                       "patchNormalization=affine)"
-            return "K3 `_warp_kernel_scaled_packed` (patchWarp=scale)"
-        if norm == "affine":
-            return "K4 `_warp_kernel` with its affine epilogue " \
-                   "(patchNormalization=affine)"
-        return None
 
     def validate(self) -> "PBAConfig":
         if self.descriptor not in _DESCRIPTOR_CHANNELS:

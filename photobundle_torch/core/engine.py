@@ -13,8 +13,8 @@ code once per LM iteration (core/lm.py) and, at its end, fetches the
 window result in one batched device-to-host copy.
 
 Not ported yet (each raises NotImplementedError; ROADMAP.md queue 1):
-coarse-to-fine solves, patch-grid warps, device meshes, pipelined result
-fetches and state snapshots.
+coarse-to-fine solves, device meshes, pipelined result fetches and state
+snapshots.
 """
 
 from __future__ import annotations
@@ -83,6 +83,17 @@ def _not_ported(what: str, item: str):
         f"run it with photobundle_tpu")
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist (no quiet
+    fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("photobundle_torch runs on a CUDA card by "
+                           "default and this machine has none; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def _fetch(tensors):
     """Device -> host in ONE copy: every tensor is flattened into one f64
     buffer (exact for f32, int32 and bool) and split again on the host."""
@@ -101,29 +112,29 @@ def _fetch(tensors):
 class PhotometricBundleAdjustment:
     """Sliding-window photometric BA engine.
 
-        pba = PhotometricBundleAdjustment(camera, (H, W), cfg, device="cuda")
+        pba = PhotometricBundleAdjustment(camera, (H, W), cfg)
         for i, (image, depth, t_init) in enumerate(frames):
             result = pba.add_frame(image, depth, t_init)
             if result is not None:
                 trajectory[result.frame_ids] = result.poses
 
     `camera` is the full-resolution `Camera`; `device` holds the state and
-    runs every step. The solver backend is `cfg.resolve_backend(device)`:
-    the hand-written kernels on a card, the gather path elsewhere.
+    runs every step: the card by default (it raises when there is none),
+    device="cpu" for the CPU. The solver backend is
+    `cfg.resolve_backend(device)`: the hand-written kernels on a card, the
+    gather path elsewhere.
     """
 
     def __init__(self, camera: Camera, image_shape, cfg: PBAConfig,
-                 device="cpu"):
+                 device="cuda"):
         cfg.validate()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = require_device(device)
         if cfg.meshPoints > 1 or cfg.meshFrames > 1:
             raise _not_ported("meshPoints / meshFrames > 1 (device meshes)",
                               "queue 1 item 13, multi-GPU")
         if cfg.pipelineResults:
             raise _not_ported("pipelineResults", "queue 1 item 9, engine")
-        if cfg.resolve_patch_warp() is not None:
-            raise _not_ported("patchWarp", "queue 1 item 4 and queue 2 K3")
         self.backend = cfg.resolve_backend(self.device)
         self.camera_full = camera.to(self.device)
         lvl = cfg.refinementLevel
@@ -215,6 +226,26 @@ class PhotometricBundleAdjustment:
         )
         return window, sel.points
 
+    def solve_terms(self, window, points):
+        """The per-point terms of a window solve: (point_valid, ref_slot,
+        depth_prior, patch_warp), as `lm.lm_solve` takes them. A point
+        takes part when it is active with >= 2 window observations;
+        ref_slot is its reference frame's window slot, -1 when that frame
+        has left the window."""
+        cfg = self.cfg
+        n_obs = torch.sum(points.obs, dim=1)
+        point_valid = points.active & (n_obs >= 2)
+        same = points.ref_frame[:, None] == window.frame_ids[None, :]
+        ref_slot = torch.argmax(same.to(torch.int32), dim=1).to(torch.int32)
+        ref_slot = torch.where(same.any(dim=1), ref_slot, -1)
+        depth_prior = ((ref_slot, points.inv_depth_seed, self._prior_scale)
+                       if cfg.depthPriorWeight > 0 else None)
+        # The warp takes the depth prior's ref_slot tensor itself: every
+        # consumer of reference slots in one solve must see the same slots.
+        warp = cfg.resolve_patch_warp()
+        patch_warp = (warp, ref_slot) if warp is not None else None
+        return point_valid, ref_slot, depth_prior, patch_warp
+
     def _optimize(self, window, points):
         """One full window solve. Returns (window, points, stats,
         point_valid); the inputs are not modified."""
@@ -222,18 +253,8 @@ class PhotometricBundleAdjustment:
         w = cfg.slidingWindowSize
         dev = self.device
         frozen = torch.arange(w, device=dev) < cfg.numFixedPoses
-        # Points need >= 2 window observations to constrain anything.
-        n_obs = torch.sum(points.obs, dim=1)
-        point_valid = points.active & (n_obs >= 2)
-
-        # Each point's reference-frame slot in the window (for the
-        # inverse-depth prior); -1 if the ref frame is not in the window.
-        same = points.ref_frame[:, None] == window.frame_ids[None, :]
-        ref_slot = torch.argmax(same.to(torch.int32), dim=1).to(torch.int32)
-        ref_slot = torch.where(same.any(dim=1), ref_slot, -1)
-
-        depth_prior = ((ref_slot, points.inv_depth_seed, self._prior_scale)
-                       if cfg.depthPriorWeight > 0 else None)
+        point_valid, ref_slot, depth_prior, patch_warp = self.solve_terms(
+            window, points)
         pose_prior = ((window.t_vo, cfg.posePriorWeight,
                        cfg.posePriorRotWeight)
                       if (cfg.posePriorWeight > 0
@@ -252,6 +273,7 @@ class PhotometricBundleAdjustment:
             backend=self.backend,
             normalize=cfg.resolve_normalization(),
             depth_prior=depth_prior,
+            patch_warp=patch_warp,
             motion_prior_weight=cfg.motionPriorWeight,
             motion_prior_anchor=anchor,
             pose_prior=pose_prior,

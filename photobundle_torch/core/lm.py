@@ -23,7 +23,8 @@ import torch
 
 from ..geometry import se3
 from . import schur
-from .residuals import CompressedResiduals, evaluate_compressed, make_cuda_ctx
+from .residuals import (CompressedResiduals, evaluate_compressed,
+                        make_cuda_ctx, patch_warp_ref_geometry)
 
 
 class LMStats(NamedTuple):
@@ -108,6 +109,7 @@ def lm_solve(
     backend: str = "torch",
     normalize=True,
     depth_prior: tuple | None = None,
+    patch_warp: tuple | None = None,
     motion_prior_weight: float = 0.0,
     motion_prior_anchor: torch.Tensor | None = None,
     pose_prior: tuple | None = None,
@@ -123,22 +125,33 @@ def lm_solve(
     """Run LM to convergence. Returns (t_wc, x_world, LMStats).
 
     backend: 'torch' (gather path) or 'cuda' (the fused statistics kernel
-    of the gradient mode, K1 for 'sampled' and K2 for 'bicubic', for
-    tensors on a card; its plain version for CPU tensors)."""
+    of the sampling mode, K1 for 'sampled', K2 for 'bicubic' and K3 for
+    patch_warp 'scale', for tensors on a card; its plain version for CPU
+    tensors).
+    patch_warp: optional (mode, ref_slot (N,) int), mode 'scale' | 'affine'
+    (cfg.patchWarp): each point's patch grid is warped by the factor of
+    `residuals.patch_warp_frame`, recomputed from the iterate at every
+    evaluation (candidates included) with the full window poses, so it
+    stays exactly 1 in the point's reference frame. ref_slot < 0 (no
+    reference frame in the window) is the fixed grid."""
     dtype, dev = t_wc.dtype, t_wc.device
     obs_mask = obs_mask & point_valid[:, None]
-    # The cuda backend's planes (by gradient mode) are loop-invariant:
-    # build once.
+    # The cuda backend's planes (by gradient mode; the warped grid reads
+    # the 'sampled' planes) are loop-invariant: build once.
     eval_ctx = (make_cuda_ctx(channels, grads, gradient_mode)
                 if backend == "cuda" else None)
 
     def eval_stats(t, x) -> CompressedResiduals:
+        pw = None
+        if patch_warp is not None:
+            pw = (patch_warp[0],
+                  *patch_warp_ref_geometry(t, x, patch_warp[1]))
         return evaluate_compressed(cam, t, x, patch, channels, grads,
                                    obs_mask, offsets, huber_delta,
                                    gradient_mode, depth_prior=depth_prior,
                                    backend=backend, ctx=eval_ctx,
                                    normalize=normalize,
-                                   robust_kind=robust_kind)
+                                   robust_kind=robust_kind, patch_warp=pw)
 
     # Relative-pose motion prior: anchors each consecutive window pair's
     # relative pose to its initialization,

@@ -9,10 +9,13 @@
 //   1. samples the Catmull-Rom surface (value) and its exact analytic
 //      d/dx, d/dy on the integer (2R+1)^2 patch grid at uv[p, f], with one
 //      subpixel phase per patch (Ceres' BiCubicInterpolator semantics),
-//   2. subtracts the reference descriptor from the value plane,
-//   3. centres each plane on its patch mean (when `center` is set),
-//   4. reduces to the six sums [gx*gx, gx*gy, gy*gy, gx*r, gy*r, r*r],
-//      summed over channels after the per-channel centring,
+//   2. normalizes each channel's patch and subtracts the reference
+//      descriptor: off, mean (each plane centred on its patch mean) or
+//      affine (the ZNCC unit norm with its exact Jacobian, which the JAX
+//      package applies in XLA to K2's patches: core/residuals.py:830-840),
+//   3. reduces to the six sums [gx*gx, gx*gy, gy*gy, gx*r, gy*r, r*r],
+//      summed over channels after the per-channel normalization (the
+//      epilogue in csrc/patch_epilogue.cuh, shared with K1),
 // and stores them un-whitened at out[k, f, p] (k = 0..5). Invalid
 // observations store exact zeros and their coordinates (possibly NaN) are
 // never floored or cast.
@@ -32,20 +35,24 @@
 // bound by per-thread latency (dependent loads, ~150 threads per SM) and
 // by launch overhead.
 //
-// What the design does about it: one thread per observation, R a template
-// parameter and every loop unrolled, so the window row loads of a pass are
-// independent and in flight together. The separable passes run row by
-// row: a window row is loaded, filtered along x (value and d/dx), and as
-// soon as four filtered rows exist one output row is combined along y, so
-// at most four filtered rows are live (register use stays flat up to
-// R = 4). Two passes over the window (means first, then centred products)
-// avoid the cancelling one-pass form; the second pass hits L1. Threads are
-// frame-major, so neighbouring threads store neighbouring outputs. No
-// atomics: each thread writes its own sums in a fixed order, so results
-// are bitwise reproducible. Taps combine in the JAX kernel's order
+// What the design does about it: one thread per observation, R and the
+// normalization mode template parameters (each mode's build carries only
+// its own passes' registers) and every loop unrolled, so the window row
+// loads of a pass are independent and in flight together. The separable
+// passes run row by row: a window row is loaded, filtered along x (value
+// and d/dx), and as soon as four filtered rows exist one output row is
+// combined along y, so at most four filtered rows need to be live. The
+// epilogue sweeps the window once per pass (means first, then centred
+// products; affine adds a pass for the norm), which avoids the cancelling
+// one-pass form; the later passes hit L1. Threads are frame-major, so
+// neighbouring threads store neighbouring outputs. No atomics: each thread
+// writes its own sums in a fixed order, so results are bitwise
+// reproducible. Taps combine in the JAX kernel's order
 // (patch_warp.py:199-203): rows along x, then columns along y.
 
 #include <cuda_runtime.h>
+
+#include "patch_epilogue.cuh"
 
 namespace {
 
@@ -70,14 +77,13 @@ __device__ __forceinline__ float taps4(const float* w, float a0, float a1,
   return w[0] * a0 + w[1] * a1 + w[2] * a2 + w[3] * a3;
 }
 
-// One sweep over a channel's patch: calls emit(v - d, gx, gy) for every
-// patch pixel in row-major order. `win` points at the window's top-left
+// One sweep over a channel's patch: calls emit(k, v, gx, gy) for every
+// patch pixel k in row-major order. `win` points at the window's top-left
 // texel, `wi` is the image row stride.
 template <int R, typename Emit>
 __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
                                       const float* wx, const float* dwx,
                                       const float* wy, const float* dwy,
-                                      const float* __restrict__ desc,
                                       Emit&& emit) {
   constexpr int PS = 2 * R + 1;
   constexpr int WIN = PS + 3;
@@ -103,20 +109,20 @@ __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
                                rd[ky + 2][kx], rd[ky + 3][kx]);
         const float gy = taps4(dwy, rv[ky][kx], rv[ky + 1][kx],
                                rv[ky + 2][kx], rv[ky + 3][kx]);
-        emit(v - __ldg(desc + ky * PS + kx), gx, gy);
+        emit(ky * PS + kx, v, gx, gy);
       }
     }
   }
 }
 
-template <int R>
+template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
 bicubic_stats_kernel(const float* __restrict__ planes,
                      const float2* __restrict__ uv,
                      const unsigned char* __restrict__ valid,
                      const float* __restrict__ patch,
                      float* __restrict__ out,
-                     int n, int w, int c, int h, int wi, int center) {
+                     int n, int w, int c, int h, int wi) {
   constexpr int PS = 2 * R + 1;
   constexpr int WIN = PS + 3;
   constexpr int P = PS * PS;
@@ -138,44 +144,16 @@ bicubic_stats_kernel(const float* __restrict__ planes,
     catmull_rom(q.y - fly, wy, dwy);
     const int x0 = min(max(static_cast<int>(flx) - R - 1, 0), wi - WIN);
     const int y0 = min(max(static_cast<int>(fly) - R - 1, 0), h - WIN);
-    const float inv_p = 1.f / static_cast<float>(P);
 
     for (int ch = 0; ch < c; ++ch) {
       const float* win = planes +
                          (static_cast<long long>(f) * c + ch) * h * wi +
                          static_cast<long long>(y0) * wi + x0;
-      const float* d = patch + (static_cast<long long>(p) * c + ch) * P;
-      float mv = 0.f, mx = 0.f, my = 0.f;
-      if (center) {
-        sweep<R>(win, wi, wx, dwx, wy, dwy, d,
-                 [&](float r, float gx, float gy) {
-                   mv += r;
-                   mx += gx;
-                   my += gy;
-                 });
-        mv *= inv_p;
-        mx *= inv_p;
-        my *= inv_p;
-      }
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
-      sweep<R>(win, wi, wx, dwx, wy, dwy, d,
-               [&](float r0, float gx0, float gy0) {
-                 const float r = r0 - mv;
-                 const float gx = gx0 - mx;
-                 const float gy = gy0 - my;
-                 s0 += gx * gx;
-                 s1 += gx * gy;
-                 s2 += gy * gy;
-                 s3 += gx * r;
-                 s4 += gy * r;
-                 s5 += r * r;
-               });
-      acc[0] += s0;
-      acc[1] += s1;
-      acc[2] += s2;
-      acc[3] += s3;
-      acc[4] += s4;
-      acc[5] += s5;
+      auto sweep_channel = [&](auto&& emit) {
+        sweep<R>(pb::opaque(win), wi, wx, dwx, wy, dwy, emit);
+      };
+      const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
+      pb::channel_stats<P, NORM>(sweep_channel, desc, acc);
     }
   }
   const long long o = static_cast<long long>(f) * n + p;
@@ -183,18 +161,18 @@ bicubic_stats_kernel(const float* __restrict__ planes,
   for (int k = 0; k < 6; ++k) out[k * total + o] = acc[k];
 }
 
-template <int R>
+template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int n, int w, int c, int h, int wi,
-            int center, cudaStream_t stream) {
+            cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * w;
   const unsigned blocks =
       static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  bicubic_stats_kernel<R><<<blocks, kThreads, 0, stream>>>(
+  bicubic_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
       static_cast<const float*>(patch), static_cast<float*>(out), n, w, c, h,
-      wi, center);
+      wi);
 }
 
 }  // namespace
@@ -202,25 +180,13 @@ void launch(const void* planes, const void* uv, const void* valid,
 extern "C" int pb_bicubic_stats(const void* planes, const void* uv,
                                 const void* valid, const void* patch,
                                 void* out, int n, int w, int c, int h, int wi,
-                                int radius, int center, void* stream) {
+                                int radius, int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (radius) {
-    case 1:
-      launch<1>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 2:
-      launch<2>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 3:
-      launch<3>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 4:
-      launch<4>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
+    launch<decltype(r)::value, decltype(m)::value>(planes, uv, valid, patch,
+                                                   out, n, w, c, h, wi, s);
+  });
+  return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* pb_bicubic_error_string(int err) {

@@ -6,10 +6,15 @@
 // layout: for every observation (point p, window frame f) it
 //   1. bilinearly samples value, d/dx and d/dy on the integer (2R+1)^2
 //      patch grid at uv[p, f] (one subpixel phase per patch),
-//   2. subtracts the reference descriptor from the value plane,
-//   3. centres each plane on its patch mean (when `center` is set),
-//   4. reduces to the six sums [gx*gx, gx*gy, gy*gy, gx*r, gy*r, r*r],
-//      summed over channels after the per-channel centring,
+//   2. normalizes each channel's patch and subtracts the reference
+//      descriptor: off, mean (each plane centred on its patch mean) or
+//      affine (the ZNCC unit norm with its exact Jacobian; with it this
+//      kernel also replaces the JAX package's K4,
+//      photobundle_tpu/ops/patch_warp.py::_warp_kernel, whose (s, gx, gy)
+//      XLA normalizes and reduces, core/residuals.py:830-850),
+//   3. reduces to the six sums [gx*gx, gx*gy, gy*gy, gx*r, gy*r, r*r],
+//      summed over channels after the per-channel normalization
+//      (the epilogue in csrc/patch_epilogue.cuh),
 // and stores them un-whitened at out[k, f, p] (k = 0..5). Invalid
 // observations store exact zeros: downstream masking multiplies, and
 // NaN * 0 is NaN, so their sums must be finite; their coordinates are
@@ -28,18 +33,24 @@
 // gathers per thread, only ~150 threads per SM) and by launch overhead, not
 // by bandwidth or L2.
 //
-// What the design does about it: one thread per observation, fully
-// unrolled over the patch (R is a template parameter), so every texel
-// load of a pass is independent and in flight at once; two passes over the
-// window (means first, then centred products) keep register use flat for
-// every R, and the second pass hits L1. Threads are frame-major, so
-// neighbouring threads store neighbouring outputs. No atomics and no
-// cross-thread reduction: each thread writes its own sums in a fixed
-// order, so results are bitwise reproducible run to run. Centring happens
-// before multiplying (never the one-pass sum(ab) - P*mean(a)*mean(b)
-// form, which cancels in f32).
+// What the design does about it: one thread per observation, R and the
+// normalization mode template parameters, every patch loop unrolled, so
+// the texel loads of a whole pass are independent and in flight at once.
+// The epilogue re-samples the window once per pass (two for mean, three
+// for affine) from L1 instead of holding the patch in registers across
+// passes. Register use still grows with R (ptxas spills from R = 3 on in
+// the mean and affine modes), which costs less than it saves: rolling the
+// row loop to keep registers flat made the kernel 1.8x slower at R = 2
+// (kernel_times.py). Threads are frame-major, so neighbouring threads
+// store neighbouring outputs. No atomics and no cross-thread reduction:
+// each thread writes its own sums in a fixed order, so results are
+// bitwise reproducible run to run. Centring happens before multiplying
+// (never the one-pass sum(ab) - P*mean(a)*mean(b) form, which cancels in
+// f32).
 
 #include <cuda_runtime.h>
+
+#include "patch_epilogue.cuh"
 
 namespace {
 
@@ -64,14 +75,14 @@ __device__ __forceinline__ float3 sample(const float4* __restrict__ win,
                      q.w00 * a.z + q.w01 * b.z + q.w10 * c.z + q.w11 * d.z);
 }
 
-template <int R>
+template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
 patch_stats_kernel(const float4* __restrict__ planes,
                    const float2* __restrict__ uv,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ patch,
                    float* __restrict__ out,
-                   int n, int w, int c, int h, int wi, int center) {
+                   int n, int w, int c, int h, int wi) {
   constexpr int PS = 2 * R + 1;
   constexpr int WIN = PS + 1;
   constexpr int P = PS * PS;
@@ -95,72 +106,43 @@ patch_stats_kernel(const float4* __restrict__ planes,
     const float one_fy = 1.f - fy;
     const Weights wt = {(1.f - fx) * one_fy, fx * one_fy, (1.f - fx) * fy,
                         fx * fy};
-    const float inv_p = 1.f / static_cast<float>(P);
 
     for (int ch = 0; ch < c; ++ch) {
       const float4* win = planes +
                           (static_cast<long long>(f) * c + ch) * h * wi +
                           static_cast<long long>(y0) * wi + x0;
-      const float* d = patch + (static_cast<long long>(p) * c + ch) * P;
-      float mv = 0.f, mx = 0.f, my = 0.f;
-      if (center) {
+      auto sweep = [&](auto&& emit) {
+        const float4* wv = pb::opaque(win);
 #pragma unroll
         for (int ky = 0; ky < PS; ++ky) {
 #pragma unroll
           for (int kx = 0; kx < PS; ++kx) {
-            const float3 s = sample(win, wi, ky, kx, wt);
-            mv += s.x - __ldg(d + ky * PS + kx);
-            mx += s.y;
-            my += s.z;
+            const float3 s = sample(wv, wi, ky, kx, wt);
+            emit(ky * PS + kx, s.x, s.y, s.z);
           }
         }
-        mv *= inv_p;
-        mx *= inv_p;
-        my *= inv_p;
-      }
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
-#pragma unroll
-      for (int ky = 0; ky < PS; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < PS; ++kx) {
-          const float3 s = sample(win, wi, ky, kx, wt);
-          const float r = (s.x - __ldg(d + ky * PS + kx)) - mv;
-          const float gx = s.y - mx;
-          const float gy = s.z - my;
-          s0 += gx * gx;
-          s1 += gx * gy;
-          s2 += gy * gy;
-          s3 += gx * r;
-          s4 += gy * r;
-          s5 += r * r;
-        }
-      }
-      acc[0] += s0;
-      acc[1] += s1;
-      acc[2] += s2;
-      acc[3] += s3;
-      acc[4] += s4;
-      acc[5] += s5;
+      };
+      const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
+      pb::channel_stats<P, NORM>(sweep, desc, acc);
     }
   }
-  const long long row = total;
   const long long o = static_cast<long long>(f) * n + p;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) out[k * row + o] = acc[k];
+  for (int k = 0; k < 6; ++k) out[k * total + o] = acc[k];
 }
 
-template <int R>
+template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int n, int w, int c, int h, int wi,
-            int center, cudaStream_t stream) {
+            cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * w;
   const unsigned blocks =
       static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  patch_stats_kernel<R><<<blocks, kThreads, 0, stream>>>(
+  patch_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
       static_cast<const float*>(patch), static_cast<float*>(out), n, w, c, h,
-      wi, center);
+      wi);
 }
 
 }  // namespace
@@ -168,25 +150,13 @@ void launch(const void* planes, const void* uv, const void* valid,
 extern "C" int pb_patch_stats(const void* planes, const void* uv,
                               const void* valid, const void* patch, void* out,
                               int n, int w, int c, int h, int wi, int radius,
-                              int center, void* stream) {
+                              int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (radius) {
-    case 1:
-      launch<1>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 2:
-      launch<2>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 3:
-      launch<3>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    case 4:
-      launch<4>(planes, uv, valid, patch, out, n, w, c, h, wi, center, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
+    launch<decltype(r)::value, decltype(m)::value>(planes, uv, valid, patch,
+                                                   out, n, w, c, h, wi, s);
+  });
+  return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* pb_cuda_error_string(int err) {

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .core import lm
+from .core.engine import require_device
 from .geometry import camera as cam_mod
 from .geometry import se3
 from .image import interp, patches
@@ -73,11 +74,13 @@ def make_problem(n_pts: int, w: int, h: int, wi: int, patch_radius: int,
                           point_valid, frozen)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """(fn, example_args): one full BA window solve on `device`, through
-    the fused kernel (backend 'cuda'; its plain version on the CPU)."""
+    the fused kernel (backend 'cuda'; its plain version on the CPU). Runs
+    on the card unless device='cpu' is asked for; raises when there is no
+    card."""
     cam, offsets, args = make_problem(2048, 5, 192, 320, patch_radius=2,
-                                      device=device)
+                                      device=require_device(device))
 
     def ba_solve_step(t_wc, x_world, patch, channels, grads, obs,
                       point_valid, frozen):

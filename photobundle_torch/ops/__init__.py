@@ -1,9 +1,17 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Ported: `patch_warp.patch_stats` (K1), the twin of the JAX package's
-bilinear main-path Pallas kernel
-`photobundle_tpu/ops/patch_warp.py::_warp_kernel_packed`, and
-`patch_bicubic.bicubic_stats` (K2), the twin of its Catmull-Rom kernel
-`_bicubic_kernel`. The JAX package's other Pallas kernels are still to be
-ported (ROADMAP.md, queue 2).
+Each fuses patch sampling, normalization (off, mean or affine: the
+epilogue in csrc/patch_epilogue.cuh) and the six Gauss-Newton sums, and
+stands for Pallas kernels of `photobundle_tpu/ops/patch_warp.py`:
+
+- `patch_warp.patch_stats`: bilinear on the fixed grid, K1
+  (`_warp_kernel_packed`), and with affine normalization K4
+  (`_warp_kernel` + the JAX package's XLA epilogue);
+- `patch_bicubic.bicubic_stats`: Catmull-Rom, K2 (`_bicubic_kernel`);
+- `patch_scaled.scaled_stats`: bilinear on the per-observation scaled grid
+  (cfg.patchWarp='scale'), K3 (`_warp_kernel_scaled_packed`), and with
+  affine normalization K5 (`_gather_kernel_scaled` + XLA's resample).
+
+The JAX package's other Pallas kernels (K6, K7 and K1's sorted-dispatch
+variant) are still to be ported (ROADMAP.md, queue 2).
 """

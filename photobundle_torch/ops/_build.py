@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into a shared library loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The library is built at first use into
 `build/torch_kernels/` at the repository root, named by a hash of its
-source and flags, so an edited source is rebuilt and a stale binary is
+source, the csrc/ headers it includes (`patch_epilogue.cuh`) and the
+flags, so an edited source or header is rebuilt and a stale binary is
 never loaded. Only sources in the checkout are built; no binary is
 committed.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,8 +27,14 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# -fmad=false: no multiply-add contraction, so every product and sum rounds
+# once, in source order, as the plain PyTorch versions' separate ops round
+# them. The kernels then sample bitwise as their plain versions do; the
+# affine normalization amplifies sampling rounding on smooth patches past
+# the kernel tolerance otherwise.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 class Built(NamedTuple):
@@ -52,11 +60,31 @@ def nvcc() -> str:
                        "are built from csrc/ with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and every header of csrc/ it includes with quotes,
+    directly or through another header, in a fixed order."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        text = path.read_text()
+        todo += [CSRC / inc for inc in _LOCAL_INCLUDE.findall(text)]
+    return found
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """Library name from a hash of the source, the csrc/ headers it
+    includes and the flags: an edited header rebuilds every library that
+    includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> dict[str, Built]:

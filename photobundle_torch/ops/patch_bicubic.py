@@ -9,18 +9,23 @@ kernel, so its contract is the bilinear kernel's (ops/patch_warp.py):
 
     per observation (point n, window frame f): sample the Catmull-Rom
     surface and its exact d/dx, d/dy on the integer patch grid at
-    uv[n, f] (one subpixel phase per patch); subtract the descriptor;
-    centre each plane on its patch mean; reduce to
-    [Σgx², Σgx·gy, Σgy², Σgx·r, Σgy·r, Σr²], summed over channels.
+    uv[n, f] (one subpixel phase per patch); normalize each channel's
+    patch (`norm`: off, mean or affine, ops/_common.NORMS) and subtract
+    the descriptor; reduce to [Σgx², Σgx·gy, Σgy², Σgx·r, Σgy·r, Σr²],
+    summed over channels.
+
+With norm='affine' it computes what the JAX package computes from K2's
+patches in XLA for patchNormalization='affine' (core/residuals.py:816-850).
 
 `bicubic_stats` launches the CUDA kernel (csrc/patch_bicubic.cu) for
 tensors on a card and runs `bicubic_stats_reference`, the plain PyTorch
-version of the same contract built on `interp.bicubic_with_grad`, for
-tensors on the CPU. A CUDA tensor gets the kernel or an exception.
+version of the same contract, for tensors on the CPU. A CUDA tensor gets
+the kernel or an exception.
 
 `bicubic_patches_reference` is the plain twin of the TPU sampler alone
-(its (s, gx, gy) patches, window clamping included), so that sampling and
-the fused statistics are tested separately.
+(its (s, gx, gy) patches, window clamping included), in the kernel's f32
+arithmetic; the plain version reduces its patches, and the tests hold it
+against `interp.bicubic_with_grad` and the JAX package.
 """
 
 from __future__ import annotations
@@ -30,10 +35,9 @@ import ctypes
 import torch
 
 from ..image import interp
-from ..image import patches as patches_mod
 from . import _build
-
-RADII = (1, 2, 3, 4)      # patch radii the kernel is instantiated for
+from ._common import (RADII, count_launch, norm_code, reset_launches,
+                      stats_from_samples)
 
 
 def build_value_planes(channels: torch.Tensor) -> torch.Tensor:
@@ -92,42 +96,19 @@ def bicubic_patches_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 def bicubic_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
                             valid: torch.Tensor, patch: torch.Tensor,
-                            patch_radius: int, center: bool = True
+                            patch_radius: int, norm: str = "mean"
                             ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same contract.
 
     planes (W, C, H, Wi) from `build_value_planes`; uv (N, W, 2) f32;
-    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2. Returns
-    (6, W, N) f32 rows [g00, g01, g11, gxr, gyr, rr], un-whitened, exact
-    zeros for invalid observations. Samples through
-    `interp.bicubic_with_grad` at uv + offsets, in f64: that function
-    takes each sample's phase from its own coordinate, and in f32 adding
-    an offset rounds it (by up to an ulp of the coordinate, 4e-6 px at
-    40 px), enough to move the statistics of a rough image by more than
-    the kernel's tolerance. In f64 the offsets add exactly, so every
-    sample of a patch has the patch's phase, as the contract says."""
-    w = planes.shape[0]
-    f64 = torch.float64
-    offsets = patches_mod.patch_offsets(patch_radius, dtype=f64,
-                                        device=planes.device)
-    pts = _safe_uv(uv.to(f64), valid, patch_radius)[:, :, None, :] + offsets
-    planes, patch = planes.to(f64), patch.to(f64)
-    rows = []
-    for f in range(w):
-        s, g, _ = interp.bicubic_with_grad(planes[f], pts[:, f])  # (C, N, P)
-        r = torch.movedim(s, 0, 1) - patch                        # (N, C, P)
-        gx = torch.movedim(g[..., 0], 0, 1)
-        gy = torch.movedim(g[..., 1], 0, 1)
-        if center:
-            r = r - r.mean(-1, keepdim=True)
-            gx = gx - gx.mean(-1, keepdim=True)
-            gy = gy - gy.mean(-1, keepdim=True)
-        per_channel = torch.stack(
-            [(gx * gx).sum(-1), (gx * gy).sum(-1), (gy * gy).sum(-1),
-             (gx * r).sum(-1), (gy * r).sum(-1), (r * r).sum(-1)])  # (6,N,C)
-        rows.append(per_channel.sum(-1))
-    out = torch.stack(rows, dim=1).to(torch.float32)                # (6,W,N)
-    return torch.where(valid.T[None], out, 0.0).contiguous()
+    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2; norm one of
+    ops/_common.NORMS. Returns (6, W, N) f32 rows [g00, g01, g11, gxr,
+    gyr, rr], un-whitened, exact zeros for invalid observations. Samples
+    through `bicubic_patches_reference`, which repeats the kernel's f32
+    arithmetic: one phase per patch, the same weights and tap order (the
+    kernel is built without multiply-add contraction, ops/_build.py)."""
+    s, gx, gy = bicubic_patches_reference(planes, uv, valid, patch_radius)
+    return stats_from_samples(s, gx, gy, patch, valid, norm)
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
@@ -173,16 +154,18 @@ def _kernel():
 
 def bicubic_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
                   patch: torch.Tensor, patch_radius: int,
-                  center: bool = True) -> torch.Tensor:
+                  norm: str = "mean") -> torch.Tensor:
     """The six Gauss-Newton sums per observation, (6, W, N) f32.
 
     Same arguments and result as `bicubic_stats_reference`. CPU tensors
     run that plain version; CUDA tensors launch the kernel on the current
     stream without synchronising (and raise if it cannot launch).
-    `bicubic_stats.launches` counts kernel launches."""
+    `bicubic_stats.launches` counts kernel launches by normalization
+    mode."""
+    code = norm_code(norm)
     if planes.device.type == "cpu":
         return bicubic_stats_reference(planes, uv, valid, patch,
-                                       patch_radius, center)
+                                       patch_radius, norm)
     if planes.device.type != "cuda":
         raise ValueError(f"bicubic_stats runs on cpu or cuda tensors, not "
                          f"{planes.device}")
@@ -198,13 +181,13 @@ def bicubic_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
         err = lib.pb_bicubic_stats(
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
             patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
-            int(bool(center)), stream)
+            code, stream)
     if err != 0:
         msg = lib.pb_bicubic_error_string(err).decode()
         raise RuntimeError(f"bicubic_stats kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    bicubic_stats.launches += 1
+    count_launch(bicubic_stats, norm)
     return out
 
 
-bicubic_stats.launches = 0
+reset_launches(bicubic_stats)

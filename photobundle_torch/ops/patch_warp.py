@@ -7,9 +7,17 @@ The port keeps the kernel's contract and drops its TPU layout (128-lane
 panels, lane interleave, G-observation lane packing, segment-mean matmul):
 
     per observation (point n, window frame f): bilinear-sample value, d/dx
-    and d/dy on the integer patch grid at uv[n, f]; subtract the
-    descriptor; centre each plane on its patch mean; reduce to
-    [Σgx², Σgx·gy, Σgy², Σgx·r, Σgy·r, Σr²], summed over channels.
+    and d/dy on the integer patch grid at uv[n, f]; normalize each
+    channel's patch (`norm`, one of ops/_common.NORMS) and subtract the
+    descriptor; reduce to [Σgx², Σgx·gy, Σgy², Σgx·r, Σgy·r, Σr²], summed
+    over channels.
+
+The normalization modes (`_common.stats_from_samples`, and on the card
+csrc/patch_epilogue.cuh, shared by every patch kernel of the port):
+'off'; 'mean', each plane centred on its patch mean, r = (v - d) - mean;
+'affine', the ZNCC unit norm with its exact Jacobian, which makes this
+kernel the port's twin of K4 (`_warp_kernel`, whose (s, gx, gy) the JAX
+package normalizes and reduces in XLA, core/residuals.py:830-850).
 
 `patch_stats` launches the CUDA kernel (csrc/patch_warp.cu) for tensors on
 a card and runs `patch_stats_reference`, the plain PyTorch version of the
@@ -24,8 +32,8 @@ import ctypes
 import torch
 
 from . import _build
-
-RADII = (1, 2, 3, 4)      # patch radii the kernel is instantiated for
+from ._common import (RADII, count_launch, norm_code, reset_launches,
+                      stats_from_samples)
 
 
 def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -40,14 +48,14 @@ def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
 
 def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
                           valid: torch.Tensor, patch: torch.Tensor,
-                          patch_radius: int, center: bool = True
+                          patch_radius: int, norm: str = "mean"
                           ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same contract.
 
     planes (W, C, H, Wi, 4) from `build_planes`; uv (N, W, 2) f32;
-    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2.
-    Returns (6, W, N) f32 rows [g00, g01, g11, gxr, gyr, rr], un-whitened,
-    exact zeros for invalid observations."""
+    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2; norm one of
+    ops/_common.NORMS. Returns (6, W, N) f32 rows [g00, g01, g11, gxr,
+    gyr, rr], un-whitened, exact zeros for invalid observations."""
     w, c, h, wi, _ = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
@@ -76,18 +84,8 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     s = (w00 * a[:, :, :, :ps, :ps] + w01 * a[:, :, :, :ps, 1:]
          + w10 * a[:, :, :, 1:, :ps] + w11 * a[:, :, :, 1:, 1:])
     s = s.reshape(n, w, c, ps * ps, 4)
-    r = s[..., 0] - patch[:, None]                         # (N, W, C, P)
-    gx, gy = s[..., 1], s[..., 2]
-    if center:
-        inv_p = 1.0 / float(ps * ps)
-        r = r - r.sum(-1, keepdim=True) * inv_p
-        gx = gx - gx.sum(-1, keepdim=True) * inv_p
-        gy = gy - gy.sum(-1, keepdim=True) * inv_p
-    per_channel = torch.stack(
-        [(gx * gx).sum(-1), (gx * gy).sum(-1), (gy * gy).sum(-1),
-         (gx * r).sum(-1), (gy * r).sum(-1), (r * r).sum(-1)])  # (6,N,W,C)
-    out = per_channel.sum(-1).permute(0, 2, 1)             # (6, W, N)
-    return torch.where(valid.T[None], out, 0.0).contiguous()
+    return stats_from_samples(s[..., 0], s[..., 1], s[..., 2], patch, valid,
+                              norm)
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
@@ -133,16 +131,18 @@ def _kernel():
 
 def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
                 patch: torch.Tensor, patch_radius: int,
-                center: bool = True) -> torch.Tensor:
+                norm: str = "mean") -> torch.Tensor:
     """The six Gauss-Newton sums per observation, (6, W, N) f32.
 
     Same arguments and result as `patch_stats_reference`. CPU tensors run
     that plain version; CUDA tensors launch the kernel on the current
     stream without synchronising (and raise if it cannot launch).
-    `patch_stats.launches` counts kernel launches."""
+    `patch_stats.launches` counts kernel launches by normalization
+    mode."""
+    code = norm_code(norm)
     if planes.device.type == "cpu":
         return patch_stats_reference(planes, uv, valid, patch, patch_radius,
-                                     center)
+                                     norm)
     if planes.device.type != "cuda":
         raise ValueError(f"patch_stats runs on cpu or cuda tensors, not "
                          f"{planes.device}")
@@ -158,13 +158,13 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
         err = lib.pb_patch_stats(
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
             patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
-            int(bool(center)), stream)
+            code, stream)
     if err != 0:
         msg = lib.pb_cuda_error_string(err).decode()
         raise RuntimeError(f"patch_stats kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    patch_stats.launches += 1
+    count_launch(patch_stats, norm)
     return out
 
 
-patch_stats.launches = 0
+reset_launches(patch_stats)

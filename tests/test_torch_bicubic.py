@@ -28,6 +28,7 @@ from photobundle_tpu.image import interp as jinterp
 from photobundle_tpu.ops import patch_warp as jpw
 from photobundle_torch.core import residuals as tres
 from photobundle_torch.image import interp as tinterp
+from photobundle_torch.image import patches as tpatches
 from photobundle_torch.ops import patch_bicubic as pb
 
 from test_residuals import setup_problem
@@ -278,8 +279,12 @@ def test_nan_points_give_exact_zeros(problem):
 
 @pytest.mark.parametrize("center", [True, False])
 def test_fused_statistics_match_the_sampler(center):
-    """bicubic_stats_reference (through bicubic_with_grad) and the plain
-    sampler + the JAX package's XLA statistics algebra agree."""
+    """bicubic_stats_reference (the kernel-order f32 sampler + the shared
+    epilogue) agrees with statistics built independently: f64
+    `bicubic_with_grad` at uv + offsets (every sample of a patch keeps the
+    patch's phase, as offsets add exactly in f64) reduced by the
+    statistics algebra written out here. The tolerance covers the f32
+    sampling."""
     rng = np.random.default_rng(9)
     w, c, h, wi, n, pr = 2, 3, 30, 40, 17, 2
     planes = torch.as_tensor(rng.random((w, c, h, wi)), dtype=torch.float32)
@@ -288,14 +293,22 @@ def test_fused_statistics_match_the_sampler(center):
     valid = torch.as_tensor(rng.random((n, w)) > 0.3)
     patch = torch.as_tensor(rng.standard_normal((n, c, 25)),
                             dtype=torch.float32)
-    stats = pb.bicubic_stats(planes, uv, valid, patch, pr, center=center)
-    s, gx, gy = pb.bicubic_patches_reference(planes, uv, valid, pr)
-    r = s - patch[:, None]
-    if center:
-        r, gx, gy = (a - a.mean(-1, keepdim=True) for a in (r, gx, gy))
-    want = torch.stack([(gx * gx), (gx * gy), (gy * gy), (gx * r), (gy * r),
-                        (r * r)]).sum((-1, -2)).permute(0, 2, 1)
-    want = torch.where(valid.T[None], want, 0.0)
+    stats = pb.bicubic_stats(planes, uv, valid, patch, pr,
+                             norm="mean" if center else "off")
+    f64 = torch.float64
+    pts = uv.to(f64)[:, :, None, :] + tpatches.patch_offsets(pr, dtype=f64)
+    rows = []
+    for f in range(w):
+        s, g, _ = tinterp.bicubic_with_grad(planes[f].to(f64), pts[:, f])
+        r = torch.movedim(s, 0, 1) - patch.to(f64)             # (N, C, P)
+        gx = torch.movedim(g[..., 0], 0, 1)
+        gy = torch.movedim(g[..., 1], 0, 1)
+        if center:
+            r, gx, gy = (a - a.mean(-1, keepdim=True) for a in (r, gx, gy))
+        rows.append(torch.stack([gx * gx, gx * gy, gy * gy, gx * r, gy * r,
+                                 r * r]).sum((-1, -2)))           # (6, N)
+    want = torch.stack(rows, dim=1)                               # (6,W,N)
+    want = torch.where(valid.T[None], want, 0.0).to(torch.float32)
     scale = want.abs().amax(dim=(1, 2), keepdim=True)
     assert bool(((stats - want).abs() <= 1e-5 * want.abs()
                  + 1e-6 * scale).all())
@@ -308,7 +321,7 @@ def test_cpu_tensors_run_the_plain_version():
                          dtype=torch.float32)
     valid = torch.ones((6, 2), dtype=torch.bool)
     patch = torch.zeros((6, 1, 25))
-    before = pb.bicubic_stats.launches
+    before = dict(pb.bicubic_stats.launches)
     out = pb.bicubic_stats(planes, uv, valid, patch, 2)
     assert torch.equal(out, pb.bicubic_stats_reference(planes, uv, valid,
                                                        patch, 2))

@@ -1,7 +1,6 @@
 """The port's configuration (photobundle_torch/config.py) against the JAX
 package's: every shipped .cfg parses to the same values, validation is
-mirrored, and the solver backend resolves by device, with the kernels
-still to be ported refused on a card."""
+mirrored, and the solver backend resolves by device."""
 
 import dataclasses
 import pathlib
@@ -88,6 +87,10 @@ KERNEL_CONFIGS = {   # configuration -> backend 'auto' resolves to on a card
                                 gradientMode="exact"), "cuda"),
     "exact bilinear": (dict(gradientMode="exact"), "torch"),
     "affine warp": (dict(patchWarp="affine"), "torch"),
+    "affine warp, affine": (dict(patchWarp="affine",
+                                 patchNormalization="affine"), "torch"),
+    "scale warp, bicubic": (dict(patchWarp="scale",
+                                 interpolation="bicubic"), "torch"),
 }
 
 
@@ -100,7 +103,7 @@ def test_auto_backend_by_device(case):
     assert cfg.replace(solverBackend="torch").resolve_backend("cuda") == "torch"
 
 
-UNPORTED = {   # configuration -> the kernel the error must name
+UNPORTED = {   # configuration -> the kernel that runs it on a card
     "scale warp": (dict(patchWarp="scale"), "K3"),
     "patchScale alias": (dict(patchScale=True), "K3"),
     "affine normalization": (dict(patchNormalization="affine"), "K4"),
@@ -114,10 +117,15 @@ UNPORTED = {   # configuration -> the kernel the error must name
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 @pytest.mark.parametrize("backend", ["auto", "cuda"])
 def test_unported_kernel_raises_on_a_card(case, backend):
+    """The configurations whose kernels K3, K4 and K5 were still to be
+    ported resolve to the kernel path on a card now. What still raises
+    there is a patch radius the kernels are not built for: a ValueError,
+    never a quiet fall back to the gather path."""
     kw, kernel = UNPORTED[case]
     cfg = tcfg.PBAConfig(solverBackend=backend, **kw)
-    with pytest.raises(NotImplementedError, match=kernel):
-        cfg.resolve_backend("cuda")
+    assert cfg.resolve_backend("cuda") == "cuda", kernel
+    with pytest.raises(ValueError, match="patchRadius"):
+        cfg.replace(patchRadius=5).resolve_backend("cuda")
     # Off the card, and with solverBackend=torch on it, the plain path runs.
     assert cfg.replace(solverBackend="torch").resolve_backend("cuda") == "torch"
     if backend == "auto":

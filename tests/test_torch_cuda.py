@@ -15,7 +15,9 @@ import torch
 from photobundle_torch import entry
 from photobundle_torch.core import lm
 from photobundle_torch.core import residuals as res_mod
+from photobundle_torch.ops import _common
 from photobundle_torch.ops import patch_bicubic as pb
+from photobundle_torch.ops import patch_scaled as ps
 from photobundle_torch.ops import patch_warp as pw
 
 pytestmark = pytest.mark.gpu
@@ -30,7 +32,8 @@ def cuda_device():
 
 def within_f32_tolerance(got, want, scale):
     """|d| <= 1e-4 |plain| + 1e-6 scale: f32 sums of (2R+1)^2 products
-    taken in another order, with fused multiply-adds. `scale` is the
+    taken in another order (the samples themselves round alike: the
+    kernels are built without multiply-add contraction). `scale` is the
     magnitude the rounding is relative to (near-zero sums, such as a
     residual in the frame a descriptor was extracted from, carry the
     rounding noise of their larger terms)."""
@@ -39,8 +42,8 @@ def within_f32_tolerance(got, want, scale):
 
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
 @pytest.mark.parametrize("channels", [1, 3])
-@pytest.mark.parametrize("center", [True, False])
-def test_kernel_matches_plain_version(cuda_device, radius, channels, center):
+@pytest.mark.parametrize("norm", _common.NORMS)
+def test_kernel_matches_plain_version(cuda_device, radius, channels, norm):
     rng = np.random.default_rng(radius * 10 + channels)
     w, h, wi, n = 3, 40, 70, 257
     planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
@@ -54,11 +57,11 @@ def test_kernel_matches_plain_version(cuda_device, radius, channels, center):
     patch = torch.as_tensor(
         rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
         dtype=torch.float32, device=cuda_device)
-    before = pw.patch_stats.launches
-    got = pw.patch_stats(planes, uv, valid, patch, radius, center)
-    want = pw.patch_stats_reference(planes, uv, valid, patch, radius, center)
+    before = pw.patch_stats.launches[norm]
+    got = pw.patch_stats(planes, uv, valid, patch, radius, norm)
+    want = pw.patch_stats_reference(planes, uv, valid, patch, radius, norm)
     torch.cuda.synchronize()
-    assert pw.patch_stats.launches == before + 1
+    assert pw.patch_stats.launches[norm] == before + 1
     assert torch.isfinite(got).all()
     assert float(got[:, ~valid.T].abs().sum()) == 0.0
     row_max = want.abs().amax(dim=(1, 2), keepdim=True)   # per statistic
@@ -108,14 +111,15 @@ def test_evaluation_on_card_matches_cpu_and_gather_path(cuda_device):
 def test_solve_on_card_runs_through_the_kernel(cuda_device):
     cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
                                         device=cuda_device)
-    before = pw.patch_stats.launches
+    before = pw.patch_stats.launches["mean"]
     _, _, stats = lm.lm_solve(cam, *args, off, huber_delta=0.05,
                               backend="cuda", max_iterations=4,
                               function_tolerance=0.0,
                               parameter_tolerance=0.0)
     torch.cuda.synchronize()
     assert int(stats.iterations) == 4
-    assert pw.patch_stats.launches - before == int(stats.iterations) + 1
+    launches = pw.patch_stats.launches["mean"] - before
+    assert launches == int(stats.iterations) + 1
     assert float(stats.final_cost) < float(stats.initial_cost)
     assert torch.isfinite(stats.cost_log).all()
 
@@ -126,9 +130,9 @@ def test_solve_on_card_runs_through_the_kernel(cuda_device):
 
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
 @pytest.mark.parametrize("channels", [1, 3])
-@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("norm", _common.NORMS)
 def test_bicubic_kernel_matches_plain_version(cuda_device, radius, channels,
-                                             center):
+                                             norm):
     rng = np.random.default_rng(100 + radius * 10 + channels)
     w, h, wi, n = 3, 40, 70, 257
     planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi)),
@@ -146,12 +150,11 @@ def test_bicubic_kernel_matches_plain_version(cuda_device, radius, channels,
     patch = torch.as_tensor(
         rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
         dtype=torch.float32, device=cuda_device)
-    before = pb.bicubic_stats.launches
-    got = pb.bicubic_stats(planes, uv, valid, patch, radius, center)
-    want = pb.bicubic_stats_reference(planes, uv, valid, patch, radius,
-                                      center)
+    before = pb.bicubic_stats.launches[norm]
+    got = pb.bicubic_stats(planes, uv, valid, patch, radius, norm)
+    want = pb.bicubic_stats_reference(planes, uv, valid, patch, radius, norm)
     torch.cuda.synchronize()
-    assert pb.bicubic_stats.launches == before + 1
+    assert pb.bicubic_stats.launches[norm] == before + 1
     assert torch.isfinite(got).all()
     assert float(got[:, ~valid.T].abs().sum()) == 0.0
     row_max = want.abs().amax(dim=(1, 2), keepdim=True)   # per statistic
@@ -207,27 +210,39 @@ def test_bicubic_evaluation_on_card_matches_cpu_and_gather_path(cuda_device):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("interpolation", ["bilinear", "bicubic"])
-def test_engine_on_card_runs_through_its_kernel(cuda_device, interpolation):
+ENGINE_CONFIGS = {   # configuration -> (the kernel its solves launch, mode)
+    "bilinear": (dict(), pw.patch_stats, "mean"),
+    "bicubic": (dict(interpolation="bicubic"), pb.bicubic_stats, "mean"),
+    "affine": (dict(patchNormalization="affine"), pw.patch_stats, "affine"),
+    "bicubic-affine": (dict(interpolation="bicubic",
+                            patchNormalization="affine"), pb.bicubic_stats,
+                       "affine"),
+    "scale": (dict(patchWarp="scale"), ps.scaled_stats, "mean"),
+    "scale-affine": (dict(patchWarp="scale", patchNormalization="affine"),
+                     ps.scaled_stats, "affine"),
+}
+KERNELS = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats)
+
+
+@pytest.mark.parametrize("config", sorted(ENGINE_CONFIGS))
+def test_engine_on_card_runs_through_its_kernel(cuda_device, config):
     """The engine on a card: each window solve launches its configuration's
-    kernel once per LM iteration plus once for the initial point, and the
-    other kernel never."""
+    kernel, in its normalization mode, once per LM iteration plus once for
+    the initial point, and no other kernel or mode ever."""
     from photobundle_torch.config import PBAConfig
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
 
+    kw, mine, norm = ENGINE_CONFIGS[config]
     cam, images, depths, poses = entry.make_sequence(
         np.random.default_rng(3), n_frames=7, shape=(96, 144))
     cfg = PBAConfig(maxNumPoints=512, maxPointsPerFrame=128,
                     maxIterations=10, minSaliency=0.005, minScore=0.6,
                     maxDepth=30.0, nonMaxSuppRadius=2, maskBlockRadius=2,
-                    depthPriorWeight=1.0, interpolation=interpolation)
-    pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg,
-                                      device=cuda_device)
-    assert pba.backend == "cuda"
-    mine, other = ((pb.bicubic_stats, pw.patch_stats)
-                   if interpolation == "bicubic"
-                   else (pw.patch_stats, pb.bicubic_stats))
-    before = (mine.launches, other.launches)
+                    depthPriorWeight=1.0, **kw)
+    pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
+    assert pba.backend == "cuda" and pba.device.type == "cuda"
+    for k in KERNELS:
+        _common.reset_launches(k)
     expected = 0
     for img, depth, t in zip(images, depths, poses):
         res = pba.add_frame(img, depth, t)
@@ -236,5 +251,151 @@ def test_engine_on_card_runs_through_its_kernel(cuda_device, interpolation):
             assert res.final_cost <= res.initial_cost
             assert np.isfinite(res.poses).all()
     assert expected > 0
-    assert (mine.launches - before[0], other.launches - before[1]) == \
-        (expected, 0)
+    for k in KERNELS:
+        want = {m: (expected if (k is mine and m == norm) else 0)
+                for m in _common.NORMS}
+        assert k.launches == want, k.__name__
+
+
+def test_entry_points_default_to_the_card(cuda_device):
+    """Without a device argument the engine and entry() run on the card."""
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+
+    cam, images, _, _ = entry.make_sequence(np.random.default_rng(3),
+                                            n_frames=1, shape=(96, 144))
+    pba = PhotometricBundleAdjustment(cam, images[0].shape, PBAConfig())
+    assert pba.device.type == "cuda" and pba.points.x_world.is_cuda
+    _, args = entry.entry()
+    assert all(a.is_cuda for a in args)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K5: the warped-grid kernel (csrc/patch_scaled.cu)
+# ---------------------------------------------------------------------------
+
+def scaled_inputs(rng, device, radius, channels, w=3, h=40, wi=70, n=257):
+    """Random planes; rho over the clamp range and beyond; valid
+    observations inside the kernel's margins (1 + rho R <= u <= Wi-2-rho R),
+    invalid ones anywhere, NaN included."""
+    planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
+                             dtype=torch.float32, device=device)
+    rho = rng.uniform(0.45, 2.3, size=(n, w)).astype(np.float32)
+    ext = np.clip(rho, 0.5, 2.0) * radius
+    uv = np.stack([rng.uniform(1 + ext, wi - 2 - ext),
+                   rng.uniform(1 + ext, h - 2 - ext)], axis=-1)
+    valid = rng.uniform(size=(n, w)) > 0.2
+    uv[~valid] = rng.uniform(-5.0, 75.0, size=(int((~valid).sum()), 2))
+    valid[5, 1] = False
+    uv[5, 1] = np.nan
+    rho[5, 1] = np.nan
+    patch = torch.as_tensor(
+        rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
+        dtype=torch.float32, device=device)
+    return (planes, torch.as_tensor(uv, dtype=torch.float32, device=device),
+            torch.as_tensor(rho, device=device),
+            torch.as_tensor(valid, device=device), patch)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("norm", _common.NORMS)
+def test_scaled_kernel_matches_plain_version(cuda_device, radius, channels,
+                                            norm):
+    rng = np.random.default_rng(200 + radius * 10 + channels)
+    planes, uv, rho, valid, patch = scaled_inputs(rng, cuda_device, radius,
+                                                  channels)
+    before = ps.scaled_stats.launches[norm]
+    got = ps.scaled_stats(planes, uv, rho, valid, patch, radius, norm)
+    want = ps.scaled_stats_reference(planes, uv, rho, valid, patch, radius,
+                                     norm)
+    torch.cuda.synchronize()
+    assert ps.scaled_stats.launches[norm] == before + 1
+    assert torch.isfinite(got).all()
+    assert float(got[:, ~valid.T].abs().sum()) == 0.0
+    row_max = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert within_f32_tolerance(got, want, row_max)
+
+
+def test_scaled_kernel_at_the_image_edges(cuda_device):
+    """Observations hugging every border of a KITTI-wide image (the right
+    edge of tests/test_patch_stats.py's regression): the kernel's taps are
+    the plain version's."""
+    rng = np.random.default_rng(7)
+    h, wi, n, pr = 48, 1226, 64, 2
+    planes = torch.as_tensor(rng.standard_normal((1, 1, h, wi, 4)),
+                             dtype=torch.float32, device=cuda_device)
+    rho = np.linspace(0.5, 2.0, n).astype(np.float32)
+    ext = rho * pr
+    u = np.where(np.arange(n) % 2 == 0, wi - 2.0 - ext - 0.3, 1.0 + ext + 0.3)
+    v = np.where(np.arange(n) % 4 < 2, h - 2.0 - ext - 0.2, 1.0 + ext + 0.2)
+    uv = torch.as_tensor(np.stack([u, v], -1)[:, None], dtype=torch.float32,
+                         device=cuda_device)
+    rho_t = torch.as_tensor(rho[:, None], device=cuda_device)
+    valid = torch.ones((n, 1), dtype=torch.bool, device=cuda_device)
+    patch = torch.as_tensor(rng.standard_normal((n, 1, 25)),
+                            dtype=torch.float32, device=cuda_device)
+    for norm in _common.NORMS:
+        got = ps.scaled_stats(planes, uv, rho_t, valid, patch, pr, norm)
+        want = ps.scaled_stats_reference(planes, uv, rho_t, valid, patch, pr,
+                                         norm)
+        torch.cuda.synchronize()
+        row_max = want.abs().amax(dim=(1, 2), keepdim=True)
+        assert within_f32_tolerance(got, want, row_max), norm
+
+
+def test_scaled_kernel_rejects_unsupported_input(cuda_device):
+    planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
+    uv = torch.zeros((2, 1, 2), device=cuda_device)
+    rho = torch.ones((2, 1), device=cuda_device)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="radius"):
+        ps.scaled_stats(planes, uv, rho, valid,
+                        torch.zeros((2, 1, 121), device=cuda_device), 5)
+    with pytest.raises(ValueError, match="rho"):
+        ps.scaled_stats(planes, uv, rho.double(), valid,
+                        torch.zeros((2, 1, 25), device=cuda_device), 2)
+    with pytest.raises(ValueError, match="normalization"):
+        ps.scaled_stats(planes, uv, rho, valid,
+                        torch.zeros((2, 1, 25), device=cuda_device), 2,
+                        "bogus")
+
+
+@pytest.mark.parametrize("warp,normalize", [("scale", "mean"),
+                                            ("scale", "affine"),
+                                            (None, "affine")])
+def test_warped_evaluation_on_card_matches_cpu(cuda_device, warp, normalize):
+    """One warped or affine evaluation of the same problem: the kernel on
+    the card and its plain version on the CPU take the same observations
+    and give the same statistics and cost."""
+    cam, off, args = entry.make_problem(96, 3, 48, 80, 2, seed=4)
+    t_wc, x, patch, ch, g, obs = args[:6]
+    from photobundle_torch.image import patches as patches_mod
+    patch = patches_mod.normalize_patches(patch, normalize)
+    slot = torch.zeros(96, dtype=torch.int32)
+
+    def run(dev):
+        a = [v.to(dev) for v in (t_wc, x, patch, ch, g, obs)]
+        pwarp = None
+        if warp is not None:
+            z_ref, r_wc = res_mod.patch_warp_ref_geometry(a[0], a[1] * 1.02,
+                                                          slot.to(dev))
+            pwarp = (warp, z_ref, r_wc)
+        return res_mod.evaluate_compressed(
+            cam.to(dev), *a, off.to(dev), 0.05, backend="cuda",
+            normalize=normalize, patch_warp=pwarp)
+
+    cpu, card = run("cpu"), run(cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(card.valid.cpu(), cpu.valid)
+    # In each point's reference frame r = s - d cancels two values of
+    # order 1 (unit-norm ones under affine normalization), so those sums
+    # are rounding noise of order 1e-6 of the statistic's largest value
+    # (as in the bicubic evaluation test above).
+    for name in ("gtg", "gtr"):
+        got = getattr(card, name).cpu().numpy()
+        want = getattr(cpu, name).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+    np.testing.assert_allclose(float(card.cost), float(cpu.cost), rtol=1e-5)

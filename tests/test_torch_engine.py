@@ -12,7 +12,7 @@
   backends, mirroring tests/test_engine.py's jittered-trajectory and
   bicubic tests (the same ATE bounds).
 - The engine's refusals: parts of the JAX engine still to be ported, and
-  configurations whose kernel is still to be ported, on a card.
+  a card it does not have (the card is its default device).
 """
 
 import jax.numpy as jnp
@@ -77,7 +77,8 @@ def test_window_solve_matches_reference_from_carried_state(
     cam, images = scene[:2]
     cfg, jpba, recs = solves[config]
     tpba = TPBA(port_camera(cam), images[0].shape,
-                port_config(cfg).replace(solverBackend=backend))
+                port_config(cfg).replace(solverBackend=backend),
+                device="cpu")
     assert tpba.backend == backend
     points_np, window_np = without_observations_at_margins(
         tpba, *recs[window]["before"])
@@ -198,7 +199,8 @@ def test_refinement_level_and_uint8_frames(scene):
 
 def test_cpu_engine_launches_no_kernel(scene):
     """On the CPU the cuda backend runs the kernels' plain versions."""
-    before = (pw.patch_stats.launches, pb.bicubic_stats.launches)
+    before = (dict(pw.patch_stats.launches),
+              dict(pb.bicubic_stats.launches))
     cfg = port_config(small_cfg(maxIterations=2)).replace(solverBackend="cuda")
     run_port(scene, cfg)
     assert (pw.patch_stats.launches, pb.bicubic_stats.launches) == before
@@ -208,7 +210,6 @@ NOT_PORTED = {
     "coarseToFine": dict(pyramidLevels=3, coarseToFine=True),
     "pipelineResults": dict(pipelineResults=True),
     "meshPoints": dict(meshPoints=2),
-    "patchWarp": dict(patchWarp="scale"),
 }
 
 
@@ -217,7 +218,7 @@ def test_parts_still_to_port_raise(scene, what):
     cam, images = scene[:2]
     cfg = port_config(small_cfg(**NOT_PORTED[what]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPBA(port_camera(cam), images[0].shape, cfg)
+        TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
 
 
 def test_coarse_to_fine_without_coarse_levels_runs(scene):
@@ -225,12 +226,13 @@ def test_coarse_to_fine_without_coarse_levels_runs(scene):
     single-level solve (tests/test_engine.py's no-op test)."""
     cam, images = scene[:2]
     cfg = port_config(small_cfg(coarseToFine=True))
-    TPBA(port_camera(cam), images[0].shape, cfg)
+    TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
 
 
 def test_snapshots_raise(scene):
     cam, images = scene[:2]
-    pba = TPBA(port_camera(cam), images[0].shape, port_config(small_cfg()))
+    pba = TPBA(port_camera(cam), images[0].shape, port_config(small_cfg()),
+               device="cpu")
     for fn in (pba.save_state, pba.load_state):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn("unused.npz")
@@ -241,15 +243,43 @@ def test_snapshots_raise(scene):
     (dict(patchNormalization="affine", interpolation="bicubic"), "K4"),
 ])
 def test_unported_kernel_raises_on_a_card(scene, kw, kernel):
-    """On a card, a configuration whose kernel is still to be ported is
-    refused before any state is allocated, instead of running the plain
-    path there."""
+    """The affine configurations once refused on a card (their kernel K4
+    was still to be ported) now resolve to the kernel path there; an
+    engine asked for a card this machine does not have raises before any
+    state is allocated, instead of running on the CPU."""
     cam, images = scene[:2]
     cfg = port_config(small_cfg(**kw))
-    with pytest.raises(NotImplementedError, match=kernel):
-        TPBA(port_camera(cam), images[0].shape, cfg, device="cuda")
-    # solverBackend=torch runs it on the gather path (here on the CPU).
-    TPBA(port_camera(cam), images[0].shape, cfg.replace(solverBackend="torch"))
+    assert cfg.resolve_backend("cuda") == "cuda", kernel
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TPBA(port_camera(cam), images[0].shape, cfg, device="cuda")
+    # On the CPU the same configuration runs the plain versions.
+    pba = TPBA(port_camera(cam), images[0].shape,
+               cfg.replace(solverBackend="cuda"), device="cpu")
+    assert pba.backend == "cuda"
+
+
+def test_entry_points_default_to_the_card(scene, monkeypatch):
+    """The engine and entry() run on the card unless the caller asks for
+    the CPU; without a card they raise instead of quietly running on the
+    CPU. (tests/test_torch_cuda.py runs them on a card.)"""
+    import inspect
+
+    from photobundle_torch import entry
+
+    assert inspect.signature(TPBA).parameters["device"].default == "cuda"
+    assert inspect.signature(entry.entry).parameters["device"].default == \
+        "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam, images = scene[:2]
+    cfg = port_config(small_cfg())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPBA(port_camera(cam), images[0].shape, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
+    pba = TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
+    assert pba.device.type == "cpu" and pba.points.x_world.device.type == \
+        "cpu"
 
 
 def test_result_fetch_is_exact():

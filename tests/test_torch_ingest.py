@@ -64,7 +64,8 @@ def traces(scene):
             if as_u8:
                 img = np.round(img * 255.0).astype(np.uint8)
             jpba.add_frame(img, depths[i], init[i])
-        tpba = TPBA(port_camera(cam), images[0].shape, port_config(cfg))
+        tpba = TPBA(port_camera(cam), images[0].shape, port_config(cfg),
+                    device="cpu")
         out[name] = (trace, tpba)
     return out
 

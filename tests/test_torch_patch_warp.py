@@ -171,9 +171,9 @@ def test_cpu_tensors_run_the_plain_version(problems, rng):
     uv = torch.as_tensor(rng.uniform(5.0, 60.0, size=(6, 2, 2)),
                          dtype=torch.float32)
     valid = torch.ones((6, 2), dtype=torch.bool)
-    before = pw.patch_stats.launches
-    out = pw.patch_stats(planes, uv, valid, patch, 2, center=False)
-    ref = pw.patch_stats_reference(planes, uv, valid, patch, 2, center=False)
+    before = dict(pw.patch_stats.launches)
+    out = pw.patch_stats(planes, uv, valid, patch, 2, norm="off")
+    ref = pw.patch_stats_reference(planes, uv, valid, patch, 2, norm="off")
     assert torch.equal(out, ref)
     assert out.shape == (6, 2, 6)
     assert pw.patch_stats.launches == before
@@ -207,3 +207,48 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                   valid, patch, 2)
     with pytest.raises(ValueError, match="meta"):
         pw.patch_stats(planes.to("meta"), uv, valid, patch, 2)
+
+
+def test_editing_a_header_renames_the_library(monkeypatch, tmp_path):
+    """The library name hashes the source and every csrc/ header it
+    includes with quotes (directly or through another header): an edited
+    header gives a new name, so a stale library is never loaded."""
+    from photobundle_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "outer.cuh"\nint k;\n')
+    (csrc / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "outer.cuh",
+                                                      "inner.cuh"]
+    before = _build._library_path("k")
+    (csrc / "inner.cuh").write_text("// v2\n")
+    after = _build._library_path("k")
+    assert before != after and after.name.startswith("k_")
+    # The port's own kernels hash the shared epilogue header.
+    monkeypatch.undo()
+    for name in ("patch_warp", "patch_bicubic", "patch_scaled"):
+        assert "patch_epilogue.cuh" in [p.name for p in
+                                        _build._sources(name)], name
+
+
+def test_norm_modes_and_launch_counts():
+    """The kernels' normalization codes, and the launch counters that a
+    CPU call leaves untouched."""
+    from photobundle_torch.ops import _common
+    from photobundle_torch.ops import patch_scaled as ps
+
+    assert [_common.norm_code(m) for m in _common.NORMS] == [0, 1, 2]
+    with pytest.raises(ValueError, match="normalization"):
+        _common.norm_code("center")
+    planes = torch.zeros((1, 1, 12, 12, 4))
+    args = (torch.full((2, 1, 2), 5.5), torch.ones((2, 1)),
+            torch.ones((2, 1), dtype=torch.bool), torch.zeros((2, 1, 9)))
+    before = dict(ps.scaled_stats.launches)
+    for norm in _common.NORMS:
+        out = ps.scaled_stats(planes, *args, 1, norm)
+        assert out.shape == (6, 1, 2) and torch.isfinite(out).all()
+    assert ps.scaled_stats.launches == before

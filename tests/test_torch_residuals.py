@@ -131,9 +131,16 @@ def test_backend_and_mode_errors(problem):
         tres.evaluate_compressed(*args, HUBER, "bogus")
     with pytest.raises(ValueError, match="gradient_mode"):
         tres.evaluate_compressed(*args, HUBER, "exact", backend="cuda")
+    # Every normalization has a kernel path now; an unknown one is refused.
     with pytest.raises(ValueError, match="normalization"):
         tres.evaluate_compressed(*args, HUBER, backend="cuda",
-                                 normalize="affine")
+                                 normalize="bogus")
+    # patchWarp='affine' has no kernel path, in either package.
+    z_ref = torch.full((args[2].shape[0],), 5.0)
+    r_wc = torch.eye(3).expand(args[2].shape[0], 3, 3)
+    with pytest.raises(ValueError, match="patchWarp"):
+        tres.evaluate_compressed(*args, HUBER, backend="cuda",
+                                 patch_warp=("affine", z_ref, r_wc))
 
 
 @pytest.mark.parametrize("mode", ["sampled", "exact", "bicubic"])
