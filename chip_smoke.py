@@ -36,14 +36,35 @@ Drives the port's paths at the repository's full size (370x1226 images,
      affine mode) and the reference-exact configuration with affine
      normalization (K2's affine mode): launch counts, costs, ATE,
      keyframes/s, window-solve ms, and the first window's cost on both
-     backends, the torch run restricted to the cuda path's valid set.
+     backends, the torch run restricted to the cuda path's valid set;
+ 11. K1's sort-reuse variant (csrc/patch_warp.cu, sorted_patch_stats) on
+     phase 3's inputs and on a 65 536-point instance of the same problem
+     (entry.make_problem, the same frames), in the order lm_solve builds
+     under PB_SORTED_DISPATCH=1: bitwise equal to K1's unsorted sums (mean
+     and off) and within the kernel tolerance of its plain version; device
+     time per launch sorted and unsorted, the sort's own ms, the share of
+     blocks that staged their windows in shared memory, the bound;
+ 12. the command line on a KITTI-format sequence at 370x1226: phase 6's
+     scene written as 12 stereo PNG pairs (the port's stdlib PNG writer),
+     calib.txt, times.txt, poses/00.txt and a drifted VO input, refined
+     in configs/kitti_production.cfg (BM stereo with 128 disparities on
+     the card, the speckle filter, 3-level coarse-to-fine, motion and pose
+     priors; dataDir, numFrames and maxNumPoints=4096 as key=value
+     overrides) three times: `python -m photobundle_torch.cli` as a
+     subprocess with PB_SORTED_DISPATCH=1, then cli.main in this process
+     with it (launch counts checked) and without it. The three trajectory
+     files must be byte-identical, every window's cost non-increasing and
+     the refined ATE below the input's. Also the card's stereo time per
+     frame (BM, and SGM once) and the host speckle filter's.
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
 (torch.profiler) and its bound on this card. Every engine run zeroes the
 launch counts just before it and checks, just after, that its kernel ran
 in its normalization mode once per LM iteration plus once per window and
-that no other kernel or mode ran.
+that no other kernel or mode ran (phase 12: the sorted kernel once per
+LM iteration plus once per solve of every level, K1 twice per window for
+the coarse-to-fine guard).
 
 Prints a JSON line of kernel results, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}. Any failed phase
@@ -52,9 +73,12 @@ one it exits non-zero before doing anything.
 """
 
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -86,6 +110,9 @@ ENGINE_FRAMES, DEFAULT_FRAMES, WARP_FRAMES, SCENE_SEED = 15, 8, 8, 0
 DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
 RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
+DENSE_PTS = 65536                           # phase 11's second instance
+CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
+CLI_DIR = os.path.join("build", "chip_smoke_cli")
 # One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bandwidth and f32 rate
 # outside the tensor cores.
 H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
@@ -137,7 +164,7 @@ def median_ms(fn, calls: int, warmup: int = 3) -> float:
 
 
 def device_us_per_launch(fn, calls: int = PROFILED_CALLS):
-    """Device time per launch of the port's kernels (the `*stats_kernel`
+    """Device time per launch of the port's kernels (the `*stats*_kernel`
     entries of a torch.profiler trace) over `calls` calls of fn; None if
     the trace has no device time."""
     fn()
@@ -150,25 +177,25 @@ def device_us_per_launch(fn, calls: int = PROFILED_CALLS):
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if "stats_kernel" in evt.key:
+        if "stats" in evt.key and "_kernel" in evt.key:
             total += (getattr(evt, "self_device_time_total", 0.0)
                       or getattr(evt, "self_cuda_time_total", 0.0))
     return total / calls if total > 0 else None
 
 
 def ptxas_table(log: str) -> dict:
-    """{(R, normalization code): (registers, spill-store bytes)} of every
-    kernel instance in a `ptxas -v` log (instances are named
+    """{(kernel, R, normalization code): (registers, spill-store bytes)} of
+    every kernel instance in a `ptxas -v` log (instances are named
     <kernel><R, NORM> in the mangled entry names; a kernel templated on R
-    alone, with the normalization a runtime argument, is listed as
-    (R, None))."""
+    alone, with the normalization a runtime argument, is listed with code
+    None)."""
     table, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
-                      r"\w*?[a-z_]+_kernelILi(\d+)E(?:Li(\d+)E)?", line)
+                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
         if m:
-            current = (int(m.group(1)),
-                       None if m.group(2) is None else int(m.group(2)))
+            current = (m.group(1), int(m.group(2)),
+                       None if m.group(3) is None else int(m.group(3)))
             regs, spill = table.get(current, (None, None))
             table[current] = (regs, spill)
             continue
@@ -184,15 +211,18 @@ def ptxas_table(log: str) -> dict:
 
 
 def print_ptxas(name: str, built) -> None:
-    """One line per normalization mode: registers / spill-store bytes for
-    R = 1..4 (nothing if the library was not built in this process)."""
+    """One line per kernel and normalization mode: registers / spill-store
+    bytes for R = 1..4 (nothing if the library was not built in this
+    process)."""
     from photobundle_torch.ops import _common
 
     table = ptxas_table(built.log)
-    for code, norm in enumerate(_common.NORMS):
-        cells = [table.get((r, code), (None, None)) for r in _common.RADII]
-        say(f"  ptxas {name} {norm}: registers/spill bytes for R = 1..4: "
-            + ", ".join(f"{g}/{b}" for g, b in cells))
+    for kernel in sorted({k for k, _, _ in table}):
+        for code, norm in enumerate(_common.NORMS):
+            cells = [table.get((kernel, r, code), (None, None))
+                     for r in _common.RADII]
+            say(f"  ptxas {name} {kernel} {norm}: registers/spill bytes for "
+                f"R = 1..4: " + ", ".join(f"{g}/{b}" for g, b in cells))
 
 
 def compare_with_plain(got, want, valid_nm):
@@ -447,6 +477,285 @@ def check_first_window(tag, run, restrict_torch):
           f"cost {first:.6f}")
 
 
+def sorted_instance(n_pts: int, dev):
+    """Phase 3's synthetic window problem at `n_pts` points (the same
+    frames: entry.make_problem draws them from the seed alone), its valid
+    observations inside K1's margins, and the sorted-dispatch order
+    lm_solve builds for it. Returns (planes, uv_nm, valid_nm, patch,
+    order, sort_ms)."""
+    from photobundle_torch import entry
+    from photobundle_torch.core import residuals as res_mod
+    from photobundle_torch.ops import patch_warp as pw
+
+    cam, _, args = entry.make_problem(n_pts, W, H, WI, PATCH_RADIUS,
+                                      seed=SEED, device=dev)
+    t_wc, x_world, patch, channels, grads, obs = args[:6]
+    pr = PATCH_RADIUS
+    _, uv, in_front, _, _ = res_mod._observation_geometry_pm(cam, t_wc,
+                                                             x_world)
+    in_bounds = ((uv[:, 0] >= pr) & (uv[:, 0] <= WI - 2 - pr)
+                 & (uv[:, 1] >= pr) & (uv[:, 1] <= H - 2 - pr))
+    valid_nm = (obs.T & in_front & in_bounds).T.contiguous()
+    uv_nm = uv.permute(2, 0, 1).contiguous()
+
+    def order():
+        return res_mod.sorted_dispatch_order(res_mod.dispatch_key(
+            cam, t_wc, x_world, obs, (H, WI)))
+
+    sort_ms = median_ms(order, KERNEL_CALLS)
+    return (pw.build_planes(channels, grads), uv_nm, valid_nm, patch,
+            order(), sort_ms)
+
+
+def sorted_phase(dev) -> dict:
+    """Phase 11: K1's sort-reuse variant against K1 and its plain version
+    at phase 3's size and at DENSE_PTS points. Returns the phase-3 size's
+    numbers for the JSON line."""
+    from photobundle_torch.ops import patch_warp as pw
+
+    pr = PATCH_RADIUS
+    numbers = None
+    for n_pts in (N_PTS, DENSE_PTS):
+        planes, uv_nm, valid_nm, patch, order, sort_ms = sorted_instance(
+            n_pts, dev)
+        staged = torch.zeros(pw.sorted_blocks(n_pts, W), dtype=torch.uint8,
+                             device=dev)
+        for norm in ("mean", "off"):
+            got = pw.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
+                                        order, norm, staged=staged)
+            k1 = pw.patch_stats(planes, uv_nm, valid_nm, patch, pr, norm)
+            torch.cuda.synchronize()
+            check(torch.equal(got, k1), f"sorted kernel ({norm}) differs "
+                  f"from K1 at {n_pts} points: max |d| "
+                  f"{float((got - k1).abs().max()):.3e}")
+            plain = pw.sorted_patch_stats_reference(planes, uv_nm, valid_nm,
+                                                    patch, pr, order, norm)
+            max_abs, max_rel, worst = compare_with_plain(got, plain,
+                                                         valid_nm)
+            say(f"phase 11 sorted vs K1 at {n_pts}x{W} obs "
+                f"({int(valid_nm.sum())} valid), {norm}: bitwise equal | vs "
+                f"plain: max abs err {max_abs:.3e}, {worst:.3f} of the "
+                f"tolerance")
+        share = float(staged.float().mean())
+
+        def sorted_call():
+            return pw.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
+                                         order)
+
+        def k1_call():
+            return pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
+
+        def plain_call():
+            return pw.sorted_patch_stats_reference(planes, uv_nm, valid_nm,
+                                                   patch, pr, order)
+
+        ms, k1_ms = median_ms(sorted_call, KERNEL_CALLS), median_ms(
+            k1_call, KERNEL_CALLS)
+        plain_ms = median_ms(plain_call, 10)
+        dev_sorted = device_us_per_launch(sorted_call)
+        dev_k1 = device_us_per_launch(k1_call)
+        bound = kernel_bound(window_texels(uv_nm, valid_nm, pr, 2 * pr + 2,
+                                           pr, H, WI),
+                             GRAD_TEXEL_BYTES, valid_nm, 1, pr, "bilinear",
+                             "mean")
+        fmt = lambda us: "not measured" if us is None else f"{us:.2f} us"
+        say(f"phase 11 at {n_pts} points, mean: device time per launch "
+            f"sorted {fmt(dev_sorted)}, K1 unsorted {fmt(dev_k1)} "
+            f"(profiler, {PROFILED_CALLS} launches) | median per call "
+            f"sorted {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f" | the sort (key + stable sort) {sort_ms:.4f} ms per solve | "
+            f"blocks that staged: {share:.4f} of {staged.numel()} | bound "
+            f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} "
+            f"({bound['bytes'] / 1e6:.2f} MB, {bound['flops'] / 1e6:.2f} "
+            f"MFLOP)")
+        if numbers is None:
+            numbers = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound["bound_ms"],
+                           bound_by=bound["bound_by"], library_ms=None)
+    return numbers
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_phase(kernels, dev) -> int:
+    """Phase 12: the command line on a KITTI-format sequence on `dev`,
+    three runs (see the module docstring). Returns the sorted kernel's
+    launches in the counted run (b)."""
+    from photobundle_torch import cli, entry
+    from photobundle_torch.core import lm
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+    from photobundle_torch.image import stereo as stereo_mod
+    from photobundle_torch.io import kitti
+    from photobundle_torch.io import trajectory as traj
+    from photobundle_torch.io.speckle import speckle_filter_numpy
+    from photobundle_torch.ops import _common
+    from photobundle_torch.ops import patch_warp as pw
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    data = os.path.join(CLI_DIR, "kitti")
+    t0 = time.perf_counter()
+    _, gt = entry.write_kitti_sequence(
+        data, np.random.default_rng(SCENE_SEED), n_frames=CLI_FRAMES,
+        shape=(H, WI), fx=KITTI_FX, cx=KITTI_CX, cy=KITTI_CY,
+        baseline=KITTI_BASELINE, texture_scale=100.0 / KITTI_FX,
+        mark_misses=True)
+    vo = entry.drift_poses(np.random.default_rng(SCENE_SEED + 1), gt,
+                           DRIFT_TRANS, DRIFT_ROT, 1)
+    vo_path = os.path.join(data, "vo.txt")
+    entry.write_poses(vo_path, vo)
+    say(f"phase 12 wrote a {CLI_FRAMES}-frame KITTI-format sequence "
+        f"({H}x{WI} stereo PNGs) in {time.perf_counter() - t0:.1f} s")
+
+    # Stereo alone on frame 0: BM on the card (CUDA events), SGM once, the
+    # speckle filter on the host.
+    cfg = cli.load_config(cli.build_argparser().parse_args(
+        ["--config", "configs/kitti_production.cfg", f"dataDir={data}"]))
+    seq = os.path.join(data, "sequences", "00")
+    left, right = (torch.as_tensor(kitti._imread_gray(os.path.join(
+        seq, sub, "000000.png")), device=dev)
+        for sub in ("image_0", "image_1"))
+    kw = dict(num_disparities=cfg.numDisparities,
+              min_disparity=cfg.minDisparity,
+              sad_radius=cfg.sadWindowSize // 2)
+    bm_ms = median_ms(lambda: stereo_mod.block_match(left, right, **kw), 5,
+                      warmup=1)
+    disp, valid = stereo_mod.block_match(left, right, **kw)
+    t0 = time.perf_counter()
+    stereo_mod.semi_global_match(left, right, **kw)
+    torch.cuda.synchronize()
+    sgm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, kept = speckle_filter_numpy(disp.cpu().numpy(), valid.cpu().numpy(),
+                                   max_diff=cfg.speckleRange,
+                                   min_region=cfg.speckleWindowSize)
+    speckle_ms = (time.perf_counter() - t0) * 1e3
+    say(f"phase 12 stereo per frame ({H}x{WI}, {cfg.numDisparities} "
+        f"disparities): BM {bm_ms:.2f} ms on the card (CUDA events, median "
+        f"of 5), SGM {sgm_ms:.1f} ms (host clock, once), speckle filter "
+        f"{speckle_ms:.1f} ms on the host | BM valid share "
+        f"{float(valid.float().mean()):.3f}, after speckle "
+        f"{float(kept.mean()):.3f}")
+
+    def argv(tag):
+        return ["--config", "configs/kitti_production.cfg", "--poses",
+                vo_path, "--output", os.path.join(CLI_DIR, f"{tag}.txt"),
+                "--log", os.path.join(CLI_DIR, f"{tag}.jsonl"),
+                "--device", dev.type, f"dataDir={data}",
+                f"numFrames={CLI_FRAMES}", f"maxNumPoints={N_PTS}"]
+
+    # (a) the command a user types, in its own process.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photobundle_torch.cli", *argv("a")],
+        env=dict(os.environ, PB_SORTED_DISPATCH="1"), capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    wall_a = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI subprocess exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    report = proc.stderr[proc.stderr.rfind("timing report"):].splitlines()
+    say(f"phase 12 (a) python -m photobundle_torch.cli, PB_SORTED_DISPATCH=1:"
+        f" exit 0 in {wall_a:.1f} s; its timer report:")
+    for line in report[1:5]:
+        say(f"    {line.split('] ')[-1]}")
+
+    # (b), (c): cli.main in this process, sorted dispatch on and off.
+    iterations, frame_s = [], []
+    solve, add = lm.lm_solve, PhotometricBundleAdjustment.add_frame
+
+    def counted_solve(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        iterations.append(int(out[2].iterations))
+        return out
+
+    def timed_add(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = add(self, *args, **kwargs)
+        frame_s.append(time.perf_counter() - t)
+        return out
+
+    def in_process(tag, sorted_dispatch):
+        iterations.clear()
+        frame_s.clear()
+        os.environ["PB_SORTED_DISPATCH"] = sorted_dispatch
+        lm.lm_solve = counted_solve
+        PhotometricBundleAdjustment.add_frame = timed_add
+        for k in kernels:
+            _common.reset_launches(k)
+        try:
+            rc = cli.main(argv(tag))
+            torch.cuda.synchronize()
+        finally:
+            lm.lm_solve = solve
+            PhotometricBundleAdjustment.add_frame = add
+            os.environ.pop("PB_SORTED_DISPATCH")
+        check(rc == 0, f"cli.main returned {rc}")
+        counts = {(k.__name__, m): n for k in kernels
+                  for m, n in k.launches.items() if n}
+        rate = (CLI_FRAMES - W) / sum(frame_s[W:])
+        return counts, list(iterations), rate
+
+    runs, launches = {}, None
+    for tag, flag in (("b", "1"), ("c", "0")):
+        runs[tag] = in_process(tag, flag)
+    records = {tag: read_jsonl(os.path.join(CLI_DIR, f"{tag}.jsonl"))
+               for tag in "abc"}
+    windows = CLI_FRAMES - W + 1
+    for tag, recs in records.items():
+        check(len(recs) == windows, f"run ({tag}) logged {len(recs)} windows")
+        for r in recs:
+            check(r["final_cost"] <= r["initial_cost"], f"run ({tag}) window "
+                  f"{r['frame_ids']} cost {r['initial_cost']} -> "
+                  f"{r['final_cost']}")
+    for tag, (counts, its, rate) in runs.items():
+        solves = len(its)
+        expected = sum(i + 1 for i in its)
+        sorted_n = counts.pop(("sorted_patch_stats", "mean"), 0)
+        k1_n = counts.pop(("patch_stats", "mean"), 0)
+        say(f"phase 12 ({tag}) cli.main, PB_SORTED_DISPATCH="
+            f"{'1' if tag == 'b' else '0'}: {solves} solves over {windows} "
+            f"windows (3 levels each), iterations {its}; launches: sorted "
+            f"{sorted_n}, K1 {k1_n}, others {counts or 'none'} | "
+            f"keyframes/s {rate:.3f} over frames {W}..{CLI_FRAMES - 1}")
+        check(solves == 3 * windows, f"({tag}) ran {solves} solves")
+        check(not counts, f"({tag}) other kernels or modes ran: {counts}")
+        if tag == "b":
+            check(sorted_n == expected and k1_n == 2 * windows,
+                  f"(b) sorted kernel launched {sorted_n} times (expected "
+                  f"{expected}), K1 {k1_n} (expected {2 * windows})")
+            launches = sorted_n
+        else:
+            check(sorted_n == 0 and k1_n == expected + 2 * windows,
+                  f"(c) K1 launched {k1_n} times, expected "
+                  f"{expected + 2 * windows}")
+    solve_ms = statistics.median(r["solve_time_s"] * 1e3
+                                 for r in records["b"])
+    say(f"phase 12 median window solve (b) {solve_ms:.1f} ms, (c) "
+        f"{statistics.median(r['solve_time_s'] * 1e3 for r in records['c']):.1f}"
+        f" ms")
+
+    texts = {tag: open(os.path.join(CLI_DIR, f"{tag}.txt")).read()
+             for tag in "abc"}
+    if texts["b"] != texts["c"]:
+        in_process("c2", "0")
+        again = open(os.path.join(CLI_DIR, "c2.txt")).read()
+        say(f"phase 12 sorted and unsorted trajectories differ; two "
+            f"unsorted runs {'agree' if again == texts['c'] else 'differ'}")
+    check(texts["a"] == texts["b"] == texts["c"],
+          "the three runs' refined_poses files are not byte-identical")
+    gt_traj = traj.Trajectory(gt.astype(np.float64))
+    ate_vo = traj.ate_rmse(traj.Trajectory(vo.astype(np.float64)), gt_traj,
+                           align=False)
+    ate_ref = traj.ate_rmse(traj.load_poses_kitti(
+        os.path.join(CLI_DIR, "a.txt")), gt_traj, align=False)
+    say(f"phase 12 the three trajectory files are byte-identical | ATE "
+        f"(unaligned) VO input {ate_vo:.6f} m, refined {ate_ref:.6f} m")
+    check(ate_ref < ate_vo, "the CLI did not lower the ATE")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -461,7 +770,8 @@ def main() -> None:
     from photobundle_torch.ops import patch_scaled as ps
     from photobundle_torch.ops import patch_warp as pw
 
-    kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats)
+    kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats,
+               pw.sorted_patch_stats)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -677,6 +987,12 @@ def main() -> None:
         # run to the cuda path's valid set.
         check_first_window(tag, runs10[tag], restrict_torch=True)
 
+    # -- phase 11: K1's sort-reuse variant ------------------------------
+    k1s = sorted_phase(dev)
+
+    # -- phase 12: the command line on a KITTI-format sequence -----------
+    cli_launches = cli_phase(kernels, dev)
+
     def entry_json(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
                 "source": f"photobundle_torch/csrc/{source}",
@@ -695,6 +1011,8 @@ def main() -> None:
                    runs10["10c"]["launches"], k5),
         entry_json("bicubic_stats/affine", "patch_bicubic.cu", 176,
                    runs10["10d"]["launches"], k2a),
+        entry_json("sorted_patch_stats", "patch_warp.cu", 393, cli_launches,
+                   k1s),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

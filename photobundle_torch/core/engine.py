@@ -3,22 +3,26 @@
 Twin of photobundle_tpu/core/engine.py on one device: `add_frame(image,
 depth, T_wc)` ingests a frame (descriptor build, window push, tracking,
 culling, selection) and, once the window is full, runs the LM + Schur
-solve and returns the refined window poses.
+solve (after coarse pyramid levels with cfg.coarseToFine) and returns the
+refined window poses.
 
 All state (point table, window ring) is a tuple of fixed-shape tensors on
 the engine's device. The host keeps mirrors of the few counters the
 control flow branches on (frame count, ingest ordinal, window fill), so
 ingest reads nothing back from the device. A solve reads its termination
 code once per LM iteration (core/lm.py) and, at its end, fetches the
-window result in one batched device-to-host copy.
+window result in one batched device-to-host copy; with
+cfg.pipelineResults that copy runs behind the next frame's work and the
+result arrives one frame late. `save_state` / `load_state` snapshot the
+whole state for a bitwise-exact resume.
 
-Not ported yet (each raises NotImplementedError; ROADMAP.md queue 1):
-coarse-to-fine solves, device meshes, pipelined result fetches and state
-snapshots.
+Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 13):
+device meshes (meshPoints / meshFrames > 1).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -29,10 +33,12 @@ import torch
 from ..config import PBAConfig
 from ..geometry import se3
 from ..geometry.camera import Camera
+from ..geometry import camera as cam_mod
 from ..image import descriptor as descriptor_mod
+from ..image import interp
 from ..image import patches as patches_mod
 from ..image import pyramid as pyramid_mod
-from . import lm, selection, state, tracking
+from . import lm, residuals, selection, state, tracking
 
 # The shared f32 reciprocal of the 8-bit image scale. Images are normalized
 # by multiplying with it, never by dividing by 255: a one-ulp difference
@@ -94,19 +100,41 @@ def require_device(device) -> torch.device:
     return device
 
 
-def _fetch(tensors):
+class _Fetch:
     """Device -> host in ONE copy: every tensor is flattened into one f64
-    buffer (exact for f32, int32 and bool) and split again on the host."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        k = t.numel()
-        dtype = {torch.bool: bool, torch.int32: np.int32,
-                 torch.int64: np.int64}.get(t.dtype, np.float32)
-        out.append(host[at:at + k].reshape(tuple(t.shape)).astype(dtype))
-        at += k
-    return out
+    buffer (exact for f32, int32 and bool) and split again on the host.
+
+    The buffer is a snapshot taken when the fetch is created (the
+    concatenation copies on the device, in stream order), so later work,
+    such as the next frame's ingest, cannot change what it returns. From a
+    card the copy goes to pinned memory without blocking and `result()`
+    waits for it alone (a CUDA event)."""
+
+    def __init__(self, tensors):
+        self._specs = [(tuple(t.shape), t.dtype) for t in tensors]
+        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+        self._event = None
+        if flat.device.type == "cuda":
+            self._host = torch.empty(flat.shape, dtype=flat.dtype,
+                                     pin_memory=True)
+            self._host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = flat
+
+    def result(self):
+        if self._event is not None:
+            self._event.synchronize()
+        host = self._host.numpy()
+        out, at = [], 0
+        for shape, dtype in self._specs:
+            k = int(np.prod(shape, dtype=np.int64))
+            np_dtype = {torch.bool: bool, torch.int32: np.int32,
+                        torch.int64: np.int64}.get(dtype, np.float32)
+            out.append(host[at:at + k].reshape(shape).astype(np_dtype))
+            at += k
+        return out
 
 
 class PhotometricBundleAdjustment:
@@ -133,8 +161,6 @@ class PhotometricBundleAdjustment:
         if cfg.meshPoints > 1 or cfg.meshFrames > 1:
             raise _not_ported("meshPoints / meshFrames > 1 (device meshes)",
                               "queue 1 item 13, multi-GPU")
-        if cfg.pipelineResults:
-            raise _not_ported("pipelineResults", "queue 1 item 9, engine")
         self.backend = cfg.resolve_backend(self.device)
         self.camera_full = camera.to(self.device)
         lvl = cfg.refinementLevel
@@ -144,15 +170,17 @@ class PhotometricBundleAdjustment:
         h, w = image_shape
         self.image_shape = (h, w)
         self.level_shape = (h // (2 ** lvl), w // (2 ** lvl))
+        # Coarse-to-fine schedule: the number of coarse levels solved
+        # before the refinement-level solve (levels refinementLevel + k,
+        # coarsest first), clamped so the coarsest image keeps >= 24 px on
+        # both axes.
+        self._n_coarse = 0
         if cfg.coarseToFine:
-            # Coarse levels the JAX engine would solve first; with none the
-            # schedule is the plain single-level solve.
             k = cfg.pyramidLevels - cfg.refinementLevel - 1
             while k > 0 and min(self.level_shape[0] >> k,
                                 self.level_shape[1] >> k) < 24:
                 k -= 1
-            if k > 0:
-                raise _not_ported("coarseToFine", "queue 1 item 9, engine")
+            self._n_coarse = k
         self.offsets = patches_mod.patch_offsets(cfg.patchRadius,
                                                  device=self.device)
 
@@ -166,6 +194,7 @@ class PhotometricBundleAdjustment:
         self._frame_count = 0
         self._ingest_seq = 0    # ingested-frame ordinal: the age clock
         self._window_count = 0  # host mirror of window.count
+        self._pending = None    # (fetch, t0) under pipelineResults
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -246,9 +275,43 @@ class PhotometricBundleAdjustment:
         patch_warp = (warp, ref_slot) if warp is not None else None
         return point_valid, ref_slot, depth_prior, patch_warp
 
+    def _coarse_level(self, k: int, window, t_wc, x_world, ref_slot,
+                      point_valid):
+        """Coarse level k of the schedule, derived from the window: the
+        channels blurred and decimated k times (build_pyramid's kernel),
+        their gradients, the camera scaled by 0.5**k, and each point's
+        reference descriptor re-extracted from its reference frame's
+        coarse image at its current projection (t_wc, x_world). Returns
+        (camera, patch, channels, grads, point_valid) of the level."""
+        cfg = self.cfg
+        ch = window.channels
+        for _ in range(k):
+            ch = pyramid_mod.downsample2(pyramid_mod.gaussian_blur5(ch))
+        src = (pyramid_mod.gaussian_blur_sigma(ch, cfg.gradientSigma)
+               if cfg.gradientSigma > 0 else ch)
+        gx, gy = interp.image_gradients(src)
+        cam = self.camera.scaled(0.5 ** k)
+        found, ok = [], []
+        for f in range(window.size):
+            t_cw = se3.se3_inverse(t_wc[f])
+            uv, in_front = cam_mod.project(
+                cam, x_world @ t_cw[:3, :3].T + t_cw[:3, 3])
+            p, inside = patches_mod.extract_patches(ch[f], uv, self.offsets)
+            found.append(p)
+            ok.append(inside & in_front)
+        slot = torch.clamp(ref_slot, min=0).long()
+        pts = torch.arange(slot.shape[0], device=slot.device)
+        patch = patches_mod.normalize_patches(torch.stack(found)[slot, pts],
+                                              cfg.resolve_normalization())
+        valid = point_valid & torch.stack(ok)[slot, pts] & (ref_slot >= 0)
+        return cam, patch, ch, torch.stack([gx, gy], dim=-1), valid
+
     def _optimize(self, window, points):
-        """One full window solve. Returns (window, points, stats,
-        point_valid); the inputs are not modified."""
+        """One full window solve: the coarse levels of the schedule (each
+        warm-starting the next), the fine-cost guard, then the solve at the
+        refinement level on the stored descriptors. Returns (window,
+        points, stats, point_valid), stats of the last level; the inputs
+        are not modified."""
         cfg = self.cfg
         w = cfg.slidingWindowSize
         dev = self.device
@@ -259,39 +322,92 @@ class PhotometricBundleAdjustment:
                        cfg.posePriorRotWeight)
                       if (cfg.posePriorWeight > 0
                           or cfg.posePriorRotWeight > 0) else None)
-        # Motion-prior anchor: the initialization's relative poses.
+        # Motion-prior anchor: the initialization's relative poses, shared
+        # by every level of the schedule.
         anchor = (se3.se3_inverse(window.t_wc[:-1]) @ window.t_wc[1:]
                   if cfg.motionPriorWeight > 0 else None)
+        gradient_mode = cfg.resolve_gradient_mode()
+        normalize = cfg.resolve_normalization()
 
-        t_wc, x_world, stats = lm.lm_solve(
-            self.camera, window.t_wc, points.x_world, points.patch,
-            window.channels, window.grads, points.obs, point_valid, frozen,
-            self.offsets,
-            huber_delta=cfg.robustThreshold,
-            robust_kind=cfg.robustLoss,
-            gradient_mode=cfg.resolve_gradient_mode(),
-            backend=self.backend,
-            normalize=cfg.resolve_normalization(),
-            depth_prior=depth_prior,
-            patch_warp=patch_warp,
-            motion_prior_weight=cfg.motionPriorWeight,
-            motion_prior_anchor=anchor,
-            pose_prior=pose_prior,
-            max_iterations=cfg.maxIterations,
-            initial_lambda=cfg.initialLambda,
-            min_lambda=cfg.minLambda,
-            max_lambda=cfg.maxLambda,
-            function_tolerance=cfg.functionTolerance,
-            parameter_tolerance=cfg.parameterTolerance,
-            gradient_tolerance=cfg.gradientTolerance,
-            min_obs_per_frame=cfg.minObsPerFrame,
-        )
+        def solve(cam, prior_scale, max_iterations, t_wc, x_world, patch,
+                  channels, grads, valid):
+            prior = ((ref_slot, points.inv_depth_seed, prior_scale)
+                     if cfg.depthPriorWeight > 0 else None)
+            return lm.lm_solve(
+                cam, t_wc, x_world, patch, channels, grads, points.obs,
+                valid, frozen, self.offsets,
+                huber_delta=cfg.robustThreshold,
+                robust_kind=cfg.robustLoss,
+                gradient_mode=gradient_mode,
+                backend=self.backend,
+                normalize=normalize,
+                depth_prior=prior,
+                patch_warp=patch_warp,
+                motion_prior_weight=cfg.motionPriorWeight,
+                motion_prior_anchor=anchor,
+                pose_prior=pose_prior,
+                max_iterations=max_iterations,
+                initial_lambda=cfg.initialLambda,
+                min_lambda=cfg.minLambda,
+                max_lambda=cfg.maxLambda,
+                function_tolerance=cfg.functionTolerance,
+                parameter_tolerance=cfg.parameterTolerance,
+                gradient_tolerance=cfg.gradientTolerance,
+                min_obs_per_frame=cfg.minObsPerFrame,
+            )
+
+        # Coarse-to-fine warm start, coarsest level first. Poses and points
+        # are world-frame: each level's result seeds the next as it is.
+        t_cur, x_cur = window.t_wc, points.x_world
+        for k in range(self._n_coarse, 0, -1):
+            cam, patch, channels, grads, valid = self._coarse_level(
+                k, window, t_cur, x_cur, ref_slot, point_valid)
+            t_cur, x_cur, _ = solve(cam, self._prior_scale * 0.5 ** k,
+                                    cfg.coarseIterations, t_cur, x_cur,
+                                    patch, channels, grads, valid)
+        if self._n_coarse > 0:
+            # Guard: a coarse level optimizes its own objective and can
+            # walk the fine one up (few or fresh points). Keep the warm
+            # start only if it lowers the full fine-level objective, prior
+            # terms included; both evaluations share one sampling ctx.
+            ctx = (residuals.make_cuda_ctx(window.channels, window.grads,
+                                           gradient_mode)
+                   if self.backend == "cuda" else None)
+
+            def fine_cost(t_wc, x_world):
+                warp = None
+                if patch_warp is not None:
+                    warp = (patch_warp[0], *residuals.patch_warp_ref_geometry(
+                        t_wc, x_world, ref_slot))
+                res = residuals.evaluate_compressed(
+                    self.camera, t_wc, x_world, points.patch,
+                    window.channels, window.grads,
+                    points.obs & point_valid[:, None], self.offsets,
+                    cfg.robustThreshold, gradient_mode,
+                    depth_prior=depth_prior, backend=self.backend, ctx=ctx,
+                    normalize=normalize, robust_kind=cfg.robustLoss,
+                    patch_warp=warp)
+                return res.cost + lm.prior_cost(
+                    t_wc, motion_prior_weight=cfg.motionPriorWeight,
+                    rel0=anchor, pose_prior=pose_prior)
+
+            use_warm = (fine_cost(t_cur, x_cur)
+                        < fine_cost(window.t_wc, points.x_world))
+            t_cur = torch.where(use_warm, t_cur, window.t_wc)
+            x_cur = torch.where(use_warm, x_cur, points.x_world)
+
+        t_wc, x_world, stats = solve(self.camera, self._prior_scale,
+                                     cfg.maxIterations, t_cur, x_cur,
+                                     points.patch, window.channels,
+                                     window.grads, point_valid)
         # Window trust gate: a solve that moved any pose implausibly far
-        # is rejected whole and the VO initialization kept.
+        # is rejected whole and the VO initialization kept. The coarse
+        # levels exist to allow larger corrections: the gate scales by 2^k.
         if cfg.maxPoseCorrection > 0:
+            gate = cfg.maxPoseCorrection * float(2 ** self._n_coarse)
             corr = torch.linalg.norm(t_wc[:, :3, 3] - window.t_wc[:, :3, 3],
                                      dim=-1)
-            sane = torch.max(corr) <= cfg.maxPoseCorrection
+            sane = torch.max(corr) <= gate
             t_wc = torch.where(sane, t_wc, window.t_wc)
             x_world = torch.where(sane, x_world, points.x_world)
 
@@ -356,16 +472,34 @@ class PhotometricBundleAdjustment:
         t_pre = self.window.t_wc
         self.window, self.points, stats, point_valid = self._optimize(
             self.window, self.points)
-        # ONE batched device fetch per window.
-        fetched = _fetch([*stats, self.window.frame_ids, self.window.t_wc,
-                          point_valid, self.points.x_world,
-                          self.points.ref_frame, t_pre])
-        k = len(stats)
-        return self._make_result(lm.LMStats(*fetched[:k]), *fetched[k:],
-                                 dt=time.perf_counter() - t0)
+        # ONE batched device fetch per window. Under cfg.pipelineResults it
+        # runs behind the next frame's work: this call returns the previous
+        # window's result (results lag one frame; frame_ids stay exact).
+        fetch = _Fetch([*stats, self.window.frame_ids, self.window.t_wc,
+                        point_valid, self.points.x_world,
+                        self.points.ref_frame, t_pre])
+        if not self.cfg.pipelineResults:
+            return self._make_result(fetch.result(), t0)
+        prev, self._pending = self._pending, (fetch, t0)
+        return None if prev is None else self._make_result(prev[0].result(),
+                                                           prev[1])
 
-    def _make_result(self, stats, frame_ids, poses, pv, xw, rf, t_pre,
-                     dt: float) -> WindowResult:
+    def flush_result(self) -> Optional[WindowResult]:
+        """The window result still in flight under pipelineResults (None
+        if there is none): call once after the frame loop so the last
+        window is not lost."""
+        if self._pending is None:
+            return None
+        (fetch, t0), self._pending = self._pending, None
+        return self._make_result(fetch.result(), t0)
+
+    def _make_result(self, fetched, t0: float) -> WindowResult:
+        """A WindowResult from a window fetch; its solve time runs from
+        `t0` (the solve's start) to now."""
+        k = len(lm.LMStats._fields)
+        stats = lm.LMStats(*fetched[:k])
+        frame_ids, poses, pv, xw, rf, t_pre = fetched[k:]
+        dt = time.perf_counter() - t0
         it = int(stats.iterations)
         dtc = poses[:, :3, 3] - t_pre[:, :3, 3]
         # Rotation correction angle from the relative rotation's trace.
@@ -399,7 +533,41 @@ class PhotometricBundleAdjustment:
         return int(self.points.num_active())
 
     def save_state(self, path: str) -> None:
-        raise _not_ported("save_state", "queue 1 item 9, engine")
+        """Write the whole engine state (point table, window ring, frame
+        and ingest counters) to one npz under the JAX package's key names
+        (`points.<field>`, `window.<field>`, `frame_count`, `ingest_seq`).
+        Written to a temporary file and renamed, so a reader never sees a
+        partial snapshot."""
+        state_np = {f"points.{k}": v.cpu().numpy()
+                    for k, v in self.points._asdict().items()}
+        state_np.update({f"window.{k}": v.cpu().numpy()
+                         for k, v in self.window._asdict().items()})
+        state_np["frame_count"] = np.asarray(self._frame_count)
+        state_np["ingest_seq"] = np.asarray(self._ingest_seq)
+        tmp = path + ".tmp.npz"
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, **state_np)
+        os.replace(tmp, path)
 
     def load_state(self, path: str) -> None:
-        raise _not_ported("load_state", "queue 1 item 9, engine")
+        """Restore a `save_state` snapshot (its shapes must match this
+        engine's configuration); the engine then continues exactly as the
+        one that wrote it."""
+        with np.load(path) as data:
+            def field(name, like):
+                arr = data[name]
+                if arr.shape != tuple(like.shape):
+                    raise ValueError(f"snapshot {path}: {name} has shape "
+                                     f"{arr.shape}, this engine "
+                                     f"{tuple(like.shape)}")
+                return torch.as_tensor(arr).to(self.device, like.dtype)
+
+            self.points = type(self.points)(*(
+                field(f"points.{k}", v)
+                for k, v in self.points._asdict().items()))
+            self.window = type(self.window)(*(
+                field(f"window.{k}", v)
+                for k, v in self.window._asdict().items()))
+            self._frame_count = int(data["frame_count"])
+            self._ingest_seq = int(data["ingest_seq"])
+        self._window_count = int(self.window.count)

@@ -17,14 +17,17 @@ with rho = actual / predicted decrease.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import se3
+from ..image import patches as patches_mod
 from . import schur
-from .residuals import (CompressedResiduals, evaluate_compressed,
-                        make_cuda_ctx, patch_warp_ref_geometry)
+from .residuals import (CompressedResiduals, dispatch_key,
+                        evaluate_compressed, make_cuda_ctx,
+                        patch_warp_ref_geometry, sorted_dispatch_order)
 
 
 class LMStats(NamedTuple):
@@ -133,13 +136,27 @@ def lm_solve(
     `residuals.patch_warp_frame`, recomputed from the iterate at every
     evaluation (candidates included) with the full window poses, so it
     stays exactly 1 in the point's reference frame. ref_slot < 0 (no
-    reference frame in the window) is the fixed grid."""
+    reference frame in the window) is the fixed grid.
+
+    Sorted dispatch: with PB_SORTED_DISPATCH=1 in the environment (read at
+    each call), the cuda backend on the fixed grid with bilinear sampling
+    ('sampled') and mean or off normalization (where the JAX package uses
+    it) feeds its kernel in the order of `residuals.dispatch_key`, computed
+    once from the initial iterate (ops/patch_warp.sorted_patch_stats). The
+    statistics are bitwise those of the unsorted kernel."""
     dtype, dev = t_wc.dtype, t_wc.device
     obs_mask = obs_mask & point_valid[:, None]
     # The cuda backend's planes (by gradient mode; the warped grid reads
     # the 'sampled' planes) are loop-invariant: build once.
     eval_ctx = (make_cuda_ctx(channels, grads, gradient_mode)
                 if backend == "cuda" else None)
+    point_order = None
+    if (os.environ.get("PB_SORTED_DISPATCH", "0") == "1"
+            and backend == "cuda" and gradient_mode == "sampled"
+            and patch_warp is None
+            and patches_mod.norm_mode(normalize) in ("mean", "off")):
+        point_order = sorted_dispatch_order(dispatch_key(
+            cam, t_wc, x_world, obs_mask, channels.shape[-2:]))
 
     def eval_stats(t, x) -> CompressedResiduals:
         pw = None
@@ -151,7 +168,8 @@ def lm_solve(
                                    gradient_mode, depth_prior=depth_prior,
                                    backend=backend, ctx=eval_ctx,
                                    normalize=normalize,
-                                   robust_kind=robust_kind, patch_warp=pw)
+                                   robust_kind=robust_kind, patch_warp=pw,
+                                   point_order=point_order)
 
     # Relative-pose motion prior: anchors each consecutive window pair's
     # relative pose to its initialization,

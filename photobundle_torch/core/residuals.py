@@ -43,6 +43,9 @@ Two backends:
   tighter than the gather path's per-sample validity.
   patchWarp='affine' has no kernel in either package and runs on the
   gather path.
+  With a `point_order` (sorted dispatch, `sorted_dispatch_order`) the fixed
+  grid's bilinear kernel visits the observations in that order
+  (ops/patch_warp.sorted_patch_stats); its sums are bitwise the same.
 """
 
 from __future__ import annotations
@@ -452,6 +455,51 @@ def make_cuda_ctx(channels, grads, mode: str = "sampled"):
                      f"{CUDA_MODES}, not '{mode}'")
 
 
+# Rows per band of the sorted-dispatch key. The sorted kernel stages the
+# union box of 64 consecutive sorted points' windows when it fits 1024
+# float4 texels (csrc/patch_warp.cu): at 65 536 points on 370x1226 a run
+# of 64 points in a 16-row band spans ~28 columns, a ~21x33 box.
+DISPATCH_BAND = 16
+
+
+def dispatch_key(cam, t_wc, x_world, obs_mask, image_shape):
+    """Sort key of sorted dispatch, (N,) int64: each point's image tile in
+    the middle window frame (slot W // 2), band-major,
+
+        key = (floor(v) // DISPATCH_BAND) * Wi + floor(u),
+
+    u, v clamped into the image; points behind that camera or not
+    observed in it (obs_mask[:, W // 2] false) get ceil(H / DISPATCH_BAND)
+    * Wi and sort last. Computed from the pose and points given (the
+    solve's initial iterate, as lm_solve does), so it goes stale as the
+    solve moves them: staleness costs locality, never correctness. The JAX
+    package keys (122-px panel, window row) for its TPU layout
+    (photobundle_tpu/core/lm.py:235-246)."""
+    h, wi = image_shape
+    mid = t_wc.shape[0] // 2
+    t_cw = se3.se3_inverse(t_wc[mid])
+    uv, in_front = cam_mod.project(cam, x_world @ t_cw[:3, :3].T
+                                   + t_cw[:3, 3])
+    ok = in_front & obs_mask[:, mid] & torch.isfinite(uv).all(dim=-1)
+    uv = torch.where(ok[:, None], uv, 0.0)      # NaN never reaches a cast
+    col = torch.clamp(torch.floor(uv[:, 0]), 0, wi - 1).long()
+    row = torch.clamp(torch.floor(uv[:, 1]), 0, h - 1).long()
+    last = -(-h // DISPATCH_BAND) * wi
+    return torch.where(ok, (row // DISPATCH_BAND) * wi + col, last)
+
+
+def sorted_dispatch_order(key):
+    """(feed (N,), inverse (N,)) int64 from a stable sort of `key` (ties
+    break by index, as `jnp.argsort` does): feed[rank] is the point at
+    sorted rank `rank`, inverse[point] its rank (feed[inverse] = arange).
+    Twin of the JAX package's `sorted_dispatch_order` without its TPU row
+    layout (lane-packed groups)."""
+    _, feed = torch.sort(key, stable=True)
+    inverse = torch.empty_like(feed)
+    inverse[feed] = torch.arange(feed.shape[0], device=feed.device)
+    return feed, inverse
+
+
 def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
     """Robust IRLS weights applied to the (W, ..., N) statistics; `valid`
     (W, N). Invalid observations contribute exact zeros: they are selected
@@ -481,13 +529,14 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               depth_prior: tuple | None, ctx,
                               normalize, robust_kind: str,
                               mode: str = "sampled",
-                              patch_warp: tuple | None = None
-                              ) -> CompressedResiduals:
+                              patch_warp: tuple | None = None,
+                              point_order=None) -> CompressedResiduals:
     """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`):
     the fused kernel returns the six un-whitened sums per observation; the
     prior row and the whitening are added here, outside it. Dispatch:
 
-      fixed grid, bilinear        -> patch_stats   (K1; affine: K4)
+      fixed grid, bilinear        -> patch_stats   (K1; affine: K4), or
+                                     sorted_patch_stats with a point_order
       fixed grid, bicubic         -> bicubic_stats (K2, every normalization)
       patchWarp='scale', bilinear -> scaled_stats  (K3; affine: K5)
 
@@ -542,6 +591,9 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     if rho is not None:
         stats = ps_mod.scaled_stats(planes, uv_nm, rho.T.contiguous(),
                                     valid_nm, patch, pr, norm=norm_mode)
+    elif point_order is not None and mode == "sampled":
+        stats = pw_mod.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
+                                          point_order, norm=norm_mode)
     else:
         kernel = (pb_mod.bicubic_stats if mode == "bicubic"
                   else pw_mod.patch_stats)
@@ -601,8 +653,8 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
                         ctx=None,
                         normalize=True,
                         robust_kind: str = "huber",
-                        patch_warp: tuple | None = None
-                        ) -> CompressedResiduals:
+                        patch_warp: tuple | None = None,
+                        point_order=None) -> CompressedResiduals:
     """Factored Gauss-Newton statistics of all (point, window-frame)
     observations.
 
@@ -622,6 +674,10 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
         built once per solve (built here when None).
       normalize: 'mean' | 'affine' | 'off' (or True / False).
       patch_warp: optional (mode, z_ref, r_wc_ref), see `evaluate`.
+      point_order: optional (feed, inverse) of `sorted_dispatch_order`:
+        the cuda backend's fixed-grid bilinear kernel then visits the
+        observations in that order (the same sums, bitwise); ignored by
+        every other path, as the JAX package ignores its point_order.
     """
     if backend == "cuda":
         if gradient_mode not in CUDA_MODES:
@@ -630,7 +686,8 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
         return _evaluate_compressed_cuda(
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
             huber_delta, depth_prior, ctx, normalize, robust_kind,
-            mode=gradient_mode, patch_warp=patch_warp)
+            mode=gradient_mode, patch_warp=patch_warp,
+            point_order=point_order)
     if backend != "torch":
         raise ValueError(f"unknown backend '{backend}' (want one of "
                          f"{BACKENDS})")

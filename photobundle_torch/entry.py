@@ -10,10 +10,14 @@ tests (`tests/synthetic.py`) without jax: a camera track, its images and
 ground-truth depths, from the same numpy draws. It takes the image shape,
 the intrinsics and a texture scale, so the same scene can be rendered at
 KITTI's size and focal length; `drift_poses` gives a VO-like drifted
-initialization of the track.
+initialization of the track. `write_kitti_sequence` writes the same scene,
+seen by a stereo pair, as a KITTI-format sequence on disk (the layout
+`io/kitti.py` reads).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,6 +27,7 @@ from .core.engine import require_device
 from .geometry import camera as cam_mod
 from .geometry import se3
 from .image import interp, patches
+from .io import png
 
 
 def make_problem(n_pts: int, w: int, h: int, wi: int, patch_radius: int,
@@ -151,6 +156,21 @@ def _se3_exp_np(xi: np.ndarray) -> np.ndarray:
     return se3.se3_exp(torch.as_tensor(xi)).numpy()
 
 
+def _track(rng, n_frames, motion_scale, rot_scale):
+    """The camera track: world-from-camera poses (n_frames, 4, 4) f32."""
+    poses = []
+    t_wc = np.eye(4, dtype=np.float32)
+    for _ in range(n_frames):
+        poses.append(t_wc.copy())
+        xi = np.concatenate([
+            rng.standard_normal(3) * motion_scale
+            + np.array([motion_scale, 0, 0]),
+            rng.standard_normal(3) * rot_scale,
+        ]).astype(np.float32)
+        t_wc = (t_wc @ _se3_exp_np(xi)).astype(np.float32)
+    return np.stack(poses)
+
+
 def make_sequence(rng, n_frames=6, shape=(96, 144), motion_scale=0.1,
                   rot_scale=0.002, fx=100.0, fy=None, cx=None, cy=None,
                   baseline=0.2, texture_scale=1.0, mark_misses=False):
@@ -171,20 +191,56 @@ def make_sequence(rng, n_frames=6, shape=(96, 144), motion_scale=0.1,
     tex = make_texture(rng, min_wavelength=0.4 * texture_scale,
                        max_wavelength=2.5 * texture_scale)
     intrinsics = tuple(float(v) for v in cam[:4])
-    poses, images, depths = [], [], []
-    t_wc = np.eye(4, dtype=np.float32)
-    for _ in range(n_frames):
-        poses.append(t_wc.copy())
-        img, depth = render_view(tex, intrinsics, t_wc, shape, mark_misses)
-        images.append(img)
-        depths.append(depth)
-        xi = np.concatenate([
-            rng.standard_normal(3) * motion_scale
-            + np.array([motion_scale, 0, 0]),
-            rng.standard_normal(3) * rot_scale,
-        ]).astype(np.float32)
-        t_wc = (t_wc @ _se3_exp_np(xi)).astype(np.float32)
-    return cam, images, depths, np.stack(poses)
+    poses = _track(rng, n_frames, motion_scale, rot_scale)
+    images, depths = zip(*(render_view(tex, intrinsics, t_wc, shape,
+                                       mark_misses) for t_wc in poses))
+    return cam, list(images), list(depths), poses
+
+
+def write_kitti_sequence(root: str, rng, n_frames=12, shape=(96, 144),
+                         motion_scale=0.1, rot_scale=0.002, fx=100.0,
+                         cx=None, cy=None, baseline=0.2, texture_scale=1.0,
+                         mark_misses=False, sequence: int = 0):
+    """`make_sequence`'s scene (the same draws of `rng`) seen by a stereo
+    pair, written as a KITTI odometry sequence under `root`: left and
+    right 8-bit PNGs (the right camera is the left one moved by
+    R [baseline, 0, 0]), calib.txt (P0, P1), times.txt (10 Hz) and the
+    ground-truth track in poses/<NN>.txt. Returns (cam, poses_gt)."""
+    h, w = shape
+    cx = w / 2 - 0.5 if cx is None else cx
+    cy = h / 2 - 0.5 if cy is None else cy
+    cam = cam_mod.Camera.create(fx=fx, fy=fx, cx=cx, cy=cy,
+                                baseline=baseline)
+    tex = make_texture(rng, min_wavelength=0.4 * texture_scale,
+                       max_wavelength=2.5 * texture_scale)
+    intrinsics = tuple(float(v) for v in cam[:4])
+    poses = _track(rng, n_frames, motion_scale, rot_scale)
+    seq = os.path.join(root, "sequences", f"{sequence:02d}")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for i, t_wc in enumerate(poses):
+        t_right = t_wc.copy()
+        t_right[:3, 3] = t_wc[:3, 3] + t_wc[:3, :3] @ np.array(
+            [baseline, 0.0, 0.0], np.float32)
+        for sub, pose in (("image_0", t_wc), ("image_1", t_right)):
+            img, _ = render_view(tex, intrinsics, pose, shape, mark_misses)
+            png.write_png_gray(os.path.join(seq, sub, f"{i:06d}.png"),
+                               np.clip(img * 255, 0, 255).astype(np.uint8))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write(f"P0: {fx} 0 {cx} 0 0 {fx} {cy} 0 0 0 1 0\n")
+        f.write(f"P1: {fx} 0 {cx} {-fx * baseline} 0 {fx} {cy} 0 0 0 1 0\n")
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.writelines(f"{i * 0.1:.6f}\n" for i in range(n_frames))
+    write_poses(os.path.join(root, "poses", f"{sequence:02d}.txt"), poses)
+    return cam, poses
+
+
+def write_poses(path: str, poses) -> None:
+    """Poses (n, 4, 4) as a KITTI pose file (3x4 row-major rows)."""
+    with open(path, "w") as f:
+        for p in poses:
+            f.write(" ".join(f"{v:.9f}" for v in p[:3].reshape(-1)) + "\n")
 
 
 def drift_poses(rng, poses, trans_sigma=0.01, rot_sigma=0.002, keep_first=1):

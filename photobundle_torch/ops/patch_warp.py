@@ -23,6 +23,13 @@ package normalizes and reduces in XLA, core/residuals.py:830-850).
 a card and runs `patch_stats_reference`, the plain PyTorch version of the
 same contract, for tensors on the CPU. There is no fallback from one to
 the other: a CUDA tensor gets the kernel or an exception.
+
+`sorted_patch_stats` is the twin of K1's `sort_reuse=True` variant
+(photobundle_tpu/ops/patch_warp.py:393-411, the kernel behind
+PB_SORTED_DISPATCH=1): the same sums, bitwise, with the observations
+visited in a sorted point order (`core/residuals.sorted_dispatch_order`),
+so that a block of neighbouring points can stage their shared window in
+shared memory once (the second entry of csrc/patch_warp.cu).
 """
 
 from __future__ import annotations
@@ -123,10 +130,21 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fs = built.lib.pb_patch_stats_sorted
+        fs.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fs.restype = ctypes.c_int
         err = built.lib.pb_cuda_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built.lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.pb_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
 
 
 def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
@@ -159,12 +177,88 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
             patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
             code, stream)
-    if err != 0:
-        msg = lib.pb_cuda_error_string(err).decode()
-        raise RuntimeError(f"patch_stats kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+    _raise_on(lib, err, "patch_stats")
     count_launch(patch_stats, norm)
     return out
 
 
+# Observations per block of the sorted kernel: a block takes this many
+# consecutive sorted ranks of one frame (kThreads in csrc/patch_warp.cu).
+SORTED_RUN = 64
+
+
+def sorted_blocks(n: int, w: int) -> int:
+    """Blocks of one sorted launch over N points and W frames (the length
+    of `sorted_patch_stats`'s `staged` flags, frame-major)."""
+    return w * ((n + SORTED_RUN - 1) // SORTED_RUN)
+
+
+def sorted_patch_stats_reference(planes, uv, valid, patch,
+                                 patch_radius: int, order,
+                                 norm: str = "mean") -> torch.Tensor:
+    """Plain version of the sorted kernel: `patch_stats_reference` on the
+    rows in sorted order, scattered back to each point's slot. Same
+    arguments as `sorted_patch_stats`."""
+    feed, inverse = order
+    rows = patch_stats_reference(planes, uv[feed], valid[feed], patch[feed],
+                                 patch_radius, norm)
+    return rows[:, :, inverse].contiguous()
+
+
+def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
+                       valid: torch.Tensor, patch: torch.Tensor,
+                       patch_radius: int, order, norm: str = "mean",
+                       staged: torch.Tensor | None = None) -> torch.Tensor:
+    """`patch_stats` with the observations visited in a sorted point
+    order; the result is the same (6, W, N), bitwise.
+
+    order = (feed (N,) int64, inverse (N,) int64) from
+    `core/residuals.sorted_dispatch_order`: sorted rank -> point and back.
+    `staged`, for CUDA tensors only: None, or a uint8 tensor of
+    `sorted_blocks(N, W)` that receives each block's choice (1: its
+    windows were staged in shared memory). CPU tensors run
+    `sorted_patch_stats_reference`; CUDA tensors launch the kernel on the
+    current stream (and raise if it cannot launch).
+    `sorted_patch_stats.launches` counts kernel launches by
+    normalization mode."""
+    feed, inverse = order
+    code = norm_code(norm)
+    if planes.device.type == "cpu":
+        return sorted_patch_stats_reference(planes, uv, valid, patch,
+                                            patch_radius, order, norm)
+    if planes.device.type != "cuda":
+        raise ValueError(f"sorted_patch_stats runs on cpu or cuda tensors, "
+                         f"not {planes.device}")
+    _check(planes, uv, valid, patch, patch_radius)
+    w, c, h, wi, _ = planes.shape
+    n = uv.shape[0]
+    for name, t in (("feed", feed), ("inverse", inverse)):
+        if (t.device != planes.device or t.dtype != torch.int64
+                or tuple(t.shape) != (n,) or not t.is_contiguous()):
+            raise ValueError(f"sorted_patch_stats: {name} must be a "
+                             f"contiguous int64 ({n},) tensor on "
+                             f"{planes.device}")
+    blocks = sorted_blocks(n, w)
+    if staged is not None and (staged.device != planes.device
+                               or staged.dtype != torch.uint8
+                               or tuple(staged.shape) != (blocks,)):
+        raise ValueError(f"sorted_patch_stats: staged must be a uint8 "
+                         f"({blocks},) tensor on {planes.device}")
+    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    if n * w == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.pb_patch_stats_sorted(
+            planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
+            patch.data_ptr(), feed.data_ptr(), out.data_ptr(),
+            None if staged is None else staged.data_ptr(), n, w, c, h, wi,
+            patch_radius, code, stream)
+    _raise_on(lib, err, "sorted_patch_stats")
+    count_launch(sorted_patch_stats, norm)
+    return out
+
+
 reset_launches(patch_stats)
+reset_launches(sorted_patch_stats)

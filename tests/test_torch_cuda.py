@@ -399,3 +399,144 @@ def test_warped_evaluation_on_card_matches_cpu(cuda_device, warp, normalize):
                                    atol=1e-5 * np.abs(want).max(),
                                    err_msg=name)
     np.testing.assert_allclose(float(card.cost), float(cpu.cost), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1's sort-reuse variant (csrc/patch_warp.cu, pb_patch_stats_sorted)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("norm", _common.NORMS)
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
+                                     layout):
+    """The sorted kernel's sums equal K1's bitwise, whether a block stages
+    its windows in shared memory (points packed into a corner of the
+    image: every block with a valid observation stages) or samples from
+    global memory (points over the whole image: no block's box fits)."""
+    rng = np.random.default_rng(300 + radius * 10 + channels)
+    w, h, wi, n = 3, 40, 70, 257
+    planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
+                             dtype=torch.float32, device=cuda_device)
+    hi = (12.0, 14.0) if layout == "dense" else (wi + 3.0, h + 3.0)
+    uv = torch.as_tensor(rng.uniform((-3.0, -3.0), hi, size=(n, w, 2)),
+                         dtype=torch.float32, device=cuda_device)
+    uv[5, 1] = float("nan")
+    valid = torch.as_tensor(rng.uniform(size=(n, w)) > 0.2,
+                            device=cuda_device)
+    valid[5, 1] = False
+    patch = torch.as_tensor(
+        rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
+        dtype=torch.float32, device=cuda_device)
+    key = torch.as_tensor(rng.integers(0, 40, n), device=cuda_device)
+    order = res_mod.sorted_dispatch_order(key)
+    staged = torch.full((pw.sorted_blocks(n, w),), 7, dtype=torch.uint8,
+                        device=cuda_device)
+    before = pw.sorted_patch_stats.launches[norm]
+    got = pw.sorted_patch_stats(planes, uv, valid, patch, radius, order,
+                                norm, staged=staged)
+    want = pw.patch_stats(planes, uv, valid, patch, radius, norm)
+    torch.cuda.synchronize()
+    assert pw.sorted_patch_stats.launches[norm] == before + 1
+    assert torch.equal(got, want)
+    assert set(staged.unique().tolist()) <= {0, 1}
+    # Blocks (64 consecutive sorted ranks of one frame) with a valid
+    # observation: all of them stage in the dense layout; in the sparse
+    # one no full block does (the last block of each frame holds one
+    # observation, whose own window fits).
+    runs = -(-n // pw.SORTED_RUN)
+    has = torch.zeros((w, runs * pw.SORTED_RUN), dtype=torch.bool,
+                      device=cuda_device)
+    has[:, :n] = valid[order[0]].T
+    has = has.view(w, runs, pw.SORTED_RUN).any(dim=-1).flatten()
+    if layout == "dense":
+        assert torch.equal(staged.bool(), has)
+    else:
+        assert not staged.view(w, runs)[:, :-1].any()
+    plain = pw.sorted_patch_stats_reference(planes, uv, valid, patch, radius,
+                                            order, norm)
+    row_max = plain.abs().amax(dim=(1, 2), keepdim=True)
+    assert within_f32_tolerance(got, plain, row_max)
+
+
+def test_sorted_kernel_rejects_unsupported_input(cuda_device):
+    planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
+    uv = torch.zeros((2, 1, 2), device=cuda_device)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
+    patch = torch.zeros((2, 1, 25), device=cuda_device)
+    order = res_mod.sorted_dispatch_order(torch.zeros(2, dtype=torch.long,
+                                                      device=cuda_device))
+    with pytest.raises(ValueError, match="feed"):
+        pw.sorted_patch_stats(planes, uv, valid, patch, 2,
+                              (order[0].int(), order[1]))
+    with pytest.raises(ValueError, match="staged"):
+        pw.sorted_patch_stats(planes, uv, valid, patch, 2, order,
+                              staged=torch.zeros(2, dtype=torch.uint8,
+                                                 device=cuda_device))
+
+
+def test_sorted_solve_on_card_is_bitwise_the_unsorted_one(cuda_device,
+                                                          monkeypatch):
+    """lm_solve with PB_SORTED_DISPATCH=1 launches the sorted kernel once
+    per evaluation and returns the unsorted solve's result, bitwise."""
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
+                                        device=cuda_device)
+    kw = dict(huber_delta=0.05, backend="cuda", max_iterations=4,
+              function_tolerance=0.0, parameter_tolerance=0.0)
+    t_u, x_u, st_u = lm.lm_solve(cam, *args, off, **kw)
+    monkeypatch.setenv("PB_SORTED_DISPATCH", "1")
+    before = (pw.sorted_patch_stats.launches["mean"],
+              pw.patch_stats.launches["mean"])
+    t_s, x_s, st_s = lm.lm_solve(cam, *args, off, **kw)
+    torch.cuda.synchronize()
+    assert (pw.sorted_patch_stats.launches["mean"] - before[0],
+            pw.patch_stats.launches["mean"] - before[1]) == (5, 0)
+    assert torch.equal(t_s, t_u) and torch.equal(x_s, x_u)
+    assert float(st_s.final_cost) == float(st_u.final_cost)
+
+
+# ---------------------------------------------------------------------------
+# Stereo on the card (image/stereo.py)
+# ---------------------------------------------------------------------------
+
+def test_argmin_takes_the_first_minimum_on_card(cuda_device):
+    """jnp.argmin's tie rule, which the winner-take-all relies on, on the
+    card as on the CPU (tests/test_torch_stereo.py)."""
+    cost = torch.tensor([[3.0, 1.0], [1.0, 1.0], [1.0, 2.0]],
+                        device=cuda_device)
+    assert torch.argmin(cost, dim=0).tolist() == [1, 0]
+    vol = torch.zeros((128, 64, 96), device=cuda_device)
+    vol[7:] = -1.0                      # ties from plane 7 on
+    assert bool((torch.argmin(vol, dim=0) == 7).all())
+    inf = torch.full((4, 2), torch.inf, device=cuda_device)
+    assert torch.argmin(inf, dim=0).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("matcher", ["block_match", "semi_global_match"])
+def test_stereo_on_card_matches_cpu(cuda_device, matcher):
+    """The same pair matched on the card and on the CPU: the cumulative
+    sums round in another order, so validity may differ on at most 0.5 %
+    of the pixels and disparities by 5e-3 px where both accept (the
+    tolerance tests/test_torch_stereo.py holds the port to the JAX
+    package with)."""
+    from photobundle_torch.image import stereo
+
+    rng = np.random.default_rng(7)
+    h, w, d = 64, 96, 7
+    base = rng.uniform(0, 1, size=(h, w + 2 * d + 4)).astype(np.float32)
+    for _ in range(2):                  # smooth it: a 3-tap box, twice
+        base = (base[:, :-2] + base[:, 1:-1] + base[:, 2:]) / 3.0
+    left = np.ascontiguousarray(base[:, d:d + w])        # left[x] = right[x - d]
+    right = np.ascontiguousarray(base[:, 2 * d:2 * d + w])
+    kw = dict(num_disparities=24, min_disparity=1,
+              sad_radius=4 if matcher == "block_match" else 2)
+    fn = getattr(stereo, matcher)
+    d_cpu, v_cpu = fn(torch.as_tensor(left), torch.as_tensor(right), **kw)
+    d_gpu, v_gpu = fn(torch.as_tensor(left, device=cuda_device),
+                      torch.as_tensor(right, device=cuda_device), **kw)
+    d_gpu, v_gpu = d_gpu.cpu(), v_gpu.cpu()
+    assert float((v_cpu != v_gpu).float().mean()) <= 0.005
+    both = v_cpu & v_gpu
+    assert float(both.float().mean()) > 0.25
+    assert float((d_cpu[both] - d_gpu[both]).abs().max()) <= 5e-3

@@ -8,9 +8,13 @@
   accept log, its final cost within 1e-4 relative and its poses within
   1e-4: the window problem is well conditioned, so f32 rounding
   differences in the statistics (~1e-7 relative) stay far below these.
+- The coarse-to-fine window solve (coarse levels, the fine-cost guard,
+  the scaled trust gate) from the JAX engine's carried-over state, with
+  and without the production priors, held to the same bounds.
 - Whole-sequence runs of the port's engine through `add_frame` on both
-  backends, mirroring tests/test_engine.py's jittered-trajectory and
-  bicubic tests (the same ATE bounds).
+  backends, mirroring tests/test_engine.py's jittered-trajectory,
+  bicubic, coarse-to-fine basin, pipelined-results and snapshot-resume
+  tests (the same bounds).
 - The engine's refusals: parts of the JAX engine still to be ported, and
   a card it does not have (the card is its default device).
 """
@@ -206,36 +210,208 @@ def test_cpu_engine_launches_no_kernel(scene):
     assert (pw.patch_stats.launches, pb.bicubic_stats.launches) == before
 
 
+# The production stack's priors (configs/kitti_production.cfg): the guard
+# then compares the full objective, prior terms included.
+C2F = {"priors": dict(motionPriorWeight=2.0, posePriorWeight=4.0)}
+
+
+@pytest.fixture(scope="module")
+def c2f_solves(scene):
+    """The JAX engine with a 3-level coarse-to-fine schedule (two coarse
+    levels of 4 iterations, then 8 at the refinement level, tolerances
+    zeroed) over the jittered scene: the pre-solve states of its first two
+    window solves, per prior configuration."""
+    cam, images, depths, _, init = scene
+    out = {}
+    for name, kw in C2F.items():
+        cfg = small_cfg(pyramidLevels=3, coarseToFine=True, coarseIterations=4,
+                        maxIterations=SOLVE_ITERS, functionTolerance=0.0,
+                        parameterTolerance=0.0, **kw)
+        jpba = JPBA(cam, images[0].shape, cfg)
+        trace = EngineTrace(jpba)
+        for i in range(6):
+            jpba.add_frame(images[i], depths[i], init[i])
+        out[name] = (cfg, jpba, trace.solves)
+    return out
+
+
+@pytest.mark.parametrize("window", [0, 1])
+@pytest.mark.parametrize("config", sorted(C2F))
+def test_coarse_to_fine_solve_matches_reference_from_carried_state(
+        scene, c2f_solves, config, window):
+    """The whole schedule (two coarse levels with re-extracted descriptors,
+    the fine-cost guard, the refinement-level solve, the gate scaled by
+    2^2) against the JAX engine's `_optimize` from the same state, on the
+    gather backend (both packages' coarse levels then take the same
+    observations). Bounds of the single-level test above, but costs within
+    3e-4 relative: the schedule chains three solves, and each one's f32
+    differences (1e-4 for one solve) carry into the next one's start."""
+    cam, images = scene[:2]
+    cfg, jpba, recs = c2f_solves[config]
+    tpba = TPBA(port_camera(cam), images[0].shape,
+                port_config(cfg).replace(solverBackend="torch"),
+                device="cpu")
+    assert tpba._n_coarse == jpba._n_coarse == 2
+    points_np, window_np = recs[window]["before"]
+    jw, jp, want, jpv = jpba._optimize(
+        type(window_np)(*map(jnp.asarray, window_np)),
+        type(points_np)(*map(jnp.asarray, points_np)))
+    points, win = convert.engine_state_from_numpy(points_np, window_np)
+    tw, tp, got, tpv = tpba._optimize(win, points)
+    assert int(got.iterations) == int(want.iterations) == SOLVE_ITERS
+    np.testing.assert_array_equal(got.accept_log.numpy(),
+                                  np.asarray(want.accept_log))
+    np.testing.assert_array_equal(tpv.numpy(), np.asarray(jpv))
+    np.testing.assert_allclose(float(got.initial_cost),
+                               float(want.initial_cost), rtol=3e-4)
+    np.testing.assert_allclose(float(got.final_cost), float(want.final_cost),
+                               rtol=3e-4)
+    np.testing.assert_allclose(tw.t_wc.numpy(), np.asarray(jw.t_wc),
+                               atol=1e-4)
+    np.testing.assert_allclose(tp.x_world.numpy(), np.asarray(jp.x_world),
+                               atol=1e-3, rtol=1e-4)
+
+
+def test_engine_coarse_to_fine_extends_basin(scene):
+    """tests/test_engine.py's test of the same name on the port: with an
+    initial pose error several pixels wide, the 3-level schedule pulls the
+    trajectory toward ground truth where the single-level solve does not.
+    Backend 'cuda', the card's path (the kernels' plain versions on the
+    CPU)."""
+    cam, images, depths, poses = scene[:4]
+    init = perturb_poses(np.random.default_rng(29), poses, trans_sigma=0.12,
+                         rot_sigma=0.012, keep_first=2)
+    big = (cam, images, depths, poses, init)
+    cfg = port_config(small_cfg(maxIterations=15)).replace(
+        solverBackend="cuda")
+    single, _, _ = run_port(big, cfg)
+    c2f, results, pba = run_port(big, cfg.replace(pyramidLevels=3,
+                                                  coarseToFine=True))
+    assert pba._n_coarse == 2 and len(results) >= 5
+    ate_init, ate_single = ate(big, single)
+    _, ate_c2f = ate(big, c2f)
+    assert ate_c2f < 0.75 * ate_init, (ate_init, ate_single, ate_c2f)
+    assert ate_c2f < ate_single, (ate_init, ate_single, ate_c2f)
+
+
+def test_engine_pipelined_results_match_sync(scene):
+    """tests/test_engine.py's test of the same name on the port:
+    pipelineResults returns the same WindowResults one frame late, the
+    last one from flush_result; frame_ids stay exact."""
+    cam, images, depths, poses = scene[:4]
+    images = images[:7]
+    outs = {}
+    for pipelined in (False, True):
+        cfg = port_config(small_cfg(maxIterations=4,
+                                    pipelineResults=pipelined))
+        pba = TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
+        results = []
+        for i, (img, depth) in enumerate(zip(images, depths)):
+            r = pba.add_frame(img, depth, poses[i])
+            if r is not None:
+                results.append((i, r))
+        tail = pba.flush_result()
+        assert pba.flush_result() is None
+        if tail is not None:
+            results.append((len(images), tail))
+        outs[pipelined] = results
+    assert len(outs[False]) == len(outs[True]) == len(images) - 4
+    for (ia, ra), (ib, rb) in zip(outs[False], outs[True]):
+        assert ib == ia + 1                      # one frame late
+        assert int(ra.frame_ids[-1]) == ia       # ids name the solved frames
+        np.testing.assert_array_equal(ra.frame_ids, rb.frame_ids)
+        np.testing.assert_array_equal(ra.poses, rb.poses)
+        assert ra.num_points == rb.num_points
+        assert ra.final_cost == rb.final_cost
+
+
+def test_engine_state_snapshot_exact_resume(scene, tmp_path):
+    """tests/test_engine.py's test of the same name on the port, bitwise: a
+    fresh engine restored from a snapshot after frame 5 produces exactly
+    the uninterrupted run's window results. The snapshot has the JAX
+    engine's keys, dtypes and shapes."""
+    cam, images, depths, poses = scene[:4]
+    images = images[:8]
+    cfg = port_config(small_cfg(maxIterations=4))
+    snap = str(tmp_path / "snap.npz")
+    pba_a = TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
+    res_a = []
+    for i, (img, depth) in enumerate(zip(images, depths)):
+        r = pba_a.add_frame(img, depth, poses[i])
+        if i == 5:
+            pba_a.save_state(snap)
+        if r is not None:
+            res_a.append(r)
+    pba_b = TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
+    pba_b.load_state(snap)
+    assert pba_b._frame_count == 6 and pba_b._ingest_seq == 6
+    assert pba_b._window_count == 5
+    res_b = [r for i in range(6, len(images))
+             if (r := pba_b.add_frame(images[i], depths[i], poses[i]))]
+    tail_a = res_a[-len(res_b):]
+    assert len(res_b) == len(tail_a) == 2
+    for ra, rb in zip(tail_a, res_b):
+        np.testing.assert_array_equal(ra.frame_ids, rb.frame_ids)
+        np.testing.assert_array_equal(ra.poses, rb.poses)
+        assert ra.final_cost == rb.final_cost
+    for a, b in zip(pba_a.points + pba_a.window, pba_b.points + pba_b.window):
+        assert torch.equal(a, b)
+    # The JAX engine's snapshot format.
+    jpba = JPBA(cam, images[0].shape, small_cfg(maxIterations=4))
+    jpba.add_frame(images[0], depths[0], poses[0])
+    jsnap = str(tmp_path / "jax.npz")
+    jpba.save_state(jsnap)
+    with np.load(snap) as mine, np.load(jsnap) as ref:
+        assert sorted(mine.files) == sorted(ref.files)
+        for k in ref.files:
+            assert (mine[k].dtype, mine[k].shape) == (ref[k].dtype,
+                                                      ref[k].shape), k
+
+
+def test_snapshot_of_another_configuration_is_refused(scene, tmp_path):
+    cam, images = scene[:2]
+    pba = TPBA(port_camera(cam), images[0].shape, port_config(small_cfg()),
+               device="cpu")
+    snap = str(tmp_path / "snap.npz")
+    pba.save_state(snap)
+    other = TPBA(port_camera(cam), images[0].shape,
+                 port_config(small_cfg(maxNumPoints=256)), device="cpu")
+    with pytest.raises(ValueError, match="points.x_world"):
+        other.load_state(snap)
+
+
 NOT_PORTED = {
-    "coarseToFine": dict(pyramidLevels=3, coarseToFine=True),
-    "pipelineResults": dict(pipelineResults=True),
     "meshPoints": dict(meshPoints=2),
+    "meshFrames": dict(meshFrames=5),
+    "dataLoader-native": dict(dataLoader="native"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
-def test_parts_still_to_port_raise(scene, what):
+def test_parts_still_to_port_raise(scene, what, tmp_path):
+    """Device meshes (ROADMAP.md queue 1 item 13) and the native data
+    loader (item 10) raise, naming their ROADMAP item."""
+    from photobundle_torch.io import kitti
+
     cam, images = scene[:2]
     cfg = port_config(small_cfg(**NOT_PORTED[what]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
+        if what.startswith("dataLoader"):
+            kitti.create_dataset(cfg.replace(dataDir=str(tmp_path)),
+                                 device="cpu")
+        else:
+            TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
 
 
 def test_coarse_to_fine_without_coarse_levels_runs(scene):
     """coarseToFine with one pyramid level has no coarse level: it is the
-    single-level solve (tests/test_engine.py's no-op test)."""
-    cam, images = scene[:2]
-    cfg = port_config(small_cfg(coarseToFine=True))
-    TPBA(port_camera(cam), images[0].shape, cfg, device="cpu")
-
-
-def test_snapshots_raise(scene):
-    cam, images = scene[:2]
-    pba = TPBA(port_camera(cam), images[0].shape, port_config(small_cfg()),
-               device="cpu")
-    for fn in (pba.save_state, pba.load_state):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("unused.npz")
+    single-level solve (tests/test_engine.py's no-op test), bitwise."""
+    short = tuple(x[:6] for x in scene[1:])
+    cfg = port_config(small_cfg(maxIterations=4))
+    a, _, _ = run_port((scene[0], *short), cfg)
+    b, _, pba = run_port((scene[0], *short), cfg.replace(coarseToFine=True))
+    assert pba._n_coarse == 0
+    np.testing.assert_array_equal(a.poses, b.poses)
 
 
 @pytest.mark.parametrize("kw,kernel", [
@@ -285,12 +461,12 @@ def test_entry_points_default_to_the_card(scene, monkeypatch):
 def test_result_fetch_is_exact():
     """The window result's single device-to-host copy keeps every dtype
     and value."""
-    from photobundle_torch.core.engine import _fetch
+    from photobundle_torch.core.engine import _Fetch
     ts = [torch.tensor([1.5, -2.25e-8], dtype=torch.float32),
           torch.tensor([[3, -4]], dtype=torch.int32),
           torch.tensor([True, False]),
           torch.tensor(7, dtype=torch.int32)]
-    out = _fetch(ts)
+    out = _Fetch(ts).result()
     for a, b in zip(out, ts):
         assert a.dtype == b.numpy().dtype and a.shape == tuple(b.shape)
         np.testing.assert_array_equal(a, b.numpy())

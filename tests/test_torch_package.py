@@ -15,7 +15,11 @@ PKG = REPO / "photobundle_torch"
 def test_import_loads_no_jax():
     code = ("import sys, photobundle_torch, photobundle_torch.entry, "
             "photobundle_torch.convert, photobundle_torch.ops._build, "
-            "photobundle_torch.config, photobundle_torch.core.engine; "
+            "photobundle_torch.config, photobundle_torch.core.engine, "
+            "photobundle_torch.cli, photobundle_torch.io.kitti, "
+            "photobundle_torch.io.png, photobundle_torch.io.speckle, "
+            "photobundle_torch.io.trajectory, photobundle_torch.image.stereo, "
+            "photobundle_torch.utils.logging, photobundle_torch.utils.timer; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'photobundle_tpu'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

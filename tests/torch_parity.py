@@ -3,9 +3,22 @@ reference) and photobundle_torch (the port): inputs go to both packages as
 the same numpy arrays, results come back as numpy arrays."""
 
 import numpy as np
+import pytest
 import torch
 
 from photobundle_torch import convert
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for a module's small CPU solves (a test module
+    that imports this fixture uses it): the test workers share the host's
+    cores, and oversubscribed thread pools made such runs several times
+    slower than with two."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
 
 
 def port_problem(problem, device="cpu"):
