@@ -7,7 +7,7 @@ Drives the port's paths at the repository's full size (370x1226 images,
 4096 points, 5-frame window, 5x5 patches, C = 1), from seeds:
 
   1. the card: torch's device name, and nvidia-smi's name and power limit;
-  2. build: the three kernel sources compiled from photobundle_torch/csrc/
+  2. build: the six kernel sources compiled from photobundle_torch/csrc/
      (one nvcc per source, started together), ptxas registers and spills;
   3. kernel K1 (csrc/patch_warp.cu) vs its plain PyTorch version on a
      synthetic window solve's own inputs, with the median time of each;
@@ -55,11 +55,30 @@ Drives the port's paths at the repository's full size (370x1226 images,
      with it (launch counts checked) and without it. The three trajectory
      files must be byte-identical, every window's cost non-increasing and
      the refined ATE below the input's. Also the card's stereo time per
-     frame (BM, and SGM once) and the host speckle filter's.
+     frame (BM, and SGM once) and the host speckle filter's;
+ 13. K4's sample store and K6 (csrc/patch_samples.cu, the 'rows', 'block'
+     and 'raw' layouts of ops/patch_samples) against their plain versions
+     on phase 3's inputs, bitwise, and the four `warp_patches` variants
+     against each other; then phase 4's solve with PB_GROUPED_STATS=0
+     (the unfused path): the row store launched once per LM iteration plus
+     once and no other kernel, its damped interior parity solve within
+     SOLVE_RTOL of the fused one, LM it/s of both;
+ 14. K7 (csrc/patch_stats.cu, ops/patch_stats) through its entry point in
+     both modes on phase 3's inputs: cost_only's rr bitwise the full
+     mode's, K7's sums against K1's mean-mode sums, each mode against its
+     plain version;
+ 15. the tools in this process: `bench_warp_kernel` at phase 3's size and
+     `ablate_patch_stats` at 4096 and 65 536 points (full/own bitwise K1),
+     then each K8 variant (csrc/patch_ablate.cu, stage x window, 64
+     threads) against its plain version on phase 3's inputs (the partial
+     stages bitwise).
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
-(torch.profiler) and its bound on this card. Every engine run zeroes the
+(torch.profiler, with L2 flushed before each launch) and its bound on this
+card, computed from the run's inputs (bytes at the HBM rate, f32
+operations at the f32 rate), and fails if a measured time is below the
+bound. Every engine run zeroes the
 launch counts just before it and checks, just after, that its kernel ran
 in its normalization mode once per LM iteration plus once per window and
 that no other kernel or mode ran (phase 12: the sorted kernel once per
@@ -111,11 +130,18 @@ DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
 RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
 DENSE_PTS = 65536                           # phase 11's second instance
+BENCH_CALLS, ABLATE_CALLS = 50, 64          # phase 15's tools (their K)
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
+# Every kernel source of photobundle_torch/csrc/, built together in phase 2.
+SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
+           "patch_stats", "patch_ablate")
 # One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bandwidth and f32 rate
-# outside the tensor cores.
+# outside the tensor cores. Bounds take bytes at the HBM rate, so device
+# times are taken with the 50 MB L2 flushed before each launch (every input
+# then comes from HBM): a warm L2 serves a kernel's inputs faster than HBM.
 H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
+L2_FLUSH_BYTES = 256 << 20        # written between timed launches
 # Operations per patch pixel (multiplies and adds, counted once each):
 # sampling value, d/dx and d/dy (bilinear: 3 planes x 4 taps; scaled:
 # 3 planes x two row blends and one column blend; bicubic: the separable
@@ -124,6 +150,15 @@ H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
 # centring; affine: plus the norm, the projection and two divisions).
 SAMPLE_FLOPS = {"bilinear": 21, "scaled": 27, "bicubic": 43}
 NORM_FLOPS = {"off": 13, "mean": 20, "affine": 36}
+# K7's cost_only mode per patch pixel: the value's bilinear sample (4
+# products, 3 sums), its mean, centring, the descriptor and r^2.
+K7_COST_FLOPS = 12
+# K8's stages (ops/patch_ablate), per patch pixel: 'loads' per window
+# texel (two sums and the running sum), 'combine' the bilinear sample and
+# three sums, 'subtract' one more, 'center' the means and the centred
+# sums, 'full' K1's mean mode.
+ABLATE_FLOPS = {"loads": 3, "combine": 24, "subtract": 25, "center": 31,
+                "full": 41}
 # Bytes per texel the function needs: value, d/dx and d/dy for the bilinear
 # kernels (their float4 texel's fourth lane is padding), the value alone
 # for the bicubic one.
@@ -163,24 +198,59 @@ def median_ms(fn, calls: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_us_per_launch(fn, calls: int = PROFILED_CALLS):
-    """Device time per launch of the port's kernels (the `*stats*_kernel`
-    entries of a torch.profiler trace) over `calls` calls of fn; None if
-    the trace has no device time."""
+_flush_buffer = []
+
+
+def flush_l2() -> None:
+    """Evict the card's L2: write L2_FLUSH_BYTES (five times its 50 MB), so
+    the next kernel reads its inputs from HBM."""
+    if not _flush_buffer:
+        _flush_buffer.append(torch.empty(L2_FLUSH_BYTES // 4,
+                                         dtype=torch.float32, device="cuda"))
+    _flush_buffer[0].zero_()
+
+
+def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
+                         tries: int = 3):
+    """Device time per launch of the port's kernels (the card's activities
+    whose name holds `match`, in a torch.profiler trace), averaged over the
+    launches the trace holds, of `calls` calls of fn after one warm-up
+    call, with L2 flushed before each call (the flush's own kernel is not
+    counted). A trace may miss launches: it is taken again, up to `tries`
+    times, until it holds all of them. None if no trace has device time.
+    Self-contained (kernel_times.py times older checkouts with it)."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if "stats" in evt.key and "_kernel" in evt.key:
-            total += (getattr(evt, "self_device_time_total", 0.0)
-                      or getattr(evt, "self_cuda_time_total", 0.0))
-    return total / calls if total > 0 else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA and match in evt.key]
+        total = sum(evt.self_device_time_total for evt in evts)
+        launches = sum(evt.count for evt in evts)
+        if launches >= calls:
+            break
+    return total / launches if total > 0 else None
+
+
+def us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def gpu_clocks() -> str:
+    """The card's SM clock, its maximum, and its power draw, now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_table(log: str) -> dict:
@@ -192,7 +262,8 @@ def ptxas_table(log: str) -> dict:
     table, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
-                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:L[ib](\d+)E)?",
+                      line)
         if m:
             current = (m.group(1), int(m.group(2)),
                        None if m.group(3) is None else int(m.group(3)))
@@ -225,6 +296,16 @@ def print_ptxas(name: str, built) -> None:
                 f"R = 1..4: " + ", ".join(f"{g}/{b}" for g, b in cells))
 
 
+def print_ptxas_instances(name: str, built) -> None:
+    """One line: registers / spill-store bytes of every kernel instance of
+    a library, by its template arguments (nothing if the library was not
+    built in this process)."""
+    cells = [f"{k}<{a}{'' if b is None else f',{b}'}> {g}/{sp}"
+             for (k, a, b), (g, sp) in sorted(ptxas_table(built.log).items(),
+                                              key=str)]
+    say(f"  ptxas {name} registers/spill bytes: {'; '.join(cells)}")
+
+
 def compare_with_plain(got, want, valid_nm):
     """Kernel sums (6, W, N) against the plain version's: finite, exact
     zeros for invalid observations, |d| <= 1e-4 |plain| + 1e-6 row max.
@@ -248,12 +329,14 @@ def compare_with_plain(got, want, valid_nm):
     return max_abs, max_rel, worst
 
 
-def window_texels(uv_nm, valid_nm, pr, win, back, h, wi):
+def window_texels(uv_nm, valid_nm, pr, win, back, h, wi, frame_nm=None):
     """Flat (frame, y, x) indices of every texel in the fixed-grid windows
     of the valid observations: win x win from (floor(u) - back), clamped
-    inside the image as the kernels clamp it."""
+    inside the image as the kernels clamp it. `frame_nm` (N, W): the frame
+    each window is read from (default: the observation's own)."""
     q = uv_nm[valid_nm]                                          # (M, 2)
-    f = torch.nonzero(valid_nm)[:, 1]
+    f = (torch.nonzero(valid_nm)[:, 1] if frame_nm is None
+         else frame_nm[valid_nm])
     x0 = torch.clamp(torch.floor(q[:, 0]).long() - back, 0, wi - win)
     y0 = torch.clamp(torch.floor(q[:, 1]).long() - back, 0, h - win)
     k = torch.arange(win, device=uv_nm.device)
@@ -295,35 +378,156 @@ def kernel_bound(texels, texel_bytes, valid_nm, channels, pr, sample, norm,
               + n_valid * (8 + (4 if with_rho else 0))
               + n_points * channels * p * 4 + 6 * w * n * 4)
     flops = n_valid * channels * p * (SAMPLE_FLOPS[sample] + NORM_FLOPS[norm])
+    return bytes_ops_bound(nbytes, flops)
+
+
+def compare_bitwise(got, want, valid_nm):
+    """Kernel output equal to the plain version's, bitwise (the sample
+    stores and K8's partial stages round every operation once, in one
+    order, as their plain versions do). Returns compare_with_plain's
+    triple."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    max_abs = float((got - want).abs().max())
+    check(torch.equal(got, want), f"kernel is not bitwise its plain "
+          f"version: max abs {max_abs:.3e}")
+    return max_abs, 0.0, 0.0
+
+
+def bytes_ops_bound(nbytes, flops):
+    """Least time the card could take: the larger of the bytes over HBM
+    bandwidth and the f32 operations over the f32 rate."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops)
 
 
-def kernel_phase(tag, label, kernel, plain, valid_nm, bound):
-    """Hold one kernel (or mode) against its plain version and time both.
-    Returns its numbers for the JSON line."""
-    max_abs, max_rel, worst = compare_with_plain(kernel(), plain(),
-                                                 valid_nm)
+def samples_bound(texels, valid_nm, pr, layout):
+    """Bound of one sample store (ops/patch_samples): the distinct window
+    texels of the valid observations (12 B each), their uv, the flags, and
+    the stored tensor (every observation's tile); the bilinear combine's
+    operations (none for 'raw')."""
+    n, w = valid_nm.shape
+    n_valid = int(valid_nm.sum())
+    k = 2 * pr + (2 if layout == "raw" else 1)
+    nbytes = (int(torch.unique(texels.reshape(-1)).numel()) * GRAD_TEXEL_BYTES
+              + n * w + n_valid * 8 + n * w * k * 3 * k * 4)
+    flops = 0 if layout == "raw" else (
+        n_valid * (2 * pr + 1) ** 2 * SAMPLE_FLOPS["bilinear"])
+    return bytes_ops_bound(nbytes, flops)
+
+
+def k7_bound(texels, valid_nm, pr, cost_only):
+    """Bound of K7 (ops/patch_stats): the distinct window texels (value,
+    d/dx and d/dy at 12 B; the value alone at 4 B for cost_only), uv, flags,
+    the descriptors of points with a valid observation, the (W N, 8)
+    output; per patch pixel the bilinear sample and K7's epilogue."""
+    n, w = valid_nm.shape
+    p = (2 * pr + 1) ** 2
+    n_valid = int(valid_nm.sum())
+    n_points = int(valid_nm.any(dim=1).sum())
+    texel_bytes = VALUE_TEXEL_BYTES if cost_only else GRAD_TEXEL_BYTES
+    nbytes = (int(torch.unique(texels.reshape(-1)).numel()) * texel_bytes
+              + n * w + n_valid * 8 + n_points * p * 4 + w * n * 8 * 4)
+    per_pixel = K7_COST_FLOPS if cost_only else (SAMPLE_FLOPS["bilinear"]
+                                                 + NORM_FLOPS["mean"])
+    return bytes_ops_bound(nbytes, n_valid * p * per_pixel)
+
+
+def ablate_bound(uv_nm, valid_nm, pr, stage, window, threads):
+    """Bound of one K8 variant (ops/patch_ablate) at `threads` per block:
+    the distinct texels of the windows its valid observations read (12 B;
+    with 'shared' their blocks' first observations' windows), the uv it
+    reads, the flags, the descriptors where the stage reads them, the
+    (6, W, N) output; ABLATE_FLOPS per patch pixel ('loads': per texel)."""
+    from photobundle_torch.ops import patch_ablate as pa
+
+    n, w = valid_nm.shape
+    p = (2 * pr + 1) ** 2
+    sp, sf = pa.window_sources(valid_nm, window, threads)
+    src_valid = valid_nm[sp, sf]
+    uv_src = torch.where(src_valid[..., None], uv_nm[sp, sf], 0.0)
+    texels = window_texels(uv_src, valid_nm, pr, 2 * pr + 2, pr, H, WI,
+                           frame_nm=sf)
+    n_valid = int(valid_nm.sum())
+    n_uv = int(torch.unique((sf * n + sp)[valid_nm & src_valid]).numel())
+    n_points = int(valid_nm.any(dim=1).sum())
+    reads_desc = stage in ("subtract", "center", "full")
+    nbytes = (int(torch.unique(texels.reshape(-1)).numel()) * GRAD_TEXEL_BYTES
+              + n * w + n_uv * 8 + (n_points * p * 4 if reads_desc else 0)
+              + 6 * w * n * 4)
+    per_obs = ABLATE_FLOPS[stage] * (
+        (2 * pr + 2) ** 2 if stage == "loads" else p)
+    return bytes_ops_bound(nbytes, n_valid * per_obs)
+
+
+def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
+                 compare=compare_with_plain, match="stats"):
+    """Hold one kernel (or mode) against its plain version (`compare`) and
+    time both; its device time per launch is that of the profiler's
+    `*<match>*_kernel` entries. Returns its numbers for the JSON line."""
+    max_abs, max_rel, worst = compare(kernel(), plain(), valid_nm)
     ms = median_ms(kernel, KERNEL_CALLS)
     plain_ms = median_ms(plain, KERNEL_CALLS)
-    dev_us = device_us_per_launch(kernel)
+    dev_us = device_us_per_launch(kernel, match=match)
     torch.cuda.synchronize()
-    dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
-    say(f"phase {tag} {label} vs plain at {N_PTS}x{W} obs "
-        f"({int(valid_nm.sum())} valid), R={PATCH_RADIUS}: max abs err "
-        f"{max_abs:.3e}, max rel err {max_rel:.3e}, {worst:.3f} of the "
-        f"tolerance |d| <= {KERNEL_RTOL:g}|plain| + {KERNEL_ATOL_ROW:g} row "
-        f"max | median "
+    share = roofline_share(f"phase {tag} {label}", dev_us, ms, bound)
+    dev = us_text(dev_us)
+    tolerance = ("bitwise" if compare is compare_bitwise else
+                 f"{worst:.3f} of the tolerance |d| <= {KERNEL_RTOL:g}|plain|"
+                 f" + {KERNEL_ATOL_ROW:g} row max")
+    say(f"phase {tag} {label} vs plain at {valid_nm.shape[0]}x"
+        f"{valid_nm.shape[1]} obs ({int(valid_nm.sum())} valid), "
+        f"R={PATCH_RADIUS}: max abs err {max_abs:.3e}, max rel err "
+        f"{max_rel:.3e}, {tolerance} | median "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over {KERNEL_CALLS} "
         f"calls | device time per launch {dev} (profiler, {PROFILED_CALLS} "
-        f"launches) | bound {bound['bound_ms'] * 1e3:.3f} us by "
-        f"{bound['bound_by']} ({bound['bytes'] / 1e6:.2f} MB, "
-        f"{bound['flops'] / 1e6:.2f} MFLOP)")
+        f"launches, L2 flushed before each) | bound "
+        f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} "
+        f"({bound['bytes'] / 1e6:.2f} MB, {bound['flops'] / 1e6:.2f} MFLOP)"
+        f", roofline share {share_text(share)}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                library_ms=None)
+                library_ms=None, device_us=dev_us)
+
+
+def roofline_share(label, dev_us, ms, bound):
+    """Bound over device time per launch (None if not measured). Fails
+    where a measured time, per launch or per call, is below its bound: the
+    bound's byte or operation count, or its rate, would then be wrong."""
+    bound_us = bound["bound_ms"] * 1e3
+    check(ms * 1e3 >= bound_us, f"{label}: {ms * 1e3:.3f} us per call is "
+          f"below its bound {bound_us:.3f} us")
+    if dev_us is None:
+        return None
+    check(dev_us >= bound_us, f"{label}: device time {dev_us:.3f} us per "
+          f"launch is below its bound {bound_us:.3f} us")
+    return bound_us / dev_us
+
+
+def share_text(share) -> str:
+    return "not measured" if share is None else f"{share:.3f}"
+
+
+def kernel_label(k) -> str:
+    """A kernel wrapper's name with its module's (K1's and K7's wrappers are
+    both `patch_stats`)."""
+    return f"{k.__module__.rsplit('.', 1)[-1]}.{k.__name__}"
+
+
+def reset_all(kernels) -> None:
+    """Zero every kernel wrapper's launch counts."""
+    from photobundle_torch.ops import _common
+
+    for k in kernels:
+        _common.reset_launches(k)
+
+
+def launch_counts(kernels) -> dict:
+    """{(kernel label, mode): launches} of every wrapper's every mode."""
+    return {(kernel_label(k), m): n for k in kernels
+            for m, n in k.launches.items()}
 
 
 def ate(poses, gt) -> float:
@@ -346,7 +550,6 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
     numbers and returns them, with the state the first window solve
     started from."""
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
-    from photobundle_torch.ops import _common
 
     cam, images, depths, gt = scene
     pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
@@ -366,8 +569,7 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
     results, frame_s = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        _common.reset_launches(k)
+    reset_all(kernels)
     for i in range(n_frames):
         if i == window_size:
             t_keyframes = time.perf_counter()
@@ -380,12 +582,11 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
             refined[res.frame_ids] = res.poses
             results.append(res)
     keyframes_s = time.perf_counter() - t_keyframes
-    counts = {(k.__name__, m): k.launches[m] for k in kernels
-              for m in _common.NORMS}
+    counts = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**20
 
     fn, norm = counted
-    launches = counts.pop((fn.__name__, norm))
+    launches = counts.pop((kernel_label(fn), norm))
     others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
     expected = sum(r.iterations + 1 for r in results)
     its = [r.iterations for r in results]
@@ -558,10 +759,15 @@ def sorted_phase(dev) -> dict:
                                            pr, H, WI),
                              GRAD_TEXEL_BYTES, valid_nm, 1, pr, "bilinear",
                              "mean")
-        fmt = lambda us: "not measured" if us is None else f"{us:.2f} us"
+        shares = [roofline_share(f"phase 11 {label} at {n_pts} points", d,
+                                 t, bound)
+                  for label, d, t in (("sorted", dev_sorted, ms),
+                                      ("K1", dev_k1, k1_ms))]
         say(f"phase 11 at {n_pts} points, mean: device time per launch "
-            f"sorted {fmt(dev_sorted)}, K1 unsorted {fmt(dev_k1)} "
-            f"(profiler, {PROFILED_CALLS} launches) | median per call "
+            f"sorted {us_text(dev_sorted)}, K1 unsorted {us_text(dev_k1)} "
+            f"(profiler, {PROFILED_CALLS} launches, L2 flushed before each; "
+            f"roofline share {', '.join(map(share_text, shares))}) | median "
+            f"per call "
             f"sorted {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms"
             f" | the sort (key + stable sort) {sort_ms:.4f} ms per solve | "
             f"blocks that staged: {share:.4f} of {staged.numel()} | bound "
@@ -571,8 +777,224 @@ def sorted_phase(dev) -> dict:
         if numbers is None:
             numbers = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound["bound_ms"],
-                           bound_by=bound["bound_by"], library_ms=None)
+                           bound_by=bound["bound_by"], library_ms=None,
+                           device_us=dev_sorted)
     return numbers
+
+
+def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
+                  kernels) -> tuple:
+    """Phase 13: K4's row store and K6 (ops/patch_samples) against their
+    plain versions on phase 3's inputs, the four `warp_patches` variants
+    against each other, then lm_solve under PB_GROUPED_STATS=0. Returns
+    ({layout: numbers}, the row store's launches in that solve)."""
+    from photobundle_torch.ops import patch_samples as smp
+
+    pr = PATCH_RADIUS
+    numbers = {}
+    for layout in smp.LAYOUTS:
+        numbers[layout] = kernel_phase(
+            "13", f"sample store '{layout}'",
+            lambda: smp.store(planes, uv_nm, valid_nm, pr, layout),
+            lambda: smp.store_reference(planes, uv_nm, valid_nm, pr, layout),
+            valid_nm, samples_bound(texels, valid_nm, pr, layout),
+            compare=compare_bitwise, match="samples")
+    rows = smp.warp_patches(planes, uv_nm, valid_nm, pr)
+    for variant in smp.VARIANTS:
+        layout = smp.layout_of(variant)
+        got = smp.warp_patches(planes, uv_nm, valid_nm, pr, variant)
+        plain = smp.unpack(smp.store_reference(planes, uv_nm, valid_nm, pr,
+                                               layout),
+                           uv_nm, valid_nm, pr, layout)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, plain, rows)),
+              f"warp_patches '{variant}' differs from its plain version or "
+              f"from 'rows'")
+    say(f"phase 13 warp_patches variants {', '.join(smp.VARIANTS)}: "
+        f"(s, gx, gy) {tuple(rows[0].shape)} bitwise equal to each other "
+        f"and to their plain versions")
+
+    # The unfused solve: PB_GROUPED_STATS=0.
+    def timed(**env):
+        os.environ.update(env)
+        try:
+            times = []
+            for _ in range(TIMED_SOLVES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve("cuda")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        return ITERS / statistics.median(times)
+
+    os.environ["PB_GROUPED_STATS"] = "0"
+    try:
+        reset_all(kernels)
+        _, _, st = solve("cuda")
+        torch.cuda.synchronize()
+        counts = {key: n for key, n in launch_counts(kernels).items() if n}
+        unfused = solve("cuda", obs & interior,
+                        initial_lambda=PARITY_LAMBDA)[2]
+    finally:
+        os.environ.pop("PB_GROUPED_STATS")
+    fused = solve("cuda", obs & interior, initial_lambda=PARITY_LAMBDA)[2]
+    torch.cuda.synchronize()
+    iters = int(st.iterations)
+    launches = counts.pop(("patch_samples.warp_patches", "rows"), 0)
+    say(f"phase 13 cuda solve with PB_GROUPED_STATS=0: {iters} iterations, "
+        f"cost {float(st.initial_cost):.6f} -> {float(st.final_cost):.6f}; "
+        f"row-store launches {launches}, other kernels "
+        f"{counts or 'none'}")
+    check(iters == ITERS and launches == iters + 1,
+          f"row store launched {launches} times over {iters} iterations")
+    check(not counts, f"other kernels ran under PB_GROUPED_STATS=0: {counts}")
+    check(float(st.final_cost) < float(st.initial_cost),
+          "unfused solve did not lower the cost")
+    rel = abs(float(unfused.final_cost) / float(fused.final_cost) - 1)
+    log_rel = float((unfused.cost_log / fused.cost_log - 1).abs().max())
+    say(f"phase 13 parity solve (interior obs, initial lambda "
+        f"{PARITY_LAMBDA:g}): unfused {float(unfused.final_cost):.6f}, fused "
+        f"{float(fused.final_cost):.6f}; final rel diff {rel:.3e}, max "
+        f"cost-log rel diff {log_rel:.3e} (rtol {SOLVE_RTOL:g})")
+    check(int(unfused.iterations) == int(fused.iterations) == ITERS,
+          "parity solves ran different iteration counts")
+    check(bool((unfused.accept_log == fused.accept_log).all()),
+          "parity solves accepted different steps")
+    check(rel <= SOLVE_RTOL, f"unfused parity final cost rel diff {rel:.3e}")
+    ips_unfused = timed(PB_GROUPED_STATS="0")
+    ips_fused = timed()
+    say(f"phase 13 LM it/s (median of {TIMED_SOLVES} solves of {ITERS} "
+        f"iterations): unfused {ips_unfused:.2f}, fused {ips_fused:.2f}")
+    return numbers, launches
+
+
+def k7_rows_as_stats(rows, n, w):
+    """K7's (W N, 8) rows as K1's (6, W, N) layout (a view)."""
+    return rows.reshape(w, n, 8)[..., :6].permute(2, 0, 1)
+
+
+def k7_phase(planes, channels, uv_nm, valid_nm, patch, texels,
+             kernels) -> tuple:
+    """Phase 14: K7 (ops/patch_stats) through its entry point once per
+    mode, cost_only's rr against full's, K7 against K1's mean-mode sums,
+    and each mode against its plain version. Returns ({mode: numbers},
+    {mode: launches of the entry-point calls})."""
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_stats as k7
+    from photobundle_torch.ops import patch_warp as pw
+
+    pr = PATCH_RADIUS
+    n, w = valid_nm.shape
+    ps = 2 * pr + 1
+    desc = patch.reshape(n, 1, ps, ps).contiguous()
+    value_planes = pb.build_value_planes(channels)
+    reset_all(kernels)
+    full = k7.patch_stats(planes, uv_nm, valid_nm, desc, pr)
+    cost = k7.patch_stats(value_planes, uv_nm, valid_nm, desc, pr,
+                          cost_only=True)
+    torch.cuda.synchronize()
+    counts = {key: c for key, c in launch_counts(kernels).items() if c}
+    launches = {m: counts.pop(("patch_stats.patch_stats", m), 0)
+                for m in k7.MODES}
+    check(launches == {"full": 1, "cost_only": 1} and not counts,
+          f"K7 entry points launched {launches}, others {counts}")
+    check(tuple(full[0].shape) == (n, w, 2, 2)
+          and bool(torch.isfinite(full[0]).all()), "K7 gtg malformed")
+    check(torch.equal(full[2], cost[2]), "K7 cost_only rr is not the full "
+          "mode's bitwise")
+    k1 = pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
+    max_abs, _, worst = compare_with_plain(
+        k7_rows_as_stats(k7.stats_rows(planes, uv_nm, valid_nm, desc, pr),
+                         n, w), k1, valid_nm)
+    say(f"phase 14 K7 entry points: launches {launches}; cost_only rr "
+        f"bitwise the full mode's; K7 vs K1's mean-mode sums: max abs "
+        f"{max_abs:.3e}, {worst:.3f} of the kernel tolerance")
+    numbers = {}
+    for mode, src in (("full", planes), ("cost_only", value_planes)):
+        cost_only = mode == "cost_only"
+        numbers[mode] = kernel_phase(
+            "14", f"K7 {mode}",
+            lambda: k7_rows_as_stats(k7.stats_rows(
+                src, uv_nm, valid_nm, desc, pr, cost_only), n, w),
+            lambda: k7_rows_as_stats(k7.patch_stats_reference(
+                src, uv_nm, valid_nm, desc, pr, cost_only), n, w),
+            valid_nm, k7_bound(texels, valid_nm, pr, cost_only))
+    return numbers, launches
+
+
+def tools_phase(planes, uv_nm, valid_nm, patch, kernels) -> tuple:
+    """Phase 15: both tools in this process (the store benchmark at phase
+    3's size, the ablation at N_PTS and DENSE_PTS points, full/own bitwise
+    K1), then every K8 variant at 64 threads against its plain version on
+    phase 3's inputs. Returns ({variant: numbers}, launch counts of the
+    tools' runs)."""
+    from photobundle_torch.ops import patch_ablate as pa
+    from photobundle_torch.ops import patch_warp as pw
+    from photobundle_torch.tools import ablate_patch_stats, bench_warp_kernel
+
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    bench = bench_warp_kernel.main([str(N_PTS), str(W), "--calls",
+                                    str(BENCH_CALLS)])
+    say(f"phase 15 bench_warp_kernel at {N_PTS}x{W} in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{v} {r['ms']:.4f} ms/eval by CUDA events, device "
+            f"{us_text(r['device_us'])}/eval ({r['ns_per_obs']:.3f} ns/obs "
+            f"by events)" for v, r in bench.items()))
+    check(len({r["checksum"] for r in bench.values()}) == 1,
+          "bench_warp_kernel variants disagree")
+    for n_pts in (N_PTS, DENSE_PTS):
+        t0 = time.perf_counter()
+        abl = ablate_patch_stats.main([str(n_pts), str(W),
+                                       str(ABLATE_CALLS)])
+        check(abl["full_own_bitwise_k1"], f"ablation full/own is not K1 "
+              f"bitwise at {n_pts} points")
+        say(f"phase 15 ablate_patch_stats at {n_pts}x{W} in "
+            f"{time.perf_counter() - t0:.1f} s, full/own bitwise K1; device "
+            f"us per launch (per call by CUDA events): " + ", ".join(
+                f"{k} {us_text(r['device_us'])} ({r['ms'] * 1e3:.2f} us)"
+                for k, r in abl["variants"].items()))
+    counts = launch_counts(kernels)
+    ran = {k: c for k, c in counts.items() if c}
+    say(f"phase 15 launches of the tools' runs: {ran}")
+    # Each variant makes three runs of `calls` launches (a warm-up, one
+    # timed by CUDA events, one traced by the profiler) and one call for its
+    # checksum; 'packed' takes the block store; the ablation runs at two
+    # sizes and three block sizes, plus one full/own launch per size for
+    # its K1 check beside one K1 launch.
+    per_mode = 2 * 3 * len(pa.THREADS) * ABLATE_CALLS
+    per_variant = 3 * BENCH_CALLS + 1
+    want = {("patch_samples.warp_patches", "rows"): per_variant,
+            ("patch_samples.warp_patches", "block"): 2 * per_variant,
+            ("patch_samples.warp_patches", "raw"): per_variant,
+            ("patch_warp.patch_stats", "mean"): 2,
+            **{("patch_ablate.ablate_stats", m): per_mode + (m == "full/own")
+               * 2 for m in pa.MODES}}
+    check(ran == want, f"the tools launched {ran}, expected {want}")
+    pr = PATCH_RADIUS
+    k1_us = device_us_per_launch(
+        lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr))
+    say(f"phase 15 card: {gpu_clocks()} (SM clock, max, power draw) | K1 "
+        f"again on phase 3's inputs: {us_text(k1_us)} per launch "
+        f"(profiler)")
+    numbers = {}
+    for stage in pa.STAGES:
+        for window in pa.WINDOWS:
+            numbers[f"{stage}/{window}"] = kernel_phase(
+                "15", f"K8 {stage}/{window} (64 threads)",
+                lambda: pa.ablate_stats(planes, uv_nm, valid_nm, patch, stage,
+                                        window),
+                lambda: pa.ablate_reference(planes, uv_nm, valid_nm, patch,
+                                            stage, window),
+                valid_nm, ablate_bound(uv_nm, valid_nm, pr, stage, window,
+                                       64),
+                compare=(compare_with_plain if stage == "full"
+                         else compare_bitwise), match="ablate")
+    return numbers, counts
 
 
 def read_jsonl(path):
@@ -591,7 +1013,6 @@ def cli_phase(kernels, dev) -> int:
     from photobundle_torch.io import kitti
     from photobundle_torch.io import trajectory as traj
     from photobundle_torch.io.speckle import speckle_filter_numpy
-    from photobundle_torch.ops import _common
     from photobundle_torch.ops import patch_warp as pw
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
@@ -682,8 +1103,7 @@ def cli_phase(kernels, dev) -> int:
         os.environ["PB_SORTED_DISPATCH"] = sorted_dispatch
         lm.lm_solve = counted_solve
         PhotometricBundleAdjustment.add_frame = timed_add
-        for k in kernels:
-            _common.reset_launches(k)
+        reset_all(kernels)
         try:
             rc = cli.main(argv(tag))
             torch.cuda.synchronize()
@@ -692,8 +1112,7 @@ def cli_phase(kernels, dev) -> int:
             PhotometricBundleAdjustment.add_frame = add
             os.environ.pop("PB_SORTED_DISPATCH")
         check(rc == 0, f"cli.main returned {rc}")
-        counts = {(k.__name__, m): n for k in kernels
-                  for m, n in k.launches.items() if n}
+        counts = {key: n for key, n in launch_counts(kernels).items() if n}
         rate = (CLI_FRAMES - W) / sum(frame_s[W:])
         return counts, list(iterations), rate
 
@@ -712,8 +1131,8 @@ def cli_phase(kernels, dev) -> int:
     for tag, (counts, its, rate) in runs.items():
         solves = len(its)
         expected = sum(i + 1 for i in its)
-        sorted_n = counts.pop(("sorted_patch_stats", "mean"), 0)
-        k1_n = counts.pop(("patch_stats", "mean"), 0)
+        sorted_n = counts.pop(("patch_warp.sorted_patch_stats", "mean"), 0)
+        k1_n = counts.pop(("patch_warp.patch_stats", "mean"), 0)
         say(f"phase 12 ({tag}) cli.main, PB_SORTED_DISPATCH="
             f"{'1' if tag == 'b' else '0'}: {solves} solves over {windows} "
             f"windows (3 levels each), iterations {its}; launches: sorted "
@@ -765,13 +1184,17 @@ def main() -> None:
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
     from photobundle_torch.image import patches as patches_mod
-    from photobundle_torch.ops import _build, _common
+    from photobundle_torch.ops import _build
+    from photobundle_torch.ops import patch_ablate as pa
     from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_samples as smp
     from photobundle_torch.ops import patch_scaled as ps
+    from photobundle_torch.ops import patch_stats as k7
     from photobundle_torch.ops import patch_warp as pw
 
     kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats,
-               pw.sorted_patch_stats)
+               pw.sorted_patch_stats, smp.warp_patches, k7.patch_stats,
+               pa.ablate_stats)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -779,11 +1202,16 @@ def main() -> None:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     # -- phase 2: build every kernel from the checkout's sources ---------
-    builds = _build.build_all(["patch_warp", "patch_bicubic", "patch_scaled"])
+    t0 = time.perf_counter()
+    builds = _build.build_all(SOURCES)
     for built in builds.values():
         say(f"phase 2 build: {built.path.name} for sm_90a in "
             f"{built.seconds:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    say(f"phase 2 built {len(SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
     print_ptxas("patch_warp", builds["patch_warp"])
+    for source in ("patch_samples", "patch_stats", "patch_ablate"):
+        print_ptxas_instances(source, builds[source])
 
     # -- phase 3: kernel vs plain version on the solve's inputs ----------
     cam, offsets, args = entry.make_problem(N_PTS, W, H, WI, PATCH_RADIUS,
@@ -798,6 +1226,7 @@ def main() -> None:
     uv_nm = uv.permute(2, 0, 1).contiguous()                    # (N, W, 2)
     planes = pw.build_planes(channels, grads)
     win1 = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
+    say(f"phase 3 card: {gpu_clocks()} (SM clock, max, power draw)")
     k1 = kernel_phase(
         "3", "K1", lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr),
         lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm, patch, pr),
@@ -814,8 +1243,7 @@ def main() -> None:
                            obs_mask, point_valid, frozen, offsets,
                            backend=backend, **kw, **extra)
 
-    for k in kernels:
-        _common.reset_launches(k)
+    reset_all(kernels)
     t_out, x_out, st = solve("cuda")
     torch.cuda.synchronize()
     launches = pw.patch_stats.launches["mean"]
@@ -993,26 +1421,53 @@ def main() -> None:
     # -- phase 12: the command line on a KITTI-format sequence -----------
     cli_launches = cli_phase(kernels, dev)
 
+    # -- phase 13: K4's sample store, K6, and PB_GROUPED_STATS=0 ----------
+    k6, rows_launches = samples_phase(planes, uv_nm, valid_nm, win1, solve,
+                                      obs, interior, kernels)
+
+    # -- phase 14: K7 ----------------------------------------------------
+    k7_numbers, k7_launches = k7_phase(planes, channels, uv_nm, valid_nm,
+                                       patch, win1, kernels)
+
+    # -- phase 15: the tools (the store benchmark, the K1 ablation K8) ---
+    k8, tool_launches = tools_phase(planes, uv_nm, valid_nm, patch, kernels)
+
+    pw_py = "photobundle_tpu/ops/patch_warp.py"
+
     def entry_json(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
                 "source": f"photobundle_torch/csrc/{source}",
-                "replaces": f"photobundle_tpu/ops/patch_warp.py:{replaces}",
-                "launches": launches, **numbers}
+                "replaces": replaces, "launches": launches, **numbers}
 
     print(json.dumps({"kernels": [
-        entry_json("patch_stats", "patch_warp.cu", 350, launches, k1),
-        entry_json("bicubic_stats", "patch_bicubic.cu", 176,
+        entry_json("patch_stats", "patch_warp.cu", f"{pw_py}:350", launches,
+                   k1),
+        entry_json("bicubic_stats", "patch_bicubic.cu", f"{pw_py}:176",
                    run6["launches"], k2),
-        entry_json("scaled_stats", "patch_scaled.cu", 775,
+        entry_json("scaled_stats", "patch_scaled.cu", f"{pw_py}:775",
                    runs10["10a"]["launches"], k3),
-        entry_json("patch_stats/affine", "patch_warp.cu", 100,
+        entry_json("patch_stats/affine", "patch_warp.cu", f"{pw_py}:100",
                    runs10["10b"]["launches"], k4),
-        entry_json("scaled_stats/affine", "patch_scaled.cu", 613,
+        entry_json("scaled_stats/affine", "patch_scaled.cu", f"{pw_py}:613",
                    runs10["10c"]["launches"], k5),
-        entry_json("bicubic_stats/affine", "patch_bicubic.cu", 176,
+        entry_json("bicubic_stats/affine", "patch_bicubic.cu", f"{pw_py}:176",
                    runs10["10d"]["launches"], k2a),
-        entry_json("sorted_patch_stats", "patch_warp.cu", 393, cli_launches,
-                   k1s),
+        entry_json("sorted_patch_stats", "patch_warp.cu", f"{pw_py}:393",
+                   cli_launches, k1s),
+        entry_json("warp_patches/rows", "patch_samples.cu", f"{pw_py}:100",
+                   rows_launches, k6["rows"]),
+        *(entry_json(f"warp_patches/{layout}", "patch_samples.cu",
+                     f"{pw_py}:978",
+                     tool_launches[("patch_samples.warp_patches", layout)],
+                     k6[layout]) for layout in ("block", "raw")),
+        *(entry_json(f"patch_stats_k7/{mode}", "patch_stats.cu",
+                     "photobundle_tpu/ops/patch_stats.py:96",
+                     k7_launches[mode], k7_numbers[mode])
+          for mode in k7.MODES),
+        *(entry_json(f"ablate_stats/{mode}", "patch_ablate.cu",
+                     "tools/ablate_packed_kernel.py:49",
+                     tool_launches[("patch_ablate.ablate_stats", mode)],
+                     k8[mode]) for mode in pa.MODES),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

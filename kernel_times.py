@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Time the port's mean-mode kernels K1, K2 and K3 in one or more checkouts.
+"""Time the port's mean-mode kernels K1, sorted K1, K2 and K3 in one or
+more checkouts.
 
     python3 kernel_times.py [TREE ...]      (default: this checkout)
 
 Each TREE is the root of a checkout of this repository (for example an
 unpacked `git archive` of another commit). For each, in the order given,
 a fresh process imports that checkout's `photobundle_torch`, builds its
-kernels from its own sources, and times `patch_stats` (K1),
-`bicubic_stats` (K2) and, where the checkout has it, `scaled_stats` (K3,
-with chip_smoke.py's phase-8 scales) in their default (mean)
-normalization at chip_smoke.py's phase-3 inputs (4096 points x 5 frames,
-370x1226, seed 1) with patch radius R = 2 and 4: the median time per
-call over 50 calls (CUDA events) and the device time per launch over 20
-launches (torch.profiler). Give a tree twice, interleaved with another
-(A B B A), to see the spread between processes. Prints each kernel
-instance's ptxas registers and spills and one JSON line per tree. Needs
-a CUDA card.
+kernels from its own sources, and times `patch_stats` (K1) and, where the
+checkout has them, `sorted_patch_stats` (K1's sort-reuse entry, in the
+order lm_solve builds under PB_SORTED_DISPATCH=1), `bicubic_stats` (K2)
+and `scaled_stats` (K3, with chip_smoke.py's phase-8 scales) in their
+default (mean) normalization at chip_smoke.py's phase-3 inputs (4096
+points x 5 frames, 370x1226, seed 1) with patch radius R = 2 and 4: the
+median time per call over 50 calls (CUDA events), and the device time per
+launch over 20 launches (torch.profiler, L2 flushed before each launch)
+in ROUNDS rounds that take the kernels in turns, forward then backward
+(A B C, C B A, ...), so that every kernel sees the same drift. Reports
+each kernel's median, least and largest device time over the rounds
+beside its bound (chip_smoke.py's: bytes at the HBM rate, operations at
+the f32 rate). Give a tree twice, interleaved with another (A B B A), to
+see the spread between processes. Prints each kernel instance's ptxas
+registers and spills and one JSON line per tree. Needs a CUDA card.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -29,6 +36,7 @@ import torch
 import chip_smoke as cs
 
 RADII = (2, 4)    # the default patch radius and the largest kernel build
+ROUNDS = 6
 
 
 def one(tree: str) -> dict:
@@ -43,6 +51,7 @@ def one(tree: str) -> dict:
         from photobundle_torch.ops import patch_scaled as ps
     except ImportError:
         ps = None
+    has_sorted = hasattr(pw, "sorted_patch_stats")
 
     n_pts, w, h, wi = cs.N_PTS, cs.W, cs.H, cs.WI
     dev = torch.device("cuda", 0)
@@ -53,7 +62,7 @@ def one(tree: str) -> dict:
         table = dict(sorted(cs.ptxas_table(built.log).items()))
         print(f"[kernel_times] {tree} {name} ptxas {{(R, normalization "
               f"code): (registers, spill-store bytes)}}: {table}")
-    out = {"tree": tree}
+    out = {"tree": tree, "rounds": ROUNDS}
     for pr in RADII:
         cam, _, args = entry.make_problem(n_pts, w, h, wi, pr, seed=cs.SEED,
                                           device=dev)
@@ -71,11 +80,24 @@ def one(tree: str) -> dict:
         valid_k2 = valid_within(pr + 1, wi - 3 - pr, h - 3 - pr)
         planes = pw.build_planes(channels, grads)
         value_planes = pb.build_value_planes(channels)
-        calls = {
-            "K1": lambda: pw.patch_stats(planes, uv_nm, valid_k1, patch, pr),
-            "K2": lambda: pb.bicubic_stats(value_planes, uv_nm, valid_k2,
-                                           patch, pr),
-        }
+        win1 = cs.window_texels(uv_nm, valid_k1, pr, 2 * pr + 2, pr, h, wi)
+        bound_k1 = cs.kernel_bound(win1, cs.GRAD_TEXEL_BYTES, valid_k1, 1, pr,
+                                   "bilinear", "mean")
+        calls = {"K1": (lambda: pw.patch_stats(planes, uv_nm, valid_k1,
+                                                patch, pr), bound_k1)}
+        if has_sorted:
+            order = res_mod.sorted_dispatch_order(res_mod.dispatch_key(
+                cam, t_wc, x_world, obs, (h, wi)))
+            calls["sorted_K1"] = (
+                lambda: pw.sorted_patch_stats(planes, uv_nm, valid_k1, patch,
+                                              pr, order), bound_k1)
+        calls["K2"] = (
+            lambda: pb.bicubic_stats(value_planes, uv_nm, valid_k2, patch,
+                                     pr),
+            cs.kernel_bound(cs.window_texels(uv_nm, valid_k2, pr, 2 * pr + 4,
+                                             pr + 1, h, wi),
+                            cs.VALUE_TEXEL_BYTES, valid_k2, 1, pr, "bicubic",
+                            "mean"))
         if ps is not None:
             rho = torch.as_tensor(np.clip(np.random.default_rng(
                 cs.RHO_SEED).uniform(cs.RHO_LO, cs.RHO_HI, size=(n_pts, w)),
@@ -84,11 +106,36 @@ def one(tree: str) -> dict:
             inside = ((x >= 1 + ext) & (x <= (wi - 2) - ext)
                       & (y >= 1 + ext) & (y <= (h - 2) - ext))
             valid_k3 = (obs.T & in_front & inside).T.contiguous()
-            calls["K3"] = lambda: ps.scaled_stats(planes, uv_nm, rho,
-                                                  valid_k3, patch, pr)
-        for name, fn in calls.items():
-            out[f"{name}_R{pr}_ms"] = cs.median_ms(fn, cs.KERNEL_CALLS)
-            out[f"{name}_R{pr}_device_us"] = cs.device_us_per_launch(fn)
+            calls["K3"] = (
+                lambda: ps.scaled_stats(planes, uv_nm, rho, valid_k3, patch,
+                                        pr),
+                cs.kernel_bound(cs.scaled_texels(uv_nm, rho, valid_k3, pr, h,
+                                                 wi),
+                                cs.GRAD_TEXEL_BYTES, valid_k3, 1, pr,
+                                "scaled", "mean", with_rho=True))
+        names = list(calls)
+        for name in names:
+            out[f"{name}_R{pr}_ms"] = cs.median_ms(calls[name][0],
+                                                   cs.KERNEL_CALLS)
+        times = {name: [] for name in names}
+        for r in range(ROUNDS):
+            for name in names if r % 2 == 0 else names[::-1]:
+                times[name].append(cs.device_us_per_launch(calls[name][0]))
+        for name in names:
+            us = [t for t in times[name] if t is not None]
+            bound_us = calls[name][1]["bound_ms"] * 1e3
+            key = f"{name}_R{pr}"
+            out[f"{key}_bound_us"] = bound_us
+            out[f"{key}_device_us"] = statistics.median(us) if us else None
+            out[f"{key}_device_us_min"] = min(us) if us else None
+            out[f"{key}_device_us_max"] = max(us) if us else None
+            print(f"[kernel_times] {tree} {key}: device us per launch over "
+                  f"{ROUNDS} rounds median "
+                  f"{cs.us_text(out[f'{key}_device_us'])}, range "
+                  f"{cs.us_text(out[f'{key}_device_us_min'])} .. "
+                  f"{cs.us_text(out[f'{key}_device_us_max'])} | bound "
+                  f"{bound_us:.3f} us | median per call "
+                  f"{out[f'{key}_ms']:.4f} ms", flush=True)
     out["nvidia_smi"] = cs.nvidia_smi()
     return out
 

@@ -386,7 +386,8 @@ class PhotometricBundleAdjustment:
                     cfg.robustThreshold, gradient_mode,
                     depth_prior=depth_prior, backend=self.backend, ctx=ctx,
                     normalize=normalize, robust_kind=cfg.robustLoss,
-                    patch_warp=warp)
+                    patch_warp=warp,
+                    grouped_stats=residuals.grouped_stats_from_env())
                 return res.cost + lm.prior_cost(
                     t_wc, motion_prior_weight=cfg.motionPriorWeight,
                     rel0=anchor, pose_prior=pose_prior)

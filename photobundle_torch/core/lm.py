@@ -26,8 +26,9 @@ from ..geometry import se3
 from ..image import patches as patches_mod
 from . import schur
 from .residuals import (CompressedResiduals, dispatch_key,
-                        evaluate_compressed, make_cuda_ctx,
-                        patch_warp_ref_geometry, sorted_dispatch_order)
+                        evaluate_compressed, grouped_stats_from_env,
+                        make_cuda_ctx, patch_warp_ref_geometry,
+                        sorted_dispatch_order)
 
 
 class LMStats(NamedTuple):
@@ -143,15 +144,23 @@ def lm_solve(
     ('sampled') and mean or off normalization (where the JAX package uses
     it) feeds its kernel in the order of `residuals.dispatch_key`, computed
     once from the initial iterate (ops/patch_warp.sorted_patch_stats). The
-    statistics are bitwise those of the unsorted kernel."""
+    statistics are bitwise those of the unsorted kernel.
+
+    Unfused statistics: with PB_GROUPED_STATS=0 in the environment (read
+    at each call, as the JAX package reads it), the cuda backend on the
+    fixed grid with bilinear sampling and mean or off normalization samples
+    through K4's row-store kernel and reduces in plain tensor ops
+    (residuals.evaluate_compressed's `grouped_stats`); sorted dispatch
+    does not apply there."""
     dtype, dev = t_wc.dtype, t_wc.device
     obs_mask = obs_mask & point_valid[:, None]
     # The cuda backend's planes (by gradient mode; the warped grid reads
     # the 'sampled' planes) are loop-invariant: build once.
     eval_ctx = (make_cuda_ctx(channels, grads, gradient_mode)
                 if backend == "cuda" else None)
+    grouped_stats = grouped_stats_from_env()
     point_order = None
-    if (os.environ.get("PB_SORTED_DISPATCH", "0") == "1"
+    if (os.environ.get("PB_SORTED_DISPATCH", "0") == "1" and grouped_stats
             and backend == "cuda" and gradient_mode == "sampled"
             and patch_warp is None
             and patches_mod.norm_mode(normalize) in ("mean", "off")):
@@ -169,7 +178,8 @@ def lm_solve(
                                    backend=backend, ctx=eval_ctx,
                                    normalize=normalize,
                                    robust_kind=robust_kind, patch_warp=pw,
-                                   point_order=point_order)
+                                   point_order=point_order,
+                                   grouped_stats=grouped_stats)
 
     # Relative-pose motion prior: anchors each consecutive window pair's
     # relative pose to its initialization,

@@ -46,10 +46,15 @@ Two backends:
   With a `point_order` (sorted dispatch, `sorted_dispatch_order`) the fixed
   grid's bilinear kernel visits the observations in that order
   (ops/patch_warp.sorted_patch_stats); its sums are bitwise the same.
+  With `grouped_stats=False` (PB_GROUPED_STATS=0, read by `lm_solve`) the
+  fixed grid's bilinear path with mean or no normalization samples through
+  K4's row store (ops/patch_samples.warp_patches) and reduces in plain
+  tensor ops, the JAX package's unfused branch.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -60,6 +65,7 @@ from ..geometry import se3
 from ..image import interp
 from ..image import patches as patches_mod
 from ..ops import patch_bicubic as pb_mod
+from ..ops import patch_samples as samples_mod
 from ..ops import patch_scaled as ps_mod
 from ..ops import patch_warp as pw_mod
 
@@ -530,7 +536,9 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               normalize, robust_kind: str,
                               mode: str = "sampled",
                               patch_warp: tuple | None = None,
-                              point_order=None) -> CompressedResiduals:
+                              point_order=None,
+                              grouped_stats: bool = True
+                              ) -> CompressedResiduals:
     """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`):
     the fused kernel returns the six un-whitened sums per observation; the
     prior row and the whitening are added here, outside it. Dispatch:
@@ -539,6 +547,18 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                                      sorted_patch_stats with a point_order
       fixed grid, bicubic         -> bicubic_stats (K2, every normalization)
       patchWarp='scale', bilinear -> scaled_stats  (K3; affine: K5)
+
+    With grouped_stats=False (PB_GROUPED_STATS=0) the fixed grid's bilinear
+    path with mean or off normalization takes the JAX package's unfused
+    branch (residuals.py:812-850): K4's row store samples (s, gx, gy)
+    (ops/patch_samples.warp_patches, variant 'rows'), which are centred,
+    compared with the descriptor and reduced in plain tensor ops, in that
+    branch's order. Every other configuration keeps its fused kernel: the
+    JAX package's unfused branch computes the same statistics there, from
+    K2's, K5's or K4's samples, and the port computes them fused (K2, K3
+    and K1's affine mode are its twins of those kernels plus their XLA
+    epilogues); the sorted order is ignored, as the JAX package ignores
+    it on that branch.
 
     With the scale warp, rho = clip(z_ref / max(z_f, 1e-6)) point-minor (1
     where z_ref <= 0), and the kernel's own margin
@@ -588,6 +608,12 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     uv_nm = uv.permute(2, 0, 1).contiguous()               # (N, W, 2)
     valid_nm = valid.T.contiguous()
     patch = patch.contiguous()
+    if (not grouped_stats and rho is None and mode == "sampled"
+            and norm_mode in ("mean", "off")):
+        gtg, gtr, rr = _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr,
+                                        norm_mode)
+        return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
+                       robust_kind)
     if rho is not None:
         stats = ps_mod.scaled_stats(planes, uv_nm, rho.T.contiguous(),
                                     valid_nm, patch, pr, norm=norm_mode)
@@ -604,6 +630,38 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     gtr = torch.stack([gxr, gyr], dim=1)                        # (W, 2, N)
     return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
                    robust_kind)
+
+
+def grouped_stats_from_env() -> bool:
+    """False where PB_GROUPED_STATS=0 is set: the cuda backend's unfused
+    fixed-grid path (`evaluate_compressed`'s `grouped_stats`). Read where a
+    solve or an evaluation starts, as the JAX package reads it where it
+    traces one."""
+    return os.environ.get("PB_GROUPED_STATS", "1") != "0"
+
+
+def _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr: int,
+                     norm_mode: str):
+    """(gtg (W,2,2,N), gtr (W,2,N), rnorm2 (W,N)) from K4's row-store
+    samples, reduced in plain tensor ops in the order of the JAX package's
+    unfused branch (residuals.py:822-850): each plane centred on its patch
+    mean (mean normalization), then r = s - d."""
+    n, w = valid_nm.shape
+    s, gx, gy = (t.permute(1, 2, 3, 0) for t in samples_mod.warp_patches(
+        planes, uv_nm, valid_nm, pr, variant="rows"))      # (W, C, P, N)
+    if norm_mode != "off":
+        s = s - s.mean(dim=2, keepdim=True)
+        gx = gx - gx.mean(dim=2, keepdim=True)
+        gy = gy - gy.mean(dim=2, keepdim=True)
+    r = (s - patch.permute(1, 2, 0)[None]).reshape(w, -1, n)     # (W, D, N)
+    gx, gy = gx.reshape(w, -1, n), gy.reshape(w, -1, n)
+    g00 = (gx * gx).sum(dim=1)                                   # (W, N)
+    g01 = (gx * gy).sum(dim=1)
+    g11 = (gy * gy).sum(dim=1)
+    gtg = torch.stack([torch.stack([g00, g01], dim=1),
+                       torch.stack([g01, g11], dim=1)], dim=1)   # (W,2,2,N)
+    gtr = torch.stack([(gx * r).sum(dim=1), (gy * r).sum(dim=1)], dim=1)
+    return gtg, gtr, (r * r).sum(dim=1)
 
 
 def _evaluate_compressed_torch(cam, t_wc, x_world, patch, channels, grads,
@@ -654,7 +712,8 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
                         normalize=True,
                         robust_kind: str = "huber",
                         patch_warp: tuple | None = None,
-                        point_order=None) -> CompressedResiduals:
+                        point_order=None,
+                        grouped_stats: bool = True) -> CompressedResiduals:
     """Factored Gauss-Newton statistics of all (point, window-frame)
     observations.
 
@@ -678,6 +737,10 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
         the cuda backend's fixed-grid bilinear kernel then visits the
         observations in that order (the same sums, bitwise); ignored by
         every other path, as the JAX package ignores its point_order.
+      grouped_stats: False for the cuda backend's unfused fixed-grid path
+        (PB_GROUPED_STATS=0): K4's row-store samples reduced in plain
+        tensor ops (mean or off normalization, bilinear 'sampled'; see
+        `_evaluate_compressed_cuda`); ignored by the torch backend.
     """
     if backend == "cuda":
         if gradient_mode not in CUDA_MODES:
@@ -687,7 +750,7 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
             huber_delta, depth_prior, ctx, normalize, robust_kind,
             mode=gradient_mode, patch_warp=patch_warp,
-            point_order=point_order)
+            point_order=point_order, grouped_stats=grouped_stats)
     if backend != "torch":
         raise ValueError(f"unknown backend '{backend}' (want one of "
                          f"{BACKENDS})")

@@ -1,0 +1,113 @@
+// Bilinear sampling on the fixed integer patch grid, shared by the kernels
+// that sample a (2R+2)^2 window of float4 texels (value, d/dx, d/dy, 0):
+// K1 and its sorted variant (csrc/patch_warp.cu), the sample stores
+// (csrc/patch_samples.cu), K7 (csrc/patch_stats.cu) and the K1 ablation
+// (csrc/patch_ablate.cu). One definition keeps their samples bitwise
+// alike: the window origin and weights of `window_at`, and the tap order
+// of the TPU kernels (photobundle_tpu/ops/patch_warp.py:118-119, 430-431):
+// w00*a + w01*b + w10*c + w11*d, each product and sum rounded once (the
+// kernels are built with -fmad=false, ops/_build.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "patch_epilogue.cuh"
+
+namespace pb {
+
+struct Weights {
+  float w00, w01, w10, w11;
+};
+
+// Texel loads: from global memory through the read-only cache, or plain
+// loads (a block's staged tile in shared memory, a generic pointer).
+struct LoadGlobal {
+  __device__ __forceinline__ float4 operator()(const float4* p) const {
+    return __ldg(p);
+  }
+};
+struct LoadPlain {
+  __device__ __forceinline__ float4 operator()(const float4* p) const {
+    return *p;
+  }
+};
+
+// The bilinear combine of four taps in the tap order of the TPU kernel:
+// w00*a + w01*b + w10*c + w11*d.
+__device__ __forceinline__ float combine(const Weights& q, float a, float b,
+                                         float c, float d) {
+  return q.w00 * a + q.w01 * b + q.w10 * c + q.w11 * d;
+}
+
+// Bilinear samples of value/gx/gy at window cell (ky, kx) of a window whose
+// rows are `stride` texels apart.
+template <typename Load>
+__device__ __forceinline__ float3 sample(const float4* __restrict__ win,
+                                         int stride, int ky, int kx,
+                                         const Weights& q, Load load) {
+  const float4* r0 = win + static_cast<long long>(ky) * stride + kx;
+  const float4 a = load(r0);
+  const float4 b = load(r0 + 1);
+  const float4 c = load(r0 + stride);
+  const float4 d = load(r0 + stride + 1);
+  return make_float3(combine(q, a.x, b.x, c.x, d.x),
+                     combine(q, a.y, b.y, c.y, d.y),
+                     combine(q, a.z, b.z, c.z, d.z));
+}
+
+// The value sample alone, from value planes (one f32 per texel, loaded
+// through the read-only cache): bitwise sample()'s .x on the same values.
+__device__ __forceinline__ float sample_value(const float* __restrict__ win,
+                                              int stride, int ky, int kx,
+                                              const Weights& q) {
+  const float* r0 = win + static_cast<long long>(ky) * stride + kx;
+  return combine(q, __ldg(r0), __ldg(r0 + 1), __ldg(r0 + stride),
+                 __ldg(r0 + stride + 1));
+}
+
+// One observation's window origin and bilinear weights. Call it only for a
+// valid observation (an invalid one may carry NaN, which must never reach
+// floorf or an int cast); the window is clamped inside the image.
+template <int R>
+__device__ __forceinline__ void window_at(float2 q, int h, int wi, int* x0,
+                                          int* y0, Weights* wt) {
+  constexpr int WIN = 2 * R + 2;
+  const float flx = floorf(q.x);
+  const float fly = floorf(q.y);
+  const float fx = q.x - flx;
+  const float fy = q.y - fly;
+  *x0 = min(max(static_cast<int>(flx) - R, 0), wi - WIN);
+  *y0 = min(max(static_cast<int>(fly) - R, 0), h - WIN);
+  const float one_fy = 1.f - fy;
+  *wt = Weights{(1.f - fx) * one_fy, fx * one_fy, (1.f - fx) * fy,
+                fx * fy};
+}
+
+// K1's six sums of one observation over its C channels: `win` is channel
+// 0's window origin, channels are `chan` texels apart, rows `stride`; the
+// normalization is NORM's epilogue (patch_epilogue.cuh).
+template <int R, int NORM, typename Load>
+__device__ __forceinline__ void observation_stats(
+    const float4* win, long long chan, int stride, const Weights& wt,
+    const float* __restrict__ desc, int c, Load load, float acc[6]) {
+  constexpr int PS = 2 * R + 1;
+  constexpr int P = PS * PS;
+  for (int ch = 0; ch < c; ++ch) {
+    const float4* wc = win + ch * chan;
+    auto sweep = [&](auto&& emit) {
+      const float4* wv = opaque(wc);
+#pragma unroll
+      for (int ky = 0; ky < PS; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < PS; ++kx) {
+          const float3 s = sample(wv, stride, ky, kx, wt, load);
+          emit(ky * PS + kx, s.x, s.y, s.z);
+        }
+      }
+    };
+    channel_stats<P, NORM>(sweep, desc + static_cast<long long>(ch) * P,
+                           acc);
+  }
+}
+
+}  // namespace pb

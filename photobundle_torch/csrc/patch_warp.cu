@@ -54,91 +54,17 @@
 
 #include <cuda_runtime.h>
 
-#include "patch_epilogue.cuh"
+#include "patch_bilinear.cuh"
 
 namespace {
 
+using pb::LoadGlobal;
+using pb::LoadPlain;
+using pb::observation_stats;
+using pb::Weights;
+using pb::window_at;
+
 constexpr int kThreads = 64;
-
-struct Weights {
-  float w00, w01, w10, w11;
-};
-
-// Texel loads: K1 reads its windows from global memory through the
-// read-only cache; the sorted variant also reads a block's staged tile in
-// shared memory (a generic pointer, plain loads).
-struct LoadGlobal {
-  __device__ __forceinline__ float4 operator()(const float4* p) const {
-    return __ldg(p);
-  }
-};
-struct LoadPlain {
-  __device__ __forceinline__ float4 operator()(const float4* p) const {
-    return *p;
-  }
-};
-
-// Bilinear combine of value/gx/gy at window cell (ky, kx) of a window whose
-// rows are `stride` texels apart, in the tap order of the TPU kernel:
-// w00*a + w01*b + w10*c + w11*d.
-template <typename Load>
-__device__ __forceinline__ float3 sample(const float4* __restrict__ win,
-                                         int stride, int ky, int kx,
-                                         const Weights& q, Load load) {
-  const float4* r0 = win + static_cast<long long>(ky) * stride + kx;
-  const float4 a = load(r0);
-  const float4 b = load(r0 + 1);
-  const float4 c = load(r0 + stride);
-  const float4 d = load(r0 + stride + 1);
-  return make_float3(q.w00 * a.x + q.w01 * b.x + q.w10 * c.x + q.w11 * d.x,
-                     q.w00 * a.y + q.w01 * b.y + q.w10 * c.y + q.w11 * d.y,
-                     q.w00 * a.z + q.w01 * b.z + q.w10 * c.z + q.w11 * d.z);
-}
-
-// One observation's window origin and bilinear weights. The coordinate is
-// read only for a valid observation (an invalid one may be NaN, which
-// must never reach floorf or an int cast); the window is clamped inside
-// the image.
-template <int R>
-__device__ __forceinline__ void window_at(float2 q, int h, int wi, int* x0,
-                                          int* y0, Weights* wt) {
-  constexpr int WIN = 2 * R + 2;
-  const float flx = floorf(q.x);
-  const float fly = floorf(q.y);
-  const float fx = q.x - flx;
-  const float fy = q.y - fly;
-  *x0 = min(max(static_cast<int>(flx) - R, 0), wi - WIN);
-  *y0 = min(max(static_cast<int>(fly) - R, 0), h - WIN);
-  const float one_fy = 1.f - fy;
-  *wt = Weights{(1.f - fx) * one_fy, fx * one_fy, (1.f - fx) * fy,
-                fx * fy};
-}
-
-// The six sums of one observation over its C channels: `win` is channel
-// 0's window origin, channels are `chan` texels apart, rows `stride`.
-template <int R, int NORM, typename Load>
-__device__ __forceinline__ void observation_stats(
-    const float4* win, long long chan, int stride, const Weights& wt,
-    const float* __restrict__ desc, int c, Load load, float acc[6]) {
-  constexpr int PS = 2 * R + 1;
-  constexpr int P = PS * PS;
-  for (int ch = 0; ch < c; ++ch) {
-    const float4* wc = win + ch * chan;
-    auto sweep = [&](auto&& emit) {
-      const float4* wv = pb::opaque(wc);
-#pragma unroll
-      for (int ky = 0; ky < PS; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < PS; ++kx) {
-          const float3 s = sample(wv, stride, ky, kx, wt, load);
-          emit(ky * PS + kx, s.x, s.y, s.z);
-        }
-      }
-    };
-    pb::channel_stats<P, NORM>(sweep, desc + static_cast<long long>(ch) * P,
-                               acc);
-  }
-}
 
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Each fuses patch sampling, normalization (off, mean or affine: the
-epilogue in csrc/patch_epilogue.cuh) and the six Gauss-Newton sums, and
-stands for Pallas kernels of `photobundle_tpu/ops/patch_warp.py`:
+The solve's kernels fuse patch sampling, normalization (off, mean or
+affine: the epilogue in csrc/patch_epilogue.cuh) and the six Gauss-Newton
+sums, and stand for Pallas kernels of `photobundle_tpu/ops/patch_warp.py`:
 
 - `patch_warp.patch_stats`: bilinear on the fixed grid, K1
   (`_warp_kernel_packed`), and with affine normalization K4
@@ -15,6 +15,18 @@ stands for Pallas kernels of `photobundle_tpu/ops/patch_warp.py`:
   (cfg.patchWarp='scale'), K3 (`_warp_kernel_scaled_packed`), and with
   affine normalization K5 (`_gather_kernel_scaled` + XLA's resample).
 
-The JAX package's other Pallas kernels (K6 and K7's `cost_only` mode) are
-still to be ported (ROADMAP.md, queue 2).
+The other kernels answer the JAX package's remaining Pallas kernels:
+
+- `patch_samples.warp_patches`: bilinear samples stored per observation,
+  K4's row store (`_warp_kernel`, the unfused solve path under
+  PB_GROUPED_STATS=0) and K6 (`_warp_kernel_block`, its 'block' and 'raw'
+  layouts);
+- `patch_stats.patch_stats`: K7 (`photobundle_tpu/ops/patch_stats.py`),
+  the fused sample + centre + sums kernel with its `cost_only` mode;
+- `patch_ablate.ablate_stats`: K8 (`tools/ablate_packed_kernel.py`), K1
+  with its stages switched off, run by
+  `photobundle_torch.tools.ablate_patch_stats`.
+
+Every kernel that samples the fixed grid bilinearly shares
+csrc/patch_bilinear.cuh, so their samples are bitwise alike.
 """

@@ -1,6 +1,7 @@
 """What the patch kernels' wrappers share: the patch radii and
 normalization modes the kernels are instantiated for, the launch counters,
-and the plain statistics epilogue (the twin of csrc/patch_epilogue.cuh)."""
+the input checks, and the plain statistics epilogue (the twin of
+csrc/patch_epilogue.cuh)."""
 
 from __future__ import annotations
 
@@ -20,14 +21,33 @@ def norm_code(norm: str) -> int:
     return NORMS.index(norm)
 
 
-def reset_launches(wrapper) -> None:
-    """Zero a kernel wrapper's `launches`: its kernel launches by
-    normalization mode, {norm: count}."""
-    wrapper.launches = dict.fromkeys(NORMS, 0)
+def reset_launches(wrapper, modes=None) -> None:
+    """Zero a kernel wrapper's `launches`: its kernel launches by mode,
+    {mode: count}. The modes are the normalization modes unless `modes`
+    names others; a later call without `modes` keeps the wrapper's own."""
+    if modes is None:
+        modes = getattr(wrapper, "launches", None) or NORMS
+    wrapper.launches = dict.fromkeys(modes, 0)
 
 
-def count_launch(wrapper, norm: str) -> None:
-    wrapper.launches[norm] += 1
+def count_launch(wrapper, mode: str) -> None:
+    wrapper.launches[mode] += 1
+
+
+def check_tensors(what: str, device, want: dict) -> None:
+    """Raise ValueError unless every tensor of `want`, {name: (tensor,
+    dtype, shape)}, lies on `device` with that dtype and shape and is
+    contiguous: what a kernel's wrapper checks before a launch."""
+    for name, (t, dtype, shape) in want.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, planes on "
+                             f"{device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} must be {dtype} "
+                             f"{tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def stats_from_samples(s, gx, gy, patch, valid, norm: str = "mean"):

@@ -36,8 +36,8 @@ import torch
 
 from ..image import interp
 from . import _build
-from ._common import (RADII, count_launch, norm_code, reset_launches,
-                      stats_from_samples)
+from ._common import (RADII, check_tensors, count_launch, norm_code,
+                      reset_launches, stats_from_samples)
 
 
 def build_value_planes(channels: torch.Tensor) -> torch.Tensor:
@@ -118,19 +118,11 @@ def _check(planes, uv, valid, patch, patch_radius: int):
     w, c, h, wi = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
-    want = {"planes": (planes, torch.float32, (w, c, h, wi)),
-            "uv": (uv, torch.float32, (n, w, 2)),
-            "valid": (valid, torch.bool, (n, w)),
-            "patch": (patch, torch.float32, (n, c, ps * ps))}
-    for name, (t, dtype, shape) in want.items():
-        if t.device != planes.device:
-            raise ValueError(f"bicubic_stats: {name} on {t.device}, planes "
-                             f"on {planes.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"bicubic_stats: {name} must be {dtype} "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"bicubic_stats: {name} must be contiguous")
+    check_tensors("bicubic_stats", planes.device, {
+        "planes": (planes, torch.float32, (w, c, h, wi)),
+        "uv": (uv, torch.float32, (n, w, 2)),
+        "valid": (valid, torch.bool, (n, w)),
+        "patch": (patch, torch.float32, (n, c, ps * ps))})
     if uv.data_ptr() % 8:
         raise ValueError("bicubic_stats: uv must be 8-byte aligned (float2 "
                          "loads)")

@@ -33,8 +33,8 @@ import torch
 
 from ..constants import PATCH_SCALE_MAX, PATCH_SCALE_MIN
 from . import _build
-from ._common import (RADII, count_launch, norm_code, reset_launches,
-                      stats_from_samples)
+from ._common import (RADII, check_tensors, count_launch, norm_code,
+                      reset_launches, stats_from_samples)
 
 
 def scaled_taps(uv: torch.Tensor, rho: torch.Tensor, valid: torch.Tensor,
@@ -117,20 +117,12 @@ def _check(planes, uv, rho, valid, patch, patch_radius: int):
     w, c, h, wi, four = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
-    want = {"planes": (planes, torch.float32, (w, c, h, wi, 4)),
-            "uv": (uv, torch.float32, (n, w, 2)),
-            "rho": (rho, torch.float32, (n, w)),
-            "valid": (valid, torch.bool, (n, w)),
-            "patch": (patch, torch.float32, (n, c, ps * ps))}
-    for name, (t, dtype, shape) in want.items():
-        if t.device != planes.device:
-            raise ValueError(f"scaled_stats: {name} on {t.device}, planes on "
-                             f"{planes.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"scaled_stats: {name} must be {dtype} "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"scaled_stats: {name} must be contiguous")
+    check_tensors("scaled_stats", planes.device, {
+        "planes": (planes, torch.float32, (w, c, h, wi, 4)),
+        "uv": (uv, torch.float32, (n, w, 2)),
+        "rho": (rho, torch.float32, (n, w)),
+        "valid": (valid, torch.bool, (n, w)),
+        "patch": (patch, torch.float32, (n, c, ps * ps))})
     if planes.data_ptr() % 16 or uv.data_ptr() % 8:
         raise ValueError("scaled_stats: planes must be 16-byte and uv "
                          "8-byte aligned (float4 / float2 loads)")

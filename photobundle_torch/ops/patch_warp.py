@@ -39,8 +39,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import (RADII, count_launch, norm_code, reset_launches,
-                      stats_from_samples)
+from ._common import (RADII, check_tensors, count_launch, norm_code,
+                      reset_launches, stats_from_samples)
 
 
 def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -53,6 +53,49 @@ def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
                        dim=-1).to(torch.float32).contiguous()
 
 
+def gather_windows(planes: torch.Tensor, uv: torch.Tensor,
+                   valid: torch.Tensor, patch_radius: int, frame=None):
+    """Each observation's (2R+2)^2 window of texels and its subpixel phase,
+    as the kernels compute them: (a (N, W, C, win, win, *T), fx (N, W),
+    fy (N, W)) for planes (W, C, H, Wi, *T) (T = (4,) for `build_planes`'
+    texels, () for value planes). Invalid coordinates (possibly NaN) are
+    zeroed before any floor or int cast, and the window is clamped inside
+    the image. `frame` (N, W) int64 names the frame each window is read
+    from (default: the observation's own)."""
+    w, c, h, wi = planes.shape[:4]
+    win = 2 * patch_radius + 2
+    x = torch.where(valid, uv[..., 0], 0.0)
+    y = torch.where(valid, uv[..., 1], 0.0)
+    flx, fly = torch.floor(x), torch.floor(y)
+    fx, fy = x - flx, y - fly
+    x0 = torch.clamp(flx.long() - patch_radius, 0, wi - win)
+    y0 = torch.clamp(fly.long() - patch_radius, 0, h - win)
+    k = torch.arange(win, device=planes.device)
+    lin = ((y0[..., None, None] + k[:, None]) * wi
+           + x0[..., None, None] + k)                      # (N, W, win, win)
+    if frame is None:
+        frame = torch.arange(w, device=planes.device)[None, :]
+    # Advanced indices split by a slice: their broadcast dims come first.
+    a = planes.reshape(w, c, h * wi, *planes.shape[4:])[
+        frame[..., None, None], :, lin]
+    return a.movedim(4, 2), fx, fy                         # (N,W,C,win,win,*T)
+
+
+def bilinear(a: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+             patch_radius: int) -> torch.Tensor:
+    """Bilinear samples (N, W, C, ps, ps, *T) on the integer patch grid of
+    windows a (N, W, C, win, win, *T) at phases fx, fy (N, W), in the tap
+    order of the TPU kernel (patch_warp.py:430-431), which every kernel of
+    the port shares (csrc/patch_bilinear.cuh)."""
+    ps = 2 * patch_radius + 1
+    one_fy = 1.0 - fy
+    wts = [(1.0 - fx) * one_fy, fx * one_fy, (1.0 - fx) * fy, fx * fy]
+    tail = (1,) * (a.dim() - 2)
+    w00, w01, w10, w11 = (t.reshape(t.shape + tail) for t in wts)
+    return (w00 * a[:, :, :, :ps, :ps] + w01 * a[:, :, :, :ps, 1:]
+            + w10 * a[:, :, :, 1:, :ps] + w11 * a[:, :, :, 1:, 1:])
+
+
 def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
                           valid: torch.Tensor, patch: torch.Tensor,
                           patch_radius: int, norm: str = "mean"
@@ -63,34 +106,11 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2; norm one of
     ops/_common.NORMS. Returns (6, W, N) f32 rows [g00, g01, g11, gxr,
     gyr, rr], un-whitened, exact zeros for invalid observations."""
-    w, c, h, wi, _ = planes.shape
-    n = uv.shape[0]
+    n, w = valid.shape
+    c = planes.shape[1]
     ps = 2 * patch_radius + 1
-    win = ps + 1
-    # Window origin and subpixel phase as the kernel computes them: invalid
-    # coordinates (possibly NaN) are zeroed before any floor or int cast,
-    # and the window is clamped inside the image.
-    x = torch.where(valid, uv[..., 0], 0.0)
-    y = torch.where(valid, uv[..., 1], 0.0)
-    flx, fly = torch.floor(x), torch.floor(y)
-    fx, fy = x - flx, y - fly
-    x0 = torch.clamp(flx.long() - patch_radius, 0, wi - win)
-    y0 = torch.clamp(fly.long() - patch_radius, 0, h - win)
-    k = torch.arange(win, device=planes.device)
-    lin = ((y0[..., None, None] + k[:, None]) * wi
-           + x0[..., None, None] + k)                      # (N, W, win, win)
-    frame = torch.arange(w, device=planes.device)[None, :, None, None]
-    # Advanced indices split by a slice: their broadcast dims come first.
-    a = planes.reshape(w, c, h * wi, 4)[frame, :, lin]     # (N,W,win,win,C,4)
-    a = a.permute(0, 1, 4, 2, 3, 5)                        # (N,W,C,win,win,4)
-
-    one_fy = 1.0 - fy
-    wts = [(1.0 - fx) * one_fy, fx * one_fy, (1.0 - fx) * fy, fx * fy]
-    w00, w01, w10, w11 = (t[:, :, None, None, None, None] for t in wts)
-    # The tap order of the TPU kernel (patch_warp.py:430-431).
-    s = (w00 * a[:, :, :, :ps, :ps] + w01 * a[:, :, :, :ps, 1:]
-         + w10 * a[:, :, :, 1:, :ps] + w11 * a[:, :, :, 1:, 1:])
-    s = s.reshape(n, w, c, ps * ps, 4)
+    a, fx, fy = gather_windows(planes, uv, valid, patch_radius)
+    s = bilinear(a, fx, fy, patch_radius).reshape(n, w, c, ps * ps, 4)
     return stats_from_samples(s[..., 0], s[..., 1], s[..., 2], patch, valid,
                               norm)
 
@@ -102,24 +122,23 @@ def _check(planes, uv, valid, patch, patch_radius: int):
     w, c, h, wi, four = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
-    want = {"planes": (planes, torch.float32, (w, c, h, wi, 4)),
-            "uv": (uv, torch.float32, (n, w, 2)),
-            "valid": (valid, torch.bool, (n, w)),
-            "patch": (patch, torch.float32, (n, c, ps * ps))}
-    for name, (t, dtype, shape) in want.items():
-        if t.device != planes.device:
-            raise ValueError(f"patch_stats: {name} on {t.device}, planes on "
-                             f"{planes.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"patch_stats: {name} must be {dtype} "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"patch_stats: {name} must be contiguous")
+    check_tensors("patch_stats", planes.device, {
+        "planes": (planes, torch.float32, (w, c, h, wi, 4)),
+        "uv": (uv, torch.float32, (n, w, 2)),
+        "valid": (valid, torch.bool, (n, w)),
+        "patch": (patch, torch.float32, (n, c, ps * ps))})
+    check_texels("patch_stats", planes, uv, patch_radius)
+
+
+def check_texels(what: str, planes, uv, patch_radius: int) -> None:
+    """The float4 / float2 alignment the bilinear kernels load with, and an
+    image no smaller than the sampling window."""
+    h, wi = planes.shape[2:4]
     if planes.data_ptr() % 16 or uv.data_ptr() % 8:
-        raise ValueError("patch_stats: planes must be 16-byte and uv 8-byte "
-                         "aligned (float4 / float2 loads)")
+        raise ValueError(f"{what}: planes must be 16-byte and uv 8-byte "
+                         f"aligned (float4 / float2 loads)")
     if h < 2 * patch_radius + 2 or wi < 2 * patch_radius + 2:
-        raise ValueError(f"patch_stats: image {h}x{wi} is smaller than the "
+        raise ValueError(f"{what}: image {h}x{wi} is smaller than the "
                          f"sampling window")
 
 

@@ -1,0 +1,59 @@
+"""Command-line tools of the port: `bench_warp_kernel` (the store variants
+of `ops/patch_samples.warp_patches`) and `ablate_patch_stats` (K1's stages,
+`ops/patch_ablate`). Each runs on the card unless given `--device cpu`."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def ms_per_call(run, calls: int, device: torch.device) -> float:
+    """Milliseconds per call of `run`, a function that makes `calls` calls:
+    one warm-up run (kernel builds included), then one timed run, by CUDA
+    events on a card (host launch gaps included: a kernel shorter than its
+    wrapper's host time leaves the card idle between launches) and by the
+    host clock on the CPU."""
+    run()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / calls
+
+
+def device_us_per_call(run, calls: int, match: str | None = None):
+    """Device time per call in microseconds: the self device time of the
+    card's activities (kernels whose name holds `match`; all of them where
+    None) in a torch.profiler trace of one run of `run` (`calls` calls),
+    which excludes the host's launch gaps; None where the trace holds no
+    device time. A trace may miss launches: with `match` (one such launch
+    per call) the time is averaged over the launches the trace holds.
+    Call it after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evts = [evt for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and (match is None or match in evt.key)]
+    total = sum(evt.self_device_time_total for evt in evts)
+    if match is not None:
+        calls = sum(evt.count for evt in evts)
+    return total / calls if total > 0 else None

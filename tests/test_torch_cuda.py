@@ -16,8 +16,11 @@ from photobundle_torch import entry
 from photobundle_torch.core import lm
 from photobundle_torch.core import residuals as res_mod
 from photobundle_torch.ops import _common
+from photobundle_torch.ops import patch_ablate as pa
 from photobundle_torch.ops import patch_bicubic as pb
+from photobundle_torch.ops import patch_samples as smp
 from photobundle_torch.ops import patch_scaled as ps
+from photobundle_torch.ops import patch_stats as k7
 from photobundle_torch.ops import patch_warp as pw
 
 pytestmark = pytest.mark.gpu
@@ -494,6 +497,169 @@ def test_sorted_solve_on_card_is_bitwise_the_unsorted_one(cuda_device,
             pw.patch_stats.launches["mean"] - before[1]) == (5, 0)
     assert torch.equal(t_s, t_u) and torch.equal(x_s, x_u)
     assert float(st_s.final_cost) == float(st_u.final_cost)
+
+
+# ---------------------------------------------------------------------------
+# K4's sample store and K6 (csrc/patch_samples.cu), K7 (csrc/patch_stats.cu)
+# and K8 (csrc/patch_ablate.cu)
+# ---------------------------------------------------------------------------
+
+def random_inputs(rng, device, radius, channels, w=3, h=40, wi=70, n=257):
+    """Random planes and descriptors; coordinates anywhere around the image
+    (clamped windows included), about a fifth invalid, one NaN."""
+    planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
+                             dtype=torch.float32, device=device)
+    uv = torch.as_tensor(rng.uniform(-3.0, wi + 2.0, size=(n, w, 2)),
+                         dtype=torch.float32, device=device)
+    valid = torch.as_tensor(rng.uniform(size=(n, w)) > 0.2, device=device)
+    uv[5, 1] = float("nan")
+    valid[5, 1] = False
+    patch = torch.as_tensor(
+        rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
+        dtype=torch.float32, device=device)
+    return planes, uv, valid, patch
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("layout", smp.LAYOUTS)
+def test_sample_store_is_its_plain_version_bitwise(cuda_device, radius,
+                                                   channels, layout):
+    rng = np.random.default_rng(400 + radius * 10 + channels)
+    planes, uv, valid, _ = random_inputs(rng, cuda_device, radius, channels)
+    before = smp.warp_patches.launches[layout]
+    got = smp.store(planes, uv, valid, radius, layout)
+    want = smp.store_reference(planes, uv, valid, radius, layout)
+    torch.cuda.synchronize()
+    assert smp.warp_patches.launches[layout] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_warp_patches_variants_on_card_are_bitwise_alike(cuda_device):
+    rng = np.random.default_rng(7)
+    planes, uv, valid, _ = random_inputs(rng, cuda_device, 2, 2)
+    cpu = smp.warp_patches(planes.cpu(), uv.cpu(), valid.cpu(), 2)
+    for variant in smp.VARIANTS:
+        got = smp.warp_patches(planes, uv, valid, 2, variant)
+        for a, b in zip(got, cpu):
+            assert torch.equal(a.cpu(), b), variant
+
+
+def test_sample_store_rejects_unsupported_input(cuda_device):
+    planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
+    uv = torch.zeros((2, 1, 2), device=cuda_device)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="radius"):
+        smp.warp_patches(planes, uv, valid, 5)
+    with pytest.raises(ValueError, match="uv"):
+        smp.warp_patches(planes, uv.double(), valid, 2)
+    with pytest.raises(ValueError, match="planes"):
+        smp.warp_patches(planes[..., 0], uv, valid, 2)
+
+
+def test_ungrouped_solve_on_card_runs_the_row_store(cuda_device,
+                                                    monkeypatch):
+    """lm_solve with PB_GROUPED_STATS=0 launches the row-store kernel once
+    per evaluation and no other kernel; on a damped start its costs follow
+    the fused solve's."""
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
+                                        device=cuda_device)
+    kw = dict(huber_delta=0.05, backend="cuda", max_iterations=4,
+              initial_lambda=1.0, function_tolerance=0.0,
+              parameter_tolerance=0.0)
+    _, _, fused = lm.lm_solve(cam, *args, off, **kw)
+    monkeypatch.setenv("PB_GROUPED_STATS", "0")
+    kernels = (pw.patch_stats, pw.sorted_patch_stats, pb.bicubic_stats,
+               ps.scaled_stats, smp.warp_patches)
+    for k in kernels:
+        _common.reset_launches(k)
+    _, _, st = lm.lm_solve(cam, *args, off, **kw)
+    torch.cuda.synchronize()
+    assert int(st.iterations) == 4
+    assert smp.warp_patches.launches == {"rows": 5, "block": 0, "raw": 0}
+    assert all(not any(k.launches.values()) for k in kernels[:4])
+    assert torch.equal(st.accept_log, fused.accept_log)
+    np.testing.assert_allclose(st.cost_log.cpu().numpy(),
+                               fused.cost_log.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("cost_only", [False, True])
+def test_k7_matches_plain_version(cuda_device, radius, channels, cost_only):
+    rng = np.random.default_rng(500 + radius * 10 + channels)
+    planes, uv, valid, patch = random_inputs(rng, cuda_device, radius,
+                                             channels)
+    ps_ = 2 * radius + 1
+    desc = patch.reshape(-1, channels, ps_, ps_)
+    desc = (desc - desc.mean(dim=(2, 3), keepdim=True)).contiguous()
+    src = planes[..., 0].contiguous() if cost_only else planes
+    mode = "cost_only" if cost_only else "full"
+    before = k7.patch_stats.launches[mode]
+    got = k7.stats_rows(src, uv, valid, desc, radius, cost_only)
+    want = k7.patch_stats_reference(src, uv, valid, desc, radius, cost_only)
+    torch.cuda.synchronize()
+    assert k7.patch_stats.launches[mode] == before + 1
+    assert torch.isfinite(got).all()
+    assert float(got.reshape(3, -1, 8)[~valid.T].abs().sum()) == 0.0
+    col_max = want.abs().amax(dim=0, keepdim=True)          # per statistic
+    assert within_f32_tolerance(got, want, col_max)
+    if cost_only:
+        full = k7.stats_rows(planes, uv, valid, desc, radius)
+        assert torch.equal(got[:, 5], full[:, 5])
+        assert float(got[:, :5].abs().sum()) == 0.0
+
+
+def test_k7_rejects_unsupported_input(cuda_device):
+    planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
+    uv = torch.zeros((2, 1, 2), device=cuda_device)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
+    desc = torch.zeros((2, 1, 5, 5), device=cuda_device)
+    with pytest.raises(ValueError, match="radius"):
+        k7.patch_stats(planes, uv, valid, desc, 5)
+    with pytest.raises(ValueError, match="planes"):
+        k7.patch_stats(planes, uv, valid, desc, 2, cost_only=True)
+    with pytest.raises(ValueError, match="descriptors"):
+        k7.patch_stats(planes, uv, valid, desc.reshape(2, 1, 25), 2)
+
+
+@pytest.mark.parametrize("stage", pa.STAGES)
+@pytest.mark.parametrize("window", pa.WINDOWS)
+@pytest.mark.parametrize("threads", pa.THREADS)
+def test_ablation_matches_plain_version(cuda_device, stage, window, threads):
+    """Partial stages: bitwise their plain version (both round every
+    operation once, in one order); full: K1's tolerance, and full/own is
+    K1 bitwise."""
+    rng = np.random.default_rng(600 + threads)
+    planes, uv, valid, patch = random_inputs(rng, cuda_device, 2, 2)
+    mode = f"{stage}/{window}"
+    before = pa.ablate_stats.launches[mode]
+    got = pa.ablate_stats(planes, uv, valid, patch, stage, window, threads)
+    want = pa.ablate_reference(planes, uv, valid, patch, stage, window,
+                               threads)
+    torch.cuda.synchronize()
+    assert pa.ablate_stats.launches[mode] == before + 1
+    assert torch.isfinite(got).all()
+    if stage != "full":
+        assert torch.equal(got, want)
+        return
+    row_max = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert within_f32_tolerance(got, want, row_max)
+    if window == "own":
+        assert torch.equal(got, pw.patch_stats(planes, uv, valid, patch, 2))
+
+
+def test_ablation_rejects_unsupported_input(cuda_device):
+    planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
+    uv = torch.zeros((2, 1, 2), device=cuda_device)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="patch"):
+        pa.ablate_stats(planes, uv, valid,
+                        torch.zeros((2, 1, 9), device=cuda_device))
+    with pytest.raises(ValueError, match="threads"):
+        pa.ablate_stats(planes, uv, valid,
+                        torch.zeros((2, 1, 25), device=cuda_device),
+                        threads=512)
 
 
 # ---------------------------------------------------------------------------

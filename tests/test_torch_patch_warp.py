@@ -230,7 +230,8 @@ def test_editing_a_header_renames_the_library(monkeypatch, tmp_path):
     assert before != after and after.name.startswith("k_")
     # The port's own kernels hash the shared epilogue header.
     monkeypatch.undo()
-    for name in ("patch_warp", "patch_bicubic", "patch_scaled"):
+    for name in ("patch_warp", "patch_bicubic", "patch_scaled",
+                 "patch_samples", "patch_stats", "patch_ablate"):
         assert "patch_epilogue.cuh" in [p.name for p in
                                         _build._sources(name)], name
 
