@@ -10,10 +10,15 @@ Drives the port's paths at the repository's full size (370x1226 images,
   2. build: the six kernel sources compiled from photobundle_torch/csrc/
      (one nvcc per source, started together), ptxas registers and spills;
   3. kernel K1 (csrc/patch_warp.cu) vs its plain PyTorch version on a
-     synthetic window solve's own inputs, with the median time of each;
+     synthetic window solve's own inputs, with the median time of each and
+     its device time cold and warm; then the same problem at the patch
+     radii only K1 is built for (R = 6 and 9): K1 vs its plain version in
+     every normalization, the sorted entry bitwise K1;
   4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations; K1's
-     launch count over that run; then the same solve on the plain torch
-     backend, LM iterations/s of both, and a parity solve of the two;
+     launch count over that run and its device time per launch inside the
+     solve (L2 as the solve leaves it); then the same solve on the plain
+     torch backend, LM iterations/s of both, and a parity solve of the
+     two;
   5. kernel K2 (csrc/patch_bicubic.cu) vs its plain version on phase 3's
      inputs within the bicubic margins, with the median time of each;
   6. the engine: PhotometricBundleAdjustment.add_frame over 15 frames of
@@ -24,7 +29,7 @@ Drives the port's paths at the repository's full size (370x1226 images,
      keyframes/s, window-solve ms and the first window's cost on both
      backends from the same state;
   7. the same engine in the default configuration (bilinear, sampled:
-     K1) over 8 frames;
+     K1) over 8 frames, and (7b) at patchRadius=5 over 6 frames (K1 alone);
   8. kernel K3 (csrc/patch_scaled.cu, the warped grid of patchWarp=scale)
      vs its plain version on phase 3's inputs with a scale rho per
      observation (numpy seed 1, uniform in [0.45, 2.3], clamped) inside
@@ -54,8 +59,13 @@ Drives the port's paths at the repository's full size (370x1226 images,
      subprocess with PB_SORTED_DISPATCH=1, then cli.main in this process
      with it (launch counts checked) and without it. The three trajectory
      files must be byte-identical, every window's cost non-increasing and
-     the refined ATE below the input's. Also the card's stereo time per
-     frame (BM, and SGM once) and the host speckle filter's;
+     the refined ATE below the input's. First the dataset alone: the depth
+     producer dataLoader=auto takes (the native host runtime where it
+     builds, else the torch matcher; the build error is printed),
+     dataLoader=native running the runtime or raising where it does not
+     build, and the dataset's ms per frame for each producer; then the
+     card's stereo time per frame (BM, and SGM once) and the host speckle
+     filter's (Python, and native where it builds);
  13. K4's sample store and K6 (csrc/patch_samples.cu, the 'rows', 'block'
      and 'raw' layouts of ops/patch_samples) against their plain versions
      on phase 3's inputs, bitwise, and the four `warp_patches` variants
@@ -130,6 +140,8 @@ DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
 RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
 DENSE_PTS = 65536                           # phase 11's second instance
+WIDE_RADII = (6, 9)              # phase 3's wider patches (K1, K2, K3)
+WIDE_ENGINE_RADIUS = 5                      # phase 7's wide-patch engine
 BENCH_CALLS, ABLATE_CALLS = 50, 64          # phase 15's tools (their K)
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
@@ -211,14 +223,15 @@ def flush_l2() -> None:
 
 
 def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
-                         tries: int = 3):
+                         tries: int = 3, flush: bool = True):
     """Device time per launch of the port's kernels (the card's activities
     whose name holds `match`, in a torch.profiler trace), averaged over the
     launches the trace holds, of `calls` calls of fn after one warm-up
     call, with L2 flushed before each call (the flush's own kernel is not
-    counted). A trace may miss launches: it is taken again, up to `tries`
-    times, until it holds all of them. None if no trace has device time.
-    Self-contained (kernel_times.py times older checkouts with it)."""
+    counted; `flush=False`: back to back, warm). A trace may miss launches:
+    it is taken again, up to `tries` times, until it holds all of them.
+    None if no trace has device time. Self-contained (kernel_times.py times
+    older checkouts with it)."""
     from torch.autograd import DeviceType
 
     fn()
@@ -228,7 +241,8 @@ def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
     for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
-                flush_l2()
+                if flush:
+                    flush_l2()
                 fn()
             torch.cuda.synchronize()
         evts = [evt for evt in prof.key_averages()
@@ -258,14 +272,16 @@ def ptxas_table(log: str) -> dict:
     every kernel instance in a `ptxas -v` log (instances are named
     <kernel><R, NORM> in the mangled entry names; a kernel templated on R
     alone, with the normalization a runtime argument, is listed with code
-    None)."""
+    None; K1's single-channel instances, <R, NORM, true>, as
+    '<kernel>[C=1]')."""
     table, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
-                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:L[ib](\d+)E)?",
-                      line)
+                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:L[ib](\d+)E)?"
+                      r"(?:Lb(\d)E)?", line)
         if m:
-            current = (m.group(1), int(m.group(2)),
+            kernel = m.group(1) + ("[C=1]" if m.group(4) == "1" else "")
+            current = (kernel, int(m.group(2)),
                        None if m.group(3) is None else int(m.group(3)))
             regs, spill = table.get(current, (None, None))
             table[current] = (regs, spill)
@@ -281,19 +297,22 @@ def ptxas_table(log: str) -> dict:
     return table
 
 
-def print_ptxas(name: str, built) -> None:
+def print_ptxas(name: str, built, radii=None) -> None:
     """One line per kernel and normalization mode: registers / spill-store
-    bytes for R = 1..4 (nothing if the library was not built in this
+    bytes for each radius the library is built for (`radii`, default
+    ops/_common.RADII; nothing if the library was not built in this
     process)."""
     from photobundle_torch.ops import _common
 
+    radii = radii or _common.RADII
     table = ptxas_table(built.log)
     for kernel in sorted({k for k, _, _ in table}):
         for code, norm in enumerate(_common.NORMS):
             cells = [table.get((kernel, r, code), (None, None))
-                     for r in _common.RADII]
+                     for r in radii]
             say(f"  ptxas {name} {kernel} {norm}: registers/spill bytes for "
-                f"R = 1..4: " + ", ".join(f"{g}/{b}" for g, b in cells))
+                f"R = {radii[0]}..{radii[-1]}: "
+                + ", ".join(f"{g}/{b}" for g, b in cells))
 
 
 def print_ptxas_instances(name: str, built) -> None:
@@ -463,14 +482,18 @@ def ablate_bound(uv_nm, valid_nm, pr, stage, window, threads):
 
 
 def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
-                 compare=compare_with_plain, match="stats"):
+                 compare=compare_with_plain, match="stats",
+                 radius=PATCH_RADIUS, warm=False):
     """Hold one kernel (or mode) against its plain version (`compare`) and
     time both; its device time per launch is that of the profiler's
-    `*<match>*_kernel` entries. Returns its numbers for the JSON line."""
+    `*<match>*_kernel` entries (with `warm`, also back to back without
+    the L2 flush: `warm_us`). Returns its numbers for the JSON line."""
     max_abs, max_rel, worst = compare(kernel(), plain(), valid_nm)
     ms = median_ms(kernel, KERNEL_CALLS)
     plain_ms = median_ms(plain, KERNEL_CALLS)
     dev_us = device_us_per_launch(kernel, match=match)
+    warm_us = (device_us_per_launch(kernel, match=match, flush=False)
+               if warm else None)
     torch.cuda.synchronize()
     share = roofline_share(f"phase {tag} {label}", dev_us, ms, bound)
     dev = us_text(dev_us)
@@ -479,17 +502,20 @@ def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
                  f" + {KERNEL_ATOL_ROW:g} row max")
     say(f"phase {tag} {label} vs plain at {valid_nm.shape[0]}x"
         f"{valid_nm.shape[1]} obs ({int(valid_nm.sum())} valid), "
-        f"R={PATCH_RADIUS}: max abs err {max_abs:.3e}, max rel err "
+        f"R={radius}: max abs err {max_abs:.3e}, max rel err "
         f"{max_rel:.3e}, {tolerance} | median "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over {KERNEL_CALLS} "
         f"calls | device time per launch {dev} (profiler, {PROFILED_CALLS} "
-        f"launches, L2 flushed before each) | bound "
+        f"launches, L2 flushed before each)"
+        f"{f', warm {us_text(warm_us)} (back to back)' if warm else ''} "
+        f"| bound "
         f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} "
         f"({bound['bytes'] / 1e6:.2f} MB, {bound['flops'] / 1e6:.2f} MFLOP)"
         f", roofline share {share_text(share)}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                library_ms=None, device_us=dev_us)
+                library_ms=None, device_us=dev_us,
+                **({"warm_us": warm_us} if warm else {}))
 
 
 def roofline_share(label, dev_us, ms, bound):
@@ -591,7 +617,7 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
     expected = sum(r.iterations + 1 for r in results)
     its = [r.iterations for r in results]
     say(f"phase {tag} engine ({cfg.interpolation}, "
-        f"{cfg.resolve_gradient_mode()}, patchWarp "
+        f"{cfg.resolve_gradient_mode()}, R {cfg.patchRadius}, patchWarp "
         f"{cfg.resolve_patch_warp()}, normalization "
         f"{cfg.resolve_normalization()}): {n_frames} frames "
         f"{images[0].shape[0]}x{images[0].shape[1]}, {len(results)} "
@@ -678,20 +704,20 @@ def check_first_window(tag, run, restrict_torch):
           f"cost {first:.6f}")
 
 
-def sorted_instance(n_pts: int, dev):
-    """Phase 3's synthetic window problem at `n_pts` points (the same
-    frames: entry.make_problem draws them from the seed alone), its valid
-    observations inside K1's margins, and the sorted-dispatch order
-    lm_solve builds for it. Returns (planes, uv_nm, valid_nm, patch,
-    order, sort_ms)."""
+def sorted_instance(n_pts: int, dev, pr: int = PATCH_RADIUS,
+                    time_sort: bool = True):
+    """Phase 3's synthetic window problem at `n_pts` points and patch
+    radius `pr` (the same frames: entry.make_problem draws them from the
+    seed alone), its valid observations inside K1's margins, and the
+    sorted-dispatch order lm_solve builds for it. Returns (planes, uv_nm,
+    valid_nm, patch, order, sort_ms; None unless `time_sort`)."""
     from photobundle_torch import entry
     from photobundle_torch.core import residuals as res_mod
     from photobundle_torch.ops import patch_warp as pw
 
-    cam, _, args = entry.make_problem(n_pts, W, H, WI, PATCH_RADIUS,
-                                      seed=SEED, device=dev)
+    cam, _, args = entry.make_problem(n_pts, W, H, WI, pr, seed=SEED,
+                                      device=dev)
     t_wc, x_world, patch, channels, grads, obs = args[:6]
-    pr = PATCH_RADIUS
     _, uv, in_front, _, _ = res_mod._observation_geometry_pm(cam, t_wc,
                                                              x_world)
     in_bounds = ((uv[:, 0] >= pr) & (uv[:, 0] <= WI - 2 - pr)
@@ -703,9 +729,96 @@ def sorted_instance(n_pts: int, dev):
         return res_mod.sorted_dispatch_order(res_mod.dispatch_key(
             cam, t_wc, x_world, obs, (H, WI)))
 
-    sort_ms = median_ms(order, KERNEL_CALLS)
+    sort_ms = median_ms(order, KERNEL_CALLS) if time_sort else None
     return (pw.build_planes(channels, grads), uv_nm, valid_nm, patch,
             order(), sort_ms)
+
+
+def wide_phase(dev) -> None:
+    """Phase 3 at the patch radii past 4 (WIDE_RADII), where the solve's
+    kernels roll their row loops: K1, K2 and K3 each against its plain
+    version in every normalization, each with its bound from its own
+    texel count, and the sorted kernel bitwise K1. K2 and K3 take the
+    observations inside K1's margins and their own, and phase 8's
+    scales."""
+    from photobundle_torch.image import patches as patches_mod
+    from photobundle_torch.ops import _common
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_scaled as ps
+    from photobundle_torch.ops import patch_warp as pw
+
+    rho_nm = torch.as_tensor(np.clip(np.random.default_rng(RHO_SEED).uniform(
+        RHO_LO, RHO_HI, size=(N_PTS, W)), 0.5, 2.0).astype(np.float32),
+        device=dev)
+    for pr in WIDE_RADII:
+        planes, uv_nm, valid_nm, patch, order, _ = sorted_instance(
+            N_PTS, dev, pr, time_sort=False)
+        x, y = uv_nm[..., 0], uv_nm[..., 1]
+        valid_bc = (valid_nm & (x >= pr + 1) & (x <= WI - 3 - pr)
+                    & (y >= pr + 1) & (y <= H - 3 - pr)).contiguous()
+        ext = rho_nm * pr
+        valid_sc = (valid_nm & (x >= 1 + ext) & (x <= (WI - 2) - ext)
+                    & (y >= 1 + ext) & (y <= (H - 2) - ext)).contiguous()
+        value_planes = planes[..., 0].contiguous()
+        texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
+        texels_bc = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4, pr + 1,
+                                  H, WI)
+        texels_sc = scaled_texels(uv_nm, rho_nm, valid_sc, pr, H, WI)
+        for norm in _common.NORMS:
+            desc = (patches_mod.affine_normalize(patch).contiguous()
+                    if norm == "affine" else patch)
+            kernel_phase(
+                "3", f"K1 {norm}",
+                lambda: pw.patch_stats(planes, uv_nm, valid_nm, desc, pr,
+                                       norm),
+                lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm,
+                                                 desc, pr, norm),
+                valid_nm, kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm, 1,
+                                       pr, "bilinear", norm), radius=pr)
+            got = pw.sorted_patch_stats(planes, uv_nm, valid_nm, desc, pr,
+                                        order, norm)
+            k1 = pw.patch_stats(planes, uv_nm, valid_nm, desc, pr, norm)
+            torch.cuda.synchronize()
+            check(torch.equal(got, k1), f"sorted kernel ({norm}) differs "
+                  f"from K1 at R={pr}")
+            kernel_phase(
+                "3", f"K2 {norm}",
+                lambda: pb.bicubic_stats(value_planes, uv_nm, valid_bc, desc,
+                                         pr, norm),
+                lambda: pb.bicubic_stats_reference(value_planes, uv_nm,
+                                                   valid_bc, desc, pr, norm),
+                valid_bc, kernel_bound(texels_bc, VALUE_TEXEL_BYTES, valid_bc,
+                                       1, pr, "bicubic", norm), radius=pr)
+            kernel_phase(
+                "3", f"K3 {norm}",
+                lambda: ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc,
+                                        desc, pr, norm),
+                lambda: ps.scaled_stats_reference(planes, uv_nm, rho_nm,
+                                                  valid_sc, desc, pr, norm),
+                valid_sc, kernel_bound(texels_sc, GRAD_TEXEL_BYTES, valid_sc,
+                                       1, pr, "scaled", norm, with_rho=True),
+                radius=pr)
+        say(f"phase 3 at R={pr}: sorted kernel bitwise K1 in every "
+            f"normalization")
+
+
+def insitu_us(fn, match: str):
+    """Device time per launch of the kernels named `match` inside one call
+    of fn (a solve), L2 as the call leaves it: (us, launches in the
+    trace)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [evt for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and match in evt.key]
+    launches = sum(evt.count for evt in evts)
+    total = sum(evt.self_device_time_total for evt in evts)
+    return (total / launches if total > 0 else None), launches
 
 
 def sorted_phase(dev) -> dict:
@@ -1006,7 +1119,7 @@ def cli_phase(kernels, dev) -> int:
     """Phase 12: the command line on a KITTI-format sequence on `dev`,
     three runs (see the module docstring). Returns the sorted kernel's
     launches in the counted run (b)."""
-    from photobundle_torch import cli, entry
+    from photobundle_torch import cli, entry, native
     from photobundle_torch.core import lm
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
     from photobundle_torch.image import stereo as stereo_mod
@@ -1030,10 +1143,50 @@ def cli_phase(kernels, dev) -> int:
     say(f"phase 12 wrote a {CLI_FRAMES}-frame KITTI-format sequence "
         f"({H}x{WI} stereo PNGs) in {time.perf_counter() - t0:.1f} s")
 
-    # Stereo alone on frame 0: BM on the card (CUDA events), SGM once, the
-    # speckle filter on the host.
+    # The dataset as the command line builds it (dataLoader=auto): its
+    # producer and its time per frame; the torch producer beside it; and
+    # dataLoader=native, which runs the native runtime or raises.
     cfg = cli.load_config(cli.build_argparser().parse_args(
         ["--config", "configs/kitti_production.cfg", f"dataDir={data}"]))
+    built = native.available()
+    dataset_ms = {}
+    for mode, frames in (("auto", CLI_FRAMES), ("python", 3)):
+        t0 = time.perf_counter()
+        ds = kitti.create_dataset(cfg.replace(dataLoader=mode,
+                                              numFrames=frames), device=dev)
+        for i in range(frames):
+            check(ds.get_frame(i).depth_valid.any(),
+                  f"dataLoader={mode}: frame {i} has no valid depth")
+        torch.cuda.synchronize()
+        dataset_ms[f"{mode} ({ds.producer}, {frames} frames)"] = (
+            time.perf_counter() - t0) * 1e3 / frames
+        if mode == "auto":
+            producer = ds.producer
+            check(producer == ("native" if built else "torch"),
+                  f"dataLoader=auto took producer {producer}")
+        del ds
+    try:
+        nds = kitti.create_dataset(cfg.replace(dataLoader="native",
+                                               numFrames=1), device=dev)
+    except RuntimeError as e:
+        check(not built, f"dataLoader=native raised with the runtime built: "
+              f"{e}")
+        native_run = f"raised ({str(e)[:200]})"
+    else:
+        check(built and nds.producer == "native" and nds._native is not None,
+              "dataLoader=native did not run the native runtime")
+        native_run = "ran the native runtime"
+        del nds
+    why = "" if built else (f" (native runtime unavailable: "
+                            f"{str(native.build_error())[:300]})")
+    say(f"phase 12 dataset: dataLoader=auto took producer '{producer}'{why}"
+        f"; dataLoader=native {native_run} | dataset ms per frame (host "
+        f"clock, decode + stereo + speckle + depth, the first frame "
+        f"included): " + ", ".join(f"{k} {v:.1f}"
+                                   for k, v in dataset_ms.items()))
+
+    # Stereo alone on frame 0: BM on the card (CUDA events), SGM once, the
+    # speckle filter on the host (native where it builds, and Python).
     seq = os.path.join(data, "sequences", "00")
     left, right = (torch.as_tensor(kitti._imread_gray(os.path.join(
         seq, sub, "000000.png")), device=dev)
@@ -1048,17 +1201,26 @@ def cli_phase(kernels, dev) -> int:
     stereo_mod.semi_global_match(left, right, **kw)
     torch.cuda.synchronize()
     sgm_ms = (time.perf_counter() - t0) * 1e3
+    speckle_kw = dict(max_diff=cfg.speckleRange,
+                      min_region=cfg.speckleWindowSize)
     t0 = time.perf_counter()
     _, kept = speckle_filter_numpy(disp.cpu().numpy(), valid.cpu().numpy(),
-                                   max_diff=cfg.speckleRange,
-                                   min_region=cfg.speckleWindowSize)
+                                   **speckle_kw)
     speckle_ms = (time.perf_counter() - t0) * 1e3
+    native_speckle = "not built"
+    if built:
+        t0 = time.perf_counter()
+        _, kept_native = native.speckle_filter(
+            disp.cpu().numpy(), valid.cpu().numpy(), **speckle_kw)
+        native_speckle = f"{(time.perf_counter() - t0) * 1e3:.1f} ms"
+        check(np.array_equal(kept, kept_native),
+              "the native speckle filter differs from the Python one")
     say(f"phase 12 stereo per frame ({H}x{WI}, {cfg.numDisparities} "
         f"disparities): BM {bm_ms:.2f} ms on the card (CUDA events, median "
         f"of 5), SGM {sgm_ms:.1f} ms (host clock, once), speckle filter "
-        f"{speckle_ms:.1f} ms on the host | BM valid share "
-        f"{float(valid.float().mean()):.3f}, after speckle "
-        f"{float(kept.mean()):.3f}")
+        f"{speckle_ms:.1f} ms in Python, {native_speckle} native, on the "
+        f"host | BM valid share {float(valid.float().mean()):.3f}, after "
+        f"speckle {float(kept.mean()):.3f}")
 
     def argv(tag):
         return ["--config", "configs/kitti_production.cfg", "--poses",
@@ -1184,7 +1346,7 @@ def main() -> None:
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
     from photobundle_torch.image import patches as patches_mod
-    from photobundle_torch.ops import _build
+    from photobundle_torch.ops import _build, _common
     from photobundle_torch.ops import patch_ablate as pa
     from photobundle_torch.ops import patch_bicubic as pb
     from photobundle_torch.ops import patch_samples as smp
@@ -1209,7 +1371,8 @@ def main() -> None:
             f"{built.seconds:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     say(f"phase 2 built {len(SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
-    print_ptxas("patch_warp", builds["patch_warp"])
+    for source in ("patch_warp", "patch_bicubic", "patch_scaled"):
+        print_ptxas(source, builds[source], _common.SOLVE_RADII)
     for source in ("patch_samples", "patch_stats", "patch_ablate"):
         print_ptxas_instances(source, builds[source])
 
@@ -1231,7 +1394,8 @@ def main() -> None:
         "3", "K1", lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr),
         lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm, patch, pr),
         valid_nm, kernel_bound(win1, GRAD_TEXEL_BYTES, valid_nm, 1, pr,
-                               "bilinear", "mean"))
+                               "bilinear", "mean"), warm=True)
+    wide_phase(dev)
 
     # -- phase 4: the slice ----------------------------------------------
     kw = dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
@@ -1267,6 +1431,11 @@ def main() -> None:
           "refined poses / points are not finite")
     check(torch.equal(t_out[frozen], t_wc[frozen]),
           "frozen gauge poses moved")
+    # K1 inside the solve, L2 as the solve leaves it (not flushed).
+    situ_us, situ_n = insitu_us(lambda: solve("cuda"), "patch_stats_kernel")
+    say(f"phase 4 K1 in the solve: {us_text(situ_us)} per launch over "
+        f"{situ_n} traced launches (L2 as the solve leaves it) | phase 3: "
+        f"cold {us_text(k1['device_us'])}, warm {us_text(k1['warm_us'])}")
 
     def its_per_s(backend):
         times = []
@@ -1323,7 +1492,6 @@ def main() -> None:
                   & (uv[:, 1] >= pr + 1) & (uv[:, 1] <= H - 3 - pr))
     valid_bc = (obs.T & in_front & in_bicubic).T.contiguous()   # (N, W)
     value_planes = pb.build_value_planes(channels)
-    print_ptxas("patch_bicubic", builds["patch_bicubic"])
     win2 = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4, pr + 1, H, WI)
     k2 = kernel_phase(
         "5", "K2",
@@ -1352,6 +1520,10 @@ def main() -> None:
     # -- phase 7: the engine, default configuration (K1) -----------------
     run_engine("7", PBAConfig(), scene, drifted, DEFAULT_FRAMES,
                (pw.patch_stats, "mean"), kernels, ate_must_fall=False)
+    # A patch radius past 4, where K1 rolls its row loop.
+    run_engine("7b", PBAConfig(patchRadius=WIDE_ENGINE_RADIUS), scene,
+               drifted, W + 1, (pw.patch_stats, "mean"), kernels,
+               ate_must_fall=False)
 
     # -- phase 8: K3 vs its plain version on phase 3's inputs ------------
     rho_np = np.random.default_rng(RHO_SEED).uniform(
@@ -1361,7 +1533,6 @@ def main() -> None:
     in_scaled = ((uv[:, 0] >= 1 + ext) & (uv[:, 0] <= (WI - 2) - ext)
                  & (uv[:, 1] >= 1 + ext) & (uv[:, 1] <= (H - 2) - ext))
     valid_sc = (obs.T & in_front & in_scaled).T.contiguous()    # (N, W)
-    print_ptxas("patch_scaled", builds["patch_scaled"])
     win3 = scaled_texels(uv_nm, rho_nm, valid_sc, pr, H, WI)
     k3 = kernel_phase(
         "8", "K3",

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .ops._common import RADII
+from .ops._common import SOLVE_RADII
 
 
 class ConfigFile:
@@ -453,7 +453,7 @@ class PBAConfig:
             (csrc/patch_scaled.cu: K3, and K5 with affine normalization).
         patchWarp='affine' has no kernel in either package: it resolves to
         'torch', as the JAX package runs it on XLA. The kernels are built
-        for patchRadius in ops/_common.RADII; a kernel-path
+        for patchRadius in ops/_common.SOLVE_RADII (1..9); a kernel-path
         configuration outside that range raises ValueError rather than
         running the gather path instead."""
         if self.solverBackend == "torch":
@@ -477,9 +477,9 @@ class PBAConfig:
                                  "patchWarp='scale'); set solverBackend to "
                                  "auto or torch")
             return "torch"
-        if self.patchRadius not in RADII:
+        if self.patchRadius not in SOLVE_RADII:
             raise ValueError(f"the cuda kernels are built for patchRadius "
-                             f"in {RADII}, not {self.patchRadius}; set "
+                             f"in {SOLVE_RADII}, not {self.patchRadius}; set "
                              f"solverBackend=torch to run the gather path")
         return "cuda"
 

@@ -37,17 +37,18 @@
 //
 // What the design does about it: one thread per observation, R and the
 // normalization mode template parameters (each mode's build carries only
-// its own passes' registers) and every loop unrolled, so the window row
-// loads of a pass are independent and in flight together. The separable
-// passes run row by row: a window row is loaded, filtered along x (value
-// and d/dx), and as soon as four filtered rows exist one output row is
-// combined along y, so at most four filtered rows need to be live. The
-// epilogue sweeps the window once per pass (means first, then centred
-// products; affine adds a pass for the norm), which avoids the cancelling
-// one-pass form; the later passes hit L1. Threads are frame-major, so
-// neighbouring threads store neighbouring outputs. No atomics: each thread
-// writes its own sums in a fixed order, so results are bitwise
-// reproducible. Taps combine in the JAX kernel's order
+// its own passes' registers) and every loop unrolled (the columns only
+// from pb::kRolledRowRadius), so the window row loads of a pass are
+// independent and in flight together. Patch radii 1..pb::kMaxSolveRadius.
+// The separable passes run row by row: a window row is loaded, filtered
+// along x (value and d/dx), and as soon as four filtered rows exist one
+// output row is combined along y, so at most four filtered rows need to
+// be live. The epilogue sweeps the window once per pass (means first,
+// then centred products; affine adds a pass for the norm), which avoids
+// the cancelling one-pass form; the later passes hit L1. Threads are
+// frame-major, so neighbouring threads store neighbouring outputs. No
+// atomics: each thread writes its own sums in a fixed order, so results
+// are bitwise reproducible. Taps combine in the JAX kernel's order
 // (patch_warp.py:199-203): rows along x, then columns along y.
 
 #include <cuda_runtime.h>
@@ -77,9 +78,28 @@ __device__ __forceinline__ float taps4(const float* w, float a0, float a1,
   return w[0] * a0 + w[1] * a1 + w[2] * a2 + w[3] * a3;
 }
 
+// One window row filtered along x: value (v) and d/dx (d) at the PS
+// patch columns.
+template <int PS>
+__device__ __forceinline__ void filter_row(const float* __restrict__ row,
+                                           const float* wx, const float* dwx,
+                                           float (&v)[PS], float (&d)[PS]) {
+  float a[PS + 3];
+#pragma unroll
+  for (int k = 0; k < PS + 3; ++k) a[k] = __ldg(row + k);
+#pragma unroll
+  for (int kx = 0; kx < PS; ++kx) {
+    v[kx] = taps4(wx, a[kx], a[kx + 1], a[kx + 2], a[kx + 3]);
+    d[kx] = taps4(dwx, a[kx], a[kx + 1], a[kx + 2], a[kx + 3]);
+  }
+}
+
 // One sweep over a channel's patch: calls emit(k, v, gx, gy) for every
 // patch pixel k in row-major order. `win` points at the window's top-left
-// texel, `wi` is the image row stride.
+// texel, `wi` is the image row stride. Up to R = 4 every loop unrolls and
+// the filtered rows are registers by name; from pb::kRolledRowRadius the
+// output rows are a loop over a ring of the last four filtered rows (the
+// same products in the same order).
 template <int R, typename Emit>
 __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
                                       const float* wx, const float* dwx,
@@ -87,29 +107,48 @@ __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
                                       Emit&& emit) {
   constexpr int PS = 2 * R + 1;
   constexpr int WIN = PS + 3;
-  float rv[WIN][PS];   // rows filtered along x: value
-  float rd[WIN][PS];   // rows filtered along x: d/dx
-#pragma unroll
-  for (int r = 0; r < WIN; ++r) {
-    float a[WIN];
-#pragma unroll
-    for (int k = 0; k < WIN; ++k) a[k] = __ldg(win + r * wi + k);
+  auto combine_row = [&](int ky, const float (&v0)[PS], const float (&v1)[PS],
+                         const float (&v2)[PS], const float (&v3)[PS],
+                         const float (&d0)[PS], const float (&d1)[PS],
+                         const float (&d2)[PS], const float (&d3)[PS]) {
 #pragma unroll
     for (int kx = 0; kx < PS; ++kx) {
-      rv[r][kx] = taps4(wx, a[kx], a[kx + 1], a[kx + 2], a[kx + 3]);
-      rd[r][kx] = taps4(dwx, a[kx], a[kx + 1], a[kx + 2], a[kx + 3]);
+      const float v = taps4(wy, v0[kx], v1[kx], v2[kx], v3[kx]);
+      const float gx = taps4(wy, d0[kx], d1[kx], d2[kx], d3[kx]);
+      const float gy = taps4(dwy, v0[kx], v1[kx], v2[kx], v3[kx]);
+      emit(ky * PS + kx, v, gx, gy);
     }
-    if (r >= 3) {
-      const int ky = r - 3;
+  };
+  if constexpr (R >= pb::kRolledRowRadius) {
+    float rv[4][PS];   // the ring: filtered rows ky .. ky + 3
+    float rd[4][PS];
 #pragma unroll
-      for (int kx = 0; kx < PS; ++kx) {
-        const float v = taps4(wy, rv[ky][kx], rv[ky + 1][kx],
-                              rv[ky + 2][kx], rv[ky + 3][kx]);
-        const float gx = taps4(wy, rd[ky][kx], rd[ky + 1][kx],
-                               rd[ky + 2][kx], rd[ky + 3][kx]);
-        const float gy = taps4(dwy, rv[ky][kx], rv[ky + 1][kx],
-                               rv[ky + 2][kx], rv[ky + 3][kx]);
-        emit(ky * PS + kx, v, gx, gy);
+    for (int r = 0; r < 3; ++r) filter_row<PS>(win + r * wi, wx, dwx, rv[r],
+                                               rd[r]);
+#pragma unroll 1
+    for (int ky = 0; ky < PS; ++ky) {
+      filter_row<PS>(win + (ky + 3) * wi, wx, dwx, rv[3], rd[3]);
+      combine_row(ky, rv[0], rv[1], rv[2], rv[3], rd[0], rd[1], rd[2],
+                  rd[3]);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int kx = 0; kx < PS; ++kx) {
+          rv[r][kx] = rv[r + 1][kx];
+          rd[r][kx] = rd[r + 1][kx];
+        }
+      }
+    }
+  } else {
+    float rv[WIN][PS];   // rows filtered along x: value
+    float rd[WIN][PS];   // rows filtered along x: d/dx
+#pragma unroll
+    for (int r = 0; r < WIN; ++r) {
+      filter_row<PS>(win + r * wi, wx, dwx, rv[r], rd[r]);
+      if (r >= 3) {
+        const int ky = r - 3;
+        combine_row(ky, rv[ky], rv[ky + 1], rv[ky + 2], rv[ky + 3], rd[ky],
+                    rd[ky + 1], rd[ky + 2], rd[ky + 3]);
       }
     }
   }
@@ -182,10 +221,11 @@ extern "C" int pb_bicubic_stats(const void* planes, const void* uv,
                                 void* out, int n, int w, int c, int h, int wi,
                                 int radius, int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
-    launch<decltype(r)::value, decltype(m)::value>(planes, uv, valid, patch,
-                                                   out, n, w, c, h, wi, s);
-  });
+  const int bad =
+      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+        launch<decltype(r)::value, decltype(m)::value>(
+            planes, uv, valid, patch, out, n, w, c, h, wi, s);
+      });
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 

@@ -96,13 +96,19 @@ __device__ __forceinline__ void observation_stats(
     const float4* wc = win + ch * chan;
     auto sweep = [&](auto&& emit) {
       const float4* wv = opaque(wc);
-#pragma unroll
-      for (int ky = 0; ky < PS; ++ky) {
+      auto row = [&](int ky) {
 #pragma unroll
         for (int kx = 0; kx < PS; ++kx) {
           const float3 s = sample(wv, stride, ky, kx, wt, load);
           emit(ky * PS + kx, s.x, s.y, s.z);
         }
+      };
+      if constexpr (R >= kRolledRowRadius) {
+#pragma unroll 1
+        for (int ky = 0; ky < PS; ++ky) row(ky);
+      } else {
+#pragma unroll
+        for (int ky = 0; ky < PS; ++ky) row(ky);
       }
     };
     channel_stats<P, NORM>(sweep, desc + static_cast<long long>(ch) * P,

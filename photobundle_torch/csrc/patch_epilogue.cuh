@@ -116,38 +116,42 @@ __device__ __forceinline__ void channel_stats(const Sweep& sweep,
   acc[5] += s5;
 }
 
+// The patch radii the solve's kernels (K1 with its sorted entry, K2, K3)
+// are built for: 1..kMaxSolveRadius, the radii the JAX package runs its
+// warped grid on (photobundle_torch/ops/_common.SOLVE_RADII). The other
+// kernels (K7, the sample stores, K8) stop at 4.
+constexpr int kMaxSolveRadius = 9;
+
+// From this patch radius on, the patch loops unroll their columns only
+// (the rows stay a loop): a full unroll of 19 x 19 samples in up to three
+// sweeps inflates the build and the instruction footprint. Unrolling does
+// not change the order of the operations, so the sums are the same.
+constexpr int kRolledRowRadius = 5;
+
 // Host side: calls launch(R, NORM), each an std::integral_constant, for a
-// patch radius in 1..4 and a normalization code (Norm). Returns 0, or
+// patch radius in 1..kMaxR and a normalization code (Norm). Returns 0, or
 // cudaErrorInvalidValue for a radius or code the kernels are not
 // instantiated for (nothing is launched then).
-template <typename Launch>
+template <int kMaxR = 4, int R = 1, typename Launch>
 inline int dispatch(int radius, int norm, Launch&& launch) {
-  auto with_norm = [&](auto r) {
+  if constexpr (R > kMaxR) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (radius != R) return dispatch<kMaxR, R + 1>(radius, norm, launch);
+    using r = std::integral_constant<int, R>;
     switch (norm) {
       case kNormOff:
-        launch(r, std::integral_constant<int, kNormOff>{});
+        launch(r{}, std::integral_constant<int, kNormOff>{});
         return 0;
       case kNormMean:
-        launch(r, std::integral_constant<int, kNormMean>{});
+        launch(r{}, std::integral_constant<int, kNormMean>{});
         return 0;
       case kNormAffine:
-        launch(r, std::integral_constant<int, kNormAffine>{});
+        launch(r{}, std::integral_constant<int, kNormAffine>{});
         return 0;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
-  };
-  switch (radius) {
-    case 1:
-      return with_norm(std::integral_constant<int, 1>{});
-    case 2:
-      return with_norm(std::integral_constant<int, 2>{});
-    case 3:
-      return with_norm(std::integral_constant<int, 3>{});
-    case 4:
-      return with_norm(std::integral_constant<int, 4>{});
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

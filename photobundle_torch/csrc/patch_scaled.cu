@@ -52,7 +52,9 @@
 // is reached. Register use grows with R (ptxas spills in the affine mode
 // from R = 2 on), which costs less than it saves: rolling the row loop to
 // keep registers flat made the kernel 1.9x slower at R = 2
-// (kernel_times.py). The epilogue re-samples the patch once per pass (two
+// (kernel_times.py). From pb::kRolledRowRadius the rows are a loop and
+// only the columns unroll: a full unroll of 19 x 19 taps in three passes
+// inflates the build past any gain. Patch radii 1..pb::kMaxSolveRadius. The epilogue re-samples the patch once per pass (two
 // for mean, three for affine) from L1. Threads are frame-major; no
 // atomics, so results are bitwise reproducible.
 
@@ -108,8 +110,7 @@ scaled_stats_kernel(const float4* __restrict__ planes,
           planes + (static_cast<long long>(f) * c + ch) * h * wi;
       auto sweep = [&](auto&& emit) {
         const float4* base = pb::opaque(img);
-#pragma unroll
-        for (int ky = 0; ky < PS; ++ky) {
+        auto patch_row = [&](int ky) {
           int ty;
           float gy1;
           tap(q.y, r, ky - R, h - 2, &ty, &gy1);
@@ -135,6 +136,13 @@ scaled_stats_kernel(const float4* __restrict__ planes,
             emit(ky * PS + kx, gx0 * fv + gx1 * nv, gx0 * fgx + gx1 * ngx,
                  gx0 * fgy + gx1 * ngy);
           }
+        };
+        if constexpr (R >= pb::kRolledRowRadius) {
+#pragma unroll 1
+          for (int ky = 0; ky < PS; ++ky) patch_row(ky);
+        } else {
+#pragma unroll
+          for (int ky = 0; ky < PS; ++ky) patch_row(ky);
         }
       };
       const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
@@ -169,10 +177,11 @@ extern "C" int pb_scaled_stats(const void* planes, const void* uv,
                                int c, int h, int wi, int radius, int norm,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
-    launch<decltype(r)::value, decltype(m)::value>(
-        planes, uv, rho, valid, patch, out, n, w, c, h, wi, s);
-  });
+  const int bad =
+      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+        launch<decltype(r)::value, decltype(m)::value>(
+            planes, uv, rho, valid, patch, out, n, w, c, h, wi, s);
+      });
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 

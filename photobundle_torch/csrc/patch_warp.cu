@@ -26,31 +26,55 @@
 // patch (N, C, P) f32. Window reads are clamped inside the image.
 //
 // What bounds it on this card: at the solver's full-size window (4096
-// points x 5 frames) there are ~20k observations, each reading a
-// (2R+2)^2 window of float4 texels (~600 B at R = 2) and storing 24 B. That
-// is ~12 MB of reads out of an L2-resident 36 MB plane set: a few
-// microseconds of bandwidth. The kernel is bound by latency (dependent
-// gathers per thread, only ~150 threads per SM) and by launch overhead, not
-// by bandwidth or L2.
+// points x 5 frames) there are ~20k observations, each needing a
+// (2R+2)^2 window of float4 texels (576 B at R = 2) and storing 24 B: a
+// few microseconds of HBM bandwidth. A first design let each thread gather
+// its own window straight from global memory. Each warp-wide load then
+// touched ~32 distinct 128-B lines, and with ~155 threads per SM (one per
+// observation) too few loads were in flight to cover HBM latency: the
+// window loads alone took 95-106 % of the kernel (the K8 ablation,
+// csrc/patch_ablate.cu, keeps that design).
 //
-// What the design does about it: one thread per observation, R and the
-// normalization mode template parameters, every patch loop unrolled, so
-// the texel loads of a whole pass are independent and in flight at once.
-// The epilogue re-samples the window once per pass (two for mean, three
-// for affine) from L1 instead of holding the patch in registers across
-// passes. Register use still grows with R (ptxas spills from R = 3 on in
-// the mean and affine modes), which costs less than it saves: rolling the
-// row loop to keep registers flat made the kernel 1.8x slower at R = 2
-// (kernel_times.py). Threads are frame-major, so neighbouring threads
-// store neighbouring outputs. No atomics and no cross-thread reduction:
-// each thread writes its own sums in a fixed order, so results are
-// bitwise reproducible run to run. Centring happens before multiplying
-// (never the one-pass sum(ab) - P*mean(a)*mean(b) form, which cancels in
-// f32).
+// What this design does about it, for R <= kMaxStagedRadius: a block
+// takes kThreads consecutive observations (frame-major, so neighbouring
+// threads store neighbouring outputs) and stages their windows in shared
+// memory, one channel at a time, with 16-byte cp.async.cg copies (L2
+// only: the reuse lives in shared memory). A linear index runs over
+// (observation, window row, column), column fastest, so consecutive lanes
+// copy consecutive texels of one window row (96 contiguous bytes at R = 2)
+// and a warp-wide copy touches a handful of lines. Channels are
+// double-buffered: channel c+1 is in flight while channel c is summed, so
+// the tile never holds more than two channels (C = 8 for bitplanes). After
+// the barrier, each thread runs K1's unchanged per-observation epilogue
+// (observation_stats) on its own window in the tile; its second and third
+// sweeps read shared memory. Each window's stride in the tile is odd in
+// float4 (37 at R = 2), so the eight threads of a 128-bit shared-load
+// phase hit distinct banks.
+//
+// Where staging pays, measured on the H100 (PERF.md's K1 rows, one
+// kernel_times.py call): at 4096 x 5, R = 2, cold, 0.84x the one-thread
+// design and 0.87x that design with the channel count fixed at one, so
+// the gain is the coalesced copy, not the compile-time channel count. From
+// R = 4 the windows of 64 observations take 103 KB or more per channel:
+// two blocks or fewer fit an SM, and a block's copy and sums run one
+// after the other, while the one-thread design (each thread gathers its
+// own window through the read-only path, its later sweeps served by L1)
+// overlaps loads with sums across all its warps. So R > kMaxStagedRadius
+// keeps that design; the choice is compile-time.
+// Where windows overlap (65 536 points) the staged K1 runs 1.04x the
+// one-thread design: the copy bypasses L1, which that design's
+// neighbouring threads share.
+//
+// The sums are bitwise those of the one-thread-per-observation design:
+// the per-observation arithmetic and its order are unchanged (-fmad=false,
+// centring before multiplying, channels summed in order, no atomics), only
+// where the texels are read from differs.
 //
 // A second entry, pb_patch_stats_sorted, is K1's sort-reuse variant: the
 // same sums with observations visited in a sorted point order and each
-// block's windows staged in shared memory where they fit (see below).
+// block's union box staged in shared memory where it fits (see below).
+// Both entries take patch radii 1..pb::kMaxSolveRadius in every
+// normalization.
 
 #include <cuda_runtime.h>
 
@@ -64,8 +88,137 @@ using pb::observation_stats;
 using pb::Weights;
 using pb::window_at;
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;            // threads (observations) per block
+constexpr int kMaxStagedRadius = 3;     // radii whose windows are staged
+constexpr int kMaxSharedBytes = 232448; // what a block may opt into (227 KB)
+constexpr int kStaticReserve = 1024;    // static shared memory of a block
+constexpr int kStageTexels = 1024;      // the sorted entry's union box
 
+// The staging plan of radius R: each observation's window is kTex float4
+// texels (kWin x kWin) at an odd stride kStride in the tile; a block
+// stages kObs = kThreads observations, two channel buffers at most
+// (kMaxBytes). Radii above kMaxStagedRadius stage nothing.
+template <int R>
+struct Plan {
+  static constexpr bool kStaged = R <= kMaxStagedRadius;
+  static constexpr int kWin = 2 * R + 2;
+  static constexpr int kTex = kWin * kWin;
+  static constexpr int kStride = kTex | 1;
+  static constexpr int kBuffer = kStride * 16;   // bytes per observation
+  static constexpr int kObs = kThreads;
+  static constexpr int kMaxBytes = kStaged ? 2 * kObs * kBuffer : 0;
+  static_assert(kMaxBytes + kStaticReserve <= kMaxSharedBytes,
+                "two channel buffers must fit a block's shared memory");
+  // Dynamic shared bytes for C channels (one buffer for C = 1).
+  static int bytes(int c) {
+    return kStaged ? (c > 1 ? 2 : 1) * kObs * kBuffer : 0;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float4* smem,
+                                           const float4* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of one channel of the block's windows into `buf`:
+// observation o's window (origin base[o] + chan_off texels, rows `wi`
+// apart) to buf[o * kStride ...]; base[o] < 0 marks an observation with
+// nothing to copy.
+template <int R>
+__device__ __forceinline__ void stage_channel(
+    float4* buf, const float4* __restrict__ planes, const long long* base,
+    long long chan_off, int wi) {
+  using PL = Plan<R>;
+  for (int i = threadIdx.x; i < PL::kObs * PL::kTex; i += kThreads) {
+    const int o = i / PL::kTex;
+    const int t = i - o * PL::kTex;
+    const int row = t / PL::kWin;
+    const long long b = base[o];
+    if (b >= 0) {
+      cp_async16(buf + o * PL::kStride + t,
+                 planes + b + chan_off + static_cast<long long>(row) * wi +
+                     (t - row * PL::kWin));
+    }
+  }
+}
+
+// K1 for R <= kMaxStagedRadius: the block's windows staged in shared
+// memory one channel at a time, then each thread's sums from its tile
+// window (thread o owns observation o of the block).
+template <int R, int NORM>
+__global__ void __launch_bounds__(kThreads)
+staged_patch_stats_kernel(const float4* __restrict__ planes,
+                          const float2* __restrict__ uv,
+                          const unsigned char* __restrict__ valid,
+                          const float* __restrict__ patch,
+                          float* __restrict__ out,
+                          int n, int w, int c, int h, int wi) {
+  using PL = Plan<R>;
+  static_assert(PL::kStaged, "radius above kMaxStagedRadius");
+  constexpr int P = (2 * R + 1) * (2 * R + 1);
+  extern __shared__ float4 tile[];
+  __shared__ long long base[PL::kObs];
+  const long long total = static_cast<long long>(n) * w;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * PL::kObs + threadIdx.x;
+  const bool live = idx < total;
+  const int f = live ? static_cast<int>(idx / n) : 0;
+  const int p = live ? static_cast<int>(idx - static_cast<long long>(f) * n)
+                     : 0;
+  const long long obs = static_cast<long long>(p) * w + f;
+  const bool ok = live && valid[obs];
+
+  const long long chan = static_cast<long long>(h) * wi;
+  Weights wt = {0.f, 0.f, 0.f, 0.f};
+  base[threadIdx.x] = -1;
+  if (ok) {
+    int x0, y0;
+    window_at<R>(uv[obs], h, wi, &x0, &y0, &wt);
+    base[threadIdx.x] = static_cast<long long>(f) * c * chan +
+                        static_cast<long long>(y0) * wi + x0;
+  }
+  __syncthreads();
+  const float* desc = patch + static_cast<long long>(p) * c * P;
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  stage_channel<R>(tile, planes, base, 0, wi);
+  cp_async_commit();
+  for (int ch = 0; ch < c; ++ch) {
+    if (ch + 1 < c) {      // channel ch + 1 in flight while ch is summed
+      stage_channel<R>(tile + ((ch + 1) & 1) * PL::kObs * PL::kStride,
+                       planes, base, (ch + 1) * chan, wi);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (ok) {
+      observation_stats<R, NORM>(
+          tile + ((ch & 1) * PL::kObs + threadIdx.x) * PL::kStride, 0,
+          PL::kWin, wt, desc + static_cast<long long>(ch) * P, 1,
+          LoadPlain{}, acc);
+    }
+    __syncthreads();   // the buffer is refilled two channels on
+  }
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out[k * total + idx] = acc[k];
+}
+
+// K1 for R > kMaxStagedRadius: one thread per observation gathers its own
+// window through the read-only path (the first design, unchanged).
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
 patch_stats_kernel(const float4* __restrict__ planes,
@@ -104,14 +257,29 @@ template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int n, int w, int c, int h, int wi,
             cudaStream_t stream) {
+  using PL = Plan<R>;
   const long long total = static_cast<long long>(n) * w;
   const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  patch_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float4*>(planes), static_cast<const float2*>(uv),
-      static_cast<const unsigned char*>(valid),
-      static_cast<const float*>(patch), static_cast<float*>(out), n, w, c, h,
-      wi);
+      static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs);
+  const auto go = [&](auto kernel, int bytes) {
+    kernel<<<blocks, kThreads, bytes, stream>>>(
+        static_cast<const float4*>(planes), static_cast<const float2*>(uv),
+        static_cast<const unsigned char*>(valid),
+        static_cast<const float*>(patch), static_cast<float*>(out), n, w, c,
+        h, wi);
+  };
+  if constexpr (PL::kStaged) {
+    // Above 48 KB a kernel's dynamic shared memory must be opted into;
+    // once per instance (the port drives one card per process). A failure
+    // surfaces as the launch's error.
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        staged_patch_stats_kernel<R, NORM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, PL::kMaxBytes);
+    (void)opted;
+    go(staged_patch_stats_kernel<R, NORM>, PL::bytes(c));
+  } else {
+    go(patch_stats_kernel<R, NORM>, 0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -127,18 +295,20 @@ void launch(const void* planes, const void* uv, const void* valid,
 // the union box of its valid observations' windows, and, when that box
 // fits kStageTexels, copies it into shared memory once with coalesced
 // float4 loads; every thread then samples from the tile. A block whose box
-// does not fit samples from global memory as K1 does. Both branches run
-// `sample` and the epilogue on the same texel values, so the sums are
-// bitwise K1's.
+// does not fit samples from global memory as K1's one-thread design does.
+// Both branches run `sample` and the epilogue on the same texel values, so
+// the sums are bitwise K1's.
 //
 // What bounds it: the same distinct texels as K1 (bytes); what it adds is
 // one copy per staged block and a block reduction. Whether a block stages
 // depends on the density of points: at 4096 points on a 370x1226 frame a
 // run of 64 sorted points spans thousands of texels and no block fits;
 // at 65 536 points a 64-point run of a 16-row band spans ~21x33 texels.
-// `staged` (may be null) receives each block's choice.
-
-constexpr int kStageTexels = 1024;   // 16 KB of float4 texels per block
+// `staged` (may be null) receives each block's choice. A block whose box
+// does not fit does not stage its observations' own windows as the staged
+// K1 does: reserving the shared memory for them (37 KB a block at R = 2)
+// made the dense case, for which this entry exists, 1.14x slower (fewer
+// blocks per SM; PERF.md's K1 rows).
 
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
@@ -240,16 +410,17 @@ extern "C" int pb_patch_stats(const void* planes, const void* uv,
                               int n, int w, int c, int h, int wi, int radius,
                               int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
-    launch<decltype(r)::value, decltype(m)::value>(planes, uv, valid, patch,
-                                                   out, n, w, c, h, wi, s);
-  });
+  const int bad =
+      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+        launch<decltype(r)::value, decltype(m)::value>(
+            planes, uv, valid, patch, out, n, w, c, h, wi, s);
+      });
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 
 // feed: (N,) int64, sorted rank -> point. staged: null, or one byte per
 // block (W * ceil(N / 64) blocks, frame-major) set to 1 where the block
-// sampled from its staged tile.
+// sampled from its staged union box.
 extern "C" int pb_patch_stats_sorted(const void* planes, const void* uv,
                                      const void* valid, const void* patch,
                                      const void* feed, void* out,
@@ -257,10 +428,11 @@ extern "C" int pb_patch_stats_sorted(const void* planes, const void* uv,
                                      int wi, int radius, int norm,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = pb::dispatch(radius, norm, [&](auto r, auto m) {
-    launch_sorted<decltype(r)::value, decltype(m)::value>(
-        planes, uv, valid, patch, feed, out, staged, n, w, c, h, wi, s);
-  });
+  const int bad =
+      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+        launch_sorted<decltype(r)::value, decltype(m)::value>(
+            planes, uv, valid, patch, feed, out, staged, n, w, c, h, wi, s);
+      });
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,17 @@
 """KITTI odometry sequences: images, calibration, stereo depth.
 
-Twin of photobundle_tpu/io/kitti.py. Images are decoded on the host
-(OpenCV, else PIL, else the port's own 8-bit grayscale PNG decoder,
-`io/png.py`: the card's machine has neither library); stereo runs as the
-port's torch matcher (`image/stereo.py`) on the dataset's device, and the
-speckle filter on the host (`io/speckle.py`).
+Twin of photobundle_tpu/io/kitti.py. Depth comes from one of two
+producers, as in the JAX package:
+  'native': the port's native host runtime (`photobundle_torch.native`,
+            the JAX package's pb_native.cpp): libpng decode, OpenMP block
+            matching or SGM, the speckle filter and depth, prefetched by
+            worker threads ahead of the solve;
+  'torch':  images decoded on the host (OpenCV, else PIL, else the port's
+            own 8-bit grayscale PNG decoder, `io/png.py`: the card's machine
+            has neither library), the port's torch matcher
+            (`image/stereo.py`) on the dataset's device, and the speckle
+            filter on the host (the native one where the runtime builds,
+            else `io/speckle.py`).
 
 Directory layout (KITTI odometry):
     <root>/sequences/<NN>/image_0/??????.png   left gray
@@ -13,9 +20,10 @@ Directory layout (KITTI odometry):
     <root>/sequences/<NN>/times.txt
     <root>/poses/<NN>.txt                      ground truth (if present)
 
-cfg.dataLoader: 'auto' and 'python' run the torch matcher (what the JAX
-package's 'auto' does where its native runtime is missing); 'native' (the
-C++ decode + stereo + prefetch runtime) raises NotImplementedError.
+cfg.dataLoader (BM and SGBM stereo): 'native' takes the native producer
+and raises RuntimeError where the runtime does not build; 'auto' takes it
+where it builds and the torch producer otherwise; 'python' takes the torch
+producer. OPENCV_BM runs OpenCV's matcher on the host in every mode.
 """
 
 from __future__ import annotations
@@ -29,10 +37,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..config import PBAConfig
 from ..core.engine import require_device
 from ..geometry.camera import Camera
 from ..image import stereo as stereo_mod
+from ..utils import logging as log
 from . import png
 from .speckle import speckle_filter_numpy
 
@@ -103,11 +113,6 @@ class KittiStereoDataset:
 
     def __post_init__(self):
         self.device = require_device(self.device)
-        if self.cfg.dataLoader == "native":
-            raise NotImplementedError(
-                "dataLoader=native (the C++ decode + stereo runtime) is not "
-                "ported to photobundle_torch yet (ROADMAP.md queue 1 item "
-                "10); use dataLoader=auto or python")
         seq = f"{self.sequence:02d}"
         self.seq_dir = os.path.join(self.root, "sequences", seq)
         self.left_files = sorted(glob.glob(os.path.join(self.seq_dir,
@@ -124,15 +129,24 @@ class KittiStereoDataset:
         end = len(self.left_files) if self.num_frames < 0 else min(
             len(self.left_files), self.first_frame + self.num_frames)
         self.indices = list(range(self.first_frame, end))
+        cfg = self.cfg
+        self._native = None
+        self._warned_speckle = False
+        # The depth producer (module docstring): 'native' or 'torch'.
+        mode = cfg.dataLoader
+        wants_native = (mode in ("auto", "native")
+                        and cfg.stereoAlgorithm.upper() in ("BM", "SGBM"))
+        self.producer = ("native" if wants_native and native.available()
+                         else "torch")
 
         # Depth cache (cfg.depthCacheDir): depth depends only on the stereo
         # parameters, the calibration, the producer and the data, so
         # repeated runs over one sequence reuse it. The key names the
-        # producer 'torch': the JAX package's depths (producer 'jax' or
-        # 'native') are never served here, nor these there.
+        # producer, 'native' or 'torch': the JAX package's own matcher
+        # (producer 'jax') is never served here, nor this one's there. When
+        # every frame is cached, the native pipeline is not started.
         self._cache_dir = None
         self._cache_all_hit = False
-        cfg = self.cfg
         if cfg.depthCacheDir:
             # Dataset identity: the first image's path, size and mtime, so
             # two datasets sharing a cache directory never serve each
@@ -147,7 +161,7 @@ class KittiStereoDataset:
                 cfg.minDisparity, cfg.sadWindowSize, cfg.speckleWindowSize,
                 cfg.speckleRange, cfg.minDepth, cfg.maxDepth,
                 f"{float(self.camera.fx):.6g}",
-                f"{float(self.camera.baseline):.6g}", "torch", ident))
+                f"{float(self.camera.baseline):.6g}", self.producer, ident))
             if cfg.preFilterCap > 0:
                 key += f"_pfc{cfg.preFilterCap}"
             self._cache_dir = os.path.join(cfg.depthCacheDir,
@@ -155,6 +169,28 @@ class KittiStereoDataset:
             os.makedirs(self._cache_dir, exist_ok=True)
             self._cache_all_hit = all(
                 os.path.exists(self._cache_path(i)) for i in self.indices)
+
+        if not self._cache_all_hit and wants_native:
+            if self.producer == "native":
+                self._native = native.PrefetchingLoader(
+                    [self.left_files[i] for i in self.indices],
+                    [self.right_files[i] for i in self.indices],
+                    num_disparities=cfg.numDisparities,
+                    min_disparity=cfg.minDisparity,
+                    sad_radius=cfg.sadWindowSize // 2,
+                    uniqueness_ratio=0.97, texture_threshold=0.02,
+                    fx=float(self.camera.fx),
+                    baseline=float(self.camera.baseline),
+                    min_depth=cfg.minDepth, max_depth=cfg.maxDepth,
+                    n_threads=max(2, cfg.numThreads), prefetch_ahead=4,
+                    algorithm=cfg.stereoAlgorithm.upper(),
+                    speckle_size=cfg.speckleWindowSize,
+                    speckle_range=cfg.speckleRange,
+                    prefilter_cap=cfg.preFilterCap)
+            elif mode == "native":
+                raise RuntimeError(f"dataLoader=native requested but the "
+                                   f"native runtime is unavailable: "
+                                   f"{native.build_error()}")
 
     def __len__(self):
         return len(self.indices)
@@ -181,9 +217,7 @@ class KittiStereoDataset:
                 prefilter_cap=cfg.preFilterCap)
             disp, valid = disp.cpu().numpy(), valid.cpu().numpy()
             if cfg.speckleWindowSize > 0:
-                disp, valid = speckle_filter_numpy(
-                    disp, valid, max_diff=cfg.speckleRange,
-                    min_region=cfg.speckleWindowSize)
+                disp, valid = self._speckle_filter(disp, valid)
         elif algo == "OPENCV_BM":
             import cv2
 
@@ -203,32 +237,63 @@ class KittiStereoDataset:
         ok = valid & (depth > cfg.minDepth) & (depth < cfg.maxDepth)
         return depth.astype(np.float32), ok
 
+    def _speckle_filter(self, disp: np.ndarray, valid: np.ndarray):
+        """The speckle filter of the torch producer: the native one where
+        the runtime builds, else the pure-Python one (the same decisions,
+        slower), logged once. A configured filter is never dropped."""
+        cfg = self.cfg
+        if native.available():
+            return native.speckle_filter(disp, valid,
+                                         max_diff=cfg.speckleRange,
+                                         min_region=cfg.speckleWindowSize)
+        if not self._warned_speckle:
+            log.warn("speckleWindowSize=%d but the native runtime is "
+                     "unavailable (%s); using the slow pure-Python speckle "
+                     "filter", cfg.speckleWindowSize, native.build_error())
+            self._warned_speckle = True
+        return speckle_filter_numpy(disp, valid, max_diff=cfg.speckleRange,
+                                    min_region=cfg.speckleWindowSize)
+
     def _cache_path(self, idx: int) -> str:
         return os.path.join(self._cache_dir, f"{idx:06d}.npz")
 
     def seek(self, i: int) -> None:
-        """Resume support (the CLI calls it where it skips frames). Frames
-        are produced on demand here, with no prefetch to redirect, so there
-        is nothing to do."""
+        """Resume support (the CLI calls it where it skips frames): the
+        native pipeline starts producing at frame i instead of producing
+        the whole prefix. The torch producer works on demand: nothing to
+        do."""
+        if self._native is not None:
+            self._native.seek(i)
 
     def get_frame(self, i: int) -> StereoFrame:
         idx = self.indices[i]
-        left = _imread_gray(self.left_files[idx])
+        # A cached frame is served even from a partial cache; the native
+        # pipeline is moved past it so that its sequential order holds.
         if self._cache_dir is not None and os.path.exists(
                 self._cache_path(idx)):
+            left = _imread_gray(self.left_files[idx])
             z = np.load(self._cache_path(idx))
+            if self._native is not None:
+                self._native.seek(i + 1)
             return StereoFrame(image=left, depth=z["depth"],
                                depth_valid=z["ok"],
                                timestamp=float(self.times[idx]), index=idx)
-        right = _imread_gray(self.right_files[idx])
-        depth, ok = self._compute_depth(left, right)
+        if self._native is not None:
+            # Decoded, matched and filtered by the prefetch workers while
+            # the previous window was solved.
+            left, depth, ok = self._native.get(i)
+        else:
+            left = _imread_gray(self.left_files[idx])
+            right = _imread_gray(self.right_files[idx])
+            depth, ok = self._compute_depth(left, right)
         if self._cache_dir is not None:
             # tmp + replace: a concurrent run over the same cache never
             # loads a half-written file.
             path = self._cache_path(idx)
             tmp = f"{path}.tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
-                np.savez_compressed(f, depth=depth, ok=np.asarray(ok, bool))
+                np.savez_compressed(f, depth=depth.astype(np.float32),
+                                    ok=np.asarray(ok, bool))
             os.replace(tmp, path)
         return StereoFrame(image=left, depth=depth, depth_valid=ok,
                            timestamp=float(self.times[idx]), index=idx)

@@ -9,7 +9,12 @@ import torch
 
 from ..image.patches import AFFINE_NORM_EPS
 
-RADII = (1, 2, 3, 4)      # patch radii the kernels are instantiated for
+# Patch radii the kernels are instantiated for: K7, the sample stores and
+# K8 take RADII; the solve's kernels (K1 with its sorted entry, K2, K3)
+# take every radius the JAX package runs its warped grid on, R <= 9
+# (pb::kMaxSolveRadius in csrc/patch_epilogue.cuh).
+RADII = (1, 2, 3, 4)
+SOLVE_RADII = tuple(range(1, 10))
 NORMS = ("off", "mean", "affine")   # kernel codes 0, 1, 2
 
 

@@ -36,7 +36,7 @@ import torch
 
 from ..image import interp
 from . import _build
-from ._common import (RADII, check_tensors, count_launch, norm_code,
+from ._common import (SOLVE_RADII, check_tensors, count_launch, norm_code,
                       reset_launches, stats_from_samples)
 
 
@@ -112,9 +112,9 @@ def bicubic_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
-    if patch_radius not in RADII:
+    if patch_radius not in SOLVE_RADII:
         raise ValueError(f"bicubic_stats kernel is built for patch radius in "
-                         f"{RADII}, not {patch_radius}")
+                         f"{SOLVE_RADII}, not {patch_radius}")
     w, c, h, wi = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1

@@ -30,6 +30,9 @@ PB_SORTED_DISPATCH=1): the same sums, bitwise, with the observations
 visited in a sorted point order (`core/residuals.sorted_dispatch_order`),
 so that a block of neighbouring points can stage their shared window in
 shared memory once (the second entry of csrc/patch_warp.cu).
+
+Both kernels are built for patch radii `_common.SOLVE_RADII` (1..9); to
+R = 3, K1 stages each block's windows in shared memory.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import (RADII, check_tensors, count_launch, norm_code,
+from ._common import (SOLVE_RADII, check_tensors, count_launch, norm_code,
                       reset_launches, stats_from_samples)
 
 
@@ -116,9 +119,9 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
-    if patch_radius not in RADII:
+    if patch_radius not in SOLVE_RADII:
         raise ValueError(f"patch_stats kernel is built for patch radius in "
-                         f"{RADII}, not {patch_radius}")
+                         f"{SOLVE_RADII}, not {patch_radius}")
     w, c, h, wi, four = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
@@ -235,7 +238,7 @@ def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
     `core/residuals.sorted_dispatch_order`: sorted rank -> point and back.
     `staged`, for CUDA tensors only: None, or a uint8 tensor of
     `sorted_blocks(N, W)` that receives each block's choice (1: its
-    windows were staged in shared memory). CPU tensors run
+    union box was staged in shared memory). CPU tensors run
     `sorted_patch_stats_reference`; CUDA tensors launch the kernel on the
     current stream (and raise if it cannot launch).
     `sorted_patch_stats.launches` counts kernel launches by

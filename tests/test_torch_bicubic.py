@@ -98,7 +98,7 @@ def _pallas_bicubic(channels, uv, valid, pr):
     return jpw.warp_patches_bicubic(panels, uv, valid, pr, interpret=True)
 
 
-@pytest.mark.parametrize("pr,channels", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("pr,channels", [(1, 1), (2, 3), (6, 1), (9, 2)])
 def test_sampler_matches_pallas_interpret(pr, channels):
     rng = np.random.default_rng(pr)
     w, h, wi, n = 2, 24, 150, 24      # wider than one 128-lane panel
@@ -346,8 +346,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     valid = torch.ones((3, 2), dtype=torch.bool)
     patch = torch.zeros((3, 1, 25))
     pb._check(planes, uv, valid, patch, 2)          # accepted as given
+    pb._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..9
     with pytest.raises(ValueError, match="radius"):
-        pb._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)
+        pb._check(torch.zeros((2, 1, 24, 24)), uv, valid,
+                  torch.zeros((3, 1, 441)), 10)
     with pytest.raises(ValueError, match="uv"):
         pb._check(planes, uv.double(), valid, patch, 2)
     with pytest.raises(ValueError, match="patch"):

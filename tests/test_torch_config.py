@@ -108,7 +108,7 @@ UNPORTED = {   # configuration -> the kernel that runs it on a card
     "patchScale alias": (dict(patchScale=True), "K3"),
     "affine normalization": (dict(patchNormalization="affine"), "K4"),
     "bicubic affine": (dict(patchNormalization="affine",
-                            interpolation="bicubic"), "K4"),
+                            interpolation="bicubic"), "K2"),
     "scale warp, affine": (dict(patchWarp="scale",
                                 patchNormalization="affine"), "K5"),
 }
@@ -118,18 +118,71 @@ UNPORTED = {   # configuration -> the kernel that runs it on a card
 @pytest.mark.parametrize("backend", ["auto", "cuda"])
 def test_unported_kernel_raises_on_a_card(case, backend):
     """The configurations whose kernels K3, K4 and K5 were still to be
-    ported resolve to the kernel path on a card now. What still raises
-    there is a patch radius the kernels are not built for: a ValueError,
-    never a quiet fall back to the gather path."""
+    ported resolve to the kernel path on a card now, at every patch radius
+    the kernels are built for (1..9). What still raises there is a radius
+    outside that range: a ValueError, never a quiet fall back to the
+    gather path."""
     kw, kernel = UNPORTED[case]
     cfg = tcfg.PBAConfig(solverBackend=backend, **kw)
     assert cfg.resolve_backend("cuda") == "cuda", kernel
+    assert cfg.replace(patchRadius=5).resolve_backend("cuda") == "cuda"
     with pytest.raises(ValueError, match="patchRadius"):
-        cfg.replace(patchRadius=5).resolve_backend("cuda")
+        cfg.replace(patchRadius=10).resolve_backend("cuda")
     # Off the card, and with solverBackend=torch on it, the plain path runs.
     assert cfg.replace(solverBackend="torch").resolve_backend("cuda") == "torch"
     if backend == "auto":
         assert cfg.resolve_backend("cpu") == "torch"
+
+
+WIDE_MODES = {   # sampling configuration at patchRadius 5..9: its kernel
+    "bilinear mean (K1)": dict(),
+    "bilinear off (K1)": dict(patchNormalization="off"),
+    "bilinear affine (K4)": dict(patchNormalization="affine"),
+    "bicubic (K2)": dict(interpolation="bicubic"),
+    "bicubic affine (K2)": dict(interpolation="bicubic",
+                                patchNormalization="affine"),
+    "scale warp (K3)": dict(patchWarp="scale"),
+    "scale warp affine (K5)": dict(patchWarp="scale",
+                                   patchNormalization="affine"),
+}
+
+
+@pytest.mark.parametrize("radius", [5, 6, 7, 8, 9, 10])
+@pytest.mark.parametrize("mode", sorted(WIDE_MODES))
+def test_wide_patch_radius_resolves_by_kernel(mode, radius):
+    """patchRadius 5..9 on a card: every kernel path (K1 to K5) runs them
+    under 'auto' and 'cuda'. Past 9 no kernel is built: both raise,
+    naming the radii the kernels are built for, and never take the
+    gather path on a card."""
+    kw = WIDE_MODES[mode]
+    auto = tcfg.PBAConfig(patchRadius=radius, **kw)
+    assert auto.resolve_backend("cpu") == "torch"
+    if radius in tcfg.SOLVE_RADII:
+        assert auto.resolve_backend("cuda") == "cuda"
+        assert auto.replace(solverBackend="cuda").resolve_backend(
+            "cuda") == "cuda"
+        return
+    with pytest.raises(ValueError, match=f"built for patchRadius in "
+                                         f"\\(1, 2, 3, 4, 5, 6, 7, 8, "
+                                         f"9\\), not {radius}"):
+        auto.resolve_backend("cuda")
+    # solverBackend=cuda: validate() refuses the warped grid past 9 already.
+    with pytest.raises(ValueError, match="patchRadius"):
+        auto.replace(solverBackend="cuda").resolve_backend("cuda")
+
+
+def test_validate_names_the_warped_grid_radii():
+    """validate() accepts solverBackend=cuda with patchWarp='scale' at
+    every radius K3 is built for and refuses a wider one; every radius of
+    the fixed grid K1 is built for validates."""
+    for radius in tcfg.SOLVE_RADII:
+        tcfg.PBAConfig(patchWarp="scale", solverBackend="cuda",
+                       patchRadius=radius).validate()
+        tcfg.PBAConfig(patchRadius=radius, solverBackend="cuda").validate()
+    with pytest.raises(ValueError, match="patchRadius <= 9 has a kernel "
+                                         "path"):
+        tcfg.PBAConfig(patchWarp="scale", solverBackend="cuda",
+                       patchRadius=10).validate()
 
 
 def test_cuda_backend_without_a_kernel_path_is_refused():

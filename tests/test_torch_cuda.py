@@ -43,7 +43,7 @@ def within_f32_tolerance(got, want, scale):
     return bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-6 * scale).all())
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_kernel_matches_plain_version(cuda_device, radius, channels, norm):
@@ -77,7 +77,7 @@ def test_kernel_rejects_unsupported_input(cuda_device):
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="radius"):
         pw.patch_stats(planes, uv, valid,
-                       torch.zeros((2, 1, 121), device=cuda_device), 5)
+                       torch.zeros((2, 1, 441), device=cuda_device), 10)
     with pytest.raises(ValueError, match="planes on"):
         pw.patch_stats(planes, uv.cpu(), valid,
                        torch.zeros((2, 1, 25), device=cuda_device), 2)
@@ -131,7 +131,7 @@ def test_solve_on_card_runs_through_the_kernel(cuda_device):
 # K2: the Catmull-Rom kernel (csrc/patch_bicubic.cu)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_bicubic_kernel_matches_plain_version(cuda_device, radius, channels,
@@ -170,7 +170,7 @@ def test_bicubic_kernel_rejects_unsupported_input(cuda_device):
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="radius"):
         pb.bicubic_stats(planes, uv, valid,
-                         torch.zeros((2, 1, 121), device=cuda_device), 5)
+                         torch.zeros((2, 1, 441), device=cuda_device), 10)
     with pytest.raises(ValueError, match="planes on"):
         pb.bicubic_stats(planes, uv.cpu(), valid,
                          torch.zeros((2, 1, 25), device=cuda_device), 2)
@@ -223,6 +223,12 @@ ENGINE_CONFIGS = {   # configuration -> (the kernel its solves launch, mode)
     "scale": (dict(patchWarp="scale"), ps.scaled_stats, "mean"),
     "scale-affine": (dict(patchWarp="scale", patchNormalization="affine"),
                      ps.scaled_stats, "affine"),
+    # A patch radius past 4, where the loops roll their rows.
+    "bilinear-r5": (dict(patchRadius=5), pw.patch_stats, "mean"),
+    "bicubic-r5": (dict(interpolation="bicubic", patchRadius=5),
+                   pb.bicubic_stats, "mean"),
+    "scale-r5": (dict(patchWarp="scale", patchRadius=5), ps.scaled_stats,
+                 "mean"),
 }
 KERNELS = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats)
 
@@ -300,7 +306,7 @@ def scaled_inputs(rng, device, radius, channels, w=3, h=40, wi=70, n=257):
             torch.as_tensor(valid, device=device), patch)
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_scaled_kernel_matches_plain_version(cuda_device, radius, channels,
@@ -354,7 +360,7 @@ def test_scaled_kernel_rejects_unsupported_input(cuda_device):
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="radius"):
         ps.scaled_stats(planes, uv, rho, valid,
-                        torch.zeros((2, 1, 121), device=cuda_device), 5)
+                        torch.zeros((2, 1, 441), device=cuda_device), 10)
     with pytest.raises(ValueError, match="rho"):
         ps.scaled_stats(planes, uv, rho.double(), valid,
                         torch.zeros((2, 1, 25), device=cuda_device), 2)
@@ -408,16 +414,16 @@ def test_warped_evaluation_on_card_matches_cpu(cuda_device, warp, normalize):
 # K1's sort-reuse variant (csrc/patch_warp.cu, pb_patch_stats_sorted)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
                                      layout):
     """The sorted kernel's sums equal K1's bitwise, whether a block stages
-    its windows in shared memory (points packed into a corner of the
-    image: every block with a valid observation stages) or samples from
-    global memory (points over the whole image: no block's box fits)."""
+    its union box in shared memory (points packed into a corner of the
+    image: the blocks whose box fits) or samples from global memory as K1
+    does (points over the whole image: no full block's box fits)."""
     rng = np.random.default_rng(300 + radius * 10 + channels)
     w, h, wi, n = 3, 40, 70, 257
     planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
@@ -445,17 +451,18 @@ def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
     assert torch.equal(got, want)
     assert set(staged.unique().tolist()) <= {0, 1}
     # Blocks (64 consecutive sorted ranks of one frame) with a valid
-    # observation: all of them stage in the dense layout; in the sparse
-    # one no full block does (the last block of each frame holds one
-    # observation, whose own window fits).
+    # observation: in the dense layout all of them stage their box where
+    # it fits (to R = 4 with three channels, at every R with one); in the
+    # sparse one no full block does (the last block of each frame holds
+    # one observation, whose own window fits).
     runs = -(-n // pw.SORTED_RUN)
     has = torch.zeros((w, runs * pw.SORTED_RUN), dtype=torch.bool,
                       device=cuda_device)
     has[:, :n] = valid[order[0]].T
     has = has.view(w, runs, pw.SORTED_RUN).any(dim=-1).flatten()
-    if layout == "dense":
+    if layout == "dense" and (radius <= 4 or channels == 1):
         assert torch.equal(staged.bool(), has)
-    else:
+    elif layout == "sparse":
         assert not staged.view(w, runs)[:, :-1].any()
     plain = pw.sorted_patch_stats_reference(planes, uv, valid, patch, radius,
                                             order, norm)
@@ -497,6 +504,96 @@ def test_sorted_solve_on_card_is_bitwise_the_unsorted_one(cuda_device,
             pw.patch_stats.launches["mean"] - before[1]) == (5, 0)
     assert torch.equal(t_s, t_u) and torch.equal(x_s, x_u)
     assert float(st_s.final_cost) == float(st_u.final_cost)
+
+
+def full_size_instance(device, n_pts, radius, channels=1):
+    """chip_smoke.py's phase-3 problem (370x1226, 5 frames, seed 1) at
+    `n_pts` points: (planes, uv_nm, valid_nm, patch, order), observations
+    inside K1's margins; with `channels` > 1, scaled copies of the image
+    as bitplane-like channels."""
+    h, wi, w = 370, 1226, 5
+    cam, _, args = entry.make_problem(n_pts, w, h, wi, radius, seed=1,
+                                      device=device)
+    t_wc, x_world, patch, ch, g, obs = args[:6]
+    if channels > 1:
+        gain = torch.linspace(0.5, 1.5, channels, device=device)
+        ch = (ch * gain[None, :, None, None]).contiguous()
+        g = (g * gain[None, :, None, None, None]).contiguous()
+        patch = patch.repeat(1, channels, 1).contiguous()
+    _, uv, in_front, _, _ = res_mod._observation_geometry_pm(cam, t_wc,
+                                                             x_world)
+    inside = ((uv[:, 0] >= radius) & (uv[:, 0] <= wi - 2 - radius)
+              & (uv[:, 1] >= radius) & (uv[:, 1] <= h - 2 - radius))
+    valid = (obs.T & in_front & inside).T.contiguous()
+    order = res_mod.sorted_dispatch_order(res_mod.dispatch_key(
+        cam, t_wc, x_world, obs, (h, wi)))
+    return (pw.build_planes(ch, g), uv.permute(2, 0, 1).contiguous(), valid,
+            patch, order)
+
+
+@pytest.mark.parametrize("radius", [2, 6, 9])
+@pytest.mark.parametrize("n_pts", [4096, 65536])
+def test_sorted_kernel_is_bitwise_k1_at_full_size(cuda_device, radius,
+                                                  n_pts):
+    """At the solver's full size (sparse windows at 4096 points, dense at
+    65 536), every normalization: the sorted kernel equals K1 bitwise."""
+    planes, uv, valid, patch, order = full_size_instance(cuda_device, n_pts,
+                                                         radius)
+    for norm in _common.NORMS:
+        got = pw.sorted_patch_stats(planes, uv, valid, patch, radius, order,
+                                    norm)
+        want = pw.patch_stats(planes, uv, valid, patch, radius, norm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), norm
+
+
+@pytest.mark.parametrize("n_pts", [4096, 65536])
+def test_k1_is_bitwise_k8_full_own(cuda_device, n_pts):
+    """The staged K1 keeps the one-thread-per-observation design's sums:
+    bitwise K8's full/own (csrc/patch_ablate.cu, which samples each
+    window straight from global memory) at R = 2."""
+    planes, uv, valid, patch, _ = full_size_instance(cuda_device, n_pts, 2)
+    got = pw.patch_stats(planes, uv, valid, patch, 2)
+    own = pa.ablate_stats(planes, uv, valid, patch, "full", "own")
+    torch.cuda.synchronize()
+    assert torch.equal(got, own)
+    assert float(got.abs().sum()) > 0
+
+
+def test_k1_with_eight_channels(cuda_device):
+    """C = 8 (the bitplanes descriptor's channel count) at R = 2: the two
+    channel buffers of the staged K1 alternate four times. Every
+    normalization within the kernel tolerance of the plain version; the
+    mean mode bitwise K8's full/own."""
+    planes, uv, valid, patch, _ = full_size_instance(cuda_device, 4096, 2,
+                                                     channels=8)
+    for norm in _common.NORMS:
+        got = pw.patch_stats(planes, uv, valid, patch, 2, norm)
+        want = pw.patch_stats_reference(planes, uv, valid, patch, 2, norm)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float(got[:, ~valid.T].abs().sum()) == 0.0
+        row_max = want.abs().amax(dim=(1, 2), keepdim=True)
+        assert within_f32_tolerance(got, want, row_max), norm
+    own = pa.ablate_stats(planes, uv, valid, patch, "full", "own")
+    assert torch.equal(pw.patch_stats(planes, uv, valid, patch, 2), own)
+
+
+def test_ungrouped_solve_at_a_wide_patch_runs_k1(cuda_device, monkeypatch):
+    """PB_GROUPED_STATS=0 at a patch radius the row store is not built for
+    (R = 6): the solve runs the fused K1, once per evaluation, and nothing
+    else."""
+    cam, off, args = entry.make_problem(96, 4, 64, 96, 6, seed=2,
+                                        device=cuda_device)
+    monkeypatch.setenv("PB_GROUPED_STATS", "0")
+    for k in (pw.patch_stats, smp.warp_patches):
+        _common.reset_launches(k)
+    _, _, st = lm.lm_solve(cam, *args, off, huber_delta=0.05,
+                           backend="cuda", max_iterations=3,
+                           function_tolerance=0.0, parameter_tolerance=0.0)
+    torch.cuda.synchronize()
+    assert pw.patch_stats.launches["mean"] == int(st.iterations) + 1
+    assert sum(smp.warp_patches.launches.values()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -380,22 +380,35 @@ def test_snapshot_of_another_configuration_is_refused(scene, tmp_path):
         other.load_state(snap)
 
 
-NOT_PORTED = {
-    "meshPoints": dict(meshPoints=2),
-    "meshFrames": dict(meshFrames=5),
-    "dataLoader-native": dict(dataLoader="native"),
+NOT_PORTED = {   # what -> (configuration, exception, message)
+    "meshPoints": (dict(meshPoints=2), NotImplementedError, "ROADMAP"),
+    "meshFrames": (dict(meshFrames=5), NotImplementedError, "ROADMAP"),
+    # Ported (photobundle_torch/native): it raises only where the native
+    # runtime does not build, as the JAX package's does.
+    "dataLoader-native": (dict(dataLoader="native"), RuntimeError,
+                          "native runtime is unavailable: no toolchain"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
-def test_parts_still_to_port_raise(scene, what, tmp_path):
-    """Device meshes (ROADMAP.md queue 1 item 13) and the native data
-    loader (item 10) raise, naming their ROADMAP item."""
+def test_parts_still_to_port_raise(scene, what, tmp_path, monkeypatch):
+    """Device meshes (ROADMAP.md queue 1, multi-GPU) raise, naming their
+    ROADMAP item; the native data loader raises where its runtime does not
+    build, with the build error."""
+    from photobundle_torch import native
     from photobundle_torch.io import kitti
 
+    from synthetic import write_kitti_dataset
+
     cam, images = scene[:2]
-    cfg = port_config(small_cfg(**NOT_PORTED[what]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw, error, match = NOT_PORTED[what]
+    cfg = port_config(small_cfg(**kw))
+    if what.startswith("dataLoader"):
+        write_kitti_dataset(str(tmp_path), 0, np.random.default_rng(0),
+                            n_frames=2, shape=(32, 48))
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(native, "build_error", lambda: "no toolchain")
+    with pytest.raises(error, match=match):
         if what.startswith("dataLoader"):
             kitti.create_dataset(cfg.replace(dataDir=str(tmp_path)),
                                  device="cpu")

@@ -239,11 +239,19 @@ def test_depth_cache_roundtrip(tmp_path, rng):
         assert_frames_match(f1, jf)
 
 
-def test_native_data_loader_raises(tmp_path, rng):
+def test_native_data_loader_raises(tmp_path, rng, monkeypatch):
+    """dataLoader=native where the native runtime does not build: a
+    RuntimeError that names the build error (as the JAX package raises),
+    never the torch matcher in its place."""
+    from photobundle_torch import native
+
     write_kitti_dataset(str(tmp_path), 0, rng, n_frames=1, shape=(32, 48))
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "build_error", lambda: "g++: not found")
     cfg = PBAConfig(dataDir=str(tmp_path), dataLoader="native")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
-                                                  "10"):
+    with pytest.raises(RuntimeError, match="dataLoader=native requested but "
+                                           "the native runtime is "
+                                           "unavailable: g\\+\\+: not found"):
         kitti.create_dataset(cfg, device="cpu")
 
 

@@ -76,7 +76,7 @@ def assert_matches_pallas(out, ref):
 def problems():
     """Small problems by patch radius (tests/test_residuals.setup_problem)."""
     rng = np.random.default_rng(0)
-    return {r: setup_problem(rng, n_pts=16, w=3, radius=r) for r in (1, 2)}
+    return {r: setup_problem(rng, n_pts=16, w=3, radius=r) for r in (1, 2, 6)}
 
 
 def variant(problem, channels=1, normalize=True, masked=None, nan_point=None):
@@ -97,6 +97,10 @@ CASES = {   # radius, channels, normalize, masked observation
     "r1-c3-off": (1, 3, False, (1, 0)),
     "r2-c1-mean": (2, 1, True, (2, 1)),
     "r2-c1-off": (2, 1, False, None),
+    # A patch radius only K1 among the port's kernels is built for (5..9):
+    # the JAX package's warp_patches_grouped runs it on its fixed grid.
+    "r6-c1-mean": (6, 1, True, (2, 1)),
+    "r6-c3-off": (6, 3, False, None),
 }
 
 
@@ -196,8 +200,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     valid = torch.ones((3, 2), dtype=torch.bool)
     patch = torch.zeros((3, 1, 25))
     pw._check(planes, uv, valid, patch, 2)          # accepted as given
+    pw._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..9
     with pytest.raises(ValueError, match="radius"):
-        pw._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)
+        pw._check(torch.zeros((2, 1, 24, 24, 4)), uv, valid,
+                  torch.zeros((3, 1, 441)), 10)
     with pytest.raises(ValueError, match="uv"):
         pw._check(planes, uv.double(), valid, patch, 2)
     with pytest.raises(ValueError, match="valid"):

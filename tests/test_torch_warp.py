@@ -350,6 +350,26 @@ def test_patch_warp_scale_pallas_matches_xla(dz):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("radius", [6, 9])
+def test_patch_warp_scale_wide_radius_matches_pallas(radius):
+    """At a patch radius past 4 (K3 is built for 1..9, as the JAX scaled
+    kernel runs R <= 9) the kernel path's plain version has the JAX
+    Pallas path's valid set and statistics."""
+    prob, rs = warp_problem(np.random.default_rng(7), dz=1.0, n_pts=12,
+                             radius=radius, frame1_only=False)
+    pwt = jax_warp("scale", prob[1], prob[2], rs)
+    near = near_scaled_margin(prob, pwt)
+    prob = (*prob[:6], prob[6] & ~jnp.asarray(near), prob[7])
+    out = port_scaled(prob, pwt)
+    pallas = jax_scaled(prob, pwt, "pallas")
+    v_out = out.valid.numpy()
+    np.testing.assert_array_equal(v_out, np.asarray(pallas.valid))
+    assert v_out.sum() > 0
+    whitened_close(out, pallas)
+    np.testing.assert_allclose(float(out.cost), float(pallas.cost),
+                               rtol=1e-5)
+
+
 def test_patch_warp_scale_pallas_identity_matches_fixed():
     """rho == 1 everywhere: the warped kernel path agrees with the fixed
     grid's (K1's plain version) on the common valid set."""
