@@ -8,12 +8,17 @@ Drives the port's paths at the repository's full size (370x1226 images,
 
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. build: the six kernel sources compiled from photobundle_torch/csrc/
-     (one nvcc per source, started together), ptxas registers and spills;
+     (one nvcc per source, started together; the build time), ptxas
+     registers and spills;
   3. kernel K1 (csrc/patch_warp.cu) vs its plain PyTorch version on a
      synthetic window solve's own inputs, with the median time of each and
-     its device time cold and warm; then the same problem at the patch
-     radii only K1 is built for (R = 6 and 9): K1 vs its plain version in
-     every normalization, the sorted entry bitwise K1;
+     its device time cold and warm; then the same problem at wider patch
+     radii (phases 3, 5, 8 and 9 there): K1 at R = 6, 9, 10 and 19 vs its
+     plain version in every normalization, the sorted entry bitwise K1;
+     K2 at R = 6, 9, 10, 12, 19 and 25 and K3 at R = 6 and 9, and both on
+     both sides of their design's crossover radius, vs their plain
+     versions in every normalization and bitwise their one-thread design
+     with a run-time radius;
   4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations; K1's
      launch count over that run and its device time per launch inside the
      solve (L2 as the solve leaves it); then the same solve on the plain
@@ -29,7 +34,9 @@ Drives the port's paths at the repository's full size (370x1226 images,
      keyframes/s, window-solve ms and the first window's cost on both
      backends from the same state;
   7. the same engine in the default configuration (bilinear, sampled:
-     K1) over 8 frames, and (7b) at patchRadius=5 over 6 frames (K1 alone);
+     K1) over 8 frames, (7b) at patchRadius=5 over 6 frames (K1 alone)
+     and (7c) the reference-exact configuration at patchRadius=12 over 6
+     frames (K2's runtime-radius instance alone);
   8. kernel K3 (csrc/patch_scaled.cu, the warped grid of patchWarp=scale)
      vs its plain version on phase 3's inputs with a scale rho per
      observation (numpy seed 1, uniform in [0.45, 2.3], clamped) inside
@@ -140,8 +147,18 @@ DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
 RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
 DENSE_PTS = 65536                           # phase 11's second instance
-WIDE_RADII = (6, 9)              # phase 3's wider patches (K1, K2, K3)
-WIDE_ENGINE_RADIUS = 5                      # phase 7's wide-patch engine
+# Wider patches, held to their plain versions in phases 3 (K1), 5 (K2),
+# 8 (K3) and 9 (their affine modes), in every normalization: the rolled
+# rows (6, 9) and, for K1, sorted K1 and K2, the runtime-radius instances
+# past 9 (K2 to past the fixed grid's 19); K2 and K3 also, in the modes
+# concerned, on both sides of every radius where their design changes
+# (`design` of ops/patch_bicubic and ops/patch_scaled).
+K1_WIDE_RADII = (6, 9, 10, 19)
+K2_WIDE_RADII = (6, 9, 10, 12, 19, 25)
+K3_WIDE_RADII = (6, 9)
+WIDE_CALLS = 10                  # calls per median at the wider radii
+ENGINE_WIDE_RADIUS = 12          # phase 7c: reference exact past R = 9
+WIDE_ENGINE_RADIUS = 5                      # phase 7b's wide-patch engine
 BENCH_CALLS, ABLATE_CALLS = 50, 64          # phase 15's tools (their K)
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
@@ -311,8 +328,9 @@ def print_ptxas(name: str, built, radii=None) -> None:
             cells = [table.get((kernel, r, code), (None, None))
                      for r in radii]
             say(f"  ptxas {name} {kernel} {norm}: registers/spill bytes for "
-                f"R = {radii[0]}..{radii[-1]}: "
-                + ", ".join(f"{g}/{b}" for g, b in cells))
+                f"R = {radii[0]}..{radii[-1]}"
+                f"{' (0: the runtime-radius instance)' if radii[0] == 0 else ''}"
+                f": " + ", ".join(f"{g}/{b}" for g, b in cells))
 
 
 def print_ptxas_instances(name: str, built) -> None:
@@ -483,14 +501,15 @@ def ablate_bound(uv_nm, valid_nm, pr, stage, window, threads):
 
 def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
                  compare=compare_with_plain, match="stats",
-                 radius=PATCH_RADIUS, warm=False):
+                 radius=PATCH_RADIUS, warm=False, calls=KERNEL_CALLS):
     """Hold one kernel (or mode) against its plain version (`compare`) and
-    time both; its device time per launch is that of the profiler's
-    `*<match>*_kernel` entries (with `warm`, also back to back without
-    the L2 flush: `warm_us`). Returns its numbers for the JSON line."""
+    time both (medians of `calls` calls); its device time per launch is
+    that of the profiler's `*<match>*_kernel` entries (with `warm`, also
+    back to back without the L2 flush: `warm_us`). Returns its numbers
+    for the JSON line."""
     max_abs, max_rel, worst = compare(kernel(), plain(), valid_nm)
-    ms = median_ms(kernel, KERNEL_CALLS)
-    plain_ms = median_ms(plain, KERNEL_CALLS)
+    ms = median_ms(kernel, calls)
+    plain_ms = median_ms(plain, calls)
     dev_us = device_us_per_launch(kernel, match=match)
     warm_us = (device_us_per_launch(kernel, match=match, flush=False)
                if warm else None)
@@ -504,7 +523,7 @@ def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
         f"{valid_nm.shape[1]} obs ({int(valid_nm.sum())} valid), "
         f"R={radius}: max abs err {max_abs:.3e}, max rel err "
         f"{max_rel:.3e}, {tolerance} | median "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over {KERNEL_CALLS} "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms over {calls} "
         f"calls | device time per launch {dev} (profiler, {PROFILED_CALLS} "
         f"launches, L2 flushed before each)"
         f"{f', warm {us_text(warm_us)} (back to back)' if warm else ''} "
@@ -734,23 +753,45 @@ def sorted_instance(n_pts: int, dev, pr: int = PATCH_RADIUS,
             order(), sort_ms)
 
 
-def wide_phase(dev) -> None:
-    """Phase 3 at the patch radii past 4 (WIDE_RADII), where the solve's
-    kernels roll their row loops: K1, K2 and K3 each against its plain
-    version in every normalization, each with its bound from its own
-    texel count, and the sorted kernel bitwise K1. K2 and K3 take the
-    observations inside K1's margins and their own, and phase 8's
-    scales."""
+def wide_phase(dev) -> dict:
+    """Phases 3, 5, 8 and 9 at the wider patch radii: K1 (K1_WIDE_RADII)
+    with its sorted entry bitwise K1, K2 (K2_WIDE_RADII) and K3
+    (K3_WIDE_RADII), each against its plain version in every
+    normalization with its bound from its own texel count; K2 and K3 also
+    on both sides of every radius where their design changes, in the mode
+    concerned, and bitwise their one-thread design with a run-time radius
+    wherever they run. K2 and K3 take the observations inside K1's margins
+    and their own, and phase 8's scales. Returns K2's numbers at
+    ENGINE_WIDE_RADIUS (mean) for the JSON line."""
     from photobundle_torch.image import patches as patches_mod
     from photobundle_torch.ops import _common
     from photobundle_torch.ops import patch_bicubic as pb
     from photobundle_torch.ops import patch_scaled as ps
     from photobundle_torch.ops import patch_warp as pw
 
+    def runs(design, radii, top):
+        """{(R, norm)}: every normalization at `radii`, and each mode at
+        both radii of every step R, R + 1 (R < top) where its design
+        changes."""
+        kernel = design.__module__.rsplit(".", 1)[-1]
+        pairs = {(r, norm) for r in radii for norm in _common.NORMS}
+        for norm in _common.NORMS:
+            names = {r: design(r, norm) for r in range(1, top + 1)}
+            for r in range(1, top):
+                if names[r] != names[r + 1]:
+                    pairs |= {(r, norm), (r + 1, norm)}
+                    say(f"phases 3/5/8/9 wide: {kernel} {norm}: "
+                        f"'{names[r]}' at R = {r}, '{names[r + 1]}' at "
+                        f"R = {r + 1}")
+        return pairs
+
+    k2_runs = runs(pb.design, K2_WIDE_RADII, 10)
+    k3_runs = runs(ps.design, K3_WIDE_RADII, 9)
     rho_nm = torch.as_tensor(np.clip(np.random.default_rng(RHO_SEED).uniform(
         RHO_LO, RHO_HI, size=(N_PTS, W)), 0.5, 2.0).astype(np.float32),
         device=dev)
-    for pr in WIDE_RADII:
+    numbers = None
+    for pr in sorted(set(K1_WIDE_RADII) | {r for r, _ in k2_runs | k3_runs}):
         planes, uv_nm, valid_nm, patch, order, _ = sorted_instance(
             N_PTS, dev, pr, time_sort=False)
         x, y = uv_nm[..., 0], uv_nm[..., 1]
@@ -760,46 +801,80 @@ def wide_phase(dev) -> None:
         valid_sc = (valid_nm & (x >= 1 + ext) & (x <= (WI - 2) - ext)
                     & (y >= 1 + ext) & (y <= (H - 2) - ext)).contiguous()
         value_planes = planes[..., 0].contiguous()
-        texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
-        texels_bc = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4, pr + 1,
-                                  H, WI)
-        texels_sc = scaled_texels(uv_nm, rho_nm, valid_sc, pr, H, WI)
         for norm in _common.NORMS:
             desc = (patches_mod.affine_normalize(patch).contiguous()
                     if norm == "affine" else patch)
-            kernel_phase(
-                "3", f"K1 {norm}",
-                lambda: pw.patch_stats(planes, uv_nm, valid_nm, desc, pr,
-                                       norm),
-                lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm,
-                                                 desc, pr, norm),
-                valid_nm, kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm, 1,
-                                       pr, "bilinear", norm), radius=pr)
-            got = pw.sorted_patch_stats(planes, uv_nm, valid_nm, desc, pr,
-                                        order, norm)
-            k1 = pw.patch_stats(planes, uv_nm, valid_nm, desc, pr, norm)
-            torch.cuda.synchronize()
-            check(torch.equal(got, k1), f"sorted kernel ({norm}) differs "
-                  f"from K1 at R={pr}")
-            kernel_phase(
-                "3", f"K2 {norm}",
-                lambda: pb.bicubic_stats(value_planes, uv_nm, valid_bc, desc,
-                                         pr, norm),
-                lambda: pb.bicubic_stats_reference(value_planes, uv_nm,
-                                                   valid_bc, desc, pr, norm),
-                valid_bc, kernel_bound(texels_bc, VALUE_TEXEL_BYTES, valid_bc,
-                                       1, pr, "bicubic", norm), radius=pr)
-            kernel_phase(
-                "3", f"K3 {norm}",
-                lambda: ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc,
-                                        desc, pr, norm),
-                lambda: ps.scaled_stats_reference(planes, uv_nm, rho_nm,
-                                                  valid_sc, desc, pr, norm),
-                valid_sc, kernel_bound(texels_sc, GRAD_TEXEL_BYTES, valid_sc,
-                                       1, pr, "scaled", norm, with_rho=True),
-                radius=pr)
-        say(f"phase 3 at R={pr}: sorted kernel bitwise K1 in every "
-            f"normalization")
+
+            def tag(phase):
+                return "9" if norm == "affine" else phase
+
+            if pr in K1_WIDE_RADII:
+                texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr,
+                                       H, WI)
+                kernel_phase(
+                    tag("3"), f"K1 {norm}",
+                    lambda: pw.patch_stats(planes, uv_nm, valid_nm, desc, pr,
+                                           norm),
+                    lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm,
+                                                     desc, pr, norm),
+                    valid_nm, kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm,
+                                           1, pr, "bilinear", norm),
+                    radius=pr, calls=WIDE_CALLS)
+                got = pw.sorted_patch_stats(planes, uv_nm, valid_nm, desc,
+                                            pr, order, norm)
+                k1 = pw.patch_stats(planes, uv_nm, valid_nm, desc, pr, norm)
+                torch.cuda.synchronize()
+                check(torch.equal(got, k1), f"sorted kernel ({norm}) "
+                      f"differs from K1 at R={pr}")
+            if (pr, norm) in k2_runs:
+                texels_bc = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4,
+                                          pr + 1, H, WI)
+                k2 = kernel_phase(
+                    tag("5"), f"K2 {norm}",
+                    lambda: pb.bicubic_stats(value_planes, uv_nm, valid_bc,
+                                             desc, pr, norm),
+                    lambda: pb.bicubic_stats_reference(
+                        value_planes, uv_nm, valid_bc, desc, pr, norm),
+                    valid_bc, kernel_bound(texels_bc, VALUE_TEXEL_BYTES,
+                                           valid_bc, 1, pr, "bicubic", norm),
+                    radius=pr, calls=WIDE_CALLS)
+                if pr == ENGINE_WIDE_RADIUS and norm == "mean":
+                    numbers = k2
+                got = pb.bicubic_stats(value_planes, uv_nm, valid_bc, desc,
+                                       pr, norm)
+                one = pb.bicubic_stats_one_thread(value_planes, uv_nm,
+                                                  valid_bc, desc, pr, norm)
+                torch.cuda.synchronize()
+                check(torch.equal(got, one), f"K2 ({norm}) at R={pr} is not "
+                      f"bitwise its one-thread design")
+            if (pr, norm) in k3_runs:
+                texels_sc = scaled_texels(uv_nm, rho_nm, valid_sc, pr, H, WI)
+                kernel_phase(
+                    tag("8"), f"K3 {norm}",
+                    lambda: ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc,
+                                            desc, pr, norm),
+                    lambda: ps.scaled_stats_reference(
+                        planes, uv_nm, rho_nm, valid_sc, desc, pr, norm),
+                    valid_sc, kernel_bound(texels_sc, GRAD_TEXEL_BYTES,
+                                           valid_sc, 1, pr, "scaled", norm,
+                                           with_rho=True),
+                    radius=pr, calls=WIDE_CALLS)
+                got = ps.scaled_stats(planes, uv_nm, rho_nm, valid_sc, desc,
+                                      pr, norm)
+                one = ps.scaled_stats_one_thread(planes, uv_nm, rho_nm,
+                                                 valid_sc, desc, pr, norm)
+                torch.cuda.synchronize()
+                check(torch.equal(got, one), f"K3 ({norm}) at R={pr} is not "
+                      f"bitwise its one-thread design")
+        say(f"phases 3/5/8/9 at R={pr}: "
+            + ", ".join(what for what, on in (
+                ("sorted kernel bitwise K1", pr in K1_WIDE_RADII),
+                ("K2 bitwise its one-thread design",
+                 any(r == pr for r, _ in k2_runs)),
+                ("K3 bitwise its one-thread design",
+                 any(r == pr for r, _ in k3_runs))) if on)
+            + " in the modes run")
+    return numbers
 
 
 def insitu_us(fn, match: str):
@@ -1372,7 +1447,7 @@ def main() -> None:
     say(f"phase 2 built {len(SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for source in ("patch_warp", "patch_bicubic", "patch_scaled"):
-        print_ptxas(source, builds[source], _common.SOLVE_RADII)
+        print_ptxas(source, builds[source], (0, *_common.WARPED_RADII))
     for source in ("patch_samples", "patch_stats", "patch_ablate"):
         print_ptxas_instances(source, builds[source])
 
@@ -1395,7 +1470,7 @@ def main() -> None:
         lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm, patch, pr),
         valid_nm, kernel_bound(win1, GRAD_TEXEL_BYTES, valid_nm, 1, pr,
                                "bilinear", "mean"), warm=True)
-    wide_phase(dev)
+    k2_wide = wide_phase(dev)
 
     # -- phase 4: the slice ----------------------------------------------
     kw = dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
@@ -1524,6 +1599,11 @@ def main() -> None:
     run_engine("7b", PBAConfig(patchRadius=WIDE_ENGINE_RADIUS), scene,
                drifted, W + 1, (pw.patch_stats, "mean"), kernels,
                ate_must_fall=False)
+    # The reference-exact configuration past R = 9 (K2's runtime-radius
+    # instance).
+    run7c = run_engine("7c", exact_cfg.replace(patchRadius=ENGINE_WIDE_RADIUS),
+                       scene, drifted, W + 1, (pb.bicubic_stats, "mean"),
+                       kernels, ate_must_fall=False)
 
     # -- phase 8: K3 vs its plain version on phase 3's inputs ------------
     rho_np = np.random.default_rng(RHO_SEED).uniform(
@@ -1623,6 +1703,8 @@ def main() -> None:
                    runs10["10c"]["launches"], k5),
         entry_json("bicubic_stats/affine", "patch_bicubic.cu", f"{pw_py}:176",
                    runs10["10d"]["launches"], k2a),
+        entry_json(f"bicubic_stats/R{ENGINE_WIDE_RADIUS}", "patch_bicubic.cu",
+                   f"{pw_py}:176", run7c["launches"], k2_wide),
         entry_json("sorted_patch_stats", "patch_warp.cu", f"{pw_py}:393",
                    cli_launches, k1s),
         entry_json("warp_patches/rows", "patch_samples.cu", f"{pw_py}:100",

@@ -1,33 +1,38 @@
 #!/usr/bin/env python3
-"""Time the port's mean-mode kernels K1, sorted K1, K2 and K3 in one or
-more checkouts.
+"""Time the port's solve kernels K1, sorted K1, K2 and K3 in one or more
+checkouts.
 
-    python3 kernel_times.py [TREE ...]      (default: this checkout)
+    python3 kernel_times.py [--radii R,R,...] [TREE ...]
+                                  (default: this checkout)
 
 Each TREE is the root of a checkout of this repository (for example an
 unpacked `git archive` of another commit). For each, in the order given,
 a fresh process imports that checkout's `photobundle_torch`, builds its
 kernels from its own sources, and times `patch_stats` (K1) and, where the
 checkout has them, `sorted_patch_stats` (K1's sort-reuse entry, in the
-order lm_solve builds under PB_SORTED_DISPATCH=1), `bicubic_stats` (K2)
-and `scaled_stats` (K3, with chip_smoke.py's phase-8 scales) in their
-default (mean) normalization at chip_smoke.py's phase-3 inputs (4096
-points x 5 frames, 370x1226, seed 1) with patch radius R = 2, 4, 6 and 9
-where the checkout's kernel is built for it, and K1 and sorted K1 also at
-65 536 points, R = 2 (phase 11's dense windows): the median time per call
-over 50 calls (CUDA events), and the device time per launch over 20
-launches (torch.profiler, L2 flushed before each launch) in ROUNDS rounds
-that take the kernels in turns, forward then backward (A B C, C B A,
-...), so that every kernel sees the same drift. Reports each kernel's
-median, least and largest device time over the rounds beside its bound
-(chip_smoke.py's: bytes at the HBM rate, operations at the f32 rate);
-then K1's device time per launch at R = 2 warm (20 launches back to back)
-and inside one 8-iteration lm_solve of chip_smoke.py's phase 4 (L2 as the
+order lm_solve builds under PB_SORTED_DISPATCH=1), `bicubic_stats` (K2,
+mean and affine normalization) and `scaled_stats` (K3 in the mean mode,
+K5 in the affine mode, with chip_smoke.py's phase-8 scales) at
+chip_smoke.py's phase-3 inputs (4096 points x 5 frames, 370x1226, seed 1)
+with patch radius R = 2, 4, 6, 9, 10 and 19 (or those of --radii) where
+the checkout's kernel takes it, and K1 and sorted K1 also at 65 536 points, R = 2 (phase 11's
+dense windows): the median time per call over 50 calls (CUDA events),
+and the device time per launch over 20 launches (torch.profiler, L2
+flushed before each launch) in ROUNDS rounds that take the kernels in
+turns, forward then backward (A B C, C B A, ...), so that every kernel
+sees the same drift. Reports each kernel's median, least and largest
+device time over the rounds beside its bound (chip_smoke.py's: bytes at
+the HBM rate, operations at the f32 rate) and a hash of its output bytes
+(identical inputs in every tree, so equal hashes show two trees' sums
+bitwise equal); then K1's device time per launch at R = 2 warm (20
+launches back to back), and K1's and K2's inside one 8-iteration
+lm_solve of chip_smoke.py's phase 4 (bilinear, then bicubic; L2 as the
 solve leaves it). Give a tree twice, interleaved with another (A B B A),
 to see the spread between processes. Prints each kernel instance's ptxas
 registers and spills and one JSON line per tree. Needs a CUDA card.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -39,19 +44,33 @@ import torch
 
 import chip_smoke as cs
 
-# (points, patch radius): the default radius, wider ones where the
-# checkout's kernels are built for them, and K1's dense windows.
-CASES = ((cs.N_PTS, 2), (cs.N_PTS, 4), (cs.N_PTS, 6), (cs.N_PTS, 9),
-         (cs.DENSE_PTS, 2))
+# The patch radii timed at 4096 points (where the checkout's kernels take
+# them; `--radii 3,5` times others), then K1's dense windows at R = 2.
+RADII = (2, 4, 6, 9, 10, 19)
 ROUNDS = 6
 
 
-def one(tree: str) -> dict:
+def kernel_radii(common) -> dict:
+    """The patch radii each solve kernel of a checkout takes (older
+    checkouts name one range for all, or only the sample stores')."""
+    shared = getattr(common, "SOLVE_RADII", common.RADII)
+    return {"K1": getattr(common, "FIXED_RADII", shared),
+            "K2": (range(1, common.BICUBIC_MAX + 1)
+                   if hasattr(common, "BICUBIC_MAX") else shared),
+            "K3": getattr(common, "WARPED_RADII", shared)}
+
+
+def output_hash(out: torch.Tensor) -> str:
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def one(tree: str, radii_timed) -> dict:
     """The numbers of one checkout, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
     from photobundle_torch import entry
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
+    from photobundle_torch.image import patches as patches_mod
     from photobundle_torch.ops import _build, _common
     from photobundle_torch.ops import patch_bicubic as pb
     from photobundle_torch.ops import patch_warp as pw
@@ -71,10 +90,10 @@ def one(tree: str) -> dict:
         print(f"[kernel_times] {tree} {name} ptxas {{(R, normalization "
               f"code): (registers, spill-store bytes)}}: {table}")
     out = {"tree": tree, "rounds": ROUNDS}
-    # The radii the checkout's solve kernels are built for.
-    radii = getattr(_common, "SOLVE_RADII", _common.RADII)
-    for n_case, pr in CASES:
-        if pr not in radii:
+    radii = kernel_radii(_common)
+    cases = [(n_pts, r) for r in radii_timed] + [(cs.DENSE_PTS, 2)]
+    for n_case, pr in cases:
+        if pr not in radii["K1"]:
             continue
         dense = n_case != n_pts
         cam, offsets, args = entry.make_problem(n_case, w, h, wi, pr,
@@ -98,21 +117,23 @@ def one(tree: str) -> dict:
                                    "bilinear", "mean")
         calls = {"K1": (lambda: pw.patch_stats(planes, uv_nm, valid_k1,
                                                 patch, pr), bound_k1)}
+        patch_aff = patches_mod.affine_normalize(patch).contiguous()
         if has_sorted:
             order = res_mod.sorted_dispatch_order(res_mod.dispatch_key(
                 cam, t_wc, x_world, obs, (h, wi)))
             calls["sorted_K1"] = (
                 lambda: pw.sorted_patch_stats(planes, uv_nm, valid_k1, patch,
                                               pr, order), bound_k1)
-        if not dense:
-            calls["K2"] = (
-                lambda: pb.bicubic_stats(value_planes, uv_nm, valid_k2, patch,
-                                         pr),
-                cs.kernel_bound(cs.window_texels(uv_nm, valid_k2, pr,
-                                                 2 * pr + 4, pr + 1, h, wi),
-                                cs.VALUE_TEXEL_BYTES, valid_k2, 1, pr,
-                                "bicubic", "mean"))
-        if ps is not None and not dense:
+        if not dense and pr in radii["K2"]:
+            texels_k2 = cs.window_texels(uv_nm, valid_k2, pr, 2 * pr + 4,
+                                         pr + 1, h, wi)
+            for norm, desc in (("mean", patch), ("affine", patch_aff)):
+                calls[f"K2_{norm}"] = (
+                    lambda desc=desc, norm=norm: pb.bicubic_stats(
+                        value_planes, uv_nm, valid_k2, desc, pr, norm),
+                    cs.kernel_bound(texels_k2, cs.VALUE_TEXEL_BYTES,
+                                    valid_k2, 1, pr, "bicubic", norm))
+        if ps is not None and not dense and pr in radii["K3"]:
             rho = torch.as_tensor(np.clip(np.random.default_rng(
                 cs.RHO_SEED).uniform(cs.RHO_LO, cs.RHO_HI, size=(n_case, w)),
                 0.5, 2.0).astype(np.float32), device=dev)
@@ -120,17 +141,19 @@ def one(tree: str) -> dict:
             inside = ((x >= 1 + ext) & (x <= (wi - 2) - ext)
                       & (y >= 1 + ext) & (y <= (h - 2) - ext))
             valid_k3 = (obs.T & in_front & inside).T.contiguous()
-            calls["K3"] = (
-                lambda: ps.scaled_stats(planes, uv_nm, rho, valid_k3, patch,
-                                        pr),
-                cs.kernel_bound(cs.scaled_texels(uv_nm, rho, valid_k3, pr, h,
-                                                 wi),
-                                cs.GRAD_TEXEL_BYTES, valid_k3, 1, pr,
-                                "scaled", "mean", with_rho=True))
+            texels_k3 = cs.scaled_texels(uv_nm, rho, valid_k3, pr, h, wi)
+            for name, norm, desc in (("K3", "mean", patch),
+                                     ("K5", "affine", patch_aff)):
+                calls[name] = (
+                    lambda desc=desc, norm=norm: ps.scaled_stats(
+                        planes, uv_nm, rho, valid_k3, desc, pr, norm),
+                    cs.kernel_bound(texels_k3, cs.GRAD_TEXEL_BYTES, valid_k3,
+                                    1, pr, "scaled", norm, with_rho=True))
         names = list(calls)
         keys = {name: f"{name}_R{pr}{f'_N{n_case}' if dense else ''}"
                 for name in names}
         for name in names:
+            out[f"{keys[name]}_hash"] = output_hash(calls[name][0]())
             out[f"{keys[name]}_ms"] = cs.median_ms(calls[name][0],
                                                    cs.KERNEL_CALLS)
         times = {name: [] for name in names}
@@ -151,20 +174,24 @@ def one(tree: str) -> dict:
                   f"{cs.us_text(out[f'{key}_device_us_min'])} .. "
                   f"{cs.us_text(out[f'{key}_device_us_max'])} | bound "
                   f"{bound_us:.3f} us | median per call "
-                  f"{out[f'{key}_ms']:.4f} ms", flush=True)
+                  f"{out[f'{key}_ms']:.4f} ms | output hash "
+                  f"{out[f'{key}_hash']}", flush=True)
         if pr == 2 and not dense:
             out["K1_R2_warm_us"] = cs.device_us_per_launch(calls["K1"][0],
                                                            flush=False)
-            situ, n_situ = cs.insitu_us(lambda: lm.lm_solve(
-                cam, *args, offsets, huber_delta=cs.HUBER_DELTA,
-                gradient_mode="sampled", max_iterations=cs.ITERS,
-                function_tolerance=0.0, parameter_tolerance=0.0,
-                backend="cuda"), "patch_stats_kernel")
-            out["K1_R2_insitu_us"] = situ
+            for name, mode, match in (("K1", "sampled", "patch_stats_kernel"),
+                                      ("K2", "bicubic", "bicubic")):
+                situ, n_situ = cs.insitu_us(lambda: lm.lm_solve(
+                    cam, *args, offsets, huber_delta=cs.HUBER_DELTA,
+                    gradient_mode=mode, max_iterations=cs.ITERS,
+                    function_tolerance=0.0, parameter_tolerance=0.0,
+                    backend="cuda"), match)
+                out[f"{name}_R2_insitu_us"] = situ
+                print(f"[kernel_times] {tree} {name}_R2: inside an "
+                      f"{cs.ITERS}-iteration {mode} solve {cs.us_text(situ)} "
+                      f"per launch over {n_situ} traced launches", flush=True)
             print(f"[kernel_times] {tree} K1_R2: warm (back to back) "
-                  f"{cs.us_text(out['K1_R2_warm_us'])}, inside an "
-                  f"{cs.ITERS}-iteration solve {cs.us_text(situ)} per "
-                  f"launch over {n_situ} traced launches", flush=True)
+                  f"{cs.us_text(out['K1_R2_warm_us'])}", flush=True)
     out["nvidia_smi"] = cs.nvidia_smi()
     return out
 
@@ -172,12 +199,17 @@ def one(tree: str) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
-    if sys.argv[1:2] == ["--one"]:
-        print(json.dumps(one(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    radii = RADII
+    if args[:1] == ["--radii"]:
+        radii, args = tuple(int(r) for r in args[1].split(",")), args[2:]
+    if args[:1] == ["--one"]:
+        print(json.dumps(one(args[1], radii)), flush=True)
         return
-    for tree in sys.argv[1:] or ["."]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        tree], check=True, timeout=600)
+    for tree in args or ["."]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--radii",
+                        ",".join(map(str, radii)), "--one", tree],
+                       check=True, timeout=900)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .ops._common import SOLVE_RADII
+from .ops._common import BICUBIC_MAX, FIXED_RADII, WARPED_RADII
 
 
 class ConfigFile:
@@ -452,23 +452,18 @@ class PBAConfig:
           - patchWarp='scale' with bilinear + 'sampled'
             (csrc/patch_scaled.cu: K3, and K5 with affine normalization).
         patchWarp='affine' has no kernel in either package: it resolves to
-        'torch', as the JAX package runs it on XLA. The kernels are built
-        for patchRadius in ops/_common.SOLVE_RADII (1..9); a kernel-path
-        configuration outside that range raises ValueError rather than
-        running the gather path instead."""
+        'torch', as the JAX package runs it on XLA. Each kernel takes the
+        patch radii of the reference's accelerator path
+        (`kernel_radii`); a kernel-path configuration outside its kernel's
+        range raises ValueError rather than running the gather path
+        instead."""
         if self.solverBackend == "torch":
             return "torch"
         on_card = torch.device(device).type == "cuda"
         if self.solverBackend == "auto" and not on_card:
             return "torch"
-        pw = self.resolve_patch_warp()
-        bilinear_sampled = (self.interpolation == "bilinear"
-                            and self.gradientMode == "sampled")
-        if pw is None:
-            fast_path = bilinear_sampled or self.interpolation == "bicubic"
-        else:
-            fast_path = pw == "scale" and bilinear_sampled
-        if not fast_path:
+        kernel = self.kernel_radii()
+        if kernel is None:
             if self.solverBackend == "cuda":
                 raise ValueError("this sampling configuration has no kernel "
                                  "path (the cuda backend runs bilinear "
@@ -477,11 +472,35 @@ class PBAConfig:
                                  "patchWarp='scale'); set solverBackend to "
                                  "auto or torch")
             return "torch"
-        if self.patchRadius not in SOLVE_RADII:
-            raise ValueError(f"the cuda kernels are built for patchRadius "
-                             f"in {SOLVE_RADII}, not {self.patchRadius}; set "
+        name, radii = kernel
+        if self.patchRadius not in radii:
+            raise ValueError(f"{name} takes patchRadius {radii[0]}.."
+                             f"{radii[-1]}, not {self.patchRadius}; set "
                              f"solverBackend=torch to run the gather path")
         return "cuda"
+
+    def kernel_radii(self):
+        """(kernel, patch radii) of the kernel that runs this sampling
+        configuration on a card, None where there is none. The radii are
+        those the reference's accelerator path takes:
+          - the fixed bilinear grid, K1 (and K4): 1..19, where its panel
+            has a positive lane stride (photobundle_tpu/ops/patch_warp.py
+            `lane_stride`);
+          - bicubic, K2: 1..61 (`value_lane_stride`);
+          - the warped grid, K3 (and K5): 1..9 (photobundle_tpu/config.py,
+            `resolve_backend`)."""
+        pw = self.resolve_patch_warp()
+        bilinear_sampled = (self.interpolation == "bilinear"
+                            and self.gradientMode == "sampled")
+        if pw is not None:
+            if pw == "scale" and bilinear_sampled:
+                return "the warped-grid kernel K3", WARPED_RADII
+            return None
+        if self.interpolation == "bicubic":
+            return "the bicubic kernel K2", tuple(range(1, BICUBIC_MAX + 1))
+        if bilinear_sampled:
+            return "the fixed-grid kernel K1", FIXED_RADII
+        return None
 
     def validate(self) -> "PBAConfig":
         if self.descriptor not in _DESCRIPTOR_CHANNELS:
@@ -513,12 +532,20 @@ class PBAConfig:
         if (pw is not None and self.solverBackend == "cuda"
                 and (pw != "scale" or self.interpolation != "bilinear"
                      or self.gradientMode != "sampled"
-                     or self.patchRadius > 9)):
-            raise ValueError("only patchWarp='scale' with bilinear/sampled "
-                             "and patchRadius <= 9 has a kernel path; "
-                             "patchWarp='affine' (or other sampling modes / "
-                             "wider patches) requires the gather path — set "
-                             "solverBackend to auto or torch")
+                     or self.patchRadius not in WARPED_RADII)):
+            raise ValueError(f"only patchWarp='scale' with bilinear/sampled "
+                             f"and patchRadius {WARPED_RADII[0]}.."
+                             f"{WARPED_RADII[-1]} has a kernel path (K3); "
+                             f"patchWarp='affine' (or other sampling modes "
+                             f"/ wider patches) requires the gather path — "
+                             f"set solverBackend to auto or torch")
+        kernel = self.kernel_radii()
+        if (pw is None and kernel is not None and self.solverBackend == "cuda"
+                and self.patchRadius not in kernel[1]):
+            raise ValueError(f"{kernel[0]} takes patchRadius "
+                             f"{kernel[1][0]}..{kernel[1][-1]}, not "
+                             f"{self.patchRadius}; set solverBackend to auto "
+                             f"or torch")
         if self.refinementLevel >= self.pyramidLevels:
             raise ValueError("refinementLevel must be < pyramidLevels")
         if self.meshFrames > 1:

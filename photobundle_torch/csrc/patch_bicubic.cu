@@ -20,36 +20,66 @@
 // observations store exact zeros and their coordinates (possibly NaN) are
 // never floored or cast.
 //
-// Inputs: planes (W, C, H, Wi) f32 values only (the surface gradients come
-// from the values, so no gradient planes are read); uv (N, W) float2;
-// valid (N, W) bytes; patch (N, C, P) f32. The (2R+4)^2 window is clamped
-// inside the image; the solve's border margins (R+1 <= u <= Wi-3-R) keep
-// valid observations' windows unclamped.
+// Inputs: planes (W, C, H, Wi) f32 values only, 16-byte aligned (the
+// surface gradients come from the values, so no gradient planes are
+// read); uv (N, W) float2; valid (N, W) bytes; patch (N, C, P) f32. The
+// (2R+4)^2 window is clamped inside the image; the solve's border margins
+// (R+1 <= u <= Wi-3-R) keep valid observations' windows unclamped.
 //
 // What bounds it on this card: at the solver's full-size window (4096
-// points x 5 frames) each observation reads an 8x8 f32 window (256 B at
-// R = 2) twice and stores 24 B: ~10 MB of L1/L2 traffic out of a 9 MB
-// L2-resident plane set, a few microseconds of bandwidth. It does ~1.4k
-// FMAs per observation (separable 4-tap passes for value and both
-// derivatives, twice), ~30 MFLOP in all: also microseconds. Like K1 it is
-// bound by per-thread latency (dependent loads, ~150 threads per SM) and
-// by launch overhead.
+// points x 5 frames, ~20k observations) each observation needs an 8x8 f32
+// window at R = 2 (256 B) and stores 24 B: ~1.5 us of HBM bandwidth. Its
+// ~1.1k f32 operations per observation per channel (separable 4-tap
+// passes for value and both derivatives, then the epilogue) take under a
+// microsecond at the f32 rate. One thread per observation, in blocks of 64,
+// runs at 0.16 of that bound (mean) and 0.085 (affine): ~155 threads per
+// SM, each a chain of dependent gathers and filters, and an epilogue that
+// sweeps the patch once per pass (two for mean and off, three for affine),
+// each sweep filtering the window anew, the affine one with three IEEE
+// divisions per pixel.
 //
 // What the design does about it: one thread per observation, R and the
 // normalization mode template parameters (each mode's build carries only
 // its own passes' registers) and every loop unrolled (the columns only
 // from pb::kRolledRowRadius), so the window row loads of a pass are
-// independent and in flight together. Patch radii 1..pb::kMaxSolveRadius.
-// The separable passes run row by row: a window row is loaded, filtered
-// along x (value and d/dx), and as soon as four filtered rows exist one
-// output row is combined along y, so at most four filtered rows need to
-// be live. The epilogue sweeps the window once per pass (means first,
-// then centred products; affine adds a pass for the norm), which avoids
-// the cancelling one-pass form; the later passes hit L1. Threads are
-// frame-major, so neighbouring threads store neighbouring outputs. No
-// atomics: each thread writes its own sums in a fixed order, so results
-// are bitwise reproducible. Taps combine in the JAX kernel's order
-// (patch_warp.py:199-203): rows along x, then columns along y.
+// independent and in flight together. The separable passes run row by
+// row: a window row is loaded, filtered along x (value and d/dx), and as
+// soon as four filtered rows exist one output row is combined along y, so
+// at most four filtered rows need to be live. In the affine mode to
+// kMaxTileRadius the patch is sampled once, into a register tile of its 3P
+// samples, which the three passes read (0.87x at R = 1, 0.90x at R = 2,
+// 0.70x at R = 4); the tile stops there because from pb::kRolledRowRadius
+// the rows are a loop, whose samples (3P >= 363) cannot be registers by
+// name. Elsewhere every pass samples its window anew from L1.
+//
+// What was measured and not kept (PERF.md's K2 rows, kernel_times.py,
+// parent and change interleaved, cold): a staged design, in which a block
+// of 64 observations copied its windows into shared memory with 16-byte
+// cp.async copies and its threads filtered each window once into a shared
+// tile of samples, by (observation, patch column), before each thread's
+// epilogue read its tile. Its copies were coalesced and nothing was
+// filtered twice, yet it lost at every radius and mode: 1.22x at R = 2
+// (mean), 1.6x at R = 4, 1.4-2.8x at R = 5-9 (the barriers serialize copy,
+// filter and sums in a block, and the shared memory per observation, 0.8 KB
+// at R = 2 and 6.8 KB at R = 9, leaves few observations per SM); the
+// one-thread design's 4-byte texels mostly hit L1. The register tile
+// ties in the mean mode (0.98-1.01x at R = 2-4), where the second sweep
+// hides behind the first one's loads, so the mean and off modes keep
+// sampling on every pass.
+//
+// Patch radii: compile-time instances 1..pb::kMaxSolveRadius, and above
+// it, to kMaxBicubicRadius, one instance per normalization with the
+// radius a run-time argument: every loop rolled, each sample filtering its
+// four rows where it needs them (the same products in the same order).
+// kMaxBicubicRadius = 61 is where the JAX package's value panel keeps a
+// positive lane stride (photobundle_tpu/ops/patch_warp.py,
+// value_lane_stride). The frame-major threads store neighbouring outputs;
+// no atomics, so results are bitwise reproducible, and the sums are the
+// same whatever the design: the same products of the same texels in the
+// same order (-fmad=false). pb_bicubic_stats_one_thread runs the
+// runtime-radius instance at any radius for that check. Taps combine in
+// the JAX kernel's order (patch_warp.py:199-203): rows along x, then
+// columns along y.
 
 #include <cuda_runtime.h>
 
@@ -57,7 +87,15 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;           // threads (= observations) per block
+constexpr int kMaxTileRadius = 4;      // the affine mode's register tile
+constexpr int kMaxBicubicRadius = 61;  // ops/_common.BICUBIC_MAX
+
+// Whether instance <R, NORM> samples each patch once into a register tile
+// (measured faster there: see the note above).
+template <int R, int NORM>
+constexpr bool kRegisterTile =
+    NORM == pb::kNormAffine && R >= 1 && R <= kMaxTileRadius;
 
 // Catmull-Rom weights for taps at offsets (-1, 0, 1, 2) and their d/dt.
 __device__ __forceinline__ void catmull_rom(float t, float* w, float* d) {
@@ -76,6 +114,21 @@ __device__ __forceinline__ void catmull_rom(float t, float* w, float* d) {
 __device__ __forceinline__ float taps4(const float* w, float a0, float a1,
                                        float a2, float a3) {
   return w[0] * a0 + w[1] * a1 + w[2] * a2 + w[3] * a3;
+}
+
+// One observation's window origin (clamped inside the image) and its
+// weights: wt[0..3] wx, [4..7] dwx, [8..11] wy, [12..15] dwy. Only for a
+// valid observation (NaN never reaches floorf or an int cast).
+__device__ __forceinline__ void window_at(float2 q, int radius, int h,
+                                          int wi, int* x0, int* y0,
+                                          float* wt) {
+  const int win = 2 * radius + 4;
+  const float flx = floorf(q.x);
+  const float fly = floorf(q.y);
+  catmull_rom(q.x - flx, wt, wt + 4);
+  catmull_rom(q.y - fly, wt + 8, wt + 12);
+  *x0 = min(max(static_cast<int>(flx) - radius - 1, 0), wi - win);
+  *y0 = min(max(static_cast<int>(fly) - radius - 1, 0), h - win);
 }
 
 // One window row filtered along x: value (v) and d/dx (d) at the PS
@@ -98,57 +151,83 @@ __device__ __forceinline__ void filter_row(const float* __restrict__ row,
 // patch pixel k in row-major order. `win` points at the window's top-left
 // texel, `wi` is the image row stride. Up to R = 4 every loop unrolls and
 // the filtered rows are registers by name; from pb::kRolledRowRadius the
-// output rows are a loop over a ring of the last four filtered rows (the
-// same products in the same order).
+// output rows are a loop over a ring of the last four filtered rows; with
+// R = pb::kRuntimeRadius (radius `radius`) every loop is rolled and each
+// sample filters its four rows at its own column (the same products in
+// the same order).
 template <int R, typename Emit>
 __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
                                       const float* wx, const float* dwx,
                                       const float* wy, const float* dwy,
-                                      Emit&& emit) {
-  constexpr int PS = 2 * R + 1;
-  constexpr int WIN = PS + 3;
-  auto combine_row = [&](int ky, const float (&v0)[PS], const float (&v1)[PS],
-                         const float (&v2)[PS], const float (&v3)[PS],
-                         const float (&d0)[PS], const float (&d1)[PS],
-                         const float (&d2)[PS], const float (&d3)[PS]) {
-#pragma unroll
-    for (int kx = 0; kx < PS; ++kx) {
-      const float v = taps4(wy, v0[kx], v1[kx], v2[kx], v3[kx]);
-      const float gx = taps4(wy, d0[kx], d1[kx], d2[kx], d3[kx]);
-      const float gy = taps4(dwy, v0[kx], v1[kx], v2[kx], v3[kx]);
-      emit(ky * PS + kx, v, gx, gy);
-    }
-  };
-  if constexpr (R >= pb::kRolledRowRadius) {
-    float rv[4][PS];   // the ring: filtered rows ky .. ky + 3
-    float rd[4][PS];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) filter_row<PS>(win + r * wi, wx, dwx, rv[r],
-                                               rd[r]);
+                                      int radius, Emit&& emit) {
+  if constexpr (R == pb::kRuntimeRadius) {
+    const int ps = 2 * radius + 1;
 #pragma unroll 1
-    for (int ky = 0; ky < PS; ++ky) {
-      filter_row<PS>(win + (ky + 3) * wi, wx, dwx, rv[3], rd[3]);
-      combine_row(ky, rv[0], rv[1], rv[2], rv[3], rd[0], rd[1], rd[2],
-                  rd[3]);
+    for (int ky = 0; ky < ps; ++ky) {
+#pragma unroll 1
+      for (int kx = 0; kx < ps; ++kx) {
+        float rv[4], rd[4];
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
-#pragma unroll
-        for (int kx = 0; kx < PS; ++kx) {
-          rv[r][kx] = rv[r + 1][kx];
-          rd[r][kx] = rd[r + 1][kx];
+        for (int r = 0; r < 4; ++r) {
+          const float* a = win + (ky + r) * wi + kx;
+          const float a0 = __ldg(a), a1 = __ldg(a + 1), a2 = __ldg(a + 2),
+                      a3 = __ldg(a + 3);
+          rv[r] = taps4(wx, a0, a1, a2, a3);
+          rd[r] = taps4(dwx, a0, a1, a2, a3);
         }
+        emit(ky * ps + kx, taps4(wy, rv[0], rv[1], rv[2], rv[3]),
+             taps4(wy, rd[0], rd[1], rd[2], rd[3]),
+             taps4(dwy, rv[0], rv[1], rv[2], rv[3]));
       }
     }
+    return;
   } else {
-    float rv[WIN][PS];   // rows filtered along x: value
-    float rd[WIN][PS];   // rows filtered along x: d/dx
+    constexpr int PS = 2 * R + 1;
+    constexpr int WIN = PS + 3;
+    auto combine_row = [&](int ky, const float (&v0)[PS],
+                           const float (&v1)[PS], const float (&v2)[PS],
+                           const float (&v3)[PS], const float (&d0)[PS],
+                           const float (&d1)[PS], const float (&d2)[PS],
+                           const float (&d3)[PS]) {
 #pragma unroll
-    for (int r = 0; r < WIN; ++r) {
-      filter_row<PS>(win + r * wi, wx, dwx, rv[r], rd[r]);
-      if (r >= 3) {
-        const int ky = r - 3;
-        combine_row(ky, rv[ky], rv[ky + 1], rv[ky + 2], rv[ky + 3], rd[ky],
-                    rd[ky + 1], rd[ky + 2], rd[ky + 3]);
+      for (int kx = 0; kx < PS; ++kx) {
+        const float v = taps4(wy, v0[kx], v1[kx], v2[kx], v3[kx]);
+        const float gx = taps4(wy, d0[kx], d1[kx], d2[kx], d3[kx]);
+        const float gy = taps4(dwy, v0[kx], v1[kx], v2[kx], v3[kx]);
+        emit(ky * PS + kx, v, gx, gy);
+      }
+    };
+    if constexpr (R >= pb::kRolledRowRadius) {
+      float rv[4][PS];   // the ring: filtered rows ky .. ky + 3
+      float rd[4][PS];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) filter_row<PS>(win + r * wi, wx, dwx,
+                                                 rv[r], rd[r]);
+#pragma unroll 1
+      for (int ky = 0; ky < PS; ++ky) {
+        filter_row<PS>(win + (ky + 3) * wi, wx, dwx, rv[3], rd[3]);
+        combine_row(ky, rv[0], rv[1], rv[2], rv[3], rd[0], rd[1], rd[2],
+                    rd[3]);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+          for (int kx = 0; kx < PS; ++kx) {
+            rv[r][kx] = rv[r + 1][kx];
+            rd[r][kx] = rd[r + 1][kx];
+          }
+        }
+      }
+    } else {
+      float rv[WIN][PS];   // rows filtered along x: value
+      float rd[WIN][PS];   // rows filtered along x: d/dx
+#pragma unroll
+      for (int r = 0; r < WIN; ++r) {
+        filter_row<PS>(win + r * wi, wx, dwx, rv[r], rd[r]);
+        if (r >= 3) {
+          const int ky = r - 3;
+          combine_row(ky, rv[ky], rv[ky + 1], rv[ky + 2], rv[ky + 3],
+                      rd[ky], rd[ky + 1], rd[ky + 2], rd[ky + 3]);
+        }
       }
     }
   }
@@ -161,10 +240,9 @@ bicubic_stats_kernel(const float* __restrict__ planes,
                      const unsigned char* __restrict__ valid,
                      const float* __restrict__ patch,
                      float* __restrict__ out,
-                     int n, int w, int c, int h, int wi) {
-  constexpr int PS = 2 * R + 1;
-  constexpr int WIN = PS + 3;
-  constexpr int P = PS * PS;
+                     int n, int w, int c, int h, int wi, int radius) {
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int P = (2 * r + 1) * (2 * r + 1);
   const long long total = static_cast<long long>(n) * w;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -175,24 +253,37 @@ bicubic_stats_kernel(const float* __restrict__ planes,
 
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (valid[obs]) {
-    const float2 q = uv[obs];
-    const float flx = floorf(q.x);
-    const float fly = floorf(q.y);
-    float wx[4], dwx[4], wy[4], dwy[4];
-    catmull_rom(q.x - flx, wx, dwx);
-    catmull_rom(q.y - fly, wy, dwy);
-    const int x0 = min(max(static_cast<int>(flx) - R - 1, 0), wi - WIN);
-    const int y0 = min(max(static_cast<int>(fly) - R - 1, 0), h - WIN);
-
+    int x0, y0;
+    float wt[16];
+    window_at(uv[obs], r, h, wi, &x0, &y0, wt);
     for (int ch = 0; ch < c; ++ch) {
       const float* win = planes +
                          (static_cast<long long>(f) * c + ch) * h * wi +
                          static_cast<long long>(y0) * wi + x0;
       auto sweep_channel = [&](auto&& emit) {
-        sweep<R>(pb::opaque(win), wi, wx, dwx, wy, dwy, emit);
+        sweep<R>(pb::opaque(win), wi, wt, wt + 4, wt + 8, wt + 12, r, emit);
       };
       const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
-      pb::channel_stats<P, NORM>(sweep_channel, desc, acc);
+      if constexpr (kRegisterTile<R, NORM>) {
+        // The register tile: the patch sampled once, its 3P samples held
+        // in registers (every index a constant), the passes read them.
+        constexpr int kP = (2 * R + 1) * (2 * R + 1);
+        float t[3 * kP];
+        sweep_channel([&](int k, float v, float gx, float gy) {
+          t[k] = v;
+          t[kP + k] = gx;
+          t[2 * kP + k] = gy;
+        });
+        auto tile = [&](auto&& emit) {
+#pragma unroll
+          for (int k = 0; k < kP; ++k) {
+            emit(k, t[k], t[kP + k], t[2 * kP + k]);
+          }
+        };
+        pb::channel_stats<NORM>(tile, desc, P, acc);
+      } else {
+        pb::channel_stats<NORM>(sweep_channel, desc, P, acc);
+      }
     }
   }
   const long long o = static_cast<long long>(f) * n + p;
@@ -203,7 +294,7 @@ bicubic_stats_kernel(const float* __restrict__ planes,
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int n, int w, int c, int h, int wi,
-            cudaStream_t stream) {
+            int radius, cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * w;
   const unsigned blocks =
       static_cast<unsigned>((total + kThreads - 1) / kThreads);
@@ -211,7 +302,7 @@ void launch(const void* planes, const void* uv, const void* valid,
       static_cast<const float*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
       static_cast<const float*>(patch), static_cast<float*>(out), n, w, c, h,
-      wi);
+      wi, radius);
 }
 
 }  // namespace
@@ -221,12 +312,51 @@ extern "C" int pb_bicubic_stats(const void* planes, const void* uv,
                                 void* out, int n, int w, int c, int h, int wi,
                                 int radius, int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad =
-      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+  const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
+      radius, norm,
+      [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, n, w, c, h, wi, s);
-      });
+            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+      },
+      kMaxBicubicRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
+}
+
+// The one-thread design with a run-time radius, at any radius
+// 1..kMaxBicubicRadius: the bitwise reference of pb_bicubic_stats' designs.
+extern "C" int pb_bicubic_stats_one_thread(const void* planes,
+                                           const void* uv, const void* valid,
+                                           const void* patch, void* out,
+                                           int n, int w, int c, int h, int wi,
+                                           int radius, int norm,
+                                           void* stream) {
+  if (radius < 1 || radius > kMaxBicubicRadius) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bad = pb::launch_norm(
+      norm,
+      [&](auto r, auto m) {
+        launch<decltype(r)::value, decltype(m)::value>(
+            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+      },
+      std::integral_constant<int, pb::kRuntimeRadius>{});
+  return bad ? bad : static_cast<int>(cudaGetLastError());
+}
+
+// The design instance <radius, norm> runs: 0 samples on every pass, 1 the
+// register tile, 2 the runtime-radius instance; -1 where none runs.
+extern "C" int pb_bicubic_design(int radius, int norm) {
+  int design = -1;
+  pb::dispatch<pb::kMaxSolveRadius, true>(
+      radius, norm,
+      [&](auto r, auto m) {
+        constexpr int R = decltype(r)::value;
+        design = R == pb::kRuntimeRadius ? 2
+                 : kRegisterTile<R, decltype(m)::value> ? 1 : 0;
+      },
+      kMaxBicubicRadius);
+  return design;
 }
 
 extern "C" const char* pb_bicubic_error_string(int err) {

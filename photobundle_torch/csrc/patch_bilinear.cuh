@@ -68,51 +68,69 @@ __device__ __forceinline__ float sample_value(const float* __restrict__ win,
 // One observation's window origin and bilinear weights. Call it only for a
 // valid observation (an invalid one may carry NaN, which must never reach
 // floorf or an int cast); the window is clamped inside the image.
-template <int R>
-__device__ __forceinline__ void window_at(float2 q, int h, int wi, int* x0,
-                                          int* y0, Weights* wt) {
-  constexpr int WIN = 2 * R + 2;
+__device__ __forceinline__ void window_at(float2 q, int radius, int h,
+                                          int wi, int* x0, int* y0,
+                                          Weights* wt) {
+  const int win = 2 * radius + 2;
   const float flx = floorf(q.x);
   const float fly = floorf(q.y);
   const float fx = q.x - flx;
   const float fy = q.y - fly;
-  *x0 = min(max(static_cast<int>(flx) - R, 0), wi - WIN);
-  *y0 = min(max(static_cast<int>(fly) - R, 0), h - WIN);
+  *x0 = min(max(static_cast<int>(flx) - radius, 0), wi - win);
+  *y0 = min(max(static_cast<int>(fly) - radius, 0), h - win);
   const float one_fy = 1.f - fy;
   *wt = Weights{(1.f - fx) * one_fy, fx * one_fy, (1.f - fx) * fy,
                 fx * fy};
 }
 
+template <int R>
+__device__ __forceinline__ void window_at(float2 q, int h, int wi, int* x0,
+                                          int* y0, Weights* wt) {
+  window_at(q, R, h, wi, x0, y0, wt);
+}
+
 // K1's six sums of one observation over its C channels: `win` is channel
 // 0's window origin, channels are `chan` texels apart, rows `stride`; the
-// normalization is NORM's epilogue (patch_epilogue.cuh).
+// normalization is NORM's epilogue (patch_epilogue.cuh). R =
+// kRuntimeRadius takes the radius from `radius` and rolls both patch
+// loops (the same samples in the same order).
 template <int R, int NORM, typename Load>
 __device__ __forceinline__ void observation_stats(
     const float4* win, long long chan, int stride, const Weights& wt,
-    const float* __restrict__ desc, int c, Load load, float acc[6]) {
-  constexpr int PS = 2 * R + 1;
-  constexpr int P = PS * PS;
+    const float* __restrict__ desc, int c, Load load, float acc[6],
+    int radius = R) {
+  constexpr int kPS = 2 * R + 1;
+  const int ps = R == kRuntimeRadius ? 2 * radius + 1 : kPS;
+  const int p = ps * ps;
   for (int ch = 0; ch < c; ++ch) {
     const float4* wc = win + ch * chan;
     auto sweep = [&](auto&& emit) {
       const float4* wv = opaque(wc);
       auto row = [&](int ky) {
+        if constexpr (R == kRuntimeRadius) {
+#pragma unroll 1
+          for (int kx = 0; kx < ps; ++kx) {
+            const float3 s = sample(wv, stride, ky, kx, wt, load);
+            emit(ky * ps + kx, s.x, s.y, s.z);
+          }
+        } else {
 #pragma unroll
-        for (int kx = 0; kx < PS; ++kx) {
-          const float3 s = sample(wv, stride, ky, kx, wt, load);
-          emit(ky * PS + kx, s.x, s.y, s.z);
+          for (int kx = 0; kx < kPS; ++kx) {
+            const float3 s = sample(wv, stride, ky, kx, wt, load);
+            emit(ky * kPS + kx, s.x, s.y, s.z);
+          }
         }
       };
-      if constexpr (R >= kRolledRowRadius) {
+      if constexpr (R >= kRolledRowRadius || R == kRuntimeRadius) {
 #pragma unroll 1
-        for (int ky = 0; ky < PS; ++ky) row(ky);
+        for (int ky = 0; ky < ps; ++ky) row(ky);
       } else {
 #pragma unroll
-        for (int ky = 0; ky < PS; ++ky) row(ky);
+        for (int ky = 0; ky < kPS; ++ky) row(ky);
       }
     };
-    channel_stats<P, NORM>(sweep, desc + static_cast<long long>(ch) * P,
-                           acc);
+    channel_stats<NORM>(sweep, desc + static_cast<long long>(ch) * p, p,
+                        acc);
   }
 }
 

@@ -3,10 +3,12 @@
 //
 // Each kernel samples (value v, d/dx gx, d/dy gy) at the P pixels of one
 // observation's patch in its own way and hands this epilogue a `sweep`:
-// a callable that, given `emit`, reads its window through opaque() and
-// calls emit(k, v, gx, gy) for k = 0..P-1 in the same order every time.
-// The epilogue sweeps the patch as often as its normalization needs (the
-// window is in L1 after the first sweep) and adds one channel's six sums
+// a callable that, given `emit`, calls emit(k, v, gx, gy) for k = 0..P-1
+// in the same order every time, either sampling its window anew (read
+// through opaque(), in L1 after the first sweep) or reading a tile of
+// samples taken once (K2's and K3's register tiles, K3's tiled design).
+// The epilogue sweeps the patch as often as its normalization needs and
+// adds one channel's six sums
 //   [gx*gx, gx*gy, gy*gy, gx*r, gy*r, r*r]
 // to acc. Normalization modes (photobundle_torch/ops/_common.py NORMS), a
 // template parameter, so each mode's build carries only its own passes:
@@ -48,10 +50,21 @@ __device__ __forceinline__ const T* opaque(const T* p) {
   return p;
 }
 
-template <int P, int NORM, typename Sweep>
+// An opaque copy of an offset, for the same purpose where the pointer must
+// keep its address space (a tile in shared memory plus this offset is
+// still read with shared-memory loads).
+__device__ __forceinline__ int opaque_int(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// P, the patch pixel count, is a constant in every compile-time-radius
+// instance and a run-time value in the runtime-radius ones; 1 / P rounds
+// alike either way.
+template <int NORM, typename Sweep>
 __device__ __forceinline__ void channel_stats(const Sweep& sweep,
                                               const float* __restrict__ d,
-                                              float acc[6]) {
+                                              int P, float acc[6]) {
   static_assert(NORM == kNormOff || NORM == kNormMean || NORM == kNormAffine,
                 "unknown normalization");
   const float inv_p = 1.f / static_cast<float>(P);
@@ -116,11 +129,16 @@ __device__ __forceinline__ void channel_stats(const Sweep& sweep,
   acc[5] += s5;
 }
 
-// The patch radii the solve's kernels (K1 with its sorted entry, K2, K3)
-// are built for: 1..kMaxSolveRadius, the radii the JAX package runs its
-// warped grid on (photobundle_torch/ops/_common.SOLVE_RADII). The other
-// kernels (K7, the sample stores, K8) stop at 4.
+// The patch radii with compile-time instances of the solve's kernels (K1
+// with its sorted entry, K2, K3): 1..kMaxSolveRadius, the radii the JAX
+// package runs its warped grid on (photobundle_torch/ops/_common.py
+// WARPED_RADII). K1 and K2 take wider patches, up to the reference's
+// fixed-grid limits (FIXED_RADII, BICUBIC_MAX there), through one instance
+// per normalization with the radius a run-time argument (template radius
+// kRuntimeRadius): rolled loops, the same per-observation arithmetic in
+// the same order. The other kernels (K7, the sample stores, K8) stop at 4.
 constexpr int kMaxSolveRadius = 9;
+constexpr int kRuntimeRadius = 0;
 
 // From this patch radius on, the patch loops unroll their columns only
 // (the rows stay a loop): a full unroll of 19 x 19 samples in up to three
@@ -128,30 +146,50 @@ constexpr int kMaxSolveRadius = 9;
 // not change the order of the operations, so the sums are the same.
 constexpr int kRolledRowRadius = 5;
 
+// Calls launch(r, NORM), each an std::integral_constant, for normalization
+// code `norm` (Norm). Returns 0, or cudaErrorInvalidValue for an unknown
+// code.
+template <typename Radius, typename Launch>
+inline int launch_norm(int norm, Launch&& launch, Radius r) {
+  switch (norm) {
+    case kNormOff:
+      launch(r, std::integral_constant<int, kNormOff>{});
+      return 0;
+    case kNormMean:
+      launch(r, std::integral_constant<int, kNormMean>{});
+      return 0;
+    case kNormAffine:
+      launch(r, std::integral_constant<int, kNormAffine>{});
+      return 0;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Host side: calls launch(R, NORM), each an std::integral_constant, for a
-// patch radius in 1..kMaxR and a normalization code (Norm). Returns 0, or
-// cudaErrorInvalidValue for a radius or code the kernels are not
-// instantiated for (nothing is launched then).
-template <int kMaxR = 4, int R = 1, typename Launch>
-inline int dispatch(int radius, int norm, Launch&& launch) {
+// patch radius in 1..kMaxR and a normalization code (Norm). With
+// kRuntimeAbove, a radius in kMaxR+1..max_radius launches
+// R = kRuntimeRadius (the launch passes the radius on). Returns 0, or
+// cudaErrorInvalidValue for a radius or code the kernels do not take
+// (nothing is launched then).
+template <int kMaxR = 4, bool kRuntimeAbove = false, int R = 1,
+          typename Launch>
+inline int dispatch(int radius, int norm, Launch&& launch,
+                    int max_radius = kMaxR) {
   if constexpr (R > kMaxR) {
+    if constexpr (kRuntimeAbove) {
+      if (radius > kMaxR && radius <= max_radius) {
+        return launch_norm(norm, launch,
+                           std::integral_constant<int, kRuntimeRadius>{});
+      }
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (radius != R) return dispatch<kMaxR, R + 1>(radius, norm, launch);
-    using r = std::integral_constant<int, R>;
-    switch (norm) {
-      case kNormOff:
-        launch(r{}, std::integral_constant<int, kNormOff>{});
-        return 0;
-      case kNormMean:
-        launch(r{}, std::integral_constant<int, kNormMean>{});
-        return 0;
-      case kNormAffine:
-        launch(r{}, std::integral_constant<int, kNormAffine>{});
-        return 0;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (radius != R) {
+      return dispatch<kMaxR, kRuntimeAbove, R + 1>(radius, norm, launch,
+                                                   max_radius);
     }
+    return launch_norm(norm, launch, std::integral_constant<int, R>{});
   }
 }
 

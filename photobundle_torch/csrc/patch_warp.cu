@@ -73,8 +73,13 @@
 // A second entry, pb_patch_stats_sorted, is K1's sort-reuse variant: the
 // same sums with observations visited in a sorted point order and each
 // block's union box staged in shared memory where it fits (see below).
-// Both entries take patch radii 1..pb::kMaxSolveRadius in every
-// normalization.
+// Both entries take patch radii 1..kMaxFixedRadius in every
+// normalization: compile-time instances to pb::kMaxSolveRadius, and above
+// it one instance per normalization with the radius a run-time argument
+// (the one-thread design with rolled loops, the same arithmetic in the
+// same order), up to the JAX package's fixed-grid limit: its panel holds
+// a (2R+2)-px window of three lanes per pixel with a positive stride to
+// R = 19 (photobundle_tpu/ops/patch_warp.py, lane_stride).
 
 #include <cuda_runtime.h>
 
@@ -93,6 +98,7 @@ constexpr int kMaxStagedRadius = 3;     // radii whose windows are staged
 constexpr int kMaxSharedBytes = 232448; // what a block may opt into (227 KB)
 constexpr int kStaticReserve = 1024;    // static shared memory of a block
 constexpr int kStageTexels = 1024;      // the sorted entry's union box
+constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 
 // The staging plan of radius R: each observation's window is kTex float4
 // texels (kWin x kWin) at an odd stride kStride in the tile; a block
@@ -100,7 +106,7 @@ constexpr int kStageTexels = 1024;      // the sorted entry's union box
 // (kMaxBytes). Radii above kMaxStagedRadius stage nothing.
 template <int R>
 struct Plan {
-  static constexpr bool kStaged = R <= kMaxStagedRadius;
+  static constexpr bool kStaged = R >= 1 && R <= kMaxStagedRadius;
   static constexpr int kWin = 2 * R + 2;
   static constexpr int kTex = kWin * kWin;
   static constexpr int kStride = kTex | 1;
@@ -218,7 +224,8 @@ staged_patch_stats_kernel(const float4* __restrict__ planes,
 }
 
 // K1 for R > kMaxStagedRadius: one thread per observation gathers its own
-// window through the read-only path (the first design, unchanged).
+// window through the read-only path (the first design, unchanged; R =
+// pb::kRuntimeRadius takes the radius from `radius`).
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
 patch_stats_kernel(const float4* __restrict__ planes,
@@ -226,8 +233,9 @@ patch_stats_kernel(const float4* __restrict__ planes,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ patch,
                    float* __restrict__ out,
-                   int n, int w, int c, int h, int wi) {
-  constexpr int P = (2 * R + 1) * (2 * R + 1);
+                   int n, int w, int c, int h, int wi, int radius) {
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int P = (2 * r + 1) * (2 * r + 1);
   const long long total = static_cast<long long>(n) * w;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -240,13 +248,13 @@ patch_stats_kernel(const float4* __restrict__ planes,
   if (valid[obs]) {
     int x0, y0;
     Weights wt;
-    window_at<R>(uv[obs], h, wi, &x0, &y0, &wt);
+    window_at(uv[obs], r, h, wi, &x0, &y0, &wt);
     const long long chan = static_cast<long long>(h) * wi;
     const float4* win = planes + static_cast<long long>(f) * c * chan +
                         static_cast<long long>(y0) * wi + x0;
     observation_stats<R, NORM>(win, chan, wi, wt,
                                patch + static_cast<long long>(p) * c * P, c,
-                               LoadGlobal{}, acc);
+                               LoadGlobal{}, acc, r);
   }
   const long long o = static_cast<long long>(f) * n + p;
 #pragma unroll
@@ -256,18 +264,16 @@ patch_stats_kernel(const float4* __restrict__ planes,
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int n, int w, int c, int h, int wi,
-            cudaStream_t stream) {
+            int radius, cudaStream_t stream) {
   using PL = Plan<R>;
   const long long total = static_cast<long long>(n) * w;
   const unsigned blocks =
       static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs);
-  const auto go = [&](auto kernel, int bytes) {
-    kernel<<<blocks, kThreads, bytes, stream>>>(
-        static_cast<const float4*>(planes), static_cast<const float2*>(uv),
-        static_cast<const unsigned char*>(valid),
-        static_cast<const float*>(patch), static_cast<float*>(out), n, w, c,
-        h, wi);
-  };
+  const auto* pl = static_cast<const float4*>(planes);
+  const auto* q = static_cast<const float2*>(uv);
+  const auto* ok = static_cast<const unsigned char*>(valid);
+  const auto* d = static_cast<const float*>(patch);
+  auto* o = static_cast<float*>(out);
   if constexpr (PL::kStaged) {
     // Above 48 KB a kernel's dynamic shared memory must be opted into;
     // once per instance (the port drives one card per process). A failure
@@ -276,9 +282,12 @@ void launch(const void* planes, const void* uv, const void* valid,
         staged_patch_stats_kernel<R, NORM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, PL::kMaxBytes);
     (void)opted;
-    go(staged_patch_stats_kernel<R, NORM>, PL::bytes(c));
+    staged_patch_stats_kernel<R, NORM>
+        <<<blocks, kThreads, PL::bytes(c), stream>>>(pl, q, ok, d, o, n, w,
+                                                     c, h, wi);
   } else {
-    go(patch_stats_kernel<R, NORM>, 0);
+    patch_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
+        pl, q, ok, d, o, n, w, c, h, wi, radius);
   }
 }
 
@@ -319,9 +328,10 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
                           const long long* __restrict__ feed,
                           float* __restrict__ out,
                           unsigned char* __restrict__ staged,
-                          int n, int w, int c, int h, int wi) {
-  constexpr int WIN = 2 * R + 2;
-  constexpr int P = (2 * R + 1) * (2 * R + 1);
+                          int n, int w, int c, int h, int wi, int radius) {
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int win = 2 * r + 2;
+  const int P = (2 * r + 1) * (2 * r + 1);
   __shared__ float4 tile[kStageTexels];
   __shared__ int box[4];     // min x0, min y0, max x0, max y0
   const int runs = (n + kThreads - 1) / kThreads;
@@ -334,7 +344,7 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
 
   int x0 = 0, y0 = 0;
   Weights wt = {0.f, 0.f, 0.f, 0.f};
-  if (ok) window_at<R>(uv[obs], h, wi, &x0, &y0, &wt);
+  if (ok) window_at(uv[obs], r, h, wi, &x0, &y0, &wt);
   if (threadIdx.x == 0) {
     box[0] = box[1] = wi + h;
     box[2] = box[3] = -1;
@@ -348,8 +358,8 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
   }
   __syncthreads();
   const int bx0 = box[0], by0 = box[1];
-  const int bw = box[2] - bx0 + WIN;
-  const int bh = box[3] - by0 + WIN;
+  const int bw = box[2] - bx0 + win;
+  const int bh = box[3] - by0 + win;
   const long long chan = static_cast<long long>(h) * wi;
   const float4* frame = planes + static_cast<long long>(f) * c * chan;
   const bool stage = box[2] >= 0 &&
@@ -358,11 +368,11 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
     const int area = bw * bh;
     for (int i = threadIdx.x; i < area * c; i += kThreads) {
       const int ch = i / area;
-      const int r = i - ch * area;
-      const int row = r / bw;
+      const int t = i - ch * area;
+      const int row = t / bw;
       tile[i] = __ldg(frame + ch * chan +
                       static_cast<long long>(by0 + row) * wi + bx0 +
-                      (r - row * bw));
+                      (t - row * bw));
     }
   }
   __syncthreads();
@@ -374,11 +384,11 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
     if (stage) {
       observation_stats<R, NORM>(tile + (y0 - by0) * bw + (x0 - bx0),
                                  static_cast<long long>(bw) * bh, bw, wt,
-                                 desc, c, LoadPlain{}, acc);
+                                 desc, c, LoadPlain{}, acc, r);
     } else {
       observation_stats<R, NORM>(
           frame + static_cast<long long>(y0) * wi + x0, chan, wi, wt, desc,
-          c, LoadGlobal{}, acc);
+          c, LoadGlobal{}, acc, r);
     }
   }
   if (!live) return;
@@ -392,7 +402,7 @@ template <int R, int NORM>
 void launch_sorted(const void* planes, const void* uv, const void* valid,
                    const void* patch, const void* feed, void* out,
                    void* staged, int n, int w, int c, int h, int wi,
-                   cudaStream_t stream) {
+                   int radius, cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>(w) * ((n + kThreads - 1) / kThreads);
   patch_stats_sorted_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
@@ -400,7 +410,7 @@ void launch_sorted(const void* planes, const void* uv, const void* valid,
       static_cast<const unsigned char*>(valid),
       static_cast<const float*>(patch), static_cast<const long long*>(feed),
       static_cast<float*>(out), static_cast<unsigned char*>(staged), n, w, c,
-      h, wi);
+      h, wi, radius);
 }
 
 }  // namespace
@@ -410,11 +420,13 @@ extern "C" int pb_patch_stats(const void* planes, const void* uv,
                               int n, int w, int c, int h, int wi, int radius,
                               int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad =
-      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+  const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
+      radius, norm,
+      [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, n, w, c, h, wi, s);
-      });
+            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+      },
+      kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 
@@ -428,11 +440,14 @@ extern "C" int pb_patch_stats_sorted(const void* planes, const void* uv,
                                      int wi, int radius, int norm,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad =
-      pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
+  const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
+      radius, norm,
+      [&](auto r, auto m) {
         launch_sorted<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, feed, out, staged, n, w, c, h, wi, s);
-      });
+            planes, uv, valid, patch, feed, out, staged, n, w, c, h, wi,
+            radius, s);
+      },
+      kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 

@@ -9,12 +9,21 @@ import torch
 
 from ..image.patches import AFFINE_NORM_EPS
 
-# Patch radii the kernels are instantiated for: K7, the sample stores and
-# K8 take RADII; the solve's kernels (K1 with its sorted entry, K2, K3)
-# take every radius the JAX package runs its warped grid on, R <= 9
-# (pb::kMaxSolveRadius in csrc/patch_epilogue.cuh).
+# Patch radii the kernels take. K7, the sample stores and K8: RADII. The
+# solve's kernels take the radii of the reference's accelerator path:
+#   K1 (every normalization, K4's affine mode included) and its sorted
+#   entry: FIXED_RADII, where the JAX package's fixed-grid panel has a
+#   positive lane stride (photobundle_tpu/ops/patch_warp.py `lane_stride`:
+#   a (2R+2)-px window of three lanes per pixel in a 128-lane panel);
+#   K2: 1..BICUBIC_MAX, where its value panel has one (`value_lane_stride`:
+#   a (2R+4)-px window in 128 lanes);
+#   K3 (K5): WARPED_RADII, the reference's warped-grid limit.
+# The kernels have compile-time instances for 1..9 (pb::kMaxSolveRadius in
+# csrc/patch_epilogue.cuh) and one runtime-radius instance above.
 RADII = (1, 2, 3, 4)
-SOLVE_RADII = tuple(range(1, 10))
+FIXED_RADII = tuple(range(1, 20))
+BICUBIC_MAX = 61
+WARPED_RADII = tuple(range(1, 10))
 NORMS = ("off", "mean", "affine")   # kernel codes 0, 1, 2
 
 

@@ -36,7 +36,7 @@ import torch
 
 from ..image import interp
 from . import _build
-from ._common import (SOLVE_RADII, check_tensors, count_launch, norm_code,
+from ._common import (BICUBIC_MAX, check_tensors, count_launch, norm_code,
                       reset_launches, stats_from_samples)
 
 
@@ -112,9 +112,12 @@ def bicubic_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
-    if patch_radius not in SOLVE_RADII:
-        raise ValueError(f"bicubic_stats kernel is built for patch radius in "
-                         f"{SOLVE_RADII}, not {patch_radius}")
+    if not 1 <= patch_radius <= BICUBIC_MAX:
+        raise ValueError(f"bicubic_stats kernel takes patch radius 1.."
+                         f"{BICUBIC_MAX}, not {patch_radius}: a window of "
+                         f"{2 * patch_radius + 4} px does not fit the "
+                         f"reference's 128-lane value panel with a positive "
+                         f"stride")
     w, c, h, wi = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
@@ -123,8 +126,9 @@ def _check(planes, uv, valid, patch, patch_radius: int):
         "uv": (uv, torch.float32, (n, w, 2)),
         "valid": (valid, torch.bool, (n, w)),
         "patch": (patch, torch.float32, (n, c, ps * ps))})
-    if uv.data_ptr() % 8:
-        raise ValueError("bicubic_stats: uv must be 8-byte aligned (float2 "
+    if planes.data_ptr() % 16 or uv.data_ptr() % 8:
+        raise ValueError("bicubic_stats: planes must be 16-byte and uv "
+                         "8-byte aligned (16-byte window copies, float2 "
                          "loads)")
     if h < ps + 3 or wi < ps + 3:
         raise ValueError(f"bicubic_stats: image {h}x{wi} is smaller than "
@@ -135,13 +139,45 @@ def _kernel():
     built = _build.library("patch_bicubic")
     fn = built.lib.pb_bicubic_stats        # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn in (built.lib.pb_bicubic_stats,
+                   built.lib.pb_bicubic_stats_one_thread):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         err = built.lib.pb_bicubic_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built.lib
+
+
+def _launch(wrapper, entry: str, planes, uv, valid, patch, patch_radius,
+            norm):
+    code = norm_code(norm)
+    if planes.device.type == "cpu":
+        return bicubic_stats_reference(planes, uv, valid, patch,
+                                       patch_radius, norm)
+    if planes.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, "
+                         f"not {planes.device}")
+    _check(planes, uv, valid, patch, patch_radius)
+    w, c, h, wi = planes.shape
+    n = uv.shape[0]
+    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    if n * w == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = getattr(lib, entry)(
+            planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
+            patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
+            code, stream)
+    if err != 0:
+        msg = lib.pb_bicubic_error_string(err).decode()
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    count_launch(wrapper, norm)
+    return out
 
 
 def bicubic_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
@@ -154,32 +190,36 @@ def bicubic_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     stream without synchronising (and raise if it cannot launch).
     `bicubic_stats.launches` counts kernel launches by normalization
     mode."""
-    code = norm_code(norm)
-    if planes.device.type == "cpu":
-        return bicubic_stats_reference(planes, uv, valid, patch,
-                                       patch_radius, norm)
-    if planes.device.type != "cuda":
-        raise ValueError(f"bicubic_stats runs on cpu or cuda tensors, not "
-                         f"{planes.device}")
-    _check(planes, uv, valid, patch, patch_radius)
-    w, c, h, wi = planes.shape
-    n = uv.shape[0]
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
-    if n * w == 0:
-        return out
-    lib = _kernel()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.pb_bicubic_stats(
-            planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
-            patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
-            code, stream)
-    if err != 0:
-        msg = lib.pb_bicubic_error_string(err).decode()
-        raise RuntimeError(f"bicubic_stats kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    count_launch(bicubic_stats, norm)
-    return out
+    return _launch(bicubic_stats, "pb_bicubic_stats", planes, uv, valid,
+                   patch, patch_radius, norm)
+
+
+def bicubic_stats_one_thread(planes: torch.Tensor, uv: torch.Tensor,
+                             valid: torch.Tensor, patch: torch.Tensor,
+                             patch_radius: int,
+                             norm: str = "mean") -> torch.Tensor:
+    """`bicubic_stats` through the kernel's one-thread design with a
+    run-time radius, at any radius it takes: the same sums, bitwise (the
+    same samples and epilogue in the same order), for holding its other
+    designs to it. Not on any solve path; `.launches` counts its own
+    launches."""
+    return _launch(bicubic_stats_one_thread, "pb_bicubic_stats_one_thread",
+                   planes, uv, valid, patch, patch_radius, norm)
+
+
+DESIGNS = ("sampled every pass", "register tile", "runtime radius")
+
+
+def design(patch_radius: int, norm: str) -> str:
+    """The design the kernel runs at a patch radius and
+    normalization (DESIGNS; csrc/patch_bicubic.cu says which is measured
+    faster where). Builds the library where it is missing (needs nvcc)."""
+    code = _kernel().pb_bicubic_design(patch_radius, norm_code(norm))
+    if code < 0:
+        raise ValueError(f"bicubic_stats takes no patch radius "
+                         f"{patch_radius}")
+    return DESIGNS[code]
 
 
 reset_launches(bicubic_stats)
+reset_launches(bicubic_stats_one_thread)

@@ -33,8 +33,8 @@ import torch
 
 from ..constants import PATCH_SCALE_MAX, PATCH_SCALE_MIN
 from . import _build
-from ._common import (SOLVE_RADII, check_tensors, count_launch, norm_code,
-                      reset_launches, stats_from_samples)
+from ._common import (WARPED_RADII, check_tensors, count_launch,
+                      norm_code, reset_launches, stats_from_samples)
 
 
 def scaled_taps(uv: torch.Tensor, rho: torch.Tensor, valid: torch.Tensor,
@@ -111,9 +111,11 @@ def scaled_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 
 def _check(planes, uv, rho, valid, patch, patch_radius: int):
-    if patch_radius not in SOLVE_RADII:
-        raise ValueError(f"scaled_stats kernel is built for patch radius in "
-                         f"{SOLVE_RADII}, not {patch_radius}")
+    if patch_radius not in WARPED_RADII:
+        raise ValueError(f"scaled_stats kernel takes patch radius "
+                         f"{WARPED_RADII[0]}..{WARPED_RADII[-1]} (the "
+                         f"reference's warped-grid limit), not "
+                         f"{patch_radius}")
     w, c, h, wi, four = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1
@@ -135,13 +137,45 @@ def _kernel():
     built = _build.library("patch_scaled")
     fn = built.lib.pb_scaled_stats         # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn in (built.lib.pb_scaled_stats,
+                   built.lib.pb_scaled_stats_one_thread):
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         err = built.lib.pb_scaled_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built.lib
+
+
+def _launch(wrapper, entry: str, planes, uv, rho, valid, patch,
+            patch_radius, norm):
+    code = norm_code(norm)
+    if planes.device.type == "cpu":
+        return scaled_stats_reference(planes, uv, rho, valid, patch,
+                                      patch_radius, norm)
+    if planes.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, "
+                         f"not {planes.device}")
+    _check(planes, uv, rho, valid, patch, patch_radius)
+    w, c, h, wi, _ = planes.shape
+    n = uv.shape[0]
+    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    if n * w == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = getattr(lib, entry)(
+            planes.data_ptr(), uv.data_ptr(), rho.data_ptr(),
+            valid.data_ptr(), patch.data_ptr(), out.data_ptr(), n, w, c, h,
+            wi, patch_radius, code, stream)
+    if err != 0:
+        msg = lib.pb_scaled_error_string(err).decode()
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    count_launch(wrapper, norm)
+    return out
 
 
 def scaled_stats(planes: torch.Tensor, uv: torch.Tensor, rho: torch.Tensor,
@@ -154,32 +188,37 @@ def scaled_stats(planes: torch.Tensor, uv: torch.Tensor, rho: torch.Tensor,
     stream without synchronising (and raise if it cannot launch).
     `scaled_stats.launches` counts kernel launches by normalization mode
     (norm='affine' is the port's K5, the others K3)."""
-    code = norm_code(norm)
-    if planes.device.type == "cpu":
-        return scaled_stats_reference(planes, uv, rho, valid, patch,
-                                      patch_radius, norm)
-    if planes.device.type != "cuda":
-        raise ValueError(f"scaled_stats runs on cpu or cuda tensors, not "
-                         f"{planes.device}")
-    _check(planes, uv, rho, valid, patch, patch_radius)
-    w, c, h, wi, _ = planes.shape
-    n = uv.shape[0]
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
-    if n * w == 0:
-        return out
-    lib = _kernel()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.pb_scaled_stats(
-            planes.data_ptr(), uv.data_ptr(), rho.data_ptr(),
-            valid.data_ptr(), patch.data_ptr(), out.data_ptr(), n, w, c, h,
-            wi, patch_radius, code, stream)
-    if err != 0:
-        msg = lib.pb_scaled_error_string(err).decode()
-        raise RuntimeError(f"scaled_stats kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    count_launch(scaled_stats, norm)
-    return out
+    return _launch(scaled_stats, "pb_scaled_stats", planes, uv, rho, valid,
+                   patch, patch_radius, norm)
+
+
+def scaled_stats_one_thread(planes: torch.Tensor, uv: torch.Tensor,
+                            rho: torch.Tensor, valid: torch.Tensor,
+                            patch: torch.Tensor, patch_radius: int,
+                            norm: str = "mean") -> torch.Tensor:
+    """`scaled_stats` through the kernel's one-thread design with a
+    run-time radius, at any radius it takes: the same sums, bitwise (the
+    same samples and epilogue in the same order), for holding its other
+    designs to it. Not on any solve path; `.launches` counts its own
+    launches."""
+    return _launch(scaled_stats_one_thread, "pb_scaled_stats_one_thread",
+                   planes, uv, rho, valid, patch, patch_radius, norm)
+
+
+DESIGNS = ("sampled every pass", "register tile", "runtime radius",
+           "tiled")
+
+
+def design(patch_radius: int, norm: str) -> str:
+    """The design the kernel runs at a patch radius and
+    normalization (DESIGNS; csrc/patch_scaled.cu says which is measured
+    faster where). Builds the library where it is missing (needs nvcc)."""
+    code = _kernel().pb_scaled_design(patch_radius, norm_code(norm))
+    if code < 0:
+        raise ValueError(f"scaled_stats takes no patch radius "
+                         f"{patch_radius}")
+    return DESIGNS[code]
 
 
 reset_launches(scaled_stats)
+reset_launches(scaled_stats_one_thread)

@@ -31,8 +31,10 @@ visited in a sorted point order (`core/residuals.sorted_dispatch_order`),
 so that a block of neighbouring points can stage their shared window in
 shared memory once (the second entry of csrc/patch_warp.cu).
 
-Both kernels are built for patch radii `_common.SOLVE_RADII` (1..9); to
-R = 3, K1 stages each block's windows in shared memory.
+Both kernels take patch radii `_common.FIXED_RADII` (1..19, the JAX
+package's fixed-grid limit); to R = 3, K1 stages each block's windows in
+shared memory, and above R = 9 both run one instance with a runtime
+radius.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import (SOLVE_RADII, check_tensors, count_launch, norm_code,
+from ._common import (FIXED_RADII, check_tensors, count_launch, norm_code,
                       reset_launches, stats_from_samples)
 
 
@@ -119,9 +121,16 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
 
 
 def _check(planes, uv, valid, patch, patch_radius: int):
-    if patch_radius not in SOLVE_RADII:
-        raise ValueError(f"patch_stats kernel is built for patch radius in "
-                         f"{SOLVE_RADII}, not {patch_radius}")
+    # The radii of the JAX package's fixed-grid kernel: its (2R+2)-px
+    # window, three lanes per pixel, must leave a 128-lane panel a positive
+    # stride (photobundle_tpu/ops/patch_warp.py `lane_stride`).
+    if patch_radius not in FIXED_RADII:
+        win = 2 * patch_radius + 2
+        raise ValueError(
+            f"patch_stats kernel takes patch radius {FIXED_RADII[0]}.."
+            f"{FIXED_RADII[-1]}, not {patch_radius}: a window of {win} px "
+            f"(3*{win} lanes) does not fit the reference's 128-lane panel "
+            f"with a positive stride")
     w, c, h, wi, four = planes.shape
     n = uv.shape[0]
     ps = 2 * patch_radius + 1

@@ -346,10 +346,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     valid = torch.ones((3, 2), dtype=torch.bool)
     patch = torch.zeros((3, 1, 25))
     pb._check(planes, uv, valid, patch, 2)          # accepted as given
-    pb._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..9
-    with pytest.raises(ValueError, match="radius"):
-        pb._check(torch.zeros((2, 1, 24, 24)), uv, valid,
-                  torch.zeros((3, 1, 441)), 10)
+    pb._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..61
+    pb._check(torch.zeros((2, 1, 24, 24)), uv, valid,
+              torch.zeros((3, 1, 441)), 10)
+    pb._check(torch.zeros((2, 1, 126, 126)), uv, valid,
+              torch.zeros((3, 1, 123 * 123)), 61)
+    with pytest.raises(ValueError, match="radius 1..61, not 62"):
+        pb._check(torch.zeros((2, 1, 128, 128)), uv, valid,
+                  torch.zeros((3, 1, 125 * 125)), 62)
     with pytest.raises(ValueError, match="uv"):
         pb._check(planes, uv.double(), valid, patch, 2)
     with pytest.raises(ValueError, match="patch"):

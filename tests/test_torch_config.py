@@ -119,15 +119,16 @@ UNPORTED = {   # configuration -> the kernel that runs it on a card
 def test_unported_kernel_raises_on_a_card(case, backend):
     """The configurations whose kernels K3, K4 and K5 were still to be
     ported resolve to the kernel path on a card now, at every patch radius
-    the kernels are built for (1..9). What still raises there is a radius
-    outside that range: a ValueError, never a quiet fall back to the
-    gather path."""
+    their kernel takes (K4 and bicubic 1..19 and more, the warped grid
+    1..9). What still raises there is a radius outside that range: a
+    ValueError, never a quiet fall back to the gather path."""
     kw, kernel = UNPORTED[case]
     cfg = tcfg.PBAConfig(solverBackend=backend, **kw)
     assert cfg.resolve_backend("cuda") == "cuda", kernel
     assert cfg.replace(patchRadius=5).resolve_backend("cuda") == "cuda"
+    too_wide = 62 if kernel == "K2" else 20 if kernel == "K4" else 10
     with pytest.raises(ValueError, match="patchRadius"):
-        cfg.replace(patchRadius=10).resolve_backend("cuda")
+        cfg.replace(patchRadius=too_wide).resolve_backend("cuda")
     # Off the card, and with solverBackend=torch on it, the plain path runs.
     assert cfg.replace(solverBackend="torch").resolve_backend("cuda") == "torch"
     if backend == "auto":
@@ -147,42 +148,58 @@ WIDE_MODES = {   # sampling configuration at patchRadius 5..9: its kernel
 }
 
 
-@pytest.mark.parametrize("radius", [5, 6, 7, 8, 9, 10])
+@pytest.mark.parametrize("radius", [5, 6, 7, 8, 9, 10, 19, 20])
 @pytest.mark.parametrize("mode", sorted(WIDE_MODES))
 def test_wide_patch_radius_resolves_by_kernel(mode, radius):
-    """patchRadius 5..9 on a card: every kernel path (K1 to K5) runs them
-    under 'auto' and 'cuda'. Past 9 no kernel is built: both raise,
-    naming the radii the kernels are built for, and never take the
-    gather path on a card."""
+    """Wide patches on a card take the radii of the reference's
+    accelerator path: the fixed bilinear grid (K1, K4) 1..19, bicubic (K2)
+    1..61, the warped grid (K3, K5) 1..9, under 'auto' and 'cuda'. Past
+    its kernel's range a configuration raises, naming the range, and never
+    takes the gather path on a card."""
     kw = WIDE_MODES[mode]
     auto = tcfg.PBAConfig(patchRadius=radius, **kw)
     assert auto.resolve_backend("cpu") == "torch"
-    if radius in tcfg.SOLVE_RADII:
+    kernel, radii = auto.kernel_radii()
+    want = {"K1": tcfg.FIXED_RADII, "K4": tcfg.FIXED_RADII,
+            "K2": tuple(range(1, tcfg.BICUBIC_MAX + 1)),
+            "K3": tcfg.WARPED_RADII, "K5": tcfg.WARPED_RADII}[mode[-3:-1]]
+    assert radii == want
+    if radius in radii:
         assert auto.resolve_backend("cuda") == "cuda"
         assert auto.replace(solverBackend="cuda").resolve_backend(
             "cuda") == "cuda"
         return
-    with pytest.raises(ValueError, match=f"built for patchRadius in "
-                                         f"\\(1, 2, 3, 4, 5, 6, 7, 8, "
-                                         f"9\\), not {radius}"):
+    with pytest.raises(ValueError, match=f"takes patchRadius 1..{radii[-1]}"
+                                         f", not {radius}"):
         auto.resolve_backend("cuda")
-    # solverBackend=cuda: validate() refuses the warped grid past 9 already.
-    with pytest.raises(ValueError, match="patchRadius"):
+    # solverBackend=cuda: validate() refuses it already, naming the range.
+    with pytest.raises(ValueError, match=f"patchRadius 1..{radii[-1]}"):
         auto.replace(solverBackend="cuda").resolve_backend("cuda")
 
 
 def test_validate_names_the_warped_grid_radii():
     """validate() accepts solverBackend=cuda with patchWarp='scale' at
-    every radius K3 is built for and refuses a wider one; every radius of
-    the fixed grid K1 is built for validates."""
-    for radius in tcfg.SOLVE_RADII:
+    every radius K3 takes and refuses a wider one; every radius the fixed
+    grid's K1 takes validates, and bicubic past 19 too; each kernel's
+    range is named where a radius is refused."""
+    for radius in tcfg.WARPED_RADII:
         tcfg.PBAConfig(patchWarp="scale", solverBackend="cuda",
                        patchRadius=radius).validate()
+    for radius in tcfg.FIXED_RADII:
         tcfg.PBAConfig(patchRadius=radius, solverBackend="cuda").validate()
-    with pytest.raises(ValueError, match="patchRadius <= 9 has a kernel "
+    tcfg.PBAConfig(patchRadius=tcfg.BICUBIC_MAX, interpolation="bicubic",
+                   solverBackend="cuda").validate()
+    with pytest.raises(ValueError, match="patchRadius 1..9 has a kernel "
                                          "path"):
         tcfg.PBAConfig(patchWarp="scale", solverBackend="cuda",
                        patchRadius=10).validate()
+    with pytest.raises(ValueError, match="K1 takes patchRadius 1..19, not "
+                                         "20"):
+        tcfg.PBAConfig(patchRadius=20, solverBackend="cuda").validate()
+    with pytest.raises(ValueError, match="K2 takes patchRadius 1..61, not "
+                                         "62"):
+        tcfg.PBAConfig(patchRadius=62, interpolation="bicubic",
+                       solverBackend="cuda").validate()
 
 
 def test_cuda_backend_without_a_kernel_path_is_refused():

@@ -25,6 +25,12 @@ from photobundle_torch.ops import patch_warp as pw
 
 pytestmark = pytest.mark.gpu
 
+# The radii each solve kernel is held at: its compile-time instances
+# (1..9) and, for K1 and K2, the runtime-radius instance above them (K1 to
+# the fixed-grid limit 19, K2 past it).
+K1_RADII = (*_common.WARPED_RADII, 10, _common.FIXED_RADII[-1])
+K2_RADII = (*K1_RADII, 25)
+
 
 @pytest.fixture
 def cuda_device():
@@ -43,7 +49,7 @@ def within_f32_tolerance(got, want, scale):
     return bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-6 * scale).all())
 
 
-@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
+@pytest.mark.parametrize("radius", K1_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_kernel_matches_plain_version(cuda_device, radius, channels, norm):
@@ -75,9 +81,10 @@ def test_kernel_rejects_unsupported_input(cuda_device):
     planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
     uv = torch.zeros((2, 1, 2), device=cuda_device)
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="radius"):
-        pw.patch_stats(planes, uv, valid,
-                       torch.zeros((2, 1, 441), device=cuda_device), 10)
+    with pytest.raises(ValueError, match="radius 1..19, not 20"):
+        pw.patch_stats(torch.zeros((1, 1, 42, 42, 4), device=cuda_device),
+                       uv, valid,
+                       torch.zeros((2, 1, 41 * 41), device=cuda_device), 20)
     with pytest.raises(ValueError, match="planes on"):
         pw.patch_stats(planes, uv.cpu(), valid,
                        torch.zeros((2, 1, 25), device=cuda_device), 2)
@@ -131,28 +138,36 @@ def test_solve_on_card_runs_through_the_kernel(cuda_device):
 # K2: the Catmull-Rom kernel (csrc/patch_bicubic.cu)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
+def bicubic_inputs(rng, device, radius, channels):
+    """K2's test inputs: 3 frames of 257 points on a 40x70 image (larger
+    where the (2R+4)-px window needs it), valid observations inside the
+    bicubic margins (the solve's own validity), invalid ones anywhere, NaN
+    included."""
+    w, n = 3, 257
+    h, wi = max(40, 2 * radius + 10), max(70, 2 * radius + 10)
+    planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi)),
+                             dtype=torch.float32, device=device)
+    lo, hi = radius + 1, 3 + radius
+    uv = rng.uniform([lo, lo], [wi - hi, h - hi], size=(n, w, 2))
+    valid = rng.uniform(size=(n, w)) > 0.2
+    uv[~valid] = rng.uniform(-5.0, wi + 5.0, size=(int((~valid).sum()), 2))
+    valid[5, 1] = False
+    uv[5, 1] = np.nan
+    patch = torch.as_tensor(
+        rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
+        dtype=torch.float32, device=device)
+    return (planes, torch.as_tensor(uv, dtype=torch.float32, device=device),
+            torch.as_tensor(valid, device=device), patch)
+
+
+@pytest.mark.parametrize("radius", K2_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_bicubic_kernel_matches_plain_version(cuda_device, radius, channels,
                                              norm):
     rng = np.random.default_rng(100 + radius * 10 + channels)
-    w, h, wi, n = 3, 40, 70, 257
-    planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi)),
-                             dtype=torch.float32, device=cuda_device)
-    # Valid observations inside the bicubic margins (the solve's own
-    # validity); invalid ones anywhere, NaN included.
-    lo, hi = radius + 1, 3 + radius
-    uv = rng.uniform([lo, lo], [wi - hi, h - hi], size=(n, w, 2))
-    valid = rng.uniform(size=(n, w)) > 0.2
-    uv[~valid] = rng.uniform(-5.0, 75.0, size=(int((~valid).sum()), 2))
-    valid[5, 1] = False
-    uv[5, 1] = np.nan
-    uv = torch.as_tensor(uv, dtype=torch.float32, device=cuda_device)
-    valid = torch.as_tensor(valid, device=cuda_device)
-    patch = torch.as_tensor(
-        rng.standard_normal((n, channels, (2 * radius + 1) ** 2)),
-        dtype=torch.float32, device=cuda_device)
+    planes, uv, valid, patch = bicubic_inputs(rng, cuda_device, radius,
+                                              channels)
     before = pb.bicubic_stats.launches[norm]
     got = pb.bicubic_stats(planes, uv, valid, patch, radius, norm)
     want = pb.bicubic_stats_reference(planes, uv, valid, patch, radius, norm)
@@ -168,9 +183,15 @@ def test_bicubic_kernel_rejects_unsupported_input(cuda_device):
     planes = torch.zeros((1, 1, 32, 32), device=cuda_device)
     uv = torch.zeros((2, 1, 2), device=cuda_device)
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="radius"):
+    with pytest.raises(ValueError, match="radius 1..61, not 62"):
+        pb.bicubic_stats(torch.zeros((1, 1, 128, 128), device=cuda_device),
+                         uv, valid,
+                         torch.zeros((2, 1, 125 * 125), device=cuda_device),
+                         62)
+    with pytest.raises(ValueError, match="smaller"):
         pb.bicubic_stats(planes, uv, valid,
-                         torch.zeros((2, 1, 441), device=cuda_device), 10)
+                         torch.zeros((2, 1, 31 * 31), device=cuda_device),
+                         15)
     with pytest.raises(ValueError, match="planes on"):
         pb.bicubic_stats(planes, uv.cpu(), valid,
                          torch.zeros((2, 1, 25), device=cuda_device), 2)
@@ -306,7 +327,7 @@ def scaled_inputs(rng, device, radius, channels, w=3, h=40, wi=70, n=257):
             torch.as_tensor(valid, device=device), patch)
 
 
-@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
+@pytest.mark.parametrize("radius", _common.WARPED_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 def test_scaled_kernel_matches_plain_version(cuda_device, radius, channels,
@@ -414,7 +435,7 @@ def test_warped_evaluation_on_card_matches_cpu(cuda_device, warp, normalize):
 # K1's sort-reuse variant (csrc/patch_warp.cu, pb_patch_stats_sorted)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("radius", _common.SOLVE_RADII)
+@pytest.mark.parametrize("radius", K1_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
@@ -450,20 +471,36 @@ def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
     assert pw.sorted_patch_stats.launches[norm] == before + 1
     assert torch.equal(got, want)
     assert set(staged.unique().tolist()) <= {0, 1}
-    # Blocks (64 consecutive sorted ranks of one frame) with a valid
-    # observation: in the dense layout all of them stage their box where
-    # it fits (to R = 4 with three channels, at every R with one); in the
-    # sparse one no full block does (the last block of each frame holds
-    # one observation, whose own window fits).
+    # Each block (64 consecutive sorted ranks of one frame) stages where
+    # it has a valid observation and the union box of its valid windows,
+    # C channels of it, fits the 1024 texels of its tile: in the dense
+    # layout every block to R = 4 with three channels, to R = 9 with one;
+    # in the sparse one no full block (the last block of each frame holds
+    # one observation, whose own window fits to R = 9).
+    win = 2 * radius + 2
+    q = torch.where(valid[..., None], uv, 0.0)[order[0]]          # (N, W, 2)
+    x0 = torch.clamp(torch.floor(q[..., 0]).long() - radius, 0, wi - win)
+    y0 = torch.clamp(torch.floor(q[..., 1]).long() - radius, 0, h - win)
     runs = -(-n // pw.SORTED_RUN)
-    has = torch.zeros((w, runs * pw.SORTED_RUN), dtype=torch.bool,
-                      device=cuda_device)
-    has[:, :n] = valid[order[0]].T
-    has = has.view(w, runs, pw.SORTED_RUN).any(dim=-1).flatten()
-    if layout == "dense" and (radius <= 4 or channels == 1):
-        assert torch.equal(staged.bool(), has)
-    elif layout == "sparse":
-        assert not staged.view(w, runs)[:, :-1].any()
+    expect = []
+    for f in range(w):
+        for j in range(runs):
+            sel = slice(j * pw.SORTED_RUN, (j + 1) * pw.SORTED_RUN)
+            ok = valid[order[0]][sel, f]
+            if not bool(ok.any()):
+                expect.append(False)
+                continue
+            bx, by = x0[sel, f][ok], y0[sel, f][ok]
+            area = (int(bx.max() - bx.min()) + win) * (int(by.max()
+                                                           - by.min()) + win)
+            expect.append(area * channels <= 1024)
+    assert staged.bool().tolist() == expect
+    if layout == "dense" and (radius <= 4 or channels == 1 and radius <= 9):
+        assert all(expect[f * runs + j] for f in range(w) for j in range(runs)
+                   if bool(valid[order[0]][j * 64:(j + 1) * 64, f].any()))
+    elif layout == "sparse" and radius <= 9:
+        assert not any(expect[f * runs + j] for f in range(w)
+                       for j in range(runs - 1))
     plain = pw.sorted_patch_stats_reference(planes, uv, valid, patch, radius,
                                             order, norm)
     row_max = plain.abs().amax(dim=(1, 2), keepdim=True)
@@ -531,7 +568,7 @@ def full_size_instance(device, n_pts, radius, channels=1):
             patch, order)
 
 
-@pytest.mark.parametrize("radius", [2, 6, 9])
+@pytest.mark.parametrize("radius", [2, 6, 9, 10, 19])
 @pytest.mark.parametrize("n_pts", [4096, 65536])
 def test_sorted_kernel_is_bitwise_k1_at_full_size(cuda_device, radius,
                                                   n_pts):
@@ -545,6 +582,47 @@ def test_sorted_kernel_is_bitwise_k1_at_full_size(cuda_device, radius,
         want = pw.patch_stats(planes, uv, valid, patch, radius, norm)
         torch.cuda.synchronize()
         assert torch.equal(got, want), norm
+
+
+@pytest.mark.parametrize("radius", K2_RADII)
+@pytest.mark.parametrize("channels", [1, 3])
+def test_bicubic_kernel_is_bitwise_its_one_thread_design(cuda_device, radius,
+                                                        channels):
+    """K2's sums at every radius, whichever design runs there (a register
+    tile of samples, or sampling on every pass), equal bitwise those of
+    its one-thread design with a run-time radius: the same samples,
+    reduced in the same order."""
+    rng = np.random.default_rng(400 + radius * 10 + channels)
+    planes, uv, valid, patch = bicubic_inputs(rng, cuda_device, radius,
+                                              channels)
+    for norm in _common.NORMS:
+        before = pb.bicubic_stats_one_thread.launches[norm]
+        got = pb.bicubic_stats(planes, uv, valid, patch, radius, norm)
+        want = pb.bicubic_stats_one_thread(planes, uv, valid, patch, radius,
+                                           norm)
+        torch.cuda.synchronize()
+        assert pb.bicubic_stats_one_thread.launches[norm] == before + 1
+        assert torch.equal(got, want), norm
+        assert float(got.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("radius", _common.WARPED_RADII)
+@pytest.mark.parametrize("channels", [1, 3])
+def test_scaled_kernel_is_bitwise_its_one_thread_design(cuda_device, radius,
+                                                       channels):
+    """K3's (and K5's) sums at every radius, whichever design runs there
+    (a register tile, the tiled design, or sampling on every pass), equal
+    bitwise those of its one-thread design with a run-time radius."""
+    rng = np.random.default_rng(500 + radius * 10 + channels)
+    planes, uv, rho, valid, patch = scaled_inputs(rng, cuda_device, radius,
+                                                  channels)
+    for norm in _common.NORMS:
+        got = ps.scaled_stats(planes, uv, rho, valid, patch, radius, norm)
+        want = ps.scaled_stats_one_thread(planes, uv, rho, valid, patch,
+                                          radius, norm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), norm
+        assert float(got.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("n_pts", [4096, 65536])

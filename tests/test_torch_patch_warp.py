@@ -200,10 +200,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     valid = torch.ones((3, 2), dtype=torch.bool)
     patch = torch.zeros((3, 1, 25))
     pw._check(planes, uv, valid, patch, 2)          # accepted as given
-    pw._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..9
-    with pytest.raises(ValueError, match="radius"):
-        pw._check(torch.zeros((2, 1, 24, 24, 4)), uv, valid,
-                  torch.zeros((3, 1, 441)), 10)
+    pw._check(planes, uv, valid, torch.zeros((3, 1, 121)), 5)   # R 1..19
+    pw._check(torch.zeros((2, 1, 40, 40, 4)), uv, valid,
+              torch.zeros((3, 1, 39 * 39)), 19)
+    with pytest.raises(ValueError, match="radius 1..19, not 20: a window "
+                                         "of 42 px"):
+        pw._check(torch.zeros((2, 1, 42, 42, 4)), uv, valid,
+                  torch.zeros((3, 1, 41 * 41)), 20)
     with pytest.raises(ValueError, match="uv"):
         pw._check(planes, uv.double(), valid, patch, 2)
     with pytest.raises(ValueError, match="valid"):
