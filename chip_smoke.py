@@ -75,20 +75,27 @@ Drives the port's paths at the repository's full size (370x1226 images,
      filter's (Python, and native where it builds);
  13. K4's sample store and K6 (csrc/patch_samples.cu, the 'rows', 'block'
      and 'raw' layouts of ops/patch_samples) against their plain versions
-     on phase 3's inputs, bitwise, and the four `warp_patches` variants
-     against each other; then phase 4's solve with PB_GROUPED_STATS=0
-     (the unfused path): the row store launched once per LM iteration plus
-     once and no other kernel, its damped interior parity solve within
-     SOLVE_RTOL of the fused one, LM it/s of both;
+     on phase 3's inputs, bitwise, and at R = 9, 10 and 19 too; beside
+     them the one PyTorch call that computes each layout's function
+     (F.grid_sample for rows and block, an advanced-indexing window gather
+     for raw: `library_ms`, with grid_sample's largest difference from
+     the plain samples); the four
+     `warp_patches` variants against each other; then phase 4's solve
+     with PB_GROUPED_STATS=0 (the unfused path): the row store launched
+     once per LM iteration plus once and no other kernel, its damped
+     interior parity solve within SOLVE_RTOL of the fused one, LM it/s of
+     both; and the unfused solve at R = 5 (the row store alone,
+     Σ(iterations + 1) launches);
  14. K7 (csrc/patch_stats.cu, ops/patch_stats) through its entry point in
      both modes on phase 3's inputs: cost_only's rr bitwise the full
      mode's, K7's sums against K1's mean-mode sums, each mode against its
      plain version;
  15. the tools in this process: `bench_warp_kernel` at phase 3's size and
      `ablate_patch_stats` at 4096 and 65 536 points (full/own bitwise K1),
-     then each K8 variant (csrc/patch_ablate.cu, stage x window, 64
-     threads) against its plain version on phase 3's inputs (the partial
-     stages bitwise).
+     K8's full/own bitwise K1 at 64, 128 and 256 threads with its device
+     time beside K1's, then each K8 variant (csrc/patch_ablate.cu, stage x
+     window, 64 threads) against its plain version on phase 3's inputs
+     (the partial stages bitwise).
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
@@ -160,6 +167,12 @@ WIDE_CALLS = 10                  # calls per median at the wider radii
 ENGINE_WIDE_RADIUS = 12          # phase 7c: reference exact past R = 9
 WIDE_ENGINE_RADIUS = 5                      # phase 7b's wide-patch engine
 BENCH_CALLS, ABLATE_CALLS = 50, 64          # phase 15's tools (their K)
+# Phase 13: the sample store held bitwise to its plain version at these
+# radii (the compile-time instances' largest, the runtime-radius instance,
+# the fixed-grid limit) besides R = 2, and the unfused solve at a radius
+# past the store's earlier 1..4.
+STORE_WIDE_RADII = (9, 10, 19)
+UNFUSED_RADIUS = 5
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
@@ -230,22 +243,28 @@ def median_ms(fn, calls: int, warmup: int = 3) -> float:
 _flush_buffer = []
 
 
-def flush_l2() -> None:
+def flush_l2(read: bool = False) -> None:
     """Evict the card's L2: write L2_FLUSH_BYTES (five times its 50 MB), so
-    the next kernel reads its inputs from HBM."""
+    the next kernel reads its inputs from HBM; with `read`, read them
+    instead (sum), so that L2 holds clean lines, none dirty to write
+    back."""
     if not _flush_buffer:
-        _flush_buffer.append(torch.empty(L2_FLUSH_BYTES // 4,
+        _flush_buffer.append(torch.zeros(L2_FLUSH_BYTES // 4,
                                          dtype=torch.float32, device="cuda"))
-    _flush_buffer[0].zero_()
+    if read:
+        _flush_buffer[0].sum()
+    else:
+        _flush_buffer[0].zero_()
 
 
 def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
-                         tries: int = 3, flush: bool = True):
+                         tries: int = 3, flush=True):
     """Device time per launch of the port's kernels (the card's activities
     whose name holds `match`, in a torch.profiler trace), averaged over the
     launches the trace holds, of `calls` calls of fn after one warm-up
     call, with L2 flushed before each call (the flush's own kernel is not
-    counted; `flush=False`: back to back, warm). A trace may miss launches:
+    counted; `flush="read"`: by reading, `flush_l2(read=True)`;
+    `flush=False`: back to back, warm). A trace may miss launches:
     it is taken again, up to `tries` times, until it holds all of them.
     None if no trace has device time. Self-contained (kernel_times.py times
     older checkouts with it)."""
@@ -259,7 +278,7 @@ def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 if flush:
-                    flush_l2()
+                    flush_l2(read=flush == "read")
                 fn()
             torch.cuda.synchronize()
         evts = [evt for evt in prof.key_averages()
@@ -269,6 +288,35 @@ def device_us_per_launch(fn, calls: int = PROFILED_CALLS, match="stats",
         if launches >= calls:
             break
     return total / launches if total > 0 else None
+
+
+def library_us_per_call(fn, calls: int = PROFILED_CALLS, tries: int = 3):
+    """Device time per call of one PyTorch call (every kernel it launches,
+    in a torch.profiler trace), L2 flushed by writing before each call as
+    `device_us_per_launch` does (the flush's fill kernel is not counted).
+    Returns (µs per call or None, the kernels' names). A trace may miss
+    launches: it is taken again, up to `tries` times, until each kernel
+    appears `calls` times."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA
+                and "FillFunctor" not in evt.key]
+        if evts and min(evt.count for evt in evts) >= calls:
+            break
+    total = sum(evt.self_device_time_total for evt in evts)
+    names = [evt.key.split("(")[0][:60] for evt in evts]
+    return (total / calls if total > 0 else None), names
 
 
 def us_text(us) -> str:
@@ -284,24 +332,20 @@ def gpu_clocks() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_table(log: str) -> dict:
-    """{(kernel, R, normalization code): (registers, spill-store bytes)} of
-    every kernel instance in a `ptxas -v` log (instances are named
-    <kernel><R, NORM> in the mangled entry names; a kernel templated on R
-    alone, with the normalization a runtime argument, is listed with code
-    None; K1's single-channel instances, <R, NORM, true>, as
-    '<kernel>[C=1]')."""
+def ptxas_instances(log: str) -> dict:
+    """{(kernel, template arguments): (registers, spill-store bytes)} of
+    every kernel instance in a `ptxas -v` log, its integer and bool
+    template arguments as written ("2,1,true")."""
     table, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
-                      r"\w*?([a-z_]+_kernel)ILi(\d+)E(?:L[ib](\d+)E)?"
-                      r"(?:Lb(\d)E)?", line)
+                      r"\w*?([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
-            kernel = m.group(1) + ("[C=1]" if m.group(4) == "1" else "")
-            current = (kernel, int(m.group(2)),
-                       None if m.group(3) is None else int(m.group(3)))
-            regs, spill = table.get(current, (None, None))
-            table[current] = (regs, spill)
+            args = ",".join(
+                ("true" if v == "1" else "false") if t == "b" else v
+                for t, v in re.findall(r"L([ib])(\d+)E", m.group(2)))
+            current = (m.group(1), args)
+            table.setdefault(current, (None, None))
             continue
         if current is None:
             continue
@@ -311,6 +355,23 @@ def ptxas_table(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             table[current] = (int(m.group(1)), table[current][1])
+    return table
+
+
+def ptxas_table(log: str) -> dict:
+    """{(kernel, R, normalization code): (registers, spill-store bytes)} of
+    every kernel instance <R, NORM> in a `ptxas -v` log (`ptxas_instances`;
+    a kernel templated on R alone, with the normalization a runtime
+    argument, is listed with code None; K1's single-channel instances,
+    <R, NORM, true>, as '<kernel>[C=1]')."""
+    table = {}
+    for (kernel, args), cell in ptxas_instances(log).items():
+        vals = [{"true": "1", "false": "0"}.get(v, v)
+                for v in args.split(",")]
+        if len(vals) > 2 and vals[2] == "1":
+            kernel += "[C=1]"
+        table[(kernel, int(vals[0]),
+               int(vals[1]) if len(vals) > 1 else None)] = cell
     return table
 
 
@@ -337,9 +398,8 @@ def print_ptxas_instances(name: str, built) -> None:
     """One line: registers / spill-store bytes of every kernel instance of
     a library, by its template arguments (nothing if the library was not
     built in this process)."""
-    cells = [f"{k}<{a}{'' if b is None else f',{b}'}> {g}/{sp}"
-             for (k, a, b), (g, sp) in sorted(ptxas_table(built.log).items(),
-                                              key=str)]
+    cells = [f"{k}<{a}> {g}/{sp}"
+             for (k, a), (g, sp) in sorted(ptxas_instances(built.log).items())]
     say(f"  ptxas {name} registers/spill bytes: {'; '.join(cells)}")
 
 
@@ -970,16 +1030,81 @@ def sorted_phase(dev) -> dict:
     return numbers
 
 
+def grid_sample_call(planes, uv_nm, valid_nm, pr):
+    """The one PyTorch call that computes the bilinear stores' samples,
+    F.grid_sample on the (value, d/dx, d/dy) planes as (W, 3C, H, Wi) at
+    the patch grid (W, N, P, 2), align_corners=True: its output is
+    (W, 3C, N, P), channel-major planes. Invalid observations sample at
+    pixel (0, 0). Returns (the call, its output as (s, gx, gy) each
+    (N, W, C, P))."""
+    import torch.nn.functional as F
+
+    w, c, h, wi, _ = planes.shape
+    n = uv_nm.shape[0]
+    img = (planes[..., :3].permute(0, 1, 4, 2, 3)
+           .reshape(w, 3 * c, h, wi).contiguous())
+    k = torch.arange(-pr, pr + 1, dtype=torch.float32, device=planes.device)
+    q = torch.where(valid_nm[..., None], uv_nm, 0.0).permute(1, 0, 2)
+    gx = (q[..., 0, None, None] + k[None, :]).expand(w, n, k.numel(),
+                                                      k.numel())
+    gy = (q[..., 1, None, None] + k[:, None]).expand(w, n, k.numel(),
+                                                      k.numel())
+    grid = torch.stack([2 * gx / (wi - 1) - 1, 2 * gy / (h - 1) - 1],
+                       dim=-1).reshape(w, n, -1, 2).contiguous()
+
+    def call():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    out = call().reshape(w, c, 3, n, -1).permute(2, 3, 0, 1, 4)
+    return call, tuple(out)
+
+
+def window_gather_call(planes, uv_nm, valid_nm, pr):
+    """The one PyTorch call that computes the raw store's windows: an
+    advanced-indexing gather planes[f, :, y, x, :3] of every observation's
+    clamped (2R+2)^2 window (invalid ones: the window at (0, 0)), output
+    (N*W, WIN, WIN, C, 3) frame-major. Returns (the call, its output in the
+    raw store's layout (C, N*W, WIN, 3 WIN))."""
+    w, c, h, wi, _ = planes.shape
+    n = uv_nm.shape[0]
+    win = 2 * pr + 2
+    q = torch.where(valid_nm[..., None], uv_nm, 0.0).permute(1, 0, 2)
+    q = q.reshape(w * n, 2)                                  # frame-major
+    x0 = torch.clamp(torch.floor(q[:, 0]).long() - pr, 0, wi - win)
+    y0 = torch.clamp(torch.floor(q[:, 1]).long() - pr, 0, h - win)
+    f = torch.arange(w, device=planes.device).repeat_interleave(n)
+    k = torch.arange(win, device=planes.device)
+    fi, yi, xi = f[:, None, None], (y0[:, None] + k)[:, :, None], (
+        x0[:, None] + k)[:, None, :]
+
+    def call():
+        return planes[fi, :, yi, xi, :3]
+
+    out = call().permute(3, 0, 1, 2, 4).reshape(c, w * n, win, 3 * win)
+    return call, out
+
+
 def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
                   kernels) -> tuple:
     """Phase 13: K4's row store and K6 (ops/patch_samples) against their
-    plain versions on phase 3's inputs, the four `warp_patches` variants
-    against each other, then lm_solve under PB_GROUPED_STATS=0. Returns
-    ({layout: numbers}, the row store's launches in that solve)."""
+    plain versions on phase 3's inputs (and at STORE_WIDE_RADII), each
+    beside the one PyTorch call that computes the same function
+    (`library_ms`), the four `warp_patches` variants against each other,
+    then lm_solve under PB_GROUPED_STATS=0 at R = 2 and UNFUSED_RADIUS.
+    Returns ({layout: numbers}, the row store's launches in the R = 2
+    solve)."""
+    from photobundle_torch import entry
+    from photobundle_torch.core import lm
     from photobundle_torch.ops import patch_samples as smp
 
     pr = PATCH_RADIUS
     numbers = {}
+    gs_call, gs_out = grid_sample_call(planes, uv_nm, valid_nm, pr)
+    gather_call, gather_out = window_gather_call(planes, uv_nm, valid_nm, pr)
+    gs_us, gs_kernels = library_us_per_call(gs_call)
+    gather_us, gather_kernels = library_us_per_call(gather_call)
+    torch.cuda.synchronize()
     for layout in smp.LAYOUTS:
         numbers[layout] = kernel_phase(
             "13", f"sample store '{layout}'",
@@ -987,16 +1112,49 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
             lambda: smp.store_reference(planes, uv_nm, valid_nm, pr, layout),
             valid_nm, samples_bound(texels, valid_nm, pr, layout),
             compare=compare_bitwise, match="samples")
+        lib_us = gather_us if layout == "raw" else gs_us
+        numbers[layout]["library_ms"] = (None if lib_us is None
+                                         else lib_us / 1e3)
+    plain = smp.unpack(smp.store_reference(planes, uv_nm, valid_nm, pr),
+                       uv_nm, valid_nm, pr, "rows")
+    gs_err = max(float((a - b).abs()[valid_nm].max())
+                 for a, b in zip(gs_out, plain))
+    raw_plain = smp.store_reference(planes, uv_nm, valid_nm, pr, "raw")
+    fm = valid_nm.T.reshape(-1)                    # frame-major validity
+    check(torch.equal(gather_out[:, fm], raw_plain[:, fm]),
+          "the window gather differs from the raw store's plain version")
+    say(f"phase 13 library calls, device time per call (profiler, L2 "
+        f"flushed before each): F.grid_sample on planes (W, 3C, H, Wi) at "
+        f"grid (W, N, P, 2), output (W, 3C, N, P) = "
+        f"{tuple(gs_call().shape)}, {us_text(gs_us)} ({gs_kernels}), "
+        f"largest |difference| from the plain samples "
+        f"{gs_err:.3e} (its align_corners normalization rounds the "
+        f"coordinate); the window gather planes[f, :, y, x, :3], output "
+        f"(N W, WIN, WIN, C, 3), {us_text(gather_us)} ({gather_kernels}), "
+        f"bitwise the raw store on valid observations")
+    for wide in STORE_WIDE_RADII:
+        planes_r, uv_r, valid_r, _, _, _ = sorted_instance(
+            N_PTS, planes.device, wide, time_sort=False)
+        win_r = window_texels(uv_r, valid_r, wide, 2 * wide + 2, wide, H, WI)
+        for layout in smp.LAYOUTS:
+            kernel_phase(
+                "13", f"sample store '{layout}'",
+                lambda: smp.store(planes_r, uv_r, valid_r, wide, layout),
+                lambda: smp.store_reference(planes_r, uv_r, valid_r, wide,
+                                            layout),
+                valid_r, samples_bound(win_r, valid_r, wide, layout),
+                compare=compare_bitwise, match="samples", radius=wide,
+                calls=WIDE_CALLS)
     rows = smp.warp_patches(planes, uv_nm, valid_nm, pr)
     for variant in smp.VARIANTS:
         layout = smp.layout_of(variant)
         got = smp.warp_patches(planes, uv_nm, valid_nm, pr, variant)
-        plain = smp.unpack(smp.store_reference(planes, uv_nm, valid_nm, pr,
-                                               layout),
-                           uv_nm, valid_nm, pr, layout)
+        want = smp.unpack(smp.store_reference(planes, uv_nm, valid_nm, pr,
+                                              layout),
+                          uv_nm, valid_nm, pr, layout)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) and torch.equal(a, c)
-                  for a, b, c in zip(got, plain, rows)),
+                  for a, b, c in zip(got, want, rows)),
               f"warp_patches '{variant}' differs from its plain version or "
               f"from 'rows'")
     say(f"phase 13 warp_patches variants {', '.join(smp.VARIANTS)}: "
@@ -1057,6 +1215,35 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
     ips_fused = timed()
     say(f"phase 13 LM it/s (median of {TIMED_SOLVES} solves of {ITERS} "
         f"iterations): unfused {ips_unfused:.2f}, fused {ips_fused:.2f}")
+
+    # The unfused solve past the store's earlier radii (1..4).
+    cam, offsets, args = entry.make_problem(N_PTS, W, H, WI, UNFUSED_RADIUS,
+                                            seed=SEED, device=planes.device)
+    os.environ["PB_GROUPED_STATS"] = "0"
+    try:
+        reset_all(kernels)
+        _, _, st = lm.lm_solve(
+            cam, *args, offsets, huber_delta=HUBER_DELTA,
+            gradient_mode="sampled", max_iterations=ITERS,
+            function_tolerance=0.0, parameter_tolerance=0.0, backend="cuda")
+        torch.cuda.synchronize()
+        counts = {key: n for key, n in launch_counts(kernels).items() if n}
+    finally:
+        os.environ.pop("PB_GROUPED_STATS")
+    iters = int(st.iterations)
+    rows_run = counts.pop(("patch_samples.warp_patches", "rows"), 0)
+    say(f"phase 13 cuda solve with PB_GROUPED_STATS=0 at R="
+        f"{UNFUSED_RADIUS}: {iters} iterations, cost "
+        f"{float(st.initial_cost):.6f} -> {float(st.final_cost):.6f}; "
+        f"row-store launches {rows_run}, other kernels {counts or 'none'}")
+    check(iters == ITERS and rows_run == iters + 1,
+          f"row store launched {rows_run} times over {iters} iterations at "
+          f"R={UNFUSED_RADIUS}")
+    check(not counts, f"other kernels ran under PB_GROUPED_STATS=0 at R="
+          f"{UNFUSED_RADIUS}: {counts}")
+    check(bool(torch.isfinite(st.cost_log[:iters]).all())
+          and float(st.final_cost) < float(st.initial_cost),
+          f"unfused solve at R={UNFUSED_RADIUS} did not lower the cost")
     return numbers, launches
 
 
@@ -1169,6 +1356,20 @@ def tools_phase(planes, uv_nm, valid_nm, patch, kernels) -> tuple:
     say(f"phase 15 card: {gpu_clocks()} (SM clock, max, power draw) | K1 "
         f"again on phase 3's inputs: {us_text(k1_us)} per launch "
         f"(profiler)")
+    k1 = pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
+    own_us = {}
+    for t in pa.THREADS:
+        def own(t=t):
+            return pa.ablate_stats(planes, uv_nm, valid_nm, patch, "full",
+                                   "own", t)
+
+        check(torch.equal(own(), k1), f"K8 full/own at {t} threads is not "
+              f"K1 bitwise")
+        own_us[t] = device_us_per_launch(own, match="ablate")
+    say(f"phase 15 K8 full/own (bitwise K1 at every thread count), device "
+        f"time per launch L2 cold: " + ", ".join(
+            f"{t} threads {us_text(u)}" for t, u in own_us.items())
+        + f" | K1 (64 threads) {us_text(k1_us)}")
     numbers = {}
     for stage in pa.STAGES:
         for window in pa.WINDOWS:
@@ -1429,6 +1630,7 @@ def main() -> None:
     from photobundle_torch.ops import patch_stats as k7
     from photobundle_torch.ops import patch_warp as pw
 
+    t_start = time.perf_counter()
     kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats,
                pw.sorted_patch_stats, smp.warp_patches, k7.patch_stats,
                pa.ablate_stats)
@@ -1690,6 +1892,7 @@ def main() -> None:
                 "source": f"photobundle_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, **numbers}
 
+    say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         entry_json("patch_stats", "patch_warp.cu", f"{pw_py}:350", launches,
                    k1),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's solve kernels K1, sorted K1, K2 and K3 in one or more
-checkouts.
+"""Time the port's kernels K1, sorted K1, K2, K3, the sample store and K8
+in one or more checkouts.
 
-    python3 kernel_times.py [--radii R,R,...] [TREE ...]
+    python3 kernel_times.py [--radii R,...] [--store-radii R,...]
+                            [--kernels NAME,...] [TREE ...]
                                   (default: this checkout)
 
 Each TREE is the root of a checkout of this repository (for example an
@@ -15,21 +16,28 @@ mean and affine normalization) and `scaled_stats` (K3 in the mean mode,
 K5 in the affine mode, with chip_smoke.py's phase-8 scales) at
 chip_smoke.py's phase-3 inputs (4096 points x 5 frames, 370x1226, seed 1)
 with patch radius R = 2, 4, 6, 9, 10 and 19 (or those of --radii) where
-the checkout's kernel takes it, and K1 and sorted K1 also at 65 536 points, R = 2 (phase 11's
-dense windows): the median time per call over 50 calls (CUDA events),
-and the device time per launch over 20 launches (torch.profiler, L2
-flushed before each launch) in ROUNDS rounds that take the kernels in
-turns, forward then backward (A B C, C B A, ...), so that every kernel
-sees the same drift. Reports each kernel's median, least and largest
-device time over the rounds beside its bound (chip_smoke.py's: bytes at
-the HBM rate, operations at the f32 rate) and a hash of its output bytes
-(identical inputs in every tree, so equal hashes show two trees' sums
-bitwise equal); then K1's device time per launch at R = 2 warm (20
-launches back to back), and K1's and K2's inside one 8-iteration
-lm_solve of chip_smoke.py's phase 4 (bilinear, then bicubic; L2 as the
-solve leaves it). Give a tree twice, interleaved with another (A B B A),
-to see the spread between processes. Prints each kernel instance's ptxas
-registers and spills and one JSON line per tree. Needs a CUDA card.
+the checkout's kernel takes it; the sample store (`patch_samples.store`,
+layouts rows, block and raw) at R = 2 and 9 (or --store-radii); K8
+(`patch_ablate.ablate_stats`, full/own and loads/own at 64 threads) at
+R = 2; and K1, sorted K1 and K8 also at 65 536 points,
+R = 2 (phase 11's dense windows). --kernels keeps the kernels whose names
+start with one of the given prefixes (K1 always runs). For each: the
+median time per call over 50 calls (CUDA events), and the device time per
+launch over 20 launches (torch.profiler, L2 flushed before each launch by
+writing 256 MiB) in ROUNDS rounds that take the kernels in turns, forward
+then backward (A B C, C B A, ...), so that every kernel sees the same
+drift; for the stores also once after a flush that reads 256 MiB instead
+(L2 then holds clean lines, no dirty ones to write back). Reports each
+kernel's median, least and largest device time over the rounds beside its
+bound (chip_smoke.py's: bytes at the HBM rate, operations at the f32
+rate) and a hash of its output bytes (identical inputs in every tree, so
+equal hashes show two trees' outputs bitwise equal); then K1's device
+time per launch at R = 2 warm (20 launches back to back), and K1's and
+K2's inside one 8-iteration lm_solve of chip_smoke.py's phase 4
+(bilinear, then bicubic; L2 as the solve leaves it). Give a tree twice,
+interleaved with another (A B B A), to see the spread between processes.
+Prints each kernel instance's ptxas registers and spills and one JSON
+line per tree. Needs a CUDA card.
 """
 
 import hashlib
@@ -47,24 +55,27 @@ import chip_smoke as cs
 # The patch radii timed at 4096 points (where the checkout's kernels take
 # them; `--radii 3,5` times others), then K1's dense windows at R = 2.
 RADII = (2, 4, 6, 9, 10, 19)
+STORE_RADII = (2, 9)
 ROUNDS = 6
+K8_THREADS = 64
 
 
-def kernel_radii(common) -> dict:
-    """The patch radii each solve kernel of a checkout takes (older
-    checkouts name one range for all, or only the sample stores')."""
+def kernel_radii(common, samples) -> dict:
+    """The patch radii each kernel of a checkout takes (older checkouts
+    name one range for all, or only the sample stores')."""
     shared = getattr(common, "SOLVE_RADII", common.RADII)
     return {"K1": getattr(common, "FIXED_RADII", shared),
             "K2": (range(1, common.BICUBIC_MAX + 1)
                    if hasattr(common, "BICUBIC_MAX") else shared),
-            "K3": getattr(common, "WARPED_RADII", shared)}
+            "K3": getattr(common, "WARPED_RADII", shared),
+            "store": samples.RADII}
 
 
 def output_hash(out: torch.Tensor) -> str:
     return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def one(tree: str, radii_timed) -> dict:
+def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
     """The numbers of one checkout, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
     from photobundle_torch import entry
@@ -72,7 +83,9 @@ def one(tree: str, radii_timed) -> dict:
     from photobundle_torch.core import residuals as res_mod
     from photobundle_torch.image import patches as patches_mod
     from photobundle_torch.ops import _build, _common
+    from photobundle_torch.ops import patch_ablate as pa
     from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_samples as smp
     from photobundle_torch.ops import patch_warp as pw
     try:                        # K3 exists from the warped-grid slice on
         from photobundle_torch.ops import patch_scaled as ps
@@ -82,20 +95,25 @@ def one(tree: str, radii_timed) -> dict:
 
     n_pts, w, h, wi = cs.N_PTS, cs.W, cs.H, cs.WI
     dev = torch.device("cuda", 0)
-    sources = ["patch_warp", "patch_bicubic"] + (["patch_scaled"] if ps
-                                                   else [])
+
+    def wanted(name):
+        return name == "K1" or not prefixes or name.startswith(prefixes)
+
+    sources = (["patch_warp", "patch_bicubic", "patch_samples",
+                "patch_ablate"] + (["patch_scaled"] if ps else []))
     builds = _build.build_all(sources)
     for name, built in builds.items():
-        table = dict(sorted(cs.ptxas_table(built.log).items()))
-        print(f"[kernel_times] {tree} {name} ptxas {{(R, normalization "
-              f"code): (registers, spill-store bytes)}}: {table}")
+        table = dict(sorted(cs.ptxas_instances(built.log).items()))
+        print(f"[kernel_times] {tree} {name} ptxas {{(kernel, template "
+              f"arguments): (registers, spill-store bytes)}}: {table}")
     out = {"tree": tree, "rounds": ROUNDS}
-    radii = kernel_radii(_common)
-    cases = [(n_pts, r) for r in radii_timed] + [(cs.DENSE_PTS, 2)]
-    for n_case, pr in cases:
+    radii = kernel_radii(_common, smp)
+    cases = [(n_pts, r) for r in sorted(set(radii_timed) | set(store_radii))]
+    for n_case, pr in cases + [(cs.DENSE_PTS, 2)]:
         if pr not in radii["K1"]:
             continue
         dense = n_case != n_pts
+        solve_radius = dense or pr in radii_timed
         cam, offsets, args = entry.make_problem(n_case, w, h, wi, pr,
                                                 seed=cs.SEED, device=dev)
         t_wc, x_world, patch, channels, grads, obs, _, _ = args
@@ -116,24 +134,30 @@ def one(tree: str, radii_timed) -> dict:
         bound_k1 = cs.kernel_bound(win1, cs.GRAD_TEXEL_BYTES, valid_k1, 1, pr,
                                    "bilinear", "mean")
         calls = {"K1": (lambda: pw.patch_stats(planes, uv_nm, valid_k1,
-                                                patch, pr), bound_k1)}
+                                                patch, pr), bound_k1,
+                        "stats")}
         patch_aff = patches_mod.affine_normalize(patch).contiguous()
-        if has_sorted:
+        if has_sorted and solve_radius and wanted("sorted_K1"):
             order = res_mod.sorted_dispatch_order(res_mod.dispatch_key(
                 cam, t_wc, x_world, obs, (h, wi)))
             calls["sorted_K1"] = (
                 lambda: pw.sorted_patch_stats(planes, uv_nm, valid_k1, patch,
-                                              pr, order), bound_k1)
-        if not dense and pr in radii["K2"]:
+                                              pr, order), bound_k1,
+                "stats")
+        if not dense and pr in radii_timed and pr in radii["K2"]:
             texels_k2 = cs.window_texels(uv_nm, valid_k2, pr, 2 * pr + 4,
                                          pr + 1, h, wi)
             for norm, desc in (("mean", patch), ("affine", patch_aff)):
+                if not wanted(f"K2_{norm}"):
+                    continue
                 calls[f"K2_{norm}"] = (
                     lambda desc=desc, norm=norm: pb.bicubic_stats(
                         value_planes, uv_nm, valid_k2, desc, pr, norm),
                     cs.kernel_bound(texels_k2, cs.VALUE_TEXEL_BYTES,
-                                    valid_k2, 1, pr, "bicubic", norm))
-        if ps is not None and not dense and pr in radii["K3"]:
+                                    valid_k2, 1, pr, "bicubic", norm),
+                    "stats")
+        if (ps is not None and not dense and pr in radii_timed
+                and pr in radii["K3"]):
             rho = torch.as_tensor(np.clip(np.random.default_rng(
                 cs.RHO_SEED).uniform(cs.RHO_LO, cs.RHO_HI, size=(n_case, w)),
                 0.5, 2.0).astype(np.float32), device=dev)
@@ -144,11 +168,32 @@ def one(tree: str, radii_timed) -> dict:
             texels_k3 = cs.scaled_texels(uv_nm, rho, valid_k3, pr, h, wi)
             for name, norm, desc in (("K3", "mean", patch),
                                      ("K5", "affine", patch_aff)):
+                if not wanted(name):
+                    continue
                 calls[name] = (
                     lambda desc=desc, norm=norm: ps.scaled_stats(
                         planes, uv_nm, rho, valid_k3, desc, pr, norm),
                     cs.kernel_bound(texels_k3, cs.GRAD_TEXEL_BYTES, valid_k3,
-                                    1, pr, "scaled", norm, with_rho=True))
+                                    1, pr, "scaled", norm, with_rho=True),
+                    "stats")
+        if not dense and pr in store_radii and pr in radii["store"]:
+            for layout in smp.LAYOUTS:
+                if wanted(f"store_{layout}"):
+                    calls[f"store_{layout}"] = (
+                        lambda layout=layout: smp.store(
+                            planes, uv_nm, valid_k1, pr, layout),
+                        cs.samples_bound(win1, valid_k1, pr, layout),
+                        "samples")
+        if pr == 2:
+            for stage in ("full", "loads"):
+                name = f"K8_{stage}_own"
+                if wanted(name):
+                    calls[name] = (
+                        lambda stage=stage: pa.ablate_stats(
+                            planes, uv_nm, valid_k1, patch, stage, "own",
+                            K8_THREADS),
+                        cs.ablate_bound(uv_nm, valid_k1, pr, stage, "own",
+                                        K8_THREADS), "ablate")
         names = list(calls)
         keys = {name: f"{name}_R{pr}{f'_N{n_case}' if dense else ''}"
                 for name in names}
@@ -159,11 +204,15 @@ def one(tree: str, radii_timed) -> dict:
         times = {name: [] for name in names}
         for r in range(ROUNDS):
             for name in names if r % 2 == 0 else names[::-1]:
-                times[name].append(cs.device_us_per_launch(calls[name][0]))
+                times[name].append(cs.device_us_per_launch(
+                    calls[name][0], match=calls[name][2]))
         for name in names:
             us = [t for t in times[name] if t is not None]
             bound_us = calls[name][1]["bound_ms"] * 1e3
             key = keys[name]
+            if name.startswith("store"):
+                out[f"{key}_clean_us"] = cs.device_us_per_launch(
+                    calls[name][0], match="samples", flush="read")
             out[f"{key}_bound_us"] = bound_us
             out[f"{key}_device_us"] = statistics.median(us) if us else None
             out[f"{key}_device_us_min"] = min(us) if us else None
@@ -175,8 +224,11 @@ def one(tree: str, radii_timed) -> dict:
                   f"{cs.us_text(out[f'{key}_device_us_max'])} | bound "
                   f"{bound_us:.3f} us | median per call "
                   f"{out[f'{key}_ms']:.4f} ms | output hash "
-                  f"{out[f'{key}_hash']}", flush=True)
-        if pr == 2 and not dense:
+                  f"{out[f'{key}_hash']}"
+                  + (f" | after a read flush "
+                     f"{cs.us_text(out[f'{key}_clean_us'])}"
+                     if f"{key}_clean_us" in out else ""), flush=True)
+        if pr == 2 and not dense and (not prefixes or "K1" in prefixes):
             out["K1_R2_warm_us"] = cs.device_us_per_launch(calls["K1"][0],
                                                            flush=False)
             for name, mode, match in (("K1", "sampled", "patch_stats_kernel"),
@@ -200,16 +252,22 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     args = sys.argv[1:]
-    radii = RADII
-    if args[:1] == ["--radii"]:
-        radii, args = tuple(int(r) for r in args[1].split(",")), args[2:]
+    opts = {"--radii": ",".join(map(str, RADII)),
+            "--store-radii": ",".join(map(str, STORE_RADII)),
+            "--kernels": ""}
+    while args[:1] and args[0] in opts:
+        opts[args[0]], args = args[1], args[2:]
     if args[:1] == ["--one"]:
-        print(json.dumps(one(args[1], radii)), flush=True)
+        print(json.dumps(one(
+            args[1], tuple(int(r) for r in opts["--radii"].split(",")),
+            tuple(int(r) for r in opts["--store-radii"].split(",")),
+            tuple(k for k in opts["--kernels"].split(",") if k))),
+            flush=True)
         return
     for tree in args or ["."]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--radii",
-                        ",".join(map(str, radii)), "--one", tree],
-                       check=True, timeout=900)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        *[x for kv in opts.items() for x in kv], "--one",
+                        tree], check=True, timeout=900)
 
 
 if __name__ == "__main__":

@@ -68,8 +68,6 @@ from ..ops import patch_bicubic as pb_mod
 from ..ops import patch_samples as samples_mod
 from ..ops import patch_scaled as ps_mod
 from ..ops import patch_warp as pw_mod
-from ..ops._common import RADII
-from ..utils import logging as log
 
 
 class Residuals(NamedTuple):
@@ -560,9 +558,8 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     K2's, K5's or K4's samples, and the port computes them fused (K2, K3
     and K1's affine mode are its twins of those kernels plus their XLA
     epilogues); the sorted order is ignored, as the JAX package ignores
-    it on that branch. The row store is built for patch radii
-    ops/_common.RADII (1..4): at a wider patch the unfused path resolves
-    to the fused K1, the same statistics, and says so once.
+    it on that branch. The row store takes every patch radius the fused
+    K1 takes (ops/_common.FIXED_RADII), so that path runs it at each.
 
     With the scale warp, rho = clip(z_ref / max(z_f, 1e-6)) point-minor (1
     where z_ref <= 0), and the kernel's own margin
@@ -614,16 +611,10 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     patch = patch.contiguous()
     if (not grouped_stats and rho is None and mode == "sampled"
             and norm_mode in ("mean", "off")):
-        if pr in RADII:
-            gtg, gtr, rr = _ungrouped_stats(planes, uv_nm, valid_nm, patch,
-                                            pr, norm_mode)
-            return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp,
-                           huber_delta, robust_kind)
-        if pr not in _FUSED_FOR_UNFUSED:
-            _FUSED_FOR_UNFUSED.add(pr)
-            log.info("PB_GROUPED_STATS=0: K4's row store is built for "
-                     "patchRadius in %s, not %d; the fused K1 computes the "
-                     "same statistics", RADII, pr)
+        gtg, gtr, rr = _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr,
+                                        norm_mode)
+        return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
+                       robust_kind)
     if rho is not None:
         stats = ps_mod.scaled_stats(planes, uv_nm, rho.T.contiguous(),
                                     valid_nm, patch, pr, norm=norm_mode)
@@ -640,10 +631,6 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     gtr = torch.stack([gxr, gyr], dim=1)                        # (W, 2, N)
     return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
                    robust_kind)
-
-
-# Patch radii at which PB_GROUPED_STATS=0 took the fused K1 (logged once).
-_FUSED_FOR_UNFUSED: set = set()
 
 
 def grouped_stats_from_env() -> bool:

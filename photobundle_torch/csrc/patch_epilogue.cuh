@@ -136,7 +136,8 @@ __device__ __forceinline__ void channel_stats(const Sweep& sweep,
 // fixed-grid limits (FIXED_RADII, BICUBIC_MAX there), through one instance
 // per normalization with the radius a run-time argument (template radius
 // kRuntimeRadius): rolled loops, the same per-observation arithmetic in
-// the same order. The other kernels (K7, the sample stores, K8) stop at 4.
+// the same order. The sample store takes K1's radii the same way (its
+// layout code in the place of the normalization's); K7 stops at 4.
 constexpr int kMaxSolveRadius = 9;
 constexpr int kRuntimeRadius = 0;
 

@@ -22,17 +22,40 @@
 // only for observations outside the margins, which are invalid).
 //
 // Inputs: planes (W, C, H, Wi) float4 = (value, d/dx, d/dy, 0), K1's;
-// uv (N, W) float2; valid (N, W) bytes.
+// uv (N, W) float2; valid (N, W) bytes. Patch radii 1..kMaxFixedRadius,
+// the JAX package's fixed-grid limit (its panel keeps a positive lane
+// stride to R = 19, photobundle_tpu/ops/patch_warp.py `lane_stride`):
+// compile-time instances to pb::kMaxSolveRadius and one runtime-radius
+// instance per layout above it.
 //
 // What bounds it on this card: at the solver's window (4096 points x 5
 // frames, R = 2, ~20k valid observations) it reads K1's distinct window
-// texels (~8.5 MB, from HBM, or from L2 where a solve's planes stay there
-// between evaluations) and writes 75 floats per observation (rows, block:
-// ~6 MB) or 108 (raw: ~9 MB): a few microseconds of HBM bandwidth. One thread per observation with every patch loop unrolled
-// keeps the loads of a patch in flight together; each thread's stores are
-// its own contiguous tile, so a warp's stores are strided by the tile
-// (75 or 108 floats). That is accepted here: a staged, coalesced store
-// through shared memory is a later design.
+// texels and writes 75 floats per observation (rows, block: ~6 MB) or 108
+// (raw: ~9 MB): a few microseconds of HBM bandwidth, most of it the store.
+// A first design gave each thread one observation, its own window gather
+// and its own tile's stores: a warp's stores were strided by the tile (60
+// B for rows, 300 B for block, 432 B for raw), so each warp-wide 4-byte
+// store touched ~32 sectors and filled 4 bytes of each.
+//
+// What this design does about it: a block of kObs consecutive
+// observations (32, or 16 from R = 5) spreads its samples over its 256
+// threads in the order of the stored tensor (a float3 item per sample, or
+// per texel for raw), so a warp's 32 items are 384 contiguous bytes of the
+// output ('block' and 'raw' store one run per channel, 'rows' one run per
+// patch row, each a multiple of 32 items in a full block): each lane puts
+// its float3 in a per-warp scratch and the warp writes it back as three
+// coalesced 128-byte stores. Neighbouring items gather neighbouring texels
+// of one window through the read-only path, so the window loads coalesce
+// too, and L1 serves the taps that neighbouring samples share.
+//
+// Measured (PERF.md's store rows; kernel_times.py, cold, at 4096 x 5):
+// 0.53x (rows), 0.31x (block) and 0.26x (raw) the first design's time at
+// R = 2, 0.12-0.15x from R = 9. Not kept: 64 observations a block
+// (1.10-1.17x at R = 2: fewer warps in flight); 16 below R = 5 (1.05-1.10x
+// at R = 2-3, a tie at R = 4, 0.97x at R = 1 in rows and block); K1's
+// staged window copy (csrc/patch_stage.cuh) before the samples (1.08x at
+// R = 2 in rows and block, a tie in raw): here the gathers already
+// coalesce, and the copy adds a barrier.
 
 #include <cuda_runtime.h>
 
@@ -40,9 +63,22 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 
 enum Layout : int { kRows = 0, kBlock = 1, kRaw = 2 };
+// pb::dispatch hands the layout on as its three-valued mode code.
+static_assert(kRows == pb::kNormOff && kBlock == pb::kNormMean &&
+                  kRaw == pb::kNormAffine,
+              "the layout codes must be pb::dispatch's mode codes");
+
+constexpr int kThreads = 256;           // threads per block
+constexpr int kWarps = kThreads / 32;
+
+// Observations per block at radius R: 32 to R = 4, 16 from
+// pb::kRolledRowRadius = 5 and at the runtime radius, where each
+// observation has 121 items or more (measured, PERF.md's store rows).
+template <int R>
+constexpr int kObs = R >= 1 && R < pb::kRolledRowRadius ? 32 : 16;
 
 template <int R, int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
@@ -50,111 +86,119 @@ warp_samples_kernel(const float4* __restrict__ planes,
                     const float2* __restrict__ uv,
                     const unsigned char* __restrict__ valid,
                     float* __restrict__ out, int n, int w, int c, int h,
-                    int wi) {
-  constexpr int PS = 2 * R + 1;
-  constexpr int WIN = PS + 1;
-  constexpr int ROWS = LAYOUT == kRaw ? WIN : PS;   // tile rows and columns
-  constexpr int LANES = 3 * ROWS;                    // (column, plane)
+                    int wi, int radius) {
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int ps = 2 * r + 1;
+  const int rows = LAYOUT == kRaw ? ps + 1 : ps;   // tile rows and columns
+  const int cells = rows * rows;                   // items per observation
+  constexpr int OBS = kObs<R>;
+  __shared__ long long base[OBS];         // window origin, -1: invalid
+  __shared__ pb::Weights wts[OBS];
+  __shared__ float scratch[kWarps][96];   // one warp's 32 float3 items
   const long long m = static_cast<long long>(n) * w;
-  const long long o =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (o >= m) return;
-  const int f = static_cast<int>(o / n);
-  const int p = static_cast<int>(o - static_cast<long long>(f) * n);
-  const long long obs = static_cast<long long>(p) * w + f;
-  const bool ok = valid[obs];
-
-  int x0 = 0, y0 = 0;
-  pb::Weights wt = {0.f, 0.f, 0.f, 0.f};
-  if (ok) pb::window_at<R>(uv[obs], h, wi, &x0, &y0, &wt);
+  const long long o0 = static_cast<long long>(blockIdx.x) * OBS;
+  const int nb = static_cast<int>(min(static_cast<long long>(OBS), m - o0));
   const long long chan = static_cast<long long>(h) * wi;
-  for (int ch = 0; ch < c; ++ch) {
-    const float4* win = planes + (static_cast<long long>(f) * c + ch) * chan +
-                        static_cast<long long>(y0) * wi + x0;
-#pragma unroll
-    for (int ky = 0; ky < ROWS; ++ky) {
-      float* dst;
-      if constexpr (LAYOUT == kRows) {
-        dst = out + ((static_cast<long long>(ch) * PS + ky) * m + o) * LANES;
-      } else {
-        dst = out + ((static_cast<long long>(ch) * m + o) * ROWS + ky) * LANES;
+  if (threadIdx.x < OBS) {
+    long long b = -1;
+    pb::Weights wt = {0.f, 0.f, 0.f, 0.f};
+    if (static_cast<int>(threadIdx.x) < nb) {
+      const long long o = o0 + threadIdx.x;
+      const int f = static_cast<int>(o / n);
+      const int p = static_cast<int>(o - static_cast<long long>(f) * n);
+      const long long obs = static_cast<long long>(p) * w + f;
+      if (valid[obs]) {
+        int x0, y0;
+        pb::window_at(uv[obs], r, h, wi, &x0, &y0, &wt);
+        b = static_cast<long long>(f) * c * chan +
+            static_cast<long long>(y0) * wi + x0;
       }
-#pragma unroll
-      for (int kx = 0; kx < ROWS; ++kx) {
-        float3 s = make_float3(0.f, 0.f, 0.f);
-        if (ok) {
+    }
+    base[threadIdx.x] = b;
+    wts[threadIdx.x] = wt;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float* sc = scratch[threadIdx.x >> 5];
+  const int items = nb * cells;           // per channel
+  const int run = nb * ps;                // 'rows': the items of a patch row
+  for (int ch = 0; ch < c; ++ch) {
+    // Warp-uniform chunks of 32 consecutive items.
+    for (int t0 = (threadIdx.x >> 5) * 32; t0 < items; t0 += kThreads) {
+      const int t = t0 + lane;
+      float3 s = make_float3(0.f, 0.f, 0.f);
+      long long j = -1;                   // the item's float3 index in out
+      if (t < items) {
+        int o, ky, kx;
+        if constexpr (LAYOUT == kRows) {
+          ky = t / run;
+          const int q = t - ky * run;
+          o = q / ps;
+          kx = q - o * ps;
+          j = ((static_cast<long long>(ch) * ps + ky) * m + o0 + o) * ps + kx;
+        } else {
+          o = t / cells;
+          const int k = t - o * cells;
+          ky = k / rows;
+          kx = k - ky * rows;
+          j = (static_cast<long long>(ch) * m + o0 + o) * cells + k;
+        }
+        const long long b = base[o];
+        if (b >= 0) {
+          const float4* win = planes + b + ch * chan;
           if constexpr (LAYOUT == kRaw) {
-            const float4 t = __ldg(win + static_cast<long long>(ky) * wi + kx);
-            s = make_float3(t.x, t.y, t.z);
+            const float4 v = __ldg(win + static_cast<long long>(ky) * wi + kx);
+            s = make_float3(v.x, v.y, v.z);
           } else {
-            s = pb::sample(win, wi, ky, kx, wt, pb::LoadGlobal{});
+            s = pb::sample(win, wi, ky, kx, wts[o], pb::LoadGlobal{});
           }
         }
-        dst[3 * kx] = s.x;
-        dst[3 * kx + 1] = s.y;
-        dst[3 * kx + 2] = s.z;
       }
+      sc[3 * lane] = s.x;
+      sc[3 * lane + 1] = s.y;
+      sc[3 * lane + 2] = s.z;
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int e = lane + 32 * q;      // float e % 3 of item e / 3
+        const long long je = __shfl_sync(0xffffffffu, j, e / 3);
+        if (je >= 0) out[3 * je + e % 3] = sc[e];
+      }
+      __syncwarp();
     }
   }
 }
 
 template <int R, int LAYOUT>
 void launch(const void* planes, const void* uv, const void* valid, void* out,
-            int n, int w, int c, int h, int wi, cudaStream_t stream) {
+            int n, int w, int c, int h, int wi, int radius,
+            cudaStream_t stream) {
   const long long m = static_cast<long long>(n) * w;
-  const unsigned blocks = static_cast<unsigned>((m + kThreads - 1) / kThreads);
+  const unsigned blocks =
+      static_cast<unsigned>((m + kObs<R> - 1) / kObs<R>);
   warp_samples_kernel<R, LAYOUT><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid), static_cast<float*>(out), n, w,
-      c, h, wi);
-}
-
-template <int R>
-int launch_layout(int layout, const void* planes, const void* uv,
-                  const void* valid, void* out, int n, int w, int c, int h,
-                  int wi, cudaStream_t stream) {
-  switch (layout) {
-    case kRows:
-      launch<R, kRows>(planes, uv, valid, out, n, w, c, h, wi, stream);
-      return 0;
-    case kBlock:
-      launch<R, kBlock>(planes, uv, valid, out, n, w, c, h, wi, stream);
-      return 0;
-    case kRaw:
-      launch<R, kRaw>(planes, uv, valid, out, n, w, c, h, wi, stream);
-      return 0;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+      c, h, wi, radius);
 }
 
 }  // namespace
 
-// layout: 0 rows, 1 block, 2 raw; radius 1..4. Returns 0 or a CUDA error
-// code (cudaErrorInvalidValue, with nothing launched, for a radius or
-// layout the kernel is not instantiated for).
+// layout: 0 rows, 1 block, 2 raw; radius 1..kMaxFixedRadius. Returns 0 or
+// a CUDA error code (cudaErrorInvalidValue, with nothing launched, for a
+// radius or layout the kernel does not take).
 extern "C" int pb_warp_samples(const void* planes, const void* uv,
                                const void* valid, void* out, int n, int w,
                                int c, int h, int wi, int radius, int layout,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int bad;
-  switch (radius) {
-    case 1:
-      bad = launch_layout<1>(layout, planes, uv, valid, out, n, w, c, h, wi, s);
-      break;
-    case 2:
-      bad = launch_layout<2>(layout, planes, uv, valid, out, n, w, c, h, wi, s);
-      break;
-    case 3:
-      bad = launch_layout<3>(layout, planes, uv, valid, out, n, w, c, h, wi, s);
-      break;
-    case 4:
-      bad = launch_layout<4>(layout, planes, uv, valid, out, n, w, c, h, wi, s);
-      break;
-    default:
-      bad = static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
+      radius, layout,
+      [&](auto r, auto l) {
+        launch<decltype(r)::value, decltype(l)::value>(
+            planes, uv, valid, out, n, w, c, h, wi, radius, s);
+      },
+      kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 

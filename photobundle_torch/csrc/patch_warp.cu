@@ -32,24 +32,19 @@
 // its own window straight from global memory. Each warp-wide load then
 // touched ~32 distinct 128-B lines, and with ~155 threads per SM (one per
 // observation) too few loads were in flight to cover HBM latency: the
-// window loads alone took 95-106 % of the kernel (the K8 ablation,
-// csrc/patch_ablate.cu, keeps that design).
+// window loads alone took 95-106 % of that design (an ablation of it;
+// csrc/patch_ablate.cu now ablates the staged design below).
 //
-// What this design does about it, for R <= kMaxStagedRadius: a block
+// What this design does about it, for R <= pb::kMaxStagedRadius: a block
 // takes kThreads consecutive observations (frame-major, so neighbouring
 // threads store neighbouring outputs) and stages their windows in shared
-// memory, one channel at a time, with 16-byte cp.async.cg copies (L2
-// only: the reuse lives in shared memory). A linear index runs over
-// (observation, window row, column), column fastest, so consecutive lanes
-// copy consecutive texels of one window row (96 contiguous bytes at R = 2)
-// and a warp-wide copy touches a handful of lines. Channels are
-// double-buffered: channel c+1 is in flight while channel c is summed, so
-// the tile never holds more than two channels (C = 8 for bitplanes). After
-// the barrier, each thread runs K1's unchanged per-observation epilogue
-// (observation_stats) on its own window in the tile; its second and third
-// sweeps read shared memory. Each window's stride in the tile is odd in
-// float4 (37 at R = 2), so the eight threads of a 128-bit shared-load
-// phase hit distinct banks.
+// memory, one channel at a time, with coalesced 16-byte cp.async.cg copies
+// (csrc/patch_stage.cuh, shared with the ablation K8). Channels
+// are double-buffered: channel c+1 is in flight while channel c is summed,
+// so the tile never holds more than two channels (C = 8 for bitplanes).
+// After the barrier, each thread runs K1's unchanged per-observation
+// epilogue (observation_stats) on its own window in the tile; its second
+// and third sweeps read shared memory.
 //
 // Where staging pays, measured on the H100 (PERF.md's K1 rows, one
 // kernel_times.py call): at 4096 x 5, R = 2, cold, 0.84x the one-thread
@@ -84,9 +79,12 @@
 #include <cuda_runtime.h>
 
 #include "patch_bilinear.cuh"
+#include "patch_stage.cuh"
 
 namespace {
 
+using pb::cp_async_commit;
+using pb::cp_async_wait;
 using pb::LoadGlobal;
 using pb::LoadPlain;
 using pb::observation_stats;
@@ -94,71 +92,13 @@ using pb::Weights;
 using pb::window_at;
 
 constexpr int kThreads = 64;            // threads (observations) per block
-constexpr int kMaxStagedRadius = 3;     // radii whose windows are staged
-constexpr int kMaxSharedBytes = 232448; // what a block may opt into (227 KB)
-constexpr int kStaticReserve = 1024;    // static shared memory of a block
 constexpr int kStageTexels = 1024;      // the sorted entry's union box
 constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 
-// The staging plan of radius R: each observation's window is kTex float4
-// texels (kWin x kWin) at an odd stride kStride in the tile; a block
-// stages kObs = kThreads observations, two channel buffers at most
-// (kMaxBytes). Radii above kMaxStagedRadius stage nothing.
+// K1's staging plan (csrc/patch_stage.cuh): a block stages the windows of
+// its kThreads observations, two channel buffers.
 template <int R>
-struct Plan {
-  static constexpr bool kStaged = R >= 1 && R <= kMaxStagedRadius;
-  static constexpr int kWin = 2 * R + 2;
-  static constexpr int kTex = kWin * kWin;
-  static constexpr int kStride = kTex | 1;
-  static constexpr int kBuffer = kStride * 16;   // bytes per observation
-  static constexpr int kObs = kThreads;
-  static constexpr int kMaxBytes = kStaged ? 2 * kObs * kBuffer : 0;
-  static_assert(kMaxBytes + kStaticReserve <= kMaxSharedBytes,
-                "two channel buffers must fit a block's shared memory");
-  // Dynamic shared bytes for C channels (one buffer for C = 1).
-  static int bytes(int c) {
-    return kStaged ? (c > 1 ? 2 : 1) * kObs * kBuffer : 0;
-  }
-};
-
-__device__ __forceinline__ void cp_async16(float4* smem,
-                                           const float4* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Issue the copies of one channel of the block's windows into `buf`:
-// observation o's window (origin base[o] + chan_off texels, rows `wi`
-// apart) to buf[o * kStride ...]; base[o] < 0 marks an observation with
-// nothing to copy.
-template <int R>
-__device__ __forceinline__ void stage_channel(
-    float4* buf, const float4* __restrict__ planes, const long long* base,
-    long long chan_off, int wi) {
-  using PL = Plan<R>;
-  for (int i = threadIdx.x; i < PL::kObs * PL::kTex; i += kThreads) {
-    const int o = i / PL::kTex;
-    const int t = i - o * PL::kTex;
-    const int row = t / PL::kWin;
-    const long long b = base[o];
-    if (b >= 0) {
-      cp_async16(buf + o * PL::kStride + t,
-                 planes + b + chan_off + static_cast<long long>(row) * wi +
-                     (t - row * PL::kWin));
-    }
-  }
-}
+using Plan = pb::Plan<R, kThreads>;
 
 // K1 for R <= kMaxStagedRadius: the block's windows staged in shared
 // memory one channel at a time, then each thread's sums from its tile
@@ -172,7 +112,8 @@ staged_patch_stats_kernel(const float4* __restrict__ planes,
                           float* __restrict__ out,
                           int n, int w, int c, int h, int wi) {
   using PL = Plan<R>;
-  static_assert(PL::kStaged, "radius above kMaxStagedRadius");
+  static_assert(PL::kStaged && PL::kBuffers == 2,
+                "radius above kMaxStagedRadius, or one channel buffer");
   constexpr int P = (2 * R + 1) * (2 * R + 1);
   extern __shared__ float4 tile[];
   __shared__ long long base[PL::kObs];
@@ -198,12 +139,13 @@ staged_patch_stats_kernel(const float4* __restrict__ planes,
   __syncthreads();
   const float* desc = patch + static_cast<long long>(p) * c * P;
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  stage_channel<R>(tile, planes, base, 0, wi);
+  pb::stage_channel<R, kThreads, kThreads>(tile, planes, base, 0, wi);
   cp_async_commit();
   for (int ch = 0; ch < c; ++ch) {
     if (ch + 1 < c) {      // channel ch + 1 in flight while ch is summed
-      stage_channel<R>(tile + ((ch + 1) & 1) * PL::kObs * PL::kStride,
-                       planes, base, (ch + 1) * chan, wi);
+      pb::stage_channel<R, kThreads, kThreads>(
+          tile + ((ch + 1) & 1) * PL::kObs * PL::kStride, planes, base,
+          (ch + 1) * chan, wi);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

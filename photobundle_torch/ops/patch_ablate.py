@@ -20,10 +20,16 @@ with a plain version (`ablate_reference`):
           'shared'   every thread of a block reads its block's first
                      observation's window (frame, origin and weights;
                      that observation's coordinate where it is valid,
-                     (0, 0) otherwise): the L1-hit ceiling.
+                     (0, 0) otherwise), staged once: the ceiling of one
+                     window's copy a block.
   threads per block (64, 128, 256), the twin of the TPU's gchunk; it
           changes the 'shared' output (which observation leads a block)
           and nothing else.
+
+The kernel is K1's staged design at R = 2 (csrc/patch_stage.cuh): a
+block stages its observations' windows in shared memory with coalesced
+16-byte copies before each thread's stage reads them, so 'loads' times
+that copy and full/own at 64 threads is K1's own kernel.
 
 The TPU's lane-roll, select, superwindow and matmul knobs answer its lane
 layout and have no counterpart; sorted dispatch

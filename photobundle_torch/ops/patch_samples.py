@@ -19,13 +19,20 @@ parameter, the TPU kernels' layouts:
                                 patch_warp.py:1145-1150.
 
 Observations are frame-major (f * N + p); lane 3*x + k holds plane k
-(value, d/dx, d/dy) at patch column x. `warp_patches` turns each layout
-into (s, gx, gy), each (N, W, C, P), as patch_warp.py:1122-1124 and
-:1151-1153 do: that permute is part of what each variant costs.
+(value, d/dx, d/dy) at patch column x. `unpack` turns each layout into
+(s, gx, gy), each (N, W, C, P), with one permute-copy that puts the plane
+axis first (patch_warp.py:1122-1124 and :1151-1153 take three strided
+copies): that relayout is part of what each variant costs.
 
 Variant 'packed' is the JAX package's G-observation lane packing, a TPU
 layout; here it takes the 'block' store, and its samples are the same,
 bitwise, as the JAX package's 'packed' gives 'rows'' samples.
+
+The kernel takes patch radii `_common.FIXED_RADII` (1..19), the JAX
+package's fixed-grid limit, in every layout. A block spreads its
+observations' samples over its threads in the order of the stored tensor
+and writes each warp's 384 contiguous bytes together (coalesced stores;
+csrc/patch_samples.cu says what was measured).
 
 The samples are K1's (`patch_warp.gather_windows` and `bilinear`, and
 csrc/patch_bilinear.cuh on the card), so every variant's samples are
@@ -45,10 +52,12 @@ import torch
 
 from . import _build
 from . import patch_warp as pw
-from ._common import RADII, check_tensors, count_launch, reset_launches
+from ._common import (FIXED_RADII, check_tensors, count_launch,
+                      reset_launches)
 
 LAYOUTS = ("rows", "block", "raw")                 # kernel codes 0, 1, 2
 VARIANTS = ("rows", "packed", "block", "raw")
+RADII = FIXED_RADII                        # the patch radii the kernel takes
 
 
 def layout_of(variant: str) -> str:
@@ -108,8 +117,8 @@ def store(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"warp_patches runs on cpu or cuda tensors, not "
                          f"{planes.device}")
     if patch_radius not in RADII:
-        raise ValueError(f"warp_patches kernel is built for patch radius in "
-                         f"{RADII}, not {patch_radius}")
+        raise ValueError(f"warp_patches kernel takes patch radius "
+                         f"{RADII[0]}..{RADII[-1]}, not {patch_radius}")
     w, c, h, wi = planes.shape[:4]
     n = uv.shape[0]
     check_tensors("warp_patches", planes.device, {
@@ -157,13 +166,14 @@ def unpack(out: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
            patch_radius: int, layout: str):
     """A stored tensor of `layout` -> (s, gx, gy), each (N, W, C, P): the
     JAX package's relayout (and for 'raw' its bilinear combine) after the
-    kernel."""
+    kernel, as one permute-copy to (plane, N, W, C, PSy, PSx) unbound
+    along the plane axis (three contiguous views)."""
     n, w = valid.shape
     ps = 2 * patch_radius + 1
     c = out.shape[0]
     if layout == "rows":
-        # (C, PS, m, 3PS) -> (N, W, C, PSy, PSx, 3). Lane index = 3*x + k.
-        out = out.reshape(c, ps, w, n, ps, 3).permute(3, 2, 0, 1, 4, 5)
+        # (C, PSy, W, N, PSx, 3) -> (3, N, W, C, PSy, PSx). Lane = 3*x + k.
+        out = out.reshape(c, ps, w, n, ps, 3).permute(5, 3, 2, 0, 1, 4)
     else:
         if layout == "raw":
             # The bilinear combine as dense tensor ops, weights per
@@ -176,9 +186,9 @@ def unpack(out: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
                    + fxm * (1 - fym) * out[..., :ps, 3:]
                    + (1 - fxm) * fym * out[..., 1:, :3 * ps]
                    + fxm * fym * out[..., 1:, 3:])
-        # (C, m, PS, 3PS) -> (N, W, C, PSy, PSx, 3).
-        out = out.reshape(c, w, n, ps, ps, 3).permute(2, 1, 0, 3, 4, 5)
-    return tuple(out[..., k].reshape(n, w, c, ps * ps) for k in range(3))
+        # (C, W, N, PSy, PSx, 3) -> (3, N, W, C, PSy, PSx).
+        out = out.reshape(c, w, n, ps, ps, 3).permute(5, 2, 1, 0, 3, 4)
+    return out.contiguous().reshape(3, n, w, c, ps * ps).unbind(0)
 
 
 reset_launches(warp_patches, LAYOUTS)

@@ -625,14 +625,15 @@ def test_scaled_kernel_is_bitwise_its_one_thread_design(cuda_device, radius,
         assert float(got.abs().sum()) > 0
 
 
+@pytest.mark.parametrize("threads", pa.THREADS)
 @pytest.mark.parametrize("n_pts", [4096, 65536])
-def test_k1_is_bitwise_k8_full_own(cuda_device, n_pts):
-    """The staged K1 keeps the one-thread-per-observation design's sums:
-    bitwise K8's full/own (csrc/patch_ablate.cu, which samples each
-    window straight from global memory) at R = 2."""
+def test_k1_is_bitwise_k8_full_own(cuda_device, n_pts, threads):
+    """K8's full/own (csrc/patch_ablate.cu: K1's staged design with
+    `threads` observations a block) is K1 bitwise at R = 2, at every
+    thread count."""
     planes, uv, valid, patch, _ = full_size_instance(cuda_device, n_pts, 2)
     got = pw.patch_stats(planes, uv, valid, patch, 2)
-    own = pa.ablate_stats(planes, uv, valid, patch, "full", "own")
+    own = pa.ablate_stats(planes, uv, valid, patch, "full", "own", threads)
     torch.cuda.synchronize()
     assert torch.equal(got, own)
     assert float(got.abs().sum()) > 0
@@ -653,14 +654,16 @@ def test_k1_with_eight_channels(cuda_device):
         assert float(got[:, ~valid.T].abs().sum()) == 0.0
         row_max = want.abs().amax(dim=(1, 2), keepdim=True)
         assert within_f32_tolerance(got, want, row_max), norm
-    own = pa.ablate_stats(planes, uv, valid, patch, "full", "own")
-    assert torch.equal(pw.patch_stats(planes, uv, valid, patch, 2), own)
+    for threads in pa.THREADS:     # two channel buffers, and one at 256
+        own = pa.ablate_stats(planes, uv, valid, patch, "full", "own",
+                              threads)
+        assert torch.equal(pw.patch_stats(planes, uv, valid, patch, 2), own)
 
 
 def test_ungrouped_solve_at_a_wide_patch_runs_k1(cuda_device, monkeypatch):
-    """PB_GROUPED_STATS=0 at a patch radius the row store is not built for
-    (R = 6): the solve runs the fused K1, once per evaluation, and nothing
-    else."""
+    """PB_GROUPED_STATS=0 at a wide patch (R = 6, where K1 rolls its rows):
+    the unfused solve runs the row store, as at every radius K1 takes,
+    once per evaluation, and neither K1 nor any other kernel."""
     cam, off, args = entry.make_problem(96, 4, 64, 96, 6, seed=2,
                                         device=cuda_device)
     monkeypatch.setenv("PB_GROUPED_STATS", "0")
@@ -670,8 +673,9 @@ def test_ungrouped_solve_at_a_wide_patch_runs_k1(cuda_device, monkeypatch):
                            backend="cuda", max_iterations=3,
                            function_tolerance=0.0, parameter_tolerance=0.0)
     torch.cuda.synchronize()
-    assert pw.patch_stats.launches["mean"] == int(st.iterations) + 1
-    assert sum(smp.warp_patches.launches.values()) == 0
+    assert smp.warp_patches.launches == {
+        "rows": int(st.iterations) + 1, "block": 0, "raw": 0}
+    assert sum(pw.patch_stats.launches.values()) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -695,7 +699,12 @@ def random_inputs(rng, device, radius, channels, w=3, h=40, wi=70, n=257):
     return planes, uv, valid, patch
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+# The store's radii held on the card: every compile-time instance (1..9),
+# the runtime-radius instance (10, and 19, the fixed-grid limit).
+STORE_RADII = (*range(1, 11), _common.FIXED_RADII[-1])
+
+
+@pytest.mark.parametrize("radius", STORE_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("layout", smp.LAYOUTS)
 def test_sample_store_is_its_plain_version_bitwise(cuda_device, radius,
@@ -708,6 +717,18 @@ def test_sample_store_is_its_plain_version_bitwise(cuda_device, radius,
     torch.cuda.synchronize()
     assert smp.warp_patches.launches[layout] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radius", [2, 9, 19])
+def test_sample_store_at_full_size(cuda_device, radius):
+    """chip_smoke.py's phase-3 problem (4096 points x 5 frames, 370x1226):
+    every layout bitwise the plain version."""
+    planes, uv, valid, _, _ = full_size_instance(cuda_device, 4096, radius)
+    for layout in smp.LAYOUTS:
+        got = smp.store(planes, uv, valid, radius, layout)
+        want = smp.store_reference(planes, uv, valid, radius, layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), layout
 
 
 def test_warp_patches_variants_on_card_are_bitwise_alike(cuda_device):
@@ -725,7 +746,7 @@ def test_sample_store_rejects_unsupported_input(cuda_device):
     uv = torch.zeros((2, 1, 2), device=cuda_device)
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="radius"):
-        smp.warp_patches(planes, uv, valid, 5)
+        smp.warp_patches(planes, uv, valid, _common.FIXED_RADII[-1] + 1)
     with pytest.raises(ValueError, match="uv"):
         smp.warp_patches(planes, uv.double(), valid, 2)
     with pytest.raises(ValueError, match="planes"):

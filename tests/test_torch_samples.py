@@ -12,6 +12,8 @@ The CUDA kernel itself is held against its plain version on a card by
 tests/test_torch_cuda.py."""
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from photobundle_tpu.core import residuals as jres
 from photobundle_tpu.ops import patch_warp as jpw
 from photobundle_torch.core import lm
 from photobundle_torch.core import residuals as tres
+from photobundle_torch.ops import _build, _common
 from photobundle_torch.ops import patch_samples as smp
 from photobundle_torch.ops import patch_warp as pw
 
@@ -40,7 +43,8 @@ def sample_inputs(radius: int, channels: int):
     rng = np.random.default_rng(10 * radius + channels)
     ch = rng.random((W, channels, H, WI), np.float32)
     grads = rng.random((W, channels, H, WI, 2), np.float32)
-    uv = rng.uniform([8.0, 8.0], [WI - 8.0, H - 8.0],
+    lo, hi = max(8.0, radius), max(8.0, radius + 2.0)   # inside the margins
+    uv = rng.uniform([lo, lo], [WI - hi, H - hi],
                      size=(N_PTS, W, 2)).astype(np.float32)
     valid = rng.uniform(size=(N_PTS, W)) > 0.25
     valid[0, 0] = False
@@ -65,9 +69,15 @@ def port_samples(radius: int, channels: int, variant_name: str):
                             torch.as_tensor(valid), radius, variant_name)
 
 
-@pytest.mark.parametrize("variant_name", smp.VARIANTS)
-@pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("radius", [1, 2])
+# (radius, channels, variant): every variant at R = 1, 2 and 5 (the first
+# radius whose patch rows are a loop in the kernel); 'rows' alone at 10,
+# past the kernel's compile-time instances (interpret mode compiles every
+# Pallas copy, so the wide case stays small).
+SAMPLE_CASES = [(r, c, v) for r in (1, 2, 5) for c in (1, 2)
+                for v in smp.VARIANTS] + [(10, 1, "rows")]
+
+
+@pytest.mark.parametrize("radius,channels,variant_name", SAMPLE_CASES)
 def test_samples_match_the_jax_variant(radius, channels, variant_name):
     """Valid observations: the JAX variant's samples within 1e-6 (values
     in [0, 1)). Not bitwise: XLA's CPU code for the interpret-mode kernel
@@ -120,6 +130,61 @@ def test_store_layouts():
     assert float(raw[:, 0].abs().sum()) == 0.0          # (0, 0) is invalid
 
 
+def test_store_takes_the_fixed_grid_radii():
+    """The store takes K1's patch radii, the JAX package's fixed-grid
+    limit (1..19): the wrapper's check and the kernel's dispatch
+    (compile-time instances to pb::kMaxSolveRadius, one runtime-radius
+    instance above, up to kMaxFixedRadius) name the same range."""
+    assert smp.RADII == _common.FIXED_RADII == tuple(range(1, 20))
+    src = (Path(_build.CSRC) / "patch_samples.cu").read_text()
+    top = int(re.search(r"constexpr int kMaxFixedRadius = (\d+);",
+                        src).group(1))
+    assert tuple(range(1, top + 1)) == _common.FIXED_RADII
+    assert "pb::dispatch<pb::kMaxSolveRadius, true>" in src
+    # The JAX fixed-grid panel has a positive lane stride exactly there.
+    for r in _common.FIXED_RADII:
+        assert jpw.lane_stride(r) > 0
+    with pytest.raises(ValueError):
+        jpw.lane_stride(_common.FIXED_RADII[-1] + 1)
+
+
+def _three_copy_unpack(out, uv, valid, patch_radius, layout):
+    """The relayout `unpack` replaced: three strided copies, one per plane
+    (patch_warp.py:1122-1124 and :1151-1153)."""
+    n, w = valid.shape
+    ps = 2 * patch_radius + 1
+    c = out.shape[0]
+    if layout == "rows":
+        out = out.reshape(c, ps, w, n, ps, 3).permute(3, 2, 0, 1, 4, 5)
+    else:
+        if layout == "raw":
+            x = torch.where(valid, uv[..., 0], 0.0)
+            y = torch.where(valid, uv[..., 1], 0.0)
+            fxm = (x - torch.floor(x)).T.reshape(1, n * w, 1, 1)
+            fym = (y - torch.floor(y)).T.reshape(1, n * w, 1, 1)
+            out = ((1 - fxm) * (1 - fym) * out[..., :ps, :3 * ps]
+                   + fxm * (1 - fym) * out[..., :ps, 3:]
+                   + (1 - fxm) * fym * out[..., 1:, :3 * ps]
+                   + fxm * fym * out[..., 1:, 3:])
+        out = out.reshape(c, w, n, ps, ps, 3).permute(2, 1, 0, 3, 4, 5)
+    return tuple(out[..., k].reshape(n, w, c, ps * ps) for k in range(3))
+
+
+@pytest.mark.parametrize("layout", smp.LAYOUTS)
+def test_unpack_is_bitwise_the_three_copy_relayout(layout):
+    """`unpack`'s one permute-copy gives the three strided copies' (s, gx,
+    gy) bitwise, each contiguous."""
+    ch, grads, uv, valid = sample_inputs(2, 2)
+    planes = pw.build_planes(torch.as_tensor(ch), torch.as_tensor(grads))
+    uv_t, valid_t = torch.as_tensor(uv), torch.as_tensor(valid)
+    out = smp.store_reference(planes, uv_t, valid_t, 2, layout)
+    got = smp.unpack(out, uv_t, valid_t, 2, layout)
+    want = _three_copy_unpack(out, uv_t, valid_t, 2, layout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (N_PTS, W, 2, 25)
+        assert a.is_contiguous() and torch.equal(a, b)
+
+
 def test_cpu_tensors_run_the_plain_version_and_bad_arguments_raise():
     before = dict(smp.warp_patches.launches)
     port_samples(1, 1, "raw")
@@ -153,30 +218,42 @@ def _pallas_ungrouped(cam, t_wc, x, patch, ch, g, obs, off, normalize):
 @pytest.fixture(scope="module")
 def problems():
     rng = np.random.default_rng(0)
-    return {r: setup_problem(rng, n_pts=16, w=3, radius=r) for r in (1, 2)}
+    return {r: setup_problem(rng, n_pts=16, w=3, radius=r)
+            for r in (1, 2, 5)}
 
 
 UNGROUPED_CASES = {   # radius, channels, normalize, masked observation
     "r1-c3-mean": (1, 3, True, (1, 0)),
     "r2-c1-mean": (2, 1, True, (2, 1)),
     "r2-c1-off": (2, 1, False, None),
+    "r5-c1-mean": (5, 1, True, None),     # a radius K1 rolls its rows at
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNGROUPED_CASES))
 def test_ungrouped_evaluation_matches_jax_and_the_fused_path(
         problems, monkeypatch, case):
-    """`evaluate_compressed(backend="cuda", grouped_stats=False)` against
-    the JAX package's unfused branch and against the port's fused K1
-    path, to tests/test_patch_stats.py's tolerances."""
+    """`evaluate_compressed(backend="cuda", grouped_stats=False)` runs the
+    row store's path (`_ungrouped_stats`, once) at every radius, and
+    matches the JAX package's unfused branch and the port's fused K1 path
+    to tests/test_patch_stats.py's tolerances."""
     radius, channels, normalize, masked = UNGROUPED_CASES[case]
     problem = variant(problems[radius], channels, normalize, masked)
     monkeypatch.setenv("PB_GROUPED_STATS", "0")
     ref = jax.device_get(_pallas_ungrouped(*problem, normalize))
     cam, t_wc, x, patch, ch, g, obs, off = port_problem(problem)
+    ran = []
+    real = tres._ungrouped_stats
+
+    def spy(*args):
+        ran.append(args[4])                  # the patch radius
+        return real(*args)
+
+    monkeypatch.setattr(tres, "_ungrouped_stats", spy)
     out = tres.evaluate_compressed(cam, t_wc, x, patch, ch, g, obs, off,
                                    HUBER, "sampled", backend="cuda",
                                    normalize=normalize, grouped_stats=False)
+    assert ran == [radius]
     fused = port_eval(problem, normalize=normalize)
     for other in (ref, fused):
         np.testing.assert_array_equal(to_np(out.valid), to_np(other.valid))
