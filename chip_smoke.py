@@ -89,7 +89,10 @@ Drives the port's paths at the repository's full size (370x1226 images,
  14. K7 (csrc/patch_stats.cu, ops/patch_stats) through its entry point in
      both modes on phase 3's inputs: cost_only's rr bitwise the full
      mode's, K7's sums against K1's mean-mode sums, each mode against its
-     plain version;
+     plain version and bitwise its first design (one thread, a run-time
+     radius); the same at R = 5, 9, 10 and 19 on phase 3's problem at
+     that radius, and at R = 62, the reference's widest patch, on 512
+     points (the plain version's windows take 254 KB per observation);
  15. the tools in this process: `bench_warp_kernel` at phase 3's size and
      `ablate_patch_stats` at 4096 and 65 536 points (full/own bitwise K1),
      K8's full/own bitwise K1 at 64, 128 and 256 threads with its device
@@ -173,6 +176,10 @@ BENCH_CALLS, ABLATE_CALLS = 50, 64          # phase 15's tools (their K)
 # past the store's earlier 1..4.
 STORE_WIDE_RADII = (9, 10, 19)
 UNFUSED_RADIUS = 5
+# Phase 14: K7 besides R = 2 at its rolled rows (5, 9), its runtime-radius
+# instance (10, 19) and, on fewer points, at the reference's widest patch.
+K7_WIDE_RADII = (5, 9, 10, 19)
+K7_WIDEST_PTS = 512
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
@@ -375,14 +382,12 @@ def ptxas_table(log: str) -> dict:
     return table
 
 
-def print_ptxas(name: str, built, radii=None) -> None:
+def print_ptxas(name: str, built, radii) -> None:
     """One line per kernel and normalization mode: registers / spill-store
-    bytes for each radius the library is built for (`radii`, default
-    ops/_common.RADII; nothing if the library was not built in this
-    process)."""
+    bytes for each of `radii` (nothing if the library was not built in
+    this process)."""
     from photobundle_torch.ops import _common
 
-    radii = radii or _common.RADII
     table = ptxas_table(built.log)
     for kernel in sorted({k for k, _, _ in table}):
         for code, norm in enumerate(_common.NORMS):
@@ -1252,21 +1257,18 @@ def k7_rows_as_stats(rows, n, w):
     return rows.reshape(w, n, 8)[..., :6].permute(2, 0, 1)
 
 
-def k7_phase(planes, channels, uv_nm, valid_nm, patch, texels,
-             kernels) -> tuple:
-    """Phase 14: K7 (ops/patch_stats) through its entry point once per
-    mode, cost_only's rr against full's, K7 against K1's mean-mode sums,
-    and each mode against its plain version. Returns ({mode: numbers},
-    {mode: launches of the entry-point calls})."""
-    from photobundle_torch.ops import patch_bicubic as pb
+def k7_radius(label, planes, value_planes, uv_nm, valid_nm, patch, pr,
+              kernels) -> tuple:
+    """Phase 14 at one patch radius: K7's entry point once per mode (its
+    launches, counted from zero), cost_only's rr bitwise the full mode's,
+    then each mode against its plain version and bitwise its first design.
+    Returns ({mode: numbers}, {mode: launches of the entry-point calls})."""
     from photobundle_torch.ops import patch_stats as k7
-    from photobundle_torch.ops import patch_warp as pw
 
-    pr = PATCH_RADIUS
     n, w = valid_nm.shape
     ps = 2 * pr + 1
-    desc = patch.reshape(n, 1, ps, ps).contiguous()
-    value_planes = pb.build_value_planes(channels)
+    desc = patch.reshape(n, 1, ps, ps)
+    texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
     reset_all(kernels)
     full = k7.patch_stats(planes, uv_nm, valid_nm, desc, pr)
     cost = k7.patch_stats(value_planes, uv_nm, valid_nm, desc, pr,
@@ -1276,29 +1278,70 @@ def k7_phase(planes, channels, uv_nm, valid_nm, patch, texels,
     launches = {m: counts.pop(("patch_stats.patch_stats", m), 0)
                 for m in k7.MODES}
     check(launches == {"full": 1, "cost_only": 1} and not counts,
-          f"K7 entry points launched {launches}, others {counts}")
+          f"K7 entry points at R={pr} launched {launches}, others {counts}")
     check(tuple(full[0].shape) == (n, w, 2, 2)
           and bool(torch.isfinite(full[0]).all()), "K7 gtg malformed")
-    check(torch.equal(full[2], cost[2]), "K7 cost_only rr is not the full "
-          "mode's bitwise")
-    k1 = pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
-    max_abs, _, worst = compare_with_plain(
-        k7_rows_as_stats(k7.stats_rows(planes, uv_nm, valid_nm, desc, pr),
-                         n, w), k1, valid_nm)
-    say(f"phase 14 K7 entry points: launches {launches}; cost_only rr "
-        f"bitwise the full mode's; K7 vs K1's mean-mode sums: max abs "
-        f"{max_abs:.3e}, {worst:.3f} of the kernel tolerance")
+    check(torch.equal(full[2], cost[2]), f"K7 cost_only rr at R={pr} is not "
+          "the full mode's bitwise")
     numbers = {}
     for mode, src in (("full", planes), ("cost_only", value_planes)):
         cost_only = mode == "cost_only"
+        say(f"phase 14 K7 {mode} at R={pr}: design "
+            f"'{k7.design(pr, cost_only)}'")
         numbers[mode] = kernel_phase(
-            "14", f"K7 {mode}",
+            "14", f"K7 {mode}{label}",
             lambda: k7_rows_as_stats(k7.stats_rows(
                 src, uv_nm, valid_nm, desc, pr, cost_only), n, w),
             lambda: k7_rows_as_stats(k7.patch_stats_reference(
                 src, uv_nm, valid_nm, desc, pr, cost_only), n, w),
-            valid_nm, k7_bound(texels, valid_nm, pr, cost_only))
+            valid_nm, k7_bound(texels, valid_nm, pr, cost_only), radius=pr,
+            calls=KERNEL_CALLS if pr == PATCH_RADIUS else WIDE_CALLS)
+        got = k7.stats_rows(src, uv_nm, valid_nm, desc, pr, cost_only)
+        one = k7.stats_rows_one_thread(src, uv_nm, valid_nm, desc, pr,
+                                       cost_only)
+        torch.cuda.synchronize()
+        check(torch.equal(got, one), f"K7 {mode} at R={pr} is not bitwise "
+              f"its first design")
+    say(f"phase 14 K7 at R={pr}: entry points launched {launches}; "
+        f"cost_only rr bitwise the full mode's; both modes bitwise the "
+        f"first design")
     return numbers, launches
+
+
+def k7_phase(planes, channels, uv_nm, valid_nm, patch, kernels,
+             dev) -> dict:
+    """Phase 14: K7 (ops/patch_stats) at R = 2 on phase 3's inputs (and
+    its sums against K1's mean-mode sums), at K7_WIDE_RADII on phase 3's
+    problem at that radius, and at the widest radius on K7_WIDEST_PTS
+    points (`k7_radius` at each). Returns {radius: (numbers, launches)}."""
+    from photobundle_torch.ops import _common
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_stats as k7
+    from photobundle_torch.ops import patch_warp as pw
+
+    pr = PATCH_RADIUS
+    n, w = valid_nm.shape
+    runs = {pr: k7_radius("", planes, pb.build_value_planes(channels),
+                          uv_nm, valid_nm, patch, pr, kernels)}
+    k1 = pw.patch_stats(planes, uv_nm, valid_nm, patch, pr)
+    desc = patch.reshape(n, 1, 2 * pr + 1, 2 * pr + 1)
+    max_abs, _, worst = compare_with_plain(
+        k7_rows_as_stats(k7.stats_rows(planes, uv_nm, valid_nm, desc, pr),
+                         n, w), k1, valid_nm)
+    say(f"phase 14 K7 vs K1's mean-mode sums at R={pr}: max abs "
+        f"{max_abs:.3e}, {worst:.3f} of the kernel tolerance")
+    widest = _common.STATS_MAX
+    say(f"phase 14 K7 at R={widest} on {K7_WIDEST_PTS} points, not "
+        f"{N_PTS}: the plain version's windows take "
+        f"{(2 * widest + 2) ** 2 * 16 / 1e3:.0f} KB per observation")
+    for wide, n_pts in [(r, N_PTS) for r in K7_WIDE_RADII] + [
+            (widest, K7_WIDEST_PTS)]:
+        planes_r, uv_r, valid_r, patch_r, _, _ = sorted_instance(
+            n_pts, dev, wide, time_sort=False)
+        runs[wide] = k7_radius(f" R={wide}", planes_r,
+                               planes_r[..., 0].contiguous(), uv_r, valid_r,
+                               patch_r, wide, kernels)
+    return runs
 
 
 def tools_phase(planes, uv_nm, valid_nm, patch, kernels) -> tuple:
@@ -1879,8 +1922,8 @@ def main() -> None:
                                       obs, interior, kernels)
 
     # -- phase 14: K7 ----------------------------------------------------
-    k7_numbers, k7_launches = k7_phase(planes, channels, uv_nm, valid_nm,
-                                       patch, win1, kernels)
+    k7_runs = k7_phase(planes, channels, uv_nm, valid_nm, patch, kernels,
+                       dev)
 
     # -- phase 15: the tools (the store benchmark, the K1 ablation K8) ---
     k8, tool_launches = tools_phase(planes, uv_nm, valid_nm, patch, kernels)
@@ -1916,9 +1959,12 @@ def main() -> None:
                      f"{pw_py}:978",
                      tool_launches[("patch_samples.warp_patches", layout)],
                      k6[layout]) for layout in ("block", "raw")),
-        *(entry_json(f"patch_stats_k7/{mode}", "patch_stats.cu",
-                     "photobundle_tpu/ops/patch_stats.py:96",
-                     k7_launches[mode], k7_numbers[mode])
+        *(entry_json(f"patch_stats_k7/{mode}"
+                     f"{'' if r == PATCH_RADIUS else f'/R{r}'}",
+                     "patch_stats.cu",
+                     "photobundle_tpu/ops/patch_stats.py:235",
+                     launches_r[mode], numbers_r[mode])
+          for r, (numbers_r, launches_r) in k7_runs.items()
           for mode in k7.MODES),
         *(entry_json(f"ablate_stats/{mode}", "patch_ablate.cu",
                      "tools/ablate_packed_kernel.py:49",

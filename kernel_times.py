@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's kernels K1, sorted K1, K2, K3, the sample store and K8
-in one or more checkouts.
+"""Time the port's kernels K1, sorted K1, K2, K3, the sample store, K7
+and K8 in one or more checkouts.
 
     python3 kernel_times.py [--radii R,...] [--store-radii R,...]
                             [--kernels NAME,...] [TREE ...]
@@ -17,11 +17,14 @@ K5 in the affine mode, with chip_smoke.py's phase-8 scales) at
 chip_smoke.py's phase-3 inputs (4096 points x 5 frames, 370x1226, seed 1)
 with patch radius R = 2, 4, 6, 9, 10 and 19 (or those of --radii) where
 the checkout's kernel takes it; the sample store (`patch_samples.store`,
-layouts rows, block and raw) at R = 2 and 9 (or --store-radii); K8
+layouts rows, block and raw) at R = 2 and 9 (or --store-radii); K7
+(`patch_stats.stats_rows`, full and cost_only, at --radii where the
+checkout's K7 takes them); K8
 (`patch_ablate.ablate_stats`, full/own and loads/own at 64 threads) at
 R = 2; and K1, sorted K1 and K8 also at 65 536 points,
 R = 2 (phase 11's dense windows). --kernels keeps the kernels whose names
-start with one of the given prefixes (K1 always runs). For each: the
+start with one of the given prefixes (K1 always runs) and builds only
+their sources. For each: the
 median time per call over 50 calls (CUDA events), and the device time per
 launch over 20 launches (torch.profiler, L2 flushed before each launch by
 writing 256 MiB) in ROUNDS rounds that take the kernels in turns, forward
@@ -60,14 +63,27 @@ ROUNDS = 6
 K8_THREADS = 64
 
 
+# Each kernel source and the names of the kernels timed from it.
+SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1"),
+                  "patch_bicubic": ("K2_mean", "K2_affine"),
+                  "patch_scaled": ("K3", "K5"),
+                  "patch_samples": ("store_rows", "store_block",
+                                    "store_raw"),
+                  "patch_stats": ("K7_full", "K7_cost_only"),
+                  "patch_ablate": ("K8_full_own", "K8_loads_own")}
+
+
 def kernel_radii(common, samples) -> dict:
     """The patch radii each kernel of a checkout takes (older checkouts
-    name one range for all, or only the sample stores')."""
-    shared = getattr(common, "SOLVE_RADII", common.RADII)
+    name one range for all, or only the sample stores', or K7's as
+    RADII)."""
+    shared = getattr(common, "SOLVE_RADII", getattr(common, "RADII", ()))
     return {"K1": getattr(common, "FIXED_RADII", shared),
             "K2": (range(1, common.BICUBIC_MAX + 1)
                    if hasattr(common, "BICUBIC_MAX") else shared),
             "K3": getattr(common, "WARPED_RADII", shared),
+            "K7": (range(1, common.STATS_MAX + 1)
+                   if hasattr(common, "STATS_MAX") else common.RADII),
             "store": samples.RADII}
 
 
@@ -86,6 +102,7 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
     from photobundle_torch.ops import patch_ablate as pa
     from photobundle_torch.ops import patch_bicubic as pb
     from photobundle_torch.ops import patch_samples as smp
+    from photobundle_torch.ops import patch_stats as k7
     from photobundle_torch.ops import patch_warp as pw
     try:                        # K3 exists from the warped-grid slice on
         from photobundle_torch.ops import patch_scaled as ps
@@ -99,8 +116,9 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
     def wanted(name):
         return name == "K1" or not prefixes or name.startswith(prefixes)
 
-    sources = (["patch_warp", "patch_bicubic", "patch_samples",
-                "patch_ablate"] + (["patch_scaled"] if ps else []))
+    sources = [src for src, names in SOURCE_KERNELS.items()
+               if any(map(wanted, names))
+               and (ps is not None or src != "patch_scaled")]
     builds = _build.build_all(sources)
     for name, built in builds.items():
         table = dict(sorted(cs.ptxas_instances(built.log).items()))
@@ -176,6 +194,16 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
                     cs.kernel_bound(texels_k3, cs.GRAD_TEXEL_BYTES, valid_k3,
                                     1, pr, "scaled", norm, with_rho=True),
                     "stats")
+        if not dense and pr in radii_timed and pr in radii["K7"]:
+            desc = patch.reshape(n_case, 1, 2 * pr + 1, 2 * pr + 1)
+            for mode, src in (("full", planes), ("cost_only", value_planes)):
+                if wanted(f"K7_{mode}"):
+                    calls[f"K7_{mode}"] = (
+                        lambda src=src, cost_only=mode == "cost_only":
+                        k7.stats_rows(src, uv_nm, valid_k1, desc, pr,
+                                      cost_only),
+                        cs.k7_bound(win1, valid_k1, pr, mode == "cost_only"),
+                        "stats_kernel")
         if not dense and pr in store_radii and pr in radii["store"]:
             for layout in smp.LAYOUTS:
                 if wanted(f"store_{layout}"):

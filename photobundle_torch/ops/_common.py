@@ -9,9 +9,8 @@ import torch
 
 from ..image.patches import AFFINE_NORM_EPS
 
-# Patch radii the kernels take. RADII: K7's (K8 runs at R = 2 alone,
-# ops/patch_ablate.RADIUS). The solve's kernels and the sample store take
-# the radii of the reference's accelerator path:
+# Patch radii the kernels take, the radii of the reference's accelerator
+# path (K8 runs at R = 2 alone, ops/patch_ablate.RADIUS):
 #   K1 (every normalization, K4's affine mode included), its sorted entry
 #   and the sample store (K4's row store, K6): FIXED_RADII, where the JAX
 #   package's fixed-grid panel has a positive lane stride
@@ -19,12 +18,15 @@ from ..image.patches import AFFINE_NORM_EPS
 #   of three lanes per pixel in a 128-lane panel);
 #   K2: 1..BICUBIC_MAX, where its value panel has one (`value_lane_stride`:
 #   a (2R+4)-px window in 128 lanes);
-#   K3 (K5): WARPED_RADII, the reference's warped-grid limit.
+#   K3 (K5): WARPED_RADII, the reference's warped-grid limit;
+#   K7: 1..STATS_MAX, where the JAX patch_stats' panel stride is positive
+#   (photobundle_tpu/ops/patch_stats.py `panel_stride`: a (2R+2)-px window
+#   in a 128-lane panel).
 # These kernels have compile-time instances for 1..9 (pb::kMaxSolveRadius
 # in csrc/patch_epilogue.cuh) and one runtime-radius instance above.
-RADII = (1, 2, 3, 4)
 FIXED_RADII = tuple(range(1, 20))
 BICUBIC_MAX = 61
+STATS_MAX = 62
 WARPED_RADII = tuple(range(1, 10))
 NORMS = ("off", "mean", "affine")   # kernel codes 0, 1, 2
 

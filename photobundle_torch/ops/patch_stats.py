@@ -21,8 +21,12 @@ or `patch_bicubic.build_value_planes`' for cost_only.
 
 `patch_stats` launches the CUDA kernel for tensors on a card and runs
 `patch_stats_reference` for tensors on the CPU; a CUDA tensor gets the
-kernel or an exception. No caller of the port's solve uses it, as none of
-the JAX package's does: it is the fusion baseline beside K1.
+kernel or an exception. The kernel takes patch radii 1..STATS_MAX (62),
+the JAX kernel's own range (its panel stride 128 - (2R+2) must be
+positive); `design` says which of its designs runs at a radius, and
+`stats_rows_one_thread` runs its first design at any radius, bitwise the
+others. No caller of the port's solve uses it, as none of the JAX
+package's does: it is the fusion baseline beside K1.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from . import _build
 from . import patch_warp as pw
-from ._common import RADII, check_tensors, count_launch, reset_launches
+from ._common import STATS_MAX, check_tensors, count_launch, reset_launches
 
 MODES = ("full", "cost_only")
 
@@ -81,31 +85,30 @@ def _kernel():
     built = _build.library("patch_stats")
     fn = built.lib.pb_k7_stats              # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn in (built.lib.pb_k7_stats, built.lib.pb_k7_stats_one_thread):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        built.lib.pb_k7_design.argtypes = [ctypes.c_int] * 2
         err = built.lib.pb_k7_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return built.lib
 
 
-def stats_rows(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
-               descriptors: torch.Tensor, patch_radius: int,
-               cost_only: bool = False) -> torch.Tensor:
-    """The kernel's (W * N, 8) rows: the kernel for CUDA tensors (on the
-    current stream, without synchronising; raises if it cannot launch),
-    `patch_stats_reference` for CPU tensors. `patch_stats.launches`
-    counts kernel launches by mode ('full', 'cost_only')."""
+def _launch(wrapper, entry: str, planes, uv, valid, descriptors,
+            patch_radius: int, cost_only: bool):
     if planes.device.type == "cpu":
         return patch_stats_reference(planes, uv, valid, descriptors,
                                      patch_radius, cost_only)
     if planes.device.type != "cuda":
         raise ValueError(f"patch_stats runs on cpu or cuda tensors, not "
                          f"{planes.device}")
-    if patch_radius not in RADII:
-        raise ValueError(f"patch_stats kernel is built for patch radius in "
-                         f"{RADII}, not {patch_radius}")
+    if not 1 <= patch_radius <= STATS_MAX:
+        raise ValueError(f"patch_stats kernel takes patch radius "
+                         f"1..{STATS_MAX} (the reference's panel stride "
+                         f"128 - (2R+2) must be positive), not "
+                         f"{patch_radius}")
     n, w = valid.shape
     c, h, wi = planes.shape[1:4]
     ps = 2 * patch_radius + 1
@@ -122,16 +125,55 @@ def stats_rows(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     lib = _kernel()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.pb_k7_stats(planes.data_ptr(), uv.data_ptr(),
-                              valid.data_ptr(), descriptors.data_ptr(),
-                              out.data_ptr(), n, w, c, h, wi, patch_radius,
-                              int(cost_only), stream)
+        err = getattr(lib, entry)(
+            planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
+            descriptors.data_ptr(), out.data_ptr(), n, w, c, h, wi,
+            patch_radius, int(cost_only), stream)
     if err != 0:
         msg = lib.pb_k7_error_string(err).decode()
-        raise RuntimeError(f"patch_stats kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    count_launch(patch_stats, MODES[int(cost_only)])
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    count_launch(wrapper, MODES[int(cost_only)])
     return out
+
+
+def stats_rows(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+               descriptors: torch.Tensor, patch_radius: int,
+               cost_only: bool = False) -> torch.Tensor:
+    """The kernel's (W * N, 8) rows: the kernel for CUDA tensors (on the
+    current stream, without synchronising; raises if it cannot launch),
+    `patch_stats_reference` for CPU tensors. `patch_stats.launches`
+    counts kernel launches by mode ('full', 'cost_only')."""
+    return _launch(patch_stats, "pb_k7_stats", planes, uv, valid,
+                   descriptors, patch_radius, cost_only)
+
+
+def stats_rows_one_thread(planes: torch.Tensor, uv: torch.Tensor,
+                          valid: torch.Tensor, descriptors: torch.Tensor,
+                          patch_radius: int, cost_only: bool = False
+                          ) -> torch.Tensor:
+    """`stats_rows` through the kernel's first design (one thread per
+    observation, sampling on both passes) with a run-time radius, at any
+    radius it takes: the same rows, bitwise (the same samples and sums in
+    the same order), for holding its other designs to it. Not on any
+    path; `.launches` counts its own launches."""
+    return _launch(stats_rows_one_thread, "pb_k7_stats_one_thread", planes,
+                   uv, valid, descriptors, patch_radius, cost_only)
+
+
+DESIGNS = ("sampled every pass", "register tile", "runtime radius",
+           "tiled", "staged")
+
+
+def design(patch_radius: int, cost_only: bool = False) -> str:
+    """The design the kernel runs at a patch radius and mode (DESIGNS;
+    csrc/patch_stats.cu says which is measured faster where). Builds the
+    library where it is missing (needs nvcc)."""
+    code = _kernel().pb_k7_design(patch_radius, int(cost_only))
+    if code < 0:
+        raise ValueError(f"patch_stats takes no patch radius "
+                         f"{patch_radius}")
+    return DESIGNS[code]
 
 
 def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
@@ -152,3 +194,4 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
 
 
 reset_launches(patch_stats, MODES)
+reset_launches(stats_rows_one_thread, MODES)

@@ -779,16 +779,28 @@ def test_ungrouped_solve_on_card_runs_the_row_store(cuda_device,
                                fused.cost_log.cpu().numpy(), rtol=1e-4)
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+# K7's radii held on the card: every compile-time instance (1-9: each
+# design and both sides of every change of design), the runtime-radius
+# instance (10, 19).
+K7_RADII = (*range(1, 11), 19)
+
+
+def k7_inputs(rng, device, radius, channels, **size):
+    """random_inputs with mean-normalized (N, C, ps, ps) descriptors."""
+    planes, uv, valid, patch = random_inputs(rng, device, radius, channels,
+                                             **size)
+    ps_ = 2 * radius + 1
+    desc = patch.reshape(-1, channels, ps_, ps_)
+    return planes, uv, valid, (desc - desc.mean(dim=(2, 3),
+                                                keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("radius", K7_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("cost_only", [False, True])
 def test_k7_matches_plain_version(cuda_device, radius, channels, cost_only):
     rng = np.random.default_rng(500 + radius * 10 + channels)
-    planes, uv, valid, patch = random_inputs(rng, cuda_device, radius,
-                                             channels)
-    ps_ = 2 * radius + 1
-    desc = patch.reshape(-1, channels, ps_, ps_)
-    desc = (desc - desc.mean(dim=(2, 3), keepdim=True)).contiguous()
+    planes, uv, valid, desc = k7_inputs(rng, cuda_device, radius, channels)
     src = planes[..., 0].contiguous() if cost_only else planes
     mode = "cost_only" if cost_only else "full"
     before = k7.patch_stats.launches[mode]
@@ -806,13 +818,49 @@ def test_k7_matches_plain_version(cuda_device, radius, channels, cost_only):
         assert float(got[:, :5].abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("radius", (*K7_RADII, _common.STATS_MAX))
+@pytest.mark.parametrize("channels", [1, 3])
+def test_k7_is_bitwise_its_one_thread_design(cuda_device, radius, channels):
+    """K7's rows at every radius, whichever design runs there (a register
+    tile, staged windows, the tiled design, or sampling on both passes),
+    equal bitwise those of its first design with a run-time radius: the
+    same samples, reduced in the same order; cost_only's Σr² is the full
+    mode's."""
+    rng = np.random.default_rng(700 + radius * 10 + channels)
+    size = dict(h=130, wi=140, n=65) if radius > 19 else {}
+    planes, uv, valid, desc = k7_inputs(rng, cuda_device, radius, channels,
+                                        **size)
+    rows = {}
+    for cost_only in (False, True):
+        src = planes[..., 0].contiguous() if cost_only else planes
+        mode = k7.MODES[int(cost_only)]
+        before = k7.stats_rows_one_thread.launches[mode]
+        got = k7.stats_rows(src, uv, valid, desc, radius, cost_only)
+        want = k7.stats_rows_one_thread(src, uv, valid, desc, radius,
+                                        cost_only)
+        torch.cuda.synchronize()
+        assert k7.stats_rows_one_thread.launches[mode] == before + 1
+        assert torch.equal(got, want), (mode, k7.design(radius, cost_only))
+        assert float(got[:, 5].sum()) > 0
+        rows[mode] = got
+    assert torch.equal(rows["cost_only"][:, 5], rows["full"][:, 5])
+
+
 def test_k7_rejects_unsupported_input(cuda_device):
+    """The kernel takes the reference's radii 1..STATS_MAX and raises
+    outside them, before any launch."""
     planes = torch.zeros((1, 1, 32, 32, 4), device=cuda_device)
     uv = torch.zeros((2, 1, 2), device=cuda_device)
     valid = torch.ones((2, 1), dtype=torch.bool, device=cuda_device)
     desc = torch.zeros((2, 1, 5, 5), device=cuda_device)
-    with pytest.raises(ValueError, match="radius"):
-        k7.patch_stats(planes, uv, valid, desc, 5)
+    before = dict(k7.patch_stats.launches)
+    for radius in (0, _common.STATS_MAX + 1):
+        with pytest.raises(ValueError, match="radius 1..62"):
+            k7.patch_stats(planes, uv, valid, desc, radius)
+        with pytest.raises(ValueError, match="radius 1..62"):
+            k7.patch_stats(planes[..., 0].contiguous(), uv, valid, desc,
+                           radius, cost_only=True)
+    assert k7.patch_stats.launches == before
     with pytest.raises(ValueError, match="planes"):
         k7.patch_stats(planes, uv, valid, desc, 2, cost_only=True)
     with pytest.raises(ValueError, match="descriptors"):

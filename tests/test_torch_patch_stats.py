@@ -6,8 +6,12 @@ plain version; it is held against the JAX package's
 shape), in both modes, at 1e-4: the two reduce the same f32 samples in
 another order. Invalid observations carry NaN coordinates. The problem is
 10 points x 2 frames on 40x300 images (see tests/test_torch_samples.py for
-why 10). The CUDA kernel itself is held against its plain version on a
-card by tests/test_torch_cuda.py."""
+why 10), and at R = 62, the reference's widest patch, 2 points x 1 frame
+on a 140x300 image. Every valid window lies inside the image: the JAX
+kernel clamps a window into its zero-padded last panel where the port
+clamps it inside the image (ROADMAP.md, known differences). The CUDA
+kernel itself is held against its plain version on a card by
+tests/test_torch_cuda.py."""
 
 import functools
 
@@ -25,23 +29,39 @@ from photobundle_torch.ops import patch_warp as pw
 from torch_parity import few_threads  # noqa: F401
 
 N_PTS, W, H, WI = 10, 2, 40, 300
-CASES = [(1, 1), (2, 2), (3, 1)]          # (radius, channels)
+WIDEST = 62                               # ops/_common.STATS_MAX
+# (radius, channels): the compile-time instances' unrolled and rolled
+# rows, the runtime-radius instance, and the widest patch.
+CASES = [(1, 1), (2, 2), (3, 1), (5, 1), (5, 2), (10, 1), (10, 2),
+         (WIDEST, 1)]
+
+
+def sizes(radius: int):
+    """(points, frames, height, width) of a case's problem."""
+    return (2, 1, 140, WI) if radius == WIDEST else (N_PTS, W, H, WI)
 
 
 @functools.lru_cache(maxsize=None)
 def inputs(radius: int, channels: int):
     """Values in [0, 1), gradients in [-0.5, 0.5), mean-normalized
-    descriptors; NaN coordinates on invalid observations."""
+    descriptors; NaN coordinates on invalid observations. Valid
+    coordinates keep their (2R+2)-px window inside the image: x0 =
+    floor(u) - R in [0, Wi - 2R - 2]."""
+    n, w, h, wi = sizes(radius)
     rng = np.random.default_rng(100 + 10 * radius + channels)
     ps = 2 * radius + 1
-    ch = rng.random((W, channels, H, WI), np.float32)
-    grads = rng.random((W, channels, H, WI, 2), np.float32) - 0.5
-    uv = rng.uniform([8.0, 8.0], [WI - 8.0, H - 8.0],
-                     size=(N_PTS, W, 2)).astype(np.float32)
-    valid = rng.uniform(size=(N_PTS, W)) > 0.25
-    valid[1, 0] = False
+    ch = rng.random((w, channels, h, wi), np.float32)
+    grads = rng.random((w, channels, h, wi, 2), np.float32) - 0.5
+    lo, hi = max(8.0, radius + 0.5), max(8.0, radius + 2.5)
+    uv = rng.uniform([lo, lo], [wi - hi, h - hi],
+                     size=(n, w, 2)).astype(np.float32)
+    valid = rng.uniform(size=(n, w)) > 0.25
+    if radius == WIDEST:
+        valid[:] = True
+    else:
+        valid[1, 0] = False
     uv[~valid] = np.nan
-    d = rng.standard_normal((N_PTS, channels, ps, ps)).astype(np.float32)
+    d = rng.standard_normal((n, channels, ps, ps)).astype(np.float32)
     d -= d.mean(axis=(2, 3), keepdims=True)
     return ch, grads, uv, valid, d
 
@@ -71,7 +91,8 @@ def test_matches_jax_patch_stats(radius, channels, cost_only):
     valid = inputs(radius, channels)[3]
     ref = jax_stats(radius, channels, cost_only)
     out = port_stats(radius, channels, cost_only)
-    shapes = [(N_PTS, W, 2, 2), (N_PTS, W, 2), (N_PTS, W)]
+    n, w = valid.shape
+    shapes = [(n, w, 2, 2), (n, w, 2), (n, w)]
     for got, want, shape, name in zip(out, ref, shapes,
                                       ("gtg", "gtr", "rnorm2")):
         assert tuple(got.shape) == shape, name
