@@ -19,11 +19,20 @@ Drives the port's paths at the repository's full size (370x1226 images,
      both sides of their design's crossover radius, vs their plain
      versions in every normalization and bitwise their one-thread design
      with a run-time radius;
-  4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations; K1's
-     launch count over that run and its device time per launch inside the
-     solve (L2 as the solve leaves it); then the same solve on the plain
-     torch backend, LM iterations/s of both, and a parity solve of the
-     two;
+  4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations, as
+     CUDA graph replays (core/lm.py) from a cold key: K1's launch count
+     over that run, the call's time cold and warm, the key's graphs'
+     device memory; the same solve with capture=False (the same body in
+     the eager host loop): the same iterations, accept log and
+     termination, costs within GRAPH_RTOL, and whether the two are
+     bitwise equal (else the first field that differs); K1's device time
+     per launch inside the solve (L2 as the solve leaves it) and its
+     traced launches against the count; for both, LM iterations/s, host
+     syncs per solve and the card's idle share over one solve; a sweep of
+     lm.LM_READBACK over the fixed solve and two that end early; then the
+     torch backend, LM iterations/s of both backends, and a parity solve
+     of the two; last, `photobundle_torch.bench` (the port's twin of
+     bench.py) in this process, its JSON line printed on a phase line;
   5. kernel K2 (csrc/patch_bicubic.cu) vs its plain version on phase 3's
      inputs within the bicubic margins, with the median time of each;
   6. the engine: PhotometricBundleAdjustment.add_frame over 15 frames of
@@ -34,7 +43,8 @@ Drives the port's paths at the repository's full size (370x1226 images,
      keyframes/s, window-solve ms and the first window's cost on both
      backends from the same state;
   7. the same engine in the default configuration (bilinear, sampled:
-     K1) over 8 frames, (7b) at patchRadius=5 over 6 frames (K1 alone)
+     K1) over 8 frames, then one frame traced (the card's busy time and
+     idle share) and one with its host syncs counted, (7b) at patchRadius=5 over 6 frames (K1 alone)
      and (7c) the reference-exact configuration at patchRadius=12 over 6
      frames (K2's runtime-radius instance alone);
   8. kernel K3 (csrc/patch_scaled.cu, the warped grid of patchWarp=scale)
@@ -107,10 +117,18 @@ card, computed from the run's inputs (bytes at the HBM rate, f32
 operations at the f32 rate), and fails if a measured time is below the
 bound. Every engine run zeroes the
 launch counts just before it and checks, just after, that its kernel ran
-in its normalization mode once per LM iteration plus once per window and
-that no other kernel or mode ran (phase 12: the sorted kernel once per
-LM iteration plus once per solve of every level, K1 twice per window for
-the coarse-to-fine guard).
+in its normalization mode once per evaluation of every solve and that no
+other kernel or mode ran (phase 12: the sorted kernel in every solve of
+every level, K1 twice per window for the coarse-to-fine guard).
+
+Solves run as CUDA graph replays, and a wrapper counts a launch when the
+graph that captured it replays (core/lm.py). The identity every check
+holds: a kernel run once per evaluation launches, per solve, its body
+replays + 1 (the start evaluation) times, plus 2 per cold graph key (its
+warm-up runs one start and one body before the capture). The replays
+are the solve's iterations, and past an early end the no-op bodies up to
+the next host read of the termination code (none with lm.LM_READBACK =
+1); `expected_launches` computes it from lm.runs.
 
 Prints a JSON line of kernel results, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}. Any failed phase
@@ -140,6 +158,17 @@ PROFILED_CALLS = 20
 # without multiply-add contraction), reduced in another order.
 KERNEL_RTOL, KERNEL_ATOL_ROW = 1e-4, 1e-6
 SOLVE_RTOL = 1e-4
+# The captured solve against the same body in the eager host loop: the same
+# kernels on the same inputs, so equal but for a library's choice of
+# algorithm inside a capture.
+GRAPH_RTOL = 1e-6
+# Phase 4's sweep of lm.LM_READBACK (bodies between two host reads of the
+# termination code): the fixed-length solve and solves that end early, at
+# the engine's default tolerances and at a looser function tolerance.
+READBACKS = (1, 2, 4, 8)
+EARLY_SOLVES = ((1e-6, 1e-8), (1e-3, 1e-8))      # (function, parameter)
+EARLY_MAX_ITERATIONS = 50
+READBACK_ROUNDS = 4
 # The parity solve keeps observations this many pixels inside both
 # backends' border margins (which differ by one pixel) and starts heavily
 # damped, where f32 rounding differences are not amplified by the
@@ -627,17 +656,47 @@ def kernel_label(k) -> str:
 
 
 def reset_all(kernels) -> None:
-    """Zero every kernel wrapper's launch counts."""
+    """Zero every kernel wrapper's launch counts, and lm_solve's counts of
+    what it ran (core/lm.py `runs`)."""
+    from photobundle_torch.core import lm
     from photobundle_torch.ops import _common
 
     for k in kernels:
         _common.reset_launches(k)
+    lm.reset_runs()
+
+
+def expected_launches(iterations) -> int:
+    """Launches of a kernel run once per evaluation, over lm_solve calls
+    since `reset_all` that ran `iterations` (a list, one per solve), by
+    core/lm.py's identity: per solve its replays + 1, plus one start and
+    one body per cold graph key's warm-up. A solve's replays are its
+    iterations, and past an early end the no-op bodies up to the next
+    read of the termination code (none with lm.LM_READBACK = 1). Fails if
+    lm.runs disagrees with `iterations`."""
+    from photobundle_torch.core import lm
+
+    r = lm.runs
+    no_ops = r["bodies"] - r["warm_ups"] - sum(iterations)
+    check(r["starts"] == len(iterations) + r["warm_ups"],
+          f"{r['starts']} start evaluations for {len(iterations)} solves "
+          f"and {r['warm_ups']} warm-ups")
+    check(no_ops >= 0 and (lm.LM_READBACK > 1 or no_ops == 0),
+          f"{r['bodies']} bodies for {sum(iterations)} iterations and "
+          f"{r['warm_ups']} warm-ups")
+    return sum(i + 1 for i in iterations) + no_ops + 2 * r["warm_ups"]
 
 
 def launch_counts(kernels) -> dict:
     """{(kernel label, mode): launches} of every wrapper's every mode."""
     return {(kernel_label(k), m): n for k in kernels
             for m, n in k.launches.items()}
+
+
+def lm_runs() -> dict:
+    from photobundle_torch.core import lm
+
+    return dict(lm.runs)
 
 
 def ate(poses, gt) -> float:
@@ -648,7 +707,7 @@ def ate(poses, gt) -> float:
 
 
 def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
-               ate_must_fall=True):
+               ate_must_fall=True, profile=False):
     """Drive PhotometricBundleAdjustment.add_frame over the scene's first
     `n_frames` frames on the card, from the drifted poses `init`.
     `counted` = (kernel wrapper, normalization mode). Zeroes every kernel's
@@ -656,7 +715,9 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
     window solve launched the counted kernel in its mode once per LM
     iteration plus once for its initial point, that no other kernel or
     mode ran, that no solve raised its cost, and (with `ate_must_fall`)
-    that the refined trajectory beats the initial one. Prints the engine's
+    that the refined trajectory beats the initial one. With `profile`,
+    after those checks, two more frames: the card's busy time over one
+    (torch.profiler) and the host syncs of the other. Prints the engine's
     numbers and returns them, with the state the first window solve
     started from."""
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
@@ -698,8 +759,9 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
     fn, norm = counted
     launches = counts.pop((kernel_label(fn), norm))
     others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
-    expected = sum(r.iterations + 1 for r in results)
     its = [r.iterations for r in results]
+    expected = expected_launches(its)
+    warm_ups = lm_runs()["warm_ups"]
     say(f"phase {tag} engine ({cfg.interpolation}, "
         f"{cfg.resolve_gradient_mode()}, R {cfg.patchRadius}, patchWarp "
         f"{cfg.resolve_patch_warp()}, normalization "
@@ -707,7 +769,8 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
         f"{images[0].shape[0]}x{images[0].shape[1]}, {len(results)} "
         f"windows, {pba.num_active_points} active points "
         f"(capacity {cfg.maxNumPoints}); {fn.__name__}/{norm} launches "
-        f"{launches} (sum of iterations + 1: {expected}), other kernels "
+        f"{launches} (sum of iterations + 1, + 2 per each of {warm_ups} "
+        f"graph warm-ups: {expected}), other kernels "
         f"and modes {others or 'none'}")
     for r in results:
         say(f"  {r.message()}, solve {r.solve_time_s * 1e3:.1f} ms")
@@ -733,6 +796,27 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
         f"1..{window_size - 2}) | peak device memory {peak:.1f} MiB")
     if ate_must_fall:
         check(ate_ref < ate_init, "refinement did not reduce the ATE")
+    if profile:
+        frame = [n_frames]
+
+        def next_frame():
+            i = frame[0]
+            frame[0] += 1
+            t0 = time.perf_counter()
+            res = pba.add_frame(images[i], depths[i], init[i])
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t0) * 1e3
+
+        out = []
+        busy = device_busy(lambda: out.append(next_frame()))
+        syncs = host_syncs(lambda: out.append(next_frame()))
+        (res_p, ms_p), (res_s, ms_s) = out
+        say(f"phase {tag} one more frame (add_frame with a "
+            f"{res_p.iterations}-iteration window solve, {ms_p:.1f} ms "
+            f"traced): " + busy_text(*busy, statistics.median(frame_s[
+                window_size - 1:]) * 1e3, "frame")
+            + f" | the next frame ({res_s.iterations} iterations, "
+            f"{ms_s:.1f} ms): host syncs {syncs}")
     return dict(engine=pba, first_state=first_state[0], results=results,
                 launches=launches)
 
@@ -959,6 +1043,126 @@ def insitu_us(fn, match: str):
     launches = sum(evt.count for evt in evts)
     total = sum(evt.self_device_time_total for evt in evts)
     return (total / launches if total > 0 else None), launches
+
+
+def first_difference(got, want):
+    """None if two (t_wc, x_world, LMStats) are equal bit for bit (NaN
+    where NaN), else the first field and index where they differ."""
+    names = ["t_wc", "x_world"] + [f"stats.{f}" for f in got[2]._fields]
+    for name, a, b in zip(names, (got[0], got[1], *got[2]),
+                          (want[0], want[1], *want[2])):
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        if not bool(same.all()):
+            idx = tuple(torch.nonzero(~same)[0].tolist())
+            return f"{name}{list(idx)} ({a[idx].item()} vs {b[idx].item()})"
+    return None
+
+
+def host_syncs(fn) -> int:
+    """Host syncs of one call of fn: the warnings of
+    torch.cuda.set_sync_debug_mode('warn') (every operation that waits for
+    the card, pageable host-to-device copies included)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def device_busy(fn):
+    """The card over one call of fn (torch.profiler): (busy ms, the union
+    of its activities' intervals; span ms, from the first activity's start
+    to the last one's end; the number of activities). Busy and span are
+    None if the trace holds no device activity."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, None, 0
+    busy, reach = 0.0, spans[0][0]
+    for begin, end in spans:
+        if end > reach:
+            busy += end - max(begin, reach)
+            reach = end
+    return busy / 1e3, (reach - spans[0][0]) / 1e3, len(spans)
+
+
+def busy_text(busy, span, n_dev, wall_ms, what) -> str:
+    """device_busy's numbers as text: the idle share over the traced span
+    (the profiler slows the host) and over `wall_ms`, the untraced call's
+    median host time."""
+    if busy is None:
+        return "device busy not measured (no device activity traced)"
+    return (f"device busy {busy:.3f} ms of {span:.3f} ms from the first "
+            f"device activity to the last (idle share {1 - busy / span:.3f}"
+            f"), of the untraced {what}'s {wall_ms:.3f} ms (idle share "
+            f"{1 - busy / wall_ms:.3f}); {n_dev} device activities "
+            f"(torch.profiler, one {what})")
+
+
+def readback_phase(solve) -> None:
+    """Phase 4's sweep of lm.LM_READBACK (warm keys): READBACK_ROUNDS
+    rounds, each running every interval in turn (the order reversed every
+    other round), each interval TIMED_SOLVES solves of each kind: the
+    fixed-length solve and EARLY_SOLVES' solves that end early. Prints
+    each interval's median ms per kind, its bodies and reads per solve,
+    and the sum of its medians; the module's value is restored."""
+    from photobundle_torch.core import lm
+
+    chosen = lm.LM_READBACK
+    kinds = [("fixed", {})] + [
+        (f"ftol {f:g}", dict(function_tolerance=f, parameter_tolerance=x,
+                             max_iterations=EARLY_MAX_ITERATIONS))
+        for f, x in EARLY_SOLVES]
+    for _, extra in kinds[1:]:
+        solve("cuda", **extra)                       # capture once
+    times = {(k, kind): [] for k in READBACKS for kind, _ in kinds}
+    counts = {}
+    try:
+        for r in range(READBACK_ROUNDS):
+            for k in (READBACKS if r % 2 == 0 else READBACKS[::-1]):
+                lm.LM_READBACK = k
+                for kind, extra in kinds:
+                    for _ in range(TIMED_SOLVES):
+                        lm.reset_runs()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        _, _, st = solve("cuda", **extra)
+                        it = int(st.iterations)
+                        torch.cuda.synchronize()
+                        times[k, kind].append(time.perf_counter() - t0)
+                    counts[k, kind] = (it, lm.runs["bodies"],
+                                       lm.runs["readbacks"])
+    finally:
+        lm.LM_READBACK = chosen
+    for k in READBACKS:
+        med = {kind: statistics.median(times[k, kind]) * 1e3
+               for kind, _ in kinds}
+        say(f"phase 4 LM_READBACK={k}: " + " | ".join(
+            f"{kind} {med[kind]:.2f} ms ({counts[k, kind][0]} iterations, "
+            f"{counts[k, kind][1]} bodies, {counts[k, kind][2]} reads)"
+            for kind, _ in kinds) + f" | sum {sum(med.values()):.2f} ms")
+    say(f"phase 4 lm.LM_READBACK is {chosen} (medians of "
+        f"{READBACK_ROUNDS * TIMED_SOLVES} solves per cell in "
+        f"{READBACK_ROUNDS} interleaved rounds, host clock; max_iterations "
+        f"{EARLY_MAX_ITERATIONS} for the solves that end early)")
 
 
 def sorted_phase(dev) -> dict:
@@ -1188,6 +1392,7 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
         _, _, st = solve("cuda")
         torch.cuda.synchronize()
         counts = {key: n for key, n in launch_counts(kernels).items() if n}
+        expected = expected_launches([int(st.iterations)])
         unfused = solve("cuda", obs & interior,
                         initial_lambda=PARITY_LAMBDA)[2]
     finally:
@@ -1200,8 +1405,9 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
         f"cost {float(st.initial_cost):.6f} -> {float(st.final_cost):.6f}; "
         f"row-store launches {launches}, other kernels "
         f"{counts or 'none'}")
-    check(iters == ITERS and launches == iters + 1,
-          f"row store launched {launches} times over {iters} iterations")
+    check(iters == ITERS and launches == expected,
+          f"row store launched {launches} times over {iters} iterations "
+          f"(expected {expected})")
     check(not counts, f"other kernels ran under PB_GROUPED_STATS=0: {counts}")
     check(float(st.final_cost) < float(st.initial_cost),
           "unfused solve did not lower the cost")
@@ -1233,6 +1439,7 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
             function_tolerance=0.0, parameter_tolerance=0.0, backend="cuda")
         torch.cuda.synchronize()
         counts = {key: n for key, n in launch_counts(kernels).items() if n}
+        expected = expected_launches([int(st.iterations)])
     finally:
         os.environ.pop("PB_GROUPED_STATS")
     iters = int(st.iterations)
@@ -1241,9 +1448,9 @@ def samples_phase(planes, uv_nm, valid_nm, texels, solve, obs, interior,
         f"{UNFUSED_RADIUS}: {iters} iterations, cost "
         f"{float(st.initial_cost):.6f} -> {float(st.final_cost):.6f}; "
         f"row-store launches {rows_run}, other kernels {counts or 'none'}")
-    check(iters == ITERS and rows_run == iters + 1,
+    check(iters == ITERS and rows_run == expected,
           f"row store launched {rows_run} times over {iters} iterations at "
-          f"R={UNFUSED_RADIUS}")
+          f"R={UNFUSED_RADIUS} (expected {expected})")
     check(not counts, f"other kernels ran under PB_GROUPED_STATS=0 at R="
           f"{UNFUSED_RADIUS}: {counts}")
     check(bool(torch.isfinite(st.cost_log[:iters]).all())
@@ -1595,7 +1802,7 @@ def cli_phase(kernels, dev) -> int:
         check(rc == 0, f"cli.main returned {rc}")
         counts = {key: n for key, n in launch_counts(kernels).items() if n}
         rate = (CLI_FRAMES - W) / sum(frame_s[W:])
-        return counts, list(iterations), rate
+        return counts, list(iterations), rate, expected_launches(iterations)
 
     runs, launches = {}, None
     for tag, flag in (("b", "1"), ("c", "0")):
@@ -1609,9 +1816,8 @@ def cli_phase(kernels, dev) -> int:
             check(r["final_cost"] <= r["initial_cost"], f"run ({tag}) window "
                   f"{r['frame_ids']} cost {r['initial_cost']} -> "
                   f"{r['final_cost']}")
-    for tag, (counts, its, rate) in runs.items():
+    for tag, (counts, its, rate, expected) in runs.items():
         solves = len(its)
-        expected = sum(i + 1 for i in its)
         sorted_n = counts.pop(("patch_warp.sorted_patch_stats", "mean"), 0)
         k1_n = counts.pop(("patch_warp.patch_stats", "mean"), 0)
         say(f"phase 12 ({tag}) cli.main, PB_SORTED_DISPATCH="
@@ -1660,7 +1866,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test runs only on a CUDA card")
-    from photobundle_torch import entry
+    from photobundle_torch import bench, entry
     from photobundle_torch.config import ConfigFile, PBAConfig
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
@@ -1725,20 +1931,34 @@ def main() -> None:
     def solve(backend, obs_mask=obs, **extra):
         return lm.lm_solve(cam, t_wc, x_world, patch, channels, grads,
                            obs_mask, point_valid, frozen, offsets,
-                           backend=backend, **kw, **extra)
+                           backend=backend, **{**kw, **extra})
 
+    # The main path: a cold key (warm-up, two captures, replays), its
+    # graphs' device memory, then the same key warm.
+    lm.clear_graph_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     reset_all(kernels)
+    t0 = time.perf_counter()
     t_out, x_out, st = solve("cuda")
     torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
     launches = pw.patch_stats.launches["mean"]
+    runs = lm_runs()
     iters = int(st.iterations)
+    expected = expected_launches([iters])
+    torch.cuda.empty_cache()
+    cache_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
     c0, c1 = float(st.initial_cost), float(st.final_cost)
     logs = st.cost_log[:iters]
-    say(f"phase 4 cuda solve: {iters} iterations, cost {c0:.6f} -> "
-        f"{c1:.6f}, accept {st.accept_log.int().tolist()}, kernel launches "
-        f"{launches}")
-    check(launches == iters + 1,
-          f"kernel launched {launches} times, expected {iters + 1}")
+    say(f"phase 4 cuda solve (CUDA graphs, cold key): {iters} iterations, "
+        f"cost {c0:.6f} -> {c1:.6f}, accept {st.accept_log.int().tolist()},"
+        f" kernel launches {launches} (expected {expected}: {iters} "
+        f"replays + 1, + 2 for the warm-up); lm runs {runs}")
+    check(launches == expected and runs["warm_ups"] == 1
+          and runs["captures"] == 2,
+          f"kernel launched {launches} times, expected {expected}; {runs}")
     check(sum(sum(k.launches.values()) for k in kernels) == launches,
           "another kernel or mode ran in the default solve")
     check(iters == ITERS, f"solve ran {iters} iterations, not {ITERS}")
@@ -1751,23 +1971,67 @@ def main() -> None:
           "refined poses / points are not finite")
     check(torch.equal(t_out[frozen], t_wc[frozen]),
           "frozen gauge poses moved")
-    # K1 inside the solve, L2 as the solve leaves it (not flushed).
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    solve("cuda")
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm = pw.patch_stats.launches["mean"]
+    check(warm == ITERS + 1 and lm_runs()["captures"] == 0,
+          f"warm key launched the kernel {warm} times, expected "
+          f"{ITERS + 1}")
+    say(f"phase 4 cold call {cold_ms:.1f} ms (warm-up + two captures + "
+        f"replays), warm call {warm_ms:.1f} ms: capture and warm-up "
+        f"{cold_ms - warm_ms:.1f} ms | the key's graphs and static buffers "
+        f"hold {cache_mib:.1f} MiB of device memory (memory_reserved "
+        f"after empty_cache; cache of {lm.GRAPH_CACHE_SIZE} keys) | warm "
+        f"launches {warm} = {ITERS} replays + 1")
+
+    # The same body in the eager host loop (capture=False).
+    t_e, x_e, st_e = solve("cuda", capture=False)
+    torch.cuda.synchronize()
+    rel_cost = float(((st_e.cost_log - st.cost_log) / st.cost_log)
+                     .abs().max())
+    check(int(st_e.iterations) == iters
+          and torch.equal(st_e.accept_log, st.accept_log)
+          and int(st_e.termination) == int(st.termination),
+          "captured and eager solves ran differently")
+    check(rel_cost <= GRAPH_RTOL, f"captured vs eager cost rel diff "
+          f"{rel_cost:.3e}")
+    differs = first_difference((t_out, x_out, st), (t_e, x_e, st_e))
+    say(f"phase 4 captured vs eager (capture=False): same iterations, "
+        f"accept log and termination, cost-log rel diff {rel_cost:.3e} "
+        f"(rtol {GRAPH_RTOL:g}); bitwise equal: "
+        f"{'yes' if differs is None else 'no, first at ' + differs}")
+    # K1 inside the solve, L2 as the solve leaves it (not flushed); the
+    # trace's K1 launches against the per-replay count.
     situ_us, situ_n = insitu_us(lambda: solve("cuda"), "patch_stats_kernel")
     say(f"phase 4 K1 in the solve: {us_text(situ_us)} per launch over "
         f"{situ_n} traced launches (L2 as the solve leaves it) | phase 3: "
         f"cold {us_text(k1['device_us'])}, warm {us_text(k1['warm_us'])}")
+    check(situ_n == ITERS + 1, f"the profiler traced {situ_n} K1 launches "
+          f"in one warm solve, counted {ITERS + 1}")
 
-    def its_per_s(backend):
+    def its_per_s(backend, **extra):
         times = []
         for _ in range(TIMED_SOLVES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solve(backend)
+            solve(backend, **extra)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ms = " ".join(f"{t * 1e3:.2f}" for t in sorted(times))
         return ITERS / statistics.median(times), ms
 
+    for label, extra in (("captured", {}), ("eager", {"capture": False})):
+        ips, ms = its_per_s("cuda", **extra)
+        syncs = host_syncs(lambda: solve("cuda", **extra))
+        busy, span, n_dev = device_busy(lambda: solve("cuda", **extra))
+        say(f"phase 4 cuda solve {label}: LM it/s {ips:.2f} (median of "
+            f"{TIMED_SOLVES} solves of {ITERS} iterations; solve ms {ms}) | "
+            f"host syncs per solve {syncs} (set_sync_debug_mode('warn')) | "
+            + busy_text(busy, span, n_dev, ITERS / ips * 1e3, "solve"))
+    readback_phase(solve)
     cuda_ips, cuda_ms = its_per_s("cuda")
     _, _, st_t = solve("torch")
     torch_ips, torch_ms = its_per_s("torch")
@@ -1780,8 +2044,8 @@ def main() -> None:
     check(int(st_t.iterations) == iters, "torch solve iteration count "
           "differs from the cuda solve")
     say(f"phase 4 LM it/s (median of {TIMED_SOLVES} solves of {ITERS} "
-        f"iterations): cuda {cuda_ips:.2f} (solve ms {cuda_ms}), torch "
-        f"{torch_ips:.2f} (solve ms {torch_ms})")
+        f"iterations, CUDA graphs): cuda {cuda_ips:.2f} (solve ms "
+        f"{cuda_ms}), torch {torch_ips:.2f} (solve ms {torch_ms})")
 
     # Parity solve: observations inside both margins, damped start.
     m = PARITY_MARGIN_PX
@@ -1806,6 +2070,14 @@ def main() -> None:
     check(rel <= SOLVE_RTOL, f"parity final cost rel diff {rel:.3e}")
     say(f"phase 4 peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    # The port's twin of bench.py, in this process (its JSON line here,
+    # not as the last line).
+    t0 = time.perf_counter()
+    record = bench.measure("cuda")
+    say(f"phase 4 bench ({time.perf_counter() - t0:.1f} s, python -m "
+        f"photobundle_torch.bench): {json.dumps(record)}")
+    check(record["value"] > 0 and record["vs_baseline"] > 0,
+          "the bench measured no rate")
 
     # -- phase 5: K2 vs its plain version on phase 3's inputs ------------
     in_bicubic = ((uv[:, 0] >= pr + 1) & (uv[:, 0] <= WI - 3 - pr)
@@ -1839,7 +2111,8 @@ def main() -> None:
 
     # -- phase 7: the engine, default configuration (K1) -----------------
     run_engine("7", PBAConfig(), scene, drifted, DEFAULT_FRAMES,
-               (pw.patch_stats, "mean"), kernels, ate_must_fall=False)
+               (pw.patch_stats, "mean"), kernels, ate_must_fall=False,
+               profile=True)
     # A patch radius past 4, where K1 rolls its row loop.
     run_engine("7b", PBAConfig(patchRadius=WIDE_ENGINE_RADIUS), scene,
                drifted, W + 1, (pw.patch_stats, "mean"), kernels,

@@ -9,14 +9,16 @@ refined window poses.
 All state (point table, window ring) is a tuple of fixed-shape tensors on
 the engine's device. The host keeps mirrors of the few counters the
 control flow branches on (frame count, ingest ordinal, window fill), so
-ingest reads nothing back from the device. A solve reads its termination
-code once per LM iteration (core/lm.py) and, at its end, fetches the
+ingest reads nothing back from the device. On a card each solve level
+replays its CUDA graphs (core/lm.py: one pair per shape and option set,
+so one per pyramid level), reading the termination code once per
+lm.LM_READBACK bodies; at its end the engine fetches the
 window result in one batched device-to-host copy; with
 cfg.pipelineResults that copy runs behind the next frame's work and the
 result arrives one frame late. `save_state` / `load_state` snapshot the
 whole state for a bitwise-exact resume.
 
-Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 13):
+Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 3):
 device meshes (meshPoints / meshFrames > 1).
 """
 
@@ -160,7 +162,7 @@ class PhotometricBundleAdjustment:
         self.device = require_device(device)
         if cfg.meshPoints > 1 or cfg.meshFrames > 1:
             raise _not_ported("meshPoints / meshFrames > 1 (device meshes)",
-                              "queue 1 item 13, multi-GPU")
+                              "queue 1 item 3, multi-GPU")
         self.backend = cfg.resolve_backend(self.device)
         self.camera_full = camera.to(self.device)
         lvl = cfg.refinementLevel

@@ -10,6 +10,9 @@ whole points-first elimination is batched dense algebra:
     S    (W, W, 6, 6) reduced camera system    -> one contraction over 3N
     solve 6W x 6W     dense Cholesky (W is the sliding window: tiny)
 
+`solve_dense_full` assembles and solves the whole (6W + 3N) system
+densely: the tests' oracle for the Schur step, never on the solve's path.
+
 Every per-point tensor keeps the point axis LAST, the JAX package's layout,
 so the two packages' tensors compare one for one. Invalid observations
 contribute exact zeros. Damping follows Ceres' LEVENBERG_MARQUARDT:
@@ -35,6 +38,28 @@ class NormalEq(NamedTuple):
     hcc: torch.Tensor    # (W, 6, 6)
     bp: torch.Tensor     # (3, N)   right-hand side -J^T r (point part)
     bc: torch.Tensor     # (W, 6)   right-hand side -J^T r (pose part)
+
+
+class NormalEqDense(NamedTuple):
+    """The same blocks point-major (the JAX package's dense layout)."""
+
+    hpp: torch.Tensor    # (N, 3, 3)
+    hpc: torch.Tensor    # (N, W, 3, 6)
+    hcc: torch.Tensor    # (W, 6, 6)
+    bp: torch.Tensor     # (N, 3)
+    bc: torch.Tensor     # (W, 6)
+
+
+def to_point_major(eq: NormalEq) -> NormalEqDense:
+    return NormalEqDense(hpp=eq.hpp.permute(2, 0, 1),
+                         hpc=eq.hpc.permute(3, 0, 1, 2), hcc=eq.hcc,
+                         bp=eq.bp.T, bc=eq.bc)
+
+
+def to_point_minor(eq: NormalEqDense) -> NormalEq:
+    return NormalEq(hpp=eq.hpp.permute(1, 2, 0),
+                    hpc=eq.hpc.permute(1, 2, 3, 0), hcc=eq.hcc,
+                    bp=eq.bp.T, bc=eq.bc)
 
 
 def build_normal_equations_compressed(res: CompressedResiduals) -> NormalEq:
@@ -185,3 +210,37 @@ def predicted_reduction(eq: NormalEq, lam: torch.Tensor, dc: torch.Tensor,
     term_c = torch.sum(dc * (lam * d_c * dc + eq.bc))
     term_p = torch.sum(dpt * (lam * d_p * dpt + eq.bp))
     return 0.5 * (term_c + term_p)
+
+
+def solve_dense_full(eq, lam: torch.Tensor, point_valid: torch.Tensor,
+                     frozen: torch.Tensor):
+    """Reference oracle (twin of the JAX package's `solve_dense_full`):
+    assemble the FULL damped (6W + 3N) system, with identity rows and
+    columns for frozen poses and invalid points and a 1e-8 jitter, and
+    solve it densely. O((6W + 3N)^3): tests only. Takes either layout;
+    returns (dc (W, 6), dp (N, 3))."""
+    if isinstance(eq, NormalEq):
+        eq = to_point_major(eq)
+    n, w = eq.hpp.shape[0], eq.hcc.shape[0]
+    dim = 6 * w + 3 * n
+    dtype, dev = eq.hcc.dtype, eq.hcc.device
+    h = torch.zeros((dim, dim), dtype=dtype, device=dev)
+    k6 = torch.arange(6, device=dev)
+    k3 = torch.arange(3, device=dev)
+    pose = 6 * torch.arange(w, device=dev)[:, None] + k6          # (W, 6)
+    point = 6 * w + 3 * torch.arange(n, device=dev)[:, None] + k3  # (N, 3)
+    h[pose[:, :, None], pose[:, None, :]] = _damped(eq.hcc, lam)
+    h[point[:, :, None], point[:, None, :]] = _damped(eq.hpp, lam)
+    rows = point[:, None, :, None]                                 # (N,1,3,1)
+    cols = pose[None, :, None, :]                                  # (1,W,1,6)
+    h[rows, cols] = eq.hpc
+    h[cols, rows] = eq.hpc                  # the transposed blocks
+    b = torch.cat([eq.bc.reshape(-1), eq.bp.reshape(-1)])
+    # Freeze gauge poses and invalid points by identity rows/cols.
+    fixed = torch.cat([frozen.repeat_interleave(6),
+                       (~point_valid).repeat_interleave(3)])
+    free = (~fixed).to(dtype)
+    h = h * free[:, None] * free[None, :] + torch.diag(fixed.to(dtype))
+    sol = torch.linalg.solve(
+        h + 1e-8 * torch.eye(dim, dtype=dtype, device=dev), b * free)
+    return sol[:6 * w].reshape(w, 6), sol[6 * w:].reshape(n, 3)

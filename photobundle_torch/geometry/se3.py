@@ -128,8 +128,11 @@ def _rt_to_mat(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype,
-                          device=r.device).expand(batch + (1, 4))
+    # [0, 0, 0, 1] made on the device: no host copy (a CUDA graph capture
+    # takes it, and it does not wait for the stream).
+    kw = dict(dtype=r.dtype, device=r.device)
+    bottom = torch.cat([torch.zeros(batch + (1, 3), **kw),
+                        torch.ones(batch + (1, 1), **kw)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

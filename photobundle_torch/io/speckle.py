@@ -1,9 +1,9 @@
 """Speckle filter of a disparity map (cv::filterSpeckles semantics).
 
 A copy of photobundle_tpu/native/__init__.py::speckle_filter_numpy, the
-pure-Python twin of the JAX package's native `pb_speckle_filter`: the port
-builds no native library yet (ROADMAP.md queue 1 item 10), so this is its
-only speckle filter (~1 s per 370x1226 frame on one host core).
+pure-Python twin of the JAX package's native `pb_speckle_filter`: the
+port's filter where its native runtime (photobundle_torch/native) does not
+build (~1 s per 370x1226 frame on one host core).
 """
 
 from __future__ import annotations

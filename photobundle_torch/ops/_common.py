@@ -39,6 +39,9 @@ def norm_code(norm: str) -> int:
     return NORMS.index(norm)
 
 
+_WRAPPERS = []     # every wrapper with a launch counter
+
+
 def reset_launches(wrapper, modes=None) -> None:
     """Zero a kernel wrapper's `launches`: its kernel launches by mode,
     {mode: count}. The modes are the normalization modes unless `modes`
@@ -46,10 +49,30 @@ def reset_launches(wrapper, modes=None) -> None:
     if modes is None:
         modes = getattr(wrapper, "launches", None) or NORMS
     wrapper.launches = dict.fromkeys(modes, 0)
+    if wrapper not in _WRAPPERS:
+        _WRAPPERS.append(wrapper)
 
 
 def count_launch(wrapper, mode: str) -> None:
     wrapper.launches[mode] += 1
+
+
+def launch_counts() -> dict:
+    """{(wrapper, mode): launches} of every counted wrapper."""
+    return {(w, m): n for w in _WRAPPERS for m, n in w.launches.items()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Put back counts taken by `launch_counts`."""
+    for (w, m), n in counts.items():
+        w.launches[m] = n
+
+
+def add_launches(counts: dict) -> None:
+    """Add {(wrapper, mode): launches}: a CUDA graph replay's, the
+    launches it captured (core/lm.py)."""
+    for (w, m), n in counts.items():
+        w.launches[m] += n
 
 
 def check_tensors(what: str, device, want: dict) -> None:

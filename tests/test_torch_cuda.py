@@ -118,10 +118,29 @@ def test_evaluation_on_card_matches_cpu_and_gather_path(cuda_device):
                                atol=1e-5, rtol=1e-4)
 
 
+def warm_up_evaluations() -> int:
+    """Kernel launches of the warm-ups lm_solve ran since lm.reset_runs():
+    a cold graph key runs one start evaluation and one body before its
+    capture (core/lm.py)."""
+    return 2 * lm.runs["warm_ups"]
+
+
+def evaluations(iterations) -> int:
+    """Evaluations lm_solve ran since lm.reset_runs() over solves that ran
+    `iterations` (a list): a start per solve and per warm-up, and a body
+    per iteration, per warm-up, and per no-op body run past an early end
+    before the next read of the termination code."""
+    runs = lm.runs
+    assert runs["starts"] == len(iterations) + runs["warm_ups"]
+    assert runs["bodies"] >= sum(iterations) + runs["warm_ups"]
+    return runs["starts"] + runs["bodies"]
+
+
 def test_solve_on_card_runs_through_the_kernel(cuda_device):
     cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
                                         device=cuda_device)
     before = pw.patch_stats.launches["mean"]
+    lm.reset_runs()
     _, _, stats = lm.lm_solve(cam, *args, off, huber_delta=0.05,
                               backend="cuda", max_iterations=4,
                               function_tolerance=0.0,
@@ -129,7 +148,7 @@ def test_solve_on_card_runs_through_the_kernel(cuda_device):
     torch.cuda.synchronize()
     assert int(stats.iterations) == 4
     launches = pw.patch_stats.launches["mean"] - before
-    assert launches == int(stats.iterations) + 1
+    assert launches == int(stats.iterations) + 1 + warm_up_evaluations()
     assert float(stats.final_cost) < float(stats.initial_cost)
     assert torch.isfinite(stats.cost_log).all()
 
@@ -257,8 +276,10 @@ KERNELS = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats)
 @pytest.mark.parametrize("config", sorted(ENGINE_CONFIGS))
 def test_engine_on_card_runs_through_its_kernel(cuda_device, config):
     """The engine on a card: each window solve launches its configuration's
-    kernel, in its normalization mode, once per LM iteration plus once for
-    the initial point, and no other kernel or mode ever."""
+    kernel, in its normalization mode, once per evaluation (its body
+    replays, no-op ones past an early end included, plus its start, and
+    two for its graphs' warm-up when its key is cold), and no other
+    kernel or mode ever."""
     from photobundle_torch.config import PBAConfig
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
 
@@ -273,14 +294,16 @@ def test_engine_on_card_runs_through_its_kernel(cuda_device, config):
     assert pba.backend == "cuda" and pba.device.type == "cuda"
     for k in KERNELS:
         _common.reset_launches(k)
-    expected = 0
+    lm.reset_runs()
+    iterations = []
     for img, depth, t in zip(images, depths, poses):
         res = pba.add_frame(img, depth, t)
         if res is not None:
-            expected += res.iterations + 1
+            iterations.append(res.iterations)
             assert res.final_cost <= res.initial_cost
             assert np.isfinite(res.poses).all()
-    assert expected > 0
+    assert iterations
+    expected = evaluations(iterations)
     for k in KERNELS:
         want = {m: (expected if (k is mine and m == norm) else 0)
                 for m in _common.NORMS}
@@ -535,10 +558,12 @@ def test_sorted_solve_on_card_is_bitwise_the_unsorted_one(cuda_device,
     monkeypatch.setenv("PB_SORTED_DISPATCH", "1")
     before = (pw.sorted_patch_stats.launches["mean"],
               pw.patch_stats.launches["mean"])
+    lm.reset_runs()
     t_s, x_s, st_s = lm.lm_solve(cam, *args, off, **kw)
     torch.cuda.synchronize()
     assert (pw.sorted_patch_stats.launches["mean"] - before[0],
-            pw.patch_stats.launches["mean"] - before[1]) == (5, 0)
+            pw.patch_stats.launches["mean"] - before[1]) == (
+        5 + warm_up_evaluations(), 0)
     assert torch.equal(t_s, t_u) and torch.equal(x_s, x_u)
     assert float(st_s.final_cost) == float(st_u.final_cost)
 
@@ -669,12 +694,14 @@ def test_ungrouped_solve_at_a_wide_patch_runs_k1(cuda_device, monkeypatch):
     monkeypatch.setenv("PB_GROUPED_STATS", "0")
     for k in (pw.patch_stats, smp.warp_patches):
         _common.reset_launches(k)
+    lm.reset_runs()
     _, _, st = lm.lm_solve(cam, *args, off, huber_delta=0.05,
                            backend="cuda", max_iterations=3,
                            function_tolerance=0.0, parameter_tolerance=0.0)
     torch.cuda.synchronize()
     assert smp.warp_patches.launches == {
-        "rows": int(st.iterations) + 1, "block": 0, "raw": 0}
+        "rows": int(st.iterations) + 1 + warm_up_evaluations(), "block": 0,
+        "raw": 0}
     assert sum(pw.patch_stats.launches.values()) == 0
 
 
@@ -769,10 +796,12 @@ def test_ungrouped_solve_on_card_runs_the_row_store(cuda_device,
                ps.scaled_stats, smp.warp_patches)
     for k in kernels:
         _common.reset_launches(k)
+    lm.reset_runs()
     _, _, st = lm.lm_solve(cam, *args, off, **kw)
     torch.cuda.synchronize()
     assert int(st.iterations) == 4
-    assert smp.warp_patches.launches == {"rows": 5, "block": 0, "raw": 0}
+    assert smp.warp_patches.launches == {
+        "rows": 5 + warm_up_evaluations(), "block": 0, "raw": 0}
     assert all(not any(k.launches.values()) for k in kernels[:4])
     assert torch.equal(st.accept_log, fused.accept_log)
     np.testing.assert_allclose(st.cost_log.cpu().numpy(),
@@ -950,3 +979,95 @@ def test_stereo_on_card_matches_cpu(cuda_device, matcher):
     both = v_cpu & v_gpu
     assert float(both.float().mean()) > 0.25
     assert float((d_cpu[both] - d_gpu[both]).abs().max()) <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# The window solve as CUDA graph replays (core/lm.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_KW = dict(huber_delta=0.05, backend="cuda", max_iterations=6,
+                function_tolerance=0.0, parameter_tolerance=0.0)
+
+
+@pytest.mark.parametrize("function_tolerance", [0.0, 0.05])
+def test_captured_solve_matches_the_eager_loop(cuda_device,
+                                               function_tolerance):
+    """The default (graph replays) against capture=False (the same body
+    in a host loop): the same iterations, accepted steps and termination,
+    costs within 1e-6; with a function tolerance the solve ends early."""
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
+                                        device=cuda_device)
+    kw = dict(GRAPH_KW, function_tolerance=function_tolerance,
+              max_iterations=12)
+    t_g, x_g, st_g = lm.lm_solve(cam, *args, off, **kw)
+    t_e, x_e, st_e = lm.lm_solve(cam, *args, off, capture=False, **kw)
+    torch.cuda.synchronize()
+    it = int(st_e.iterations)
+    assert int(st_g.iterations) == it
+    if function_tolerance:
+        assert it < 12 and int(st_e.termination) == 2
+    assert torch.equal(st_g.accept_log, st_e.accept_log)
+    assert int(st_g.termination) == int(st_e.termination)
+    np.testing.assert_allclose(st_g.cost_log[:it].cpu().numpy(),
+                               st_e.cost_log[:it].cpu().numpy(), rtol=1e-6)
+    assert torch.isnan(st_g.cost_log[it:]).all()
+    np.testing.assert_allclose(t_g.cpu().numpy(), t_e.cpu().numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(x_g.cpu().numpy(), x_e.cpu().numpy(),
+                               atol=1e-6)
+
+
+def test_graph_launches_are_counted_per_replay(cuda_device):
+    """Two calls on one key: the cold one warms up (one start and one
+    body), captures twice and replays; the warm one only replays. Each
+    counts K1 once per replay, as a profiler trace of the warm call
+    shows it launched."""
+    from torch.autograd import DeviceType
+
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=3,
+                                        device=cuda_device)
+    t_wc, x_world, *rest = args
+    lm.clear_graph_cache()
+    counts = []
+    for x0 in (x_world, x_world + 1e-4):
+        _common.reset_launches(pw.patch_stats)
+        lm.reset_runs()
+        _, _, st = lm.lm_solve(cam, t_wc, x0, *rest, off, **GRAPH_KW)
+        torch.cuda.synchronize()
+        counts.append((pw.patch_stats.launches["mean"], dict(lm.runs),
+                       int(st.iterations)))
+    (cold, cold_runs, it), (warm, warm_runs, it2) = counts
+    assert it == it2 == GRAPH_KW["max_iterations"]
+    assert (cold_runs["warm_ups"], cold_runs["captures"]) == (1, 2)
+    assert (warm_runs["warm_ups"], warm_runs["captures"]) == (0, 0)
+    assert cold == it + 1 + 2 == cold_runs["starts"] + cold_runs["bodies"]
+    assert warm == it + 1 == warm_runs["starts"] + warm_runs["bodies"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lm.lm_solve(cam, t_wc, x_world + 2e-4, *rest, off, **GRAPH_KW)
+        torch.cuda.synchronize()
+    traced = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "patch_stats_kernel" in e.key)
+    assert traced == it + 1
+
+
+def test_replays_and_the_body_make_no_host_sync(cuda_device, monkeypatch):
+    """A warm fixed-length solve whose readback interval covers it, and
+    one eager body, under set_sync_debug_mode('error'): no operation waits
+    for the card."""
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
+                                        device=cuda_device)
+    monkeypatch.setattr(lm, "LM_READBACK", GRAPH_KW["max_iterations"])
+    lm.lm_solve(cam, *args, off, **GRAPH_KW)              # capture
+    start, body = lm.program(*lm.setup(cam, *args, off, **GRAPH_KW))
+    state, _ = start()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, st = lm.lm_solve(cam, *args, off, **GRAPH_KW)
+        body(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(st.iterations) == GRAPH_KW["max_iterations"]

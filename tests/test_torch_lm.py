@@ -72,10 +72,9 @@ def jax_solves(problem):
             True: jax.device_get(with_priors(t0, x0, slot, q, anchor))}
 
 
-@pytest.mark.parametrize("backend", ["torch", "cuda"])
-@pytest.mark.parametrize("use_priors", [False, True])
-def test_lm_solve_matches_jax(problem, jax_solves, backend, use_priors):
-    t_ref, x_ref, ref = jax_solves[use_priors]
+def port_solve(problem, backend, use_priors, readback, **kw):
+    """The port's solve of `problem` with LM_READBACK = `readback`: its
+    result and the host reads of the termination code it made."""
     cam, t0, x0, patch, ch, g, obs, off = port_problem(problem[0])
     extra = {}
     if use_priors:
@@ -84,9 +83,43 @@ def test_lm_solve_matches_jax(problem, jax_solves, backend, use_priors):
                                   5.0),
                      motion_prior_weight=3.0,
                      pose_prior=(torch.as_tensor(anchor), 2.0, 4.0))
-    t_out, x_out, stats = tlm.lm_solve(
-        cam, t0, x0, patch, ch, g, obs, torch.ones(N, dtype=torch.bool),
-        torch.as_tensor(_frozen()), off, backend=backend, **KW, **extra)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlm, "LM_READBACK", readback)
+        tlm.reset_runs()
+        out = tlm.lm_solve(
+            cam, t0, x0, patch, ch, g, obs, torch.ones(N, dtype=torch.bool),
+            torch.as_tensor(_frozen()), off, backend=backend,
+            **{**KW, **kw}, **extra)
+        return out, tlm.runs["readbacks"]
+
+
+def assert_bitwise(got, want):
+    """Every tensor of two nested tuples equal bit for bit (NaN too)."""
+    got, want = tlm._flat(got), tlm._flat(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+                torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def every_body_read(problem):
+    """The port's solves reading the termination code after every body."""
+    return {(be, pr): port_solve(problem, be, pr, 1)[0]
+            for be in ("torch", "cuda") for pr in (False, True)}
+
+
+@pytest.mark.parametrize("readback", [1, 3, 8])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("use_priors", [False, True])
+def test_lm_solve_matches_jax(problem, jax_solves, every_body_read, backend,
+                              use_priors, readback):
+    t_ref, x_ref, ref = jax_solves[use_priors]
+    (t_out, x_out, stats), reads = port_solve(problem, backend, use_priors,
+                                              readback)
     out = convert.stats_to_numpy(stats)
     assert int(out.iterations) == int(ref.iterations) == KW["max_iterations"]
     np.testing.assert_array_equal(out.accept_log, ref.accept_log)
@@ -101,6 +134,63 @@ def test_lm_solve_matches_jax(problem, jax_solves, backend, use_priors):
     np.testing.assert_allclose(out.lambda_log, ref.lambda_log, rtol=1e-3)
     np.testing.assert_allclose(to_np(t_out), np.asarray(t_ref), atol=1e-4)
     np.testing.assert_allclose(to_np(x_out), np.asarray(x_ref), atol=1e-3)
+    # Extra bodies after the end change nothing: the result is bitwise the
+    # one read back after every body. A solve that runs to max_iterations
+    # reads back after every `readback` bodies but the last.
+    assert_bitwise((t_out, x_out, stats),
+                   every_body_read[(backend, use_priors)])
+    assert reads == -(-KW["max_iterations"] // readback) - 1
+
+
+EARLY = dict(KW, function_tolerance=0.1, max_iterations=12)
+
+
+@pytest.fixture(scope="module")
+def jax_early(problem):
+    """The JAX solve stopped by its function tolerance (3 of 12)."""
+    (cam, t0, x0, patch, ch, g, obs, off), _ = problem
+    return jax.device_get(jax.jit(lambda t, x: jlm.lm_solve(
+        cam, t, x, patch, ch, g, obs, jnp.ones((N,), bool),
+        jnp.asarray(_frozen()), off, backend="xla", **EARLY))(t0, x0))
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_early_termination_matches_jax(problem, jax_early, backend):
+    """A solve that stops before max_iterations, read back only after 8
+    bodies (more than it runs): the same iterations, termination and
+    accepted steps as the JAX solve, and its logs NaN past the end."""
+    _, _, ref = jax_early
+    (_, _, stats), reads = port_solve(problem, backend, False, 8, **EARLY)
+    out = convert.stats_to_numpy(stats)
+    it = int(ref.iterations)
+    assert it < EARLY["max_iterations"]
+    assert int(out.iterations) == it
+    assert int(out.termination) == int(ref.termination) == 2
+    np.testing.assert_array_equal(out.accept_log, ref.accept_log)
+    np.testing.assert_allclose(out.cost_log[:it], ref.cost_log[:it],
+                               rtol=1e-4)
+    for name in ("cost_log", "lambda_log", "step_log"):
+        assert np.isnan(getattr(ref, name)[it:]).all()
+        assert np.isnan(getattr(out, name)[it:]).all(), name
+    assert not out.accept_log[it:].any()
+    assert reads == 1 and tlm.runs["bodies"] == 8
+
+
+@pytest.mark.parametrize("ended_by", ["max_iterations", "function_tolerance"])
+def test_body_on_a_finished_state_is_a_no_op(problem, ended_by):
+    """One more body on a finished state returns it bitwise: after
+    max_iterations bodies, and after a termination code."""
+    cam, t0, x0, patch, ch, g, obs, off = port_problem(problem[0])
+    kw = KW if ended_by == "max_iterations" else EARLY
+    start, body = tlm.program(*tlm.setup(
+        cam, t0, x0, patch, ch, g, obs, torch.ones(N, dtype=torch.bool),
+        torch.as_tensor(_frozen()), off, backend="cuda", **kw))
+    state, begun = start()
+    for _ in range(kw["max_iterations"]):
+        state = body(state)
+    stats = tlm._stats(state, begun)
+    assert tlm.TERMINATION_NAMES[int(stats.termination)] == ended_by
+    assert_bitwise(body(state), state)
 
 
 def test_prior_cost_matches_jax(problem):

@@ -15,6 +15,7 @@ PKG = REPO / "photobundle_torch"
 def test_import_loads_no_jax():
     code = ("import sys, photobundle_torch, photobundle_torch.entry, "
             "photobundle_torch.convert, photobundle_torch.ops._build, "
+            "photobundle_torch.bench, "
             "photobundle_torch.config, photobundle_torch.core.engine, "
             "photobundle_torch.cli, photobundle_torch.io.kitti, "
             "photobundle_torch.io.png, photobundle_torch.io.speckle, "

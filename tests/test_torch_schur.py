@@ -131,3 +131,41 @@ def test_failed_factorization_gives_nan_step_not_an_exception():
         bp=torch.zeros((3, n)))
     dc, dp = tschur.solve_reduced(sys)
     assert bool(torch.isnan(dc).all())
+
+
+@pytest.mark.parametrize("layout", ["point_minor", "point_major"])
+def test_solve_dense_full_matches_jax(eqs, layout):
+    """The dense oracle on the JAX oracle's inputs, in either layout,
+    damped with lambda = 1: the two dense f32 LU solves then agree to
+    1e-5 (at system_inputs()' lambda = 1e-3 the system's conditioning
+    amplifies their different rounding to ~3e-4)."""
+    ref_eq, _ = eqs
+    _, pv, frozen, _ = system_inputs()
+    lam = np.float32(1.0)
+    port_eq = tschur.NormalEq(*(tt(v) for v in ref_eq))
+    jax_eq = ref_eq
+    if layout == "point_major":
+        port_eq = tschur.to_point_major(port_eq)
+        jax_eq = jschur.to_point_major(ref_eq)
+    dc_r, dp_r = jax.jit(jschur.solve_dense_full)(
+        jax_eq, jnp.asarray(lam), jnp.asarray(pv), jnp.asarray(frozen))
+    dc, dp = tschur.solve_dense_full(port_eq, tt(lam), tt(pv), tt(frozen))
+    np.testing.assert_allclose(to_np(dc), np.asarray(dc_r), rtol=1e-5)
+    np.testing.assert_allclose(to_np(dp), np.asarray(dp_r), rtol=1e-5)
+
+
+def test_schur_solve_matches_dense_oracle(eqs):
+    """tests/test_schur.py's check on the port: the Schur step equals the
+    full damped system solved densely, gauge and invalid points exactly
+    still."""
+    _, eq = eqs
+    lam, pv, frozen, _ = (tt(v) for v in system_inputs())
+    dc_s, dp_s = tschur.solve_reduced(
+        tschur.reduce_camera_system(eq, lam, pv, frozen))
+    dc_d, dp_d = tschur.solve_dense_full(eq, lam, pv, frozen)
+    np.testing.assert_allclose(to_np(dc_s), to_np(dc_d), atol=1e-4,
+                               rtol=1e-3)
+    np.testing.assert_allclose(to_np(dp_s), to_np(dp_d), atol=1e-4,
+                               rtol=1e-3)
+    assert float(dc_s[0].abs().max()) == float(dc_d[0].abs().max()) == 0.0
+    assert float(dp_d[[3, 7]].abs().max()) == 0.0
