@@ -108,14 +108,33 @@ Drives the port's paths at the repository's full size (370x1226 images,
      K8's full/own bitwise K1 at 64, 128 and 256 threads with its device
      time beside K1's, then each K8 variant (csrc/patch_ablate.cu, stage x
      window, 64 threads) against its plain version on phase 3's inputs
-     (the partial stages bitwise).
+     (the partial stages bitwise);
+ 16. batched windows (core/batched.py): K1's batch axis on phase 3's
+     inputs stacked for B = 4 windows (window b's uv shifted b x 0.37 px)
+     against its plain version and bitwise 4 single-window launches at R
+     = 2, 9 and 19, its device time at B = 1, 2 and 4; then the batched
+     engine in the default configuration on phase 6's scene, 8 frames,
+     B = 2 and 4 sequences each drifted from its own seed (1..B), against
+     B single engines fed the same frames (equal frame ids and point
+     counts, poses within 1e-3, final costs within 1e-3 relative: the
+     reference's oracle, tests/test_engine.py:376-385), K1 launched once
+     per evaluation for the whole batch (the batched solve's replays + 1,
+     + 2 per cold key); host syncs per batched solve, the cold key's
+     warm-up + capture ms, its graphs' memory and the card's idle share
+     over a warm batched solve per B; then
+     `tools/bench_batched` in this process at B = 1, 2, 4 and 8;
+ 17. multi-sequence refinement: `python -m photobundle_torch.multi` on
+     phase 12's KITTI-format sequence in configs/kitti_production.cfg,
+     units of 6 frames, with 2 spawned workers and then 1 inline: the
+     merged trajectories byte-identical.
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
 (torch.profiler, with L2 flushed before each launch) and its bound on this
 card, computed from the run's inputs (bytes at the HBM rate, f32
 operations at the f32 rate), and fails if a measured time is below the
-bound. Every engine run zeroes the
+bound's floor: the bound less the output bytes that L2 can still hold,
+dirty, when the kernel ends. Every engine run zeroes the
 launch counts just before it and checks, just after, that its kernel ran
 in its normalization mode once per evaluation of every solve and that no
 other kernel or mode ran (phase 12: the sorted kernel in every solve of
@@ -210,6 +229,16 @@ UNFUSED_RADIUS = 5
 K7_WIDE_RADII = (5, 9, 10, 19)
 K7_WIDEST_PTS = 512
 CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
+# Phase 16: the batch-axis K1 at B windows and these radii; the batched
+# engine at these batch sizes, held to single engines within the bounds
+# of the reference's oracle (tests/test_engine.py:376-385); the batched
+# bench tool at its batch sizes.
+BATCH_KERNEL, BATCH_RADII, BATCH_SHIFT_PX = 4, (2, 9, 19), 0.37
+BATCH_SIZES, BENCH_BATCHES = (2, 4), (1, 2, 4, 8)
+BATCH_POSE_ATOL, BATCH_COST_RTOL = 1e-3, 1e-3
+# Phase 17: the multi-sequence runs' units and their time limit.
+MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
+MULTI_DIR = os.path.join("build", "chip_smoke_multi")
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
 SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
@@ -219,6 +248,10 @@ SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
 # times are taken with the 50 MB L2 flushed before each launch (every input
 # then comes from HBM): a warm L2 serves a kernel's inputs faster than HBM.
 H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
+# L2 is write-back: a kernel may end with up to this much of its output in
+# L2, written to HBM after its end, so its device time can undercut the
+# bound (each output written once at the HBM rate) by that much.
+H100_L2_BYTES = 50 << 20
 L2_FLUSH_BYTES = 256 << 20        # written between timed launches
 # Operations per patch pixel (multiplies and adds, counted once each):
 # sampling value, d/dx and d/dy (bilinear: 3 planes x 4 taps; scaled:
@@ -509,7 +542,7 @@ def kernel_bound(texels, texel_bytes, valid_nm, channels, pr, sample, norm,
               + n_valid * (8 + (4 if with_rho else 0))
               + n_points * channels * p * 4 + 6 * w * n * 4)
     flops = n_valid * channels * p * (SAMPLE_FLOPS[sample] + NORM_FLOPS[norm])
-    return bytes_ops_bound(nbytes, flops)
+    return bytes_ops_bound(nbytes, flops, out_bytes=6 * w * n * 4)
 
 
 def compare_bitwise(got, want, valid_nm):
@@ -525,13 +558,25 @@ def compare_bitwise(got, want, valid_nm):
     return max_abs, 0.0, 0.0
 
 
-def bytes_ops_bound(nbytes, flops):
+def bytes_ops_bound(nbytes, flops, out_bytes):
     """Least time the card could take: the larger of the bytes over HBM
-    bandwidth and the f32 operations over the f32 rate."""
+    bandwidth and the f32 operations over the f32 rate. `out_bytes`, the
+    output's share of `nbytes`, sets the floor a measured time is held to
+    (`time_floor_us`)."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, out_bytes=out_bytes)
+
+
+def time_floor_us(bound) -> float:
+    """The least device time a launch can measure: the bound, less the
+    output bytes that L2 holds dirty when the kernel ends
+    (H100_L2_BYTES at most): their write to HBM comes after the kernel's
+    end and is not in its device time."""
+    hbm_bytes = bound["bytes"] - min(bound["out_bytes"], H100_L2_BYTES)
+    return max(hbm_bytes / H100_BYTES_PER_S,
+               bound["flops"] / H100_F32_FLOPS) * 1e6
 
 
 def samples_bound(texels, valid_nm, pr, layout):
@@ -542,11 +587,12 @@ def samples_bound(texels, valid_nm, pr, layout):
     n, w = valid_nm.shape
     n_valid = int(valid_nm.sum())
     k = 2 * pr + (2 if layout == "raw" else 1)
+    out_bytes = n * w * k * 3 * k * 4
     nbytes = (int(torch.unique(texels.reshape(-1)).numel()) * GRAD_TEXEL_BYTES
-              + n * w + n_valid * 8 + n * w * k * 3 * k * 4)
+              + n * w + n_valid * 8 + out_bytes)
     flops = 0 if layout == "raw" else (
         n_valid * (2 * pr + 1) ** 2 * SAMPLE_FLOPS["bilinear"])
-    return bytes_ops_bound(nbytes, flops)
+    return bytes_ops_bound(nbytes, flops, out_bytes)
 
 
 def k7_bound(texels, valid_nm, pr, cost_only):
@@ -563,7 +609,8 @@ def k7_bound(texels, valid_nm, pr, cost_only):
               + n * w + n_valid * 8 + n_points * p * 4 + w * n * 8 * 4)
     per_pixel = K7_COST_FLOPS if cost_only else (SAMPLE_FLOPS["bilinear"]
                                                  + NORM_FLOPS["mean"])
-    return bytes_ops_bound(nbytes, n_valid * p * per_pixel)
+    return bytes_ops_bound(nbytes, n_valid * p * per_pixel,
+                           out_bytes=w * n * 8 * 4)
 
 
 def ablate_bound(uv_nm, valid_nm, pr, stage, window, threads):
@@ -590,7 +637,8 @@ def ablate_bound(uv_nm, valid_nm, pr, stage, window, threads):
               + 6 * w * n * 4)
     per_obs = ABLATE_FLOPS[stage] * (
         (2 * pr + 2) ** 2 if stage == "loads" else p)
-    return bytes_ops_bound(nbytes, n_valid * per_obs)
+    return bytes_ops_bound(nbytes, n_valid * per_obs,
+                           out_bytes=6 * w * n * 4)
 
 
 def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
@@ -633,15 +681,17 @@ def kernel_phase(tag, label, kernel, plain, valid_nm, bound,
 
 def roofline_share(label, dev_us, ms, bound):
     """Bound over device time per launch (None if not measured). Fails
-    where a measured time, per launch or per call, is below its bound: the
-    bound's byte or operation count, or its rate, would then be wrong."""
-    bound_us = bound["bound_ms"] * 1e3
-    check(ms * 1e3 >= bound_us, f"{label}: {ms * 1e3:.3f} us per call is "
-          f"below its bound {bound_us:.3f} us")
+    where a measured time, per launch or per call, is below the bound's
+    floor (`time_floor_us`): the bound's byte or operation count, or its
+    rate, would then be wrong."""
+    bound_us, floor_us = bound["bound_ms"] * 1e3, time_floor_us(bound)
+    check(ms * 1e3 >= floor_us, f"{label}: {ms * 1e3:.3f} us per call is "
+          f"below its floor {floor_us:.3f} us (bound {bound_us:.3f} us)")
     if dev_us is None:
         return None
-    check(dev_us >= bound_us, f"{label}: device time {dev_us:.3f} us per "
-          f"launch is below its bound {bound_us:.3f} us")
+    check(dev_us >= floor_us, f"{label}: device time {dev_us:.3f} us per "
+          f"launch is below its floor {floor_us:.3f} us (bound "
+          f"{bound_us:.3f} us)")
     return bound_us / dev_us
 
 
@@ -1641,11 +1691,30 @@ def read_jsonl(path):
         return [json.loads(line) for line in f]
 
 
+def write_cli_sequence():
+    """Phase 12's sequence, written anew under CLI_DIR: phase 6's scene as
+    CLI_FRAMES KITTI-format stereo PNG pairs and a drifted VO input
+    (vo.txt). Returns (its root, ground-truth poses, VO poses)."""
+    from photobundle_torch import entry
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    data = os.path.join(CLI_DIR, "kitti")
+    _, gt = entry.write_kitti_sequence(
+        data, np.random.default_rng(SCENE_SEED), n_frames=CLI_FRAMES,
+        shape=(H, WI), fx=KITTI_FX, cx=KITTI_CX, cy=KITTI_CY,
+        baseline=KITTI_BASELINE, texture_scale=100.0 / KITTI_FX,
+        mark_misses=True)
+    vo = entry.drift_poses(np.random.default_rng(SCENE_SEED + 1), gt,
+                           DRIFT_TRANS, DRIFT_ROT, 1)
+    entry.write_poses(os.path.join(data, "vo.txt"), vo)
+    return data, gt, vo
+
+
 def cli_phase(kernels, dev) -> int:
     """Phase 12: the command line on a KITTI-format sequence on `dev`,
     three runs (see the module docstring). Returns the sorted kernel's
     launches in the counted run (b)."""
-    from photobundle_torch import cli, entry, native
+    from photobundle_torch import cli, native
     from photobundle_torch.core import lm
     from photobundle_torch.core.engine import PhotometricBundleAdjustment
     from photobundle_torch.image import stereo as stereo_mod
@@ -1654,18 +1723,9 @@ def cli_phase(kernels, dev) -> int:
     from photobundle_torch.io.speckle import speckle_filter_numpy
     from photobundle_torch.ops import patch_warp as pw
 
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    data = os.path.join(CLI_DIR, "kitti")
     t0 = time.perf_counter()
-    _, gt = entry.write_kitti_sequence(
-        data, np.random.default_rng(SCENE_SEED), n_frames=CLI_FRAMES,
-        shape=(H, WI), fx=KITTI_FX, cx=KITTI_CX, cy=KITTI_CY,
-        baseline=KITTI_BASELINE, texture_scale=100.0 / KITTI_FX,
-        mark_misses=True)
-    vo = entry.drift_poses(np.random.default_rng(SCENE_SEED + 1), gt,
-                           DRIFT_TRANS, DRIFT_ROT, 1)
+    data, gt, vo = write_cli_sequence()
     vo_path = os.path.join(data, "vo.txt")
-    entry.write_poses(vo_path, vo)
     say(f"phase 12 wrote a {CLI_FRAMES}-frame KITTI-format sequence "
         f"({H}x{WI} stereo PNGs) in {time.perf_counter() - t0:.1f} s")
 
@@ -1860,6 +1920,266 @@ def cli_phase(kernels, dev) -> int:
         f"(unaligned) VO input {ate_vo:.6f} m, refined {ate_ref:.6f} m")
     check(ate_ref < ate_vo, "the CLI did not lower the ATE")
     return launches
+
+
+def batched_inputs(planes, uv_nm, seen_nm, patch, pr: int, b: int):
+    """Phase 3's inputs for b windows on a leading batch axis: window k
+    reads its own copy of phase 3's planes at phase 3's uv + k x
+    BATCH_SHIFT_PX, valid where phase 3's observation is seen (observed,
+    in front) and inside K1's margins at radius pr; descriptors phase 3's
+    at its radius, else drawn (numpy seed SEED + pr) for every window."""
+    n = uv_nm.shape[0]
+    if pr != PATCH_RADIUS:
+        rng = np.random.default_rng(SEED + pr)
+        patch = torch.as_tensor(rng.standard_normal(
+            (n, 1, (2 * pr + 1) ** 2)).astype(np.float32),
+            device=uv_nm.device)
+    uv_b, valid_b = [], []
+    for k in range(b):
+        q = uv_nm + k * BATCH_SHIFT_PX
+        inside = ((q[..., 0] >= pr) & (q[..., 0] <= WI - 2 - pr)
+                  & (q[..., 1] >= pr) & (q[..., 1] <= H - 2 - pr))
+        uv_b.append(q)
+        valid_b.append(seen_nm & inside)
+    return (planes.expand(b, *planes.shape).contiguous(),
+            torch.stack(uv_b), torch.stack(valid_b),
+            patch.expand(b, *patch.shape).contiguous())
+
+
+def batched_rows(stats):
+    """(B, 6, W, N) sums as (6, W, B N), windows outermost along the
+    points (`compare_with_plain`'s layout)."""
+    b, six, w, n = stats.shape
+    return stats.permute(1, 2, 0, 3).reshape(six, w, b * n)
+
+
+def batched_kernel_phase(planes, uv_nm, seen_nm, patch) -> dict:
+    """Phase 16's kernel part: K1's batch axis against its plain version
+    and bitwise single-window launches at BATCH_RADII; its numbers for
+    the JSON line (R = 2, B = BATCH_KERNEL) with its device time per
+    launch at B = 1, 2 and BATCH_KERNEL."""
+    from photobundle_torch.ops import patch_warp as pw
+
+    b = BATCH_KERNEL
+    numbers = None
+    for pr in BATCH_RADII:
+        args = batched_inputs(planes, uv_nm, seen_nm, patch, pr, b)
+        valid = args[2].reshape(-1, W)                      # (B N, W)
+        got = pw.patch_stats(*args, pr)
+        singles = torch.stack([pw.patch_stats(*(a[k] for a in args), pr)
+                               for k in range(b)])
+        torch.cuda.synchronize()
+        check(torch.equal(got, singles), f"phase 16 K1 batch axis at R = "
+              f"{pr} is not bitwise {b} single-window launches")
+        if pr != PATCH_RADIUS:
+            max_abs, _, worst = compare_with_plain(
+                batched_rows(got),
+                batched_rows(pw.patch_stats_reference(*args, pr)), valid)
+            say(f"phase 16 K1 batch axis, B = {b}, R = {pr}: bitwise {b} "
+                f"single-window launches; vs plain max abs err "
+                f"{max_abs:.3e}, {worst:.3f} of the tolerance")
+            continue
+        bound = None
+        for k in range(b):
+            part = kernel_bound(
+                window_texels(args[1][k], args[2][k], pr, 2 * pr + 2, pr, H,
+                              WI), GRAD_TEXEL_BYTES, args[2][k], 1, pr,
+                "bilinear", "mean")
+            bound = part if bound is None else {
+                key: bound[key] + part[key]
+                for key in ("bytes", "flops", "out_bytes")}
+        bound = bytes_ops_bound(bound["bytes"], bound["flops"],
+                                bound["out_bytes"])
+        numbers = kernel_phase(
+            "16", f"K1 batch axis (B = {b}; bitwise {b} single-window "
+            f"launches)", lambda: pw.patch_stats(*args, pr),
+            lambda: pw.patch_stats_reference(*args, pr), valid, bound,
+            compare=lambda g, w_, v: compare_with_plain(
+                batched_rows(g), batched_rows(w_), v))
+        by_batch = {}
+        for size in (1, 2):
+            by_batch[size] = device_us_per_launch(
+                lambda: pw.patch_stats(*(a[:size] for a in args), pr))
+        by_batch[b] = numbers["device_us"]
+        say("phase 16 K1 batch axis device time per launch (L2 flushed): "
+            + ", ".join(f"B = {k} {us_text(v)}" for k, v in by_batch.items()))
+        numbers["device_us_by_batch"] = by_batch
+    return numbers
+
+
+def batched_phase(scene, kernels) -> int:
+    """Phase 16's engine part (see the module docstring). Returns K1's
+    launches in the batched engine's run at the largest batch size (the
+    slice's main path)."""
+    from photobundle_torch import entry
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.core import lm
+    from photobundle_torch.core.batched import \
+        BatchedPhotometricBundleAdjustment
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+    from photobundle_torch.ops import patch_warp as pw
+    from photobundle_torch.tools import bench_batched
+
+    cam, images, depths, gt = scene
+    cfg = PBAConfig()
+    n = DEFAULT_FRAMES
+    launches = None
+    for b in BATCH_SIZES:
+        inits = [entry.drift_poses(np.random.default_rng(k), gt, DRIFT_TRANS,
+                                   DRIFT_ROT, 1) for k in range(1, b + 1)]
+        singles = []
+        for k in range(b):
+            pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
+            singles.append([r for i in range(n) if (r := pba.add_frame(
+                images[i], depths[i], inits[k][i]))])
+        bp = BatchedPhotometricBundleAdjustment(cam, images[0].shape, cfg, b)
+        check(bp.device.type == "cuda" and bp.backend == "cuda",
+              f"batched engine on {bp.device}, backend {bp.backend}")
+        batched = [[] for _ in range(b)]
+        step_ms = []
+        torch.cuda.synchronize()
+        reset_all(kernels)
+        for i in range(n):
+            t0 = time.perf_counter()
+            rs = bp.add_frames([images[i]] * b, [depths[i]] * b,
+                               [init[i] for init in inits])
+            if rs is None:
+                continue
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, r in enumerate(rs):
+                batched[k].append(r)
+        counts = launch_counts(kernels)
+        runs = lm_runs()
+        k1 = counts.pop((kernel_label(pw.patch_stats), "mean"))
+        others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
+        its = [max(r.iterations for r in solve) for solve in zip(*batched)]
+        expected = expected_launches(its)
+        pose_d, cost_d = 0.0, 0.0
+        for ra_list, rb_list in zip(singles, batched):
+            check(len(ra_list) == len(rb_list) == n - W + 1,
+                  f"B = {b}: {len(ra_list)} single and {len(rb_list)} "
+                  f"batched window results")
+            for ra, rb in zip(ra_list, rb_list):
+                check(np.array_equal(ra.frame_ids, rb.frame_ids)
+                      and ra.num_points == rb.num_points,
+                      f"B = {b} window {ra.frame_ids.tolist()}: frame ids "
+                      f"or point counts differ ({ra.num_points} vs "
+                      f"{rb.num_points})")
+                check(bool(np.isfinite(rb.poses).all())
+                      and rb.final_cost <= rb.initial_cost,
+                      f"B = {b} window {rb.frame_ids.tolist()}: cost "
+                      f"{rb.initial_cost} -> {rb.final_cost}")
+                pose_d = max(pose_d, float(np.abs(ra.poses - rb.poses).max()))
+                cost_d = max(cost_d, abs(rb.final_cost / ra.final_cost - 1))
+        say(f"phase 16 batched engine, B = {b} (default configuration, "
+            f"{n} frames, drift seeds 1..{b}): {len(its)} batched solves, "
+            f"iterations per solve (the longest window) {its}; K1 launches "
+            f"{k1} (once per evaluation for the whole batch: replays + 1, "
+            f"+ 2 per cold key: {expected}; lm runs {runs}), other kernels "
+            f"and modes {others or 'none'} | against {b} single engines: "
+            f"largest pose difference {pose_d:.3e} (atol "
+            f"{BATCH_POSE_ATOL:g}), largest final-cost rel difference "
+            f"{cost_d:.3e} (rtol {BATCH_COST_RTOL:g}); frame ids and point "
+            f"counts equal | median ms per step (B frames ingested + the "
+            f"batched solve + the fetch) {statistics.median(step_ms):.1f}")
+        check(k1 == expected > 0, f"B = {b}: K1 launched {k1} times, "
+              f"expected {expected}")
+        check(not others, f"B = {b}: other kernels or modes ran: {others}")
+        check(pose_d <= BATCH_POSE_ATOL and cost_d <= BATCH_COST_RTOL,
+              f"B = {b}: batched results differ from single engines: poses "
+              f"{pose_d:.3e}, cost {cost_d:.3e}")
+        launches = k1
+        # One batched solve from the state the run ended in: cold key
+        # (warm-up + captures), its graphs' memory, warm, host syncs.
+        lm.clear_graph_cache()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        bp._optimize(bp.window, bp.points)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        t0 = time.perf_counter()
+        bp._optimize(bp.window, bp.points)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        syncs = host_syncs(lambda: bp._optimize(bp.window, bp.points))
+        busy = device_busy(lambda: bp._optimize(bp.window, bp.points))
+        say(f"phase 16 batched solve, B = {b}: cold key {cold_ms:.1f} ms, "
+            f"warm {warm_ms:.1f} ms (warm-up + captures {cold_ms - warm_ms:.1f}"
+            f" ms) | the key's graphs and buffers {graph_mib:.1f} MiB "
+            f"(memory_reserved after empty_cache) | host syncs per batched "
+            f"solve {syncs} (set_sync_debug_mode('warn')) | "
+            + busy_text(*busy, warm_ms, "batched solve"))
+        del bp
+    data = bench_batched.scene(12)
+    for b in BENCH_BATCHES:
+        t0 = time.perf_counter()
+        record = bench_batched.measure(b, "cuda", 12, data)
+        say(f"phase 16 bench_batched ({time.perf_counter() - t0:.1f} s, "
+            f"python -m photobundle_torch.tools.bench_batched): "
+            f"{json.dumps(record)}")
+        check(record["keyframes_per_s_total"] > 0,
+              f"bench_batched at B = {b} measured no rate")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def multi_phase(dev) -> None:
+    """Phase 17: `python -m photobundle_torch.multi` on phase 12's
+    sequence, units of MULTI_FRAMES_PER_UNIT frames, with 2 spawned
+    workers and then 1: the merged trajectories byte-identical."""
+    data = os.path.join(CLI_DIR, "kitti")
+    check(os.path.isfile(os.path.join(data, "vo.txt")),
+          "phase 12's sequence is missing")
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    poses = os.path.join(MULTI_DIR, "poses")
+    os.makedirs(poses)
+    shutil.copyfile(os.path.join(data, "vo.txt"),
+                    os.path.join(poses, "00.txt"))
+    texts, walls = {}, {}
+    for workers in (2, 1):
+        out = os.path.join(MULTI_DIR, f"out{workers}")
+        cmd = [sys.executable, "-m", "photobundle_torch.multi",
+               "--config", "configs/kitti_production.cfg", "--sequences",
+               "0", "--output-dir", out, "--workers", str(workers),
+               "--frames-per-unit", str(MULTI_FRAMES_PER_UNIT),
+               "--poses-dir", poses, "--device", dev.type,
+               f"dataDir={data}", f"maxNumPoints={N_PTS}"]
+        t0 = time.perf_counter()
+        # A process group of its own: a time-out stops it and its workers.
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=MULTI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise
+        walls[workers] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"multi --workers {workers} exited "
+              f"{proc.returncode}:\n{log[-4000:]}")
+        done = [f for f in os.listdir(os.path.join(out, ".sched"))
+                if f.endswith(".done")]
+        check(len(done) == CLI_FRAMES // MULTI_FRAMES_PER_UNIT,
+              f"multi --workers {workers}: {len(done)} units done")
+        with open(os.path.join(out, "00.txt")) as f:
+            texts[workers] = f.read()
+        claimed = sorted(set(re.findall(r"\[(w\d)\] refining unit", log)))
+        say(f"phase 17 python -m photobundle_torch.multi --workers "
+            f"{workers} --frames-per-unit {MULTI_FRAMES_PER_UNIT}: exit 0 in "
+            f"{walls[workers]:.1f} s, {len(done)} units done"
+            f"{f', claimed by {claimed}' if claimed else ''}, merged "
+            f"trajectory of {len(texts[workers].splitlines())} poses")
+    check(len(texts[1].splitlines()) == CLI_FRAMES,
+          "the merged trajectory does not cover the sequence")
+    check(texts[2] == texts[1], "the 2-worker merged trajectory is not "
+          "byte-identical to the 1-worker one")
+    say("phase 17 the 2-worker and 1-worker merged trajectories are "
+        "byte-identical")
 
 
 def main() -> None:
@@ -2201,6 +2521,14 @@ def main() -> None:
     # -- phase 15: the tools (the store benchmark, the K1 ablation K8) ---
     k8, tool_launches = tools_phase(planes, uv_nm, valid_nm, patch, kernels)
 
+    # -- phase 16: batched windows (K1's batch axis, the batched engine) --
+    k1b = batched_kernel_phase(planes, uv_nm,
+                               (obs.T & in_front).T.contiguous(), patch)
+    batched_launches = batched_phase(scene, kernels)
+
+    # -- phase 17: multi-sequence refinement -----------------------------
+    multi_phase(dev)
+
     pw_py = "photobundle_tpu/ops/patch_warp.py"
 
     def entry_json(name, source, replaces, launches, numbers):
@@ -2212,6 +2540,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry_json("patch_stats", "patch_warp.cu", f"{pw_py}:350", launches,
                    k1),
+        entry_json(f"patch_stats/batch{BATCH_KERNEL}", "patch_warp.cu",
+                   f"{pw_py}:577", batched_launches, k1b),
         entry_json("bicubic_stats", "patch_bicubic.cu", f"{pw_py}:176",
                    run6["launches"], k2),
         entry_json("scaled_stats", "patch_scaled.cu", f"{pw_py}:775",

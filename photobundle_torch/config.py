@@ -454,9 +454,11 @@ class PBAConfig:
         patchWarp='affine' has no kernel in either package: it resolves to
         'torch', as the JAX package runs it on XLA. Each kernel takes the
         patch radii of the reference's accelerator path
-        (`kernel_radii`); a kernel-path configuration outside its kernel's
+        (`kernel_radii`). Under 'auto' a warped grid past its kernel's
+        radii resolves to 'torch', as the reference's 'auto' resolves it to
+        XLA; every other kernel-path configuration outside its kernel's
         range raises ValueError rather than running the gather path
-        instead."""
+        instead, and so does 'cuda' there."""
         if self.solverBackend == "torch":
             return "torch"
         on_card = torch.device(device).type == "cuda"
@@ -473,6 +475,11 @@ class PBAConfig:
                                  "auto or torch")
             return "torch"
         name, radii = kernel
+        if (self.patchRadius not in radii and self.solverBackend == "auto"
+                and self.resolve_patch_warp() is not None):
+            # The reference's 'auto' runs a warped grid past its kernel's
+            # radii on XLA (photobundle_tpu/config.py, resolve_backend).
+            return "torch"
         if self.patchRadius not in radii:
             raise ValueError(f"{name} takes patchRadius {radii[0]}.."
                              f"{radii[-1]}, not {self.patchRadius}; set "

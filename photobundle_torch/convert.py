@@ -6,7 +6,10 @@ very same problem: `problem_from_numpy` takes a problem as numpy arrays
 `np.asarray`) and returns the port's; `stats_to_numpy` brings an
 `LMStats` back. `engine_state_from_numpy` / `engine_state_to_numpy` carry
 an engine's state (`PointTable`, `Window`) across, so that the port's
-ingest or solve can start from the JAX engine's exact state. This module
+ingest or solve can start from the JAX engine's exact state;
+`batched_engine_state_from_numpy` carries a batched engine's state (every
+field on a leading batch axis) across, and `engine_state_to_numpy` brings
+one back as it is. This module
 does not import jax: anything `np.asarray` accepts will do.
 """
 
@@ -58,3 +61,26 @@ def engine_state_to_numpy(points: PointTable, window: Window):
     arrays on the host."""
     return (PointTable(*(t.detach().cpu().numpy() for t in points)),
             Window(*(t.detach().cpu().numpy() for t in window)))
+
+
+def stack_engine_states(states):
+    """B (points, window) pairs of numpy arrays -> one pair with every
+    field stacked on a leading batch axis: the layout of a batched
+    engine's state (the JAX package's and core/batched.py's)."""
+    points, windows = zip(*states)
+    return (type(points[0])(*(np.stack(f) for f in zip(*points))),
+            type(windows[0])(*(np.stack(f) for f in zip(*windows))))
+
+
+def batched_engine_state_from_numpy(points, window, device="cpu"):
+    """A stacked engine state, every field with the same leading batch
+    axis B (the JAX batched engine's, fetched to numpy, or
+    `stack_engine_states`) -> the port's stacked `PointTable` and
+    `Window` on `device`, as `BatchedPhotometricBundleAdjustment` holds
+    them."""
+    sizes = {np.shape(getattr(points, k))[:1] for k in PointTable._fields}
+    sizes |= {np.shape(getattr(window, k))[:1] for k in Window._fields}
+    if len(sizes) != 1 or sizes == {()}:
+        raise ValueError(f"a stacked engine state has one leading batch "
+                         f"axis on every field, not {sorted(sizes)}")
+    return engine_state_from_numpy(points, window, device)

@@ -1,0 +1,164 @@
+"""Batched multi-sequence engine: B sliding windows on one card.
+
+Twin of photobundle_tpu/core/batched.py (BASELINE config 3, "concurrent
+sequence refinement"): B sequences share one camera and one frame clock
+(frame i of every sequence is ingested together, so the age clock is the
+shared ingest ordinal), and their engines' states, the point tables and
+window rings, are stacked along a leading axis.
+
+- Ingest runs the single engine's `_ingest` on each sequence's slice of
+  the stacked state, one sequence after the other, so it is bitwise the
+  single engine's (ROADMAP.md queues a batched ingest).
+- The window solves run as one program: each sequence's `_optimize_plan`
+  (core/engine.py: the coarse levels, the fine-cost guard, the
+  maxPoseCorrection gate, the reanchor of excluded points) advances in
+  lockstep, and each LM solve they ask for is one `lm.lm_solve_batched`
+  over all B windows: every window's start and body, the single solve's
+  operations, in one program that replays as two CUDA graphs per problem
+  key on a card. K1 launches once per evaluation for the whole batch
+  (its batch axis, ops/patch_warp.py); every window keeps its own lam,
+  nu, iteration count, termination and logs, and the host reads whether
+  every window has ended once per lm.LM_READBACK bodies.
+- One batched device-to-host copy returns the B WindowResults.
+
+Every window's results are bitwise those of a single engine fed the same
+frames: each step is the single engine's, on tensors of its layouts, and
+K1's batch axis sums each window as its own launch does. (A solve
+vmapped over the windows, the reference's route, rounds its batched
+reductions and products differently; on the card its point sets left
+the single engines' at the fourth window.)
+
+Results are returned when the windows' solves end (cfg.pipelineResults is
+not applied, as in the reference's batched engine). Device meshes
+(meshWindows / meshPoints > 1) are not ported (ROADMAP.md queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import PBAConfig
+from ..geometry.camera import Camera
+from . import lm
+from .engine import (PhotometricBundleAdjustment, WindowResult, _Fetch,
+                     _not_ported)
+
+
+def _slice(tree, b: int):
+    """Sequence b's copy of a stacked NamedTuple. A copy, not a view: a
+    view starts wherever sequence b's slice does, and a reduction's order
+    can depend on its data's alignment (the single engine's tensors are
+    contiguous, as these copies are)."""
+    return type(tree)(*(f[b].clone() for f in tree))
+
+
+class BatchedPhotometricBundleAdjustment:
+    """B concurrent sliding-window engines on one device.
+
+        bpba = BatchedPhotometricBundleAdjustment(camera, (H, W), cfg, B)
+        for i in range(n_frames):
+            results = bpba.add_frames(images_B, depths_B, t_init_B)
+            for b, r in enumerate(results or []):
+                trajectories[b][r.frame_ids] = r.poses
+
+    `device` holds the state and runs every step: the card by default (it
+    raises when there is none), device="cpu" for the CPU.
+    """
+
+    def __init__(self, camera: Camera, image_shape, cfg: PBAConfig,
+                 batch: int, device="cuda"):
+        cfg.validate()
+        if cfg.meshWindows > 1 or cfg.meshPoints > 1:
+            raise _not_ported("meshWindows / meshPoints > 1 (the batched "
+                              "engine over a device mesh)",
+                              "queue 1 item 3, multi-GPU")
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, not {batch}")
+        self.batch = batch
+        self.cfg = cfg
+        # A single engine provides the steps; its own state is unused.
+        self._proto = PhotometricBundleAdjustment(camera, image_shape, cfg,
+                                                  device=device)
+        self.device = self._proto.device
+        self.backend = self._proto.backend
+        self.window = lm.stacked([self._proto.window] * batch)
+        self.points = lm.stacked([self._proto.points] * batch)
+        self._frame_count = 0
+        self._ingest_seq = 0
+        self._window_count = 0
+
+    def add_frames(self, images, depths, t_wcs, depth_valids=None,
+                   frame_id: Optional[int] = None
+                   ) -> Optional[List[WindowResult]]:
+        """Ingest frame i of every sequence (B images, depths and initial
+        poses, as `PhotometricBundleAdjustment.add_frame` takes them);
+        returns B WindowResults when the windows are full (they fill in
+        lockstep), else None."""
+        b = self.batch
+        if not len(images) == len(depths) == len(t_wcs) == b:
+            raise ValueError(f"add_frames takes {b} images, depths and "
+                             f"poses")
+        valids = [None] * b if depth_valids is None else depth_valids
+        proto = self._proto
+        if frame_id is None:
+            frame_id = self._frame_count
+        self._frame_count = frame_id + 1
+        age_id = self._ingest_seq
+        self._ingest_seq += 1
+        count = self._window_count
+        self._window_count = min(count + 1, self.cfg.slidingWindowSize)
+
+        put = lambda a: torch.as_tensor(a).to(self.device)  # noqa: E731
+        windows, points = [], []
+        for k in range(b):
+            image, depth = proto._host_frame(images[k], depths[k], valids[k])
+            win, pts = proto._ingest(
+                _slice(self.window, k), _slice(self.points, k), put(image),
+                put(depth), put(np.asarray(t_wcs[k], np.float32)),
+                int(frame_id), age_id, count)
+            windows.append(win)
+            points.append(pts)
+        self.window, self.points = lm.stacked(windows), lm.stacked(points)
+
+        if self._window_count < self.cfg.slidingWindowSize:
+            return None
+        t0 = time.perf_counter()
+        t_pre = self.window.t_wc
+        self.window, self.points, stats, point_valid = self._optimize(
+            self.window, self.points)
+        fetched = _Fetch([*stats, self.window.frame_ids, self.window.t_wc,
+                          point_valid, self.points.x_world,
+                          self.points.ref_frame, t_pre]).result()
+        return [proto._make_result([a[k] for a in fetched], t0)
+                for k in range(b)]
+
+    def _optimize(self, window, points):
+        """The B window solves of the stacked state: each window's
+        `_optimize_plan`, their LM solves batched. Returns the stacked
+        (window, points, stats, point_valid); the inputs are not
+        modified."""
+        plans = [self._proto._optimize_plan(_slice(window, k),
+                                            _slice(points, k))
+                 for k in range(self.batch)]
+        requests = [next(plan) for plan in plans]
+        while True:
+            t_wc, x_world, stats = lm.lm_solve_batched(requests)
+            done, requests = [], []
+            for k, plan in enumerate(plans):
+                try:
+                    requests.append(plan.send(
+                        (t_wc[k].clone(), x_world[k].clone(),
+                         _slice(stats, k))))
+                except StopIteration as end:
+                    done.append(end.value)
+            if done:
+                # Every window's plan asks for the same solves (one
+                # configuration), so all end together.
+                assert len(done) == self.batch and not requests
+                windows, points, stats, valid = zip(*done)
+                return (lm.stacked(windows), lm.stacked(points),
+                        lm.stacked(stats), torch.stack(valid))

@@ -314,6 +314,21 @@ class PhotometricBundleAdjustment:
         refinement level on the stored descriptors. Returns (window,
         points, stats, point_valid), stats of the last level; the inputs
         are not modified."""
+        plan = self._optimize_plan(window, points)
+        request = next(plan)
+        while True:
+            args, options = request
+            try:
+                request = plan.send(lm.lm_solve(*args, **options))
+            except StopIteration as done:
+                return done.value
+
+    def _optimize_plan(self, window, points):
+        """`_optimize` as a generator: it yields each LM solve it needs,
+        as the (args, options) of `lm.lm_solve`, is sent that solve's
+        (t_wc, x_world, stats), and returns what `_optimize` returns. The
+        batched engine (core/batched.py) runs B windows' plans in
+        lockstep, their solves as one program."""
         cfg = self.cfg
         w = cfg.slidingWindowSize
         dev = self.device
@@ -331,13 +346,12 @@ class PhotometricBundleAdjustment:
         gradient_mode = cfg.resolve_gradient_mode()
         normalize = cfg.resolve_normalization()
 
-        def solve(cam, prior_scale, max_iterations, t_wc, x_world, patch,
-                  channels, grads, valid):
+        def request(cam, prior_scale, max_iterations, t_wc, x_world, patch,
+                    channels, grads, valid):
             prior = ((ref_slot, points.inv_depth_seed, prior_scale)
                      if cfg.depthPriorWeight > 0 else None)
-            return lm.lm_solve(
-                cam, t_wc, x_world, patch, channels, grads, points.obs,
-                valid, frozen, self.offsets,
+            return (cam, t_wc, x_world, patch, channels, grads, points.obs,
+                    valid, frozen, self.offsets), dict(
                 huber_delta=cfg.robustThreshold,
                 robust_kind=cfg.robustLoss,
                 gradient_mode=gradient_mode,
@@ -364,9 +378,9 @@ class PhotometricBundleAdjustment:
         for k in range(self._n_coarse, 0, -1):
             cam, patch, channels, grads, valid = self._coarse_level(
                 k, window, t_cur, x_cur, ref_slot, point_valid)
-            t_cur, x_cur, _ = solve(cam, self._prior_scale * 0.5 ** k,
-                                    cfg.coarseIterations, t_cur, x_cur,
-                                    patch, channels, grads, valid)
+            t_cur, x_cur, _ = yield request(
+                cam, self._prior_scale * 0.5 ** k, cfg.coarseIterations,
+                t_cur, x_cur, patch, channels, grads, valid)
         if self._n_coarse > 0:
             # Guard: a coarse level optimizes its own objective and can
             # walk the fine one up (few or fresh points). Keep the warm
@@ -399,10 +413,9 @@ class PhotometricBundleAdjustment:
             t_cur = torch.where(use_warm, t_cur, window.t_wc)
             x_cur = torch.where(use_warm, x_cur, points.x_world)
 
-        t_wc, x_world, stats = solve(self.camera, self._prior_scale,
-                                     cfg.maxIterations, t_cur, x_cur,
-                                     points.patch, window.channels,
-                                     window.grads, point_valid)
+        t_wc, x_world, stats = yield request(
+            self.camera, self._prior_scale, cfg.maxIterations, t_cur, x_cur,
+            points.patch, window.channels, window.grads, point_valid)
         # Window trust gate: a solve that moved any pose implausibly far
         # is rejected whole and the VO initialization kept. The coarse
         # levels exist to allow larger corrections: the gate scales by 2^k.
@@ -438,23 +451,7 @@ class PhotometricBundleAdjustment:
         t_wc:  (4, 4) initial world-from-camera pose (e.g. from VO).
         frame_id: global frame index (defaults to an internal counter).
         """
-        # Host -> device transport: 8-bit images travel as uint8 (cfg
-        # transportCompress), validity rides inside depth (invalid = 0).
-        image = np.asarray(image)
-        if image.dtype != np.uint8:
-            image = np.asarray(image, np.float32)
-            if image.max() > 2.0:  # 8-bit-scaled input
-                image = image * np.float32(1.0 / 255.0)
-            if self.cfg.transportCompress:
-                s = image * 255.0
-                r = np.rint(s)
-                if np.abs(s - r).max() < 1e-3:  # exactly 8-bit data
-                    image = r.astype(np.uint8)
-        depth = np.asarray(depth, np.float32)
-        if depth_valid is not None:
-            depth = np.where(depth_valid, depth, 0.0)
-        if self.cfg.transportDepth16:
-            depth = depth.astype(np.float16)
+        image, depth = self._host_frame(image, depth, depth_valid)
         if frame_id is None:
             frame_id = self._frame_count
         self._frame_count = frame_id + 1
@@ -486,6 +483,27 @@ class PhotometricBundleAdjustment:
         prev, self._pending = self._pending, (fetch, t0)
         return None if prev is None else self._make_result(prev[0].result(),
                                                            prev[1])
+
+    def _host_frame(self, image, depth, depth_valid=None):
+        """(image, depth) as they travel to the device: 8-bit images as
+        uint8 (cfg transportCompress), validity inside depth (invalid = 0,
+        f16 under cfg transportDepth16)."""
+        image = np.asarray(image)
+        if image.dtype != np.uint8:
+            image = np.asarray(image, np.float32)
+            if image.max() > 2.0:  # 8-bit-scaled input
+                image = image * np.float32(1.0 / 255.0)
+            if self.cfg.transportCompress:
+                s = image * 255.0
+                r = np.rint(s)
+                if np.abs(s - r).max() < 1e-3:  # exactly 8-bit data
+                    image = r.astype(np.uint8)
+        depth = np.asarray(depth, np.float32)
+        if depth_valid is not None:
+            depth = np.where(depth_valid, depth, 0.0)
+        if self.cfg.transportDepth16:
+            depth = depth.astype(np.float16)
+        return image, depth
 
     def flush_result(self) -> Optional[WindowResult]:
         """The window result still in flight under pipelineResults (None

@@ -35,6 +35,13 @@ or replayed), warm-ups, captures and host reads of the termination code.
 A kernel launched once per evaluation thus launched runs["starts"] +
 runs["bodies"] times: per solve, its replays + 1, plus 2 per cold key.
 
+B solves of one configuration run as one program (`lm_solve_batched`,
+`batched_program`; the batched engine's, core/batched.py): start and
+body run every window's own start and body, written as generators
+(`program_steps`) that yield their K1 launch, so that one launch of K1's
+batch axis serves all B windows per evaluation; everything else is the
+single solve's, so each window's results are bitwise its own solve's.
+
 Lambda policy: Nielsen's adaptive damping (the policy Ceres uses):
   accept: lam *= max(1/3, 1 - (2*rho - 1)^3); nu = 2
   reject: lam *= nu; nu *= 2
@@ -54,10 +61,11 @@ from ..geometry import se3
 from ..geometry.camera import Camera
 from ..image import patches as patches_mod
 from ..ops import _common
+from ..ops import patch_warp as pw_mod
 from . import schur
 from .residuals import (CompressedResiduals, dispatch_key,
-                        evaluate_compressed, grouped_stats_from_env,
-                        make_cuda_ctx, patch_warp_ref_geometry,
+                        evaluate_compressed_steps, grouped_stats_from_env,
+                        make_cuda_ctx, patch_warp_ref_geometry, run_steps,
                         sorted_dispatch_order)
 
 # Bodies between two host reads of the termination code. Results do not
@@ -329,7 +337,20 @@ def program(p: LMProblem, c: LMConfig):
     initial evaluation; body(LMState) -> LMState one LM iteration, a no-op
     on a finished state. Both read the tensors of `p` when they run (a
     graph's static inputs), and body reads what the last start computed
-    (the loop invariants: sampling planes, masks, prior anchors)."""
+    (the loop invariants: sampling planes, masks, prior anchors). They run
+    `program_steps`' generators, each K1 launch on this window."""
+    start_steps, body_steps = program_steps(p, c)
+    return (lambda: run_steps(start_steps()),
+            lambda st: run_steps(body_steps(st)))
+
+
+def program_steps(p: LMProblem, c: LMConfig):
+    """`program`'s start and body as generator functions: each yields the
+    K1 launch of its evaluation (residuals.KernelCall, for the cuda
+    backend's fixed bilinear grid), is sent the sums, and returns what
+    `program`'s returns. `start_steps(ctx)` takes a prebuilt sampling
+    context of the cuda backend (`batched_program` passes window b's view
+    of planes built for all its windows); by default it builds its own."""
     cam = Camera(*p.cam)
     max_it = c.max_iterations
     wm = c.motion_prior_weight
@@ -342,19 +363,17 @@ def program(p: LMProblem, c: LMConfig):
                    else (*p.depth_prior, c.depth_weight))
     inv = {}                     # the loop invariants, set by start()
 
-    def eval_stats(t, x) -> CompressedResiduals:
+    def eval_stats(t, x):
         pw = None
         if c.patch_warp is not None:
             pw = (c.patch_warp,
                   *patch_warp_ref_geometry(t, x, p.warp_ref_slot))
-        return evaluate_compressed(cam, t, x, p.patch, p.channels, p.grads,
-                                   inv["obs"], p.offsets, c.huber_delta,
-                                   c.gradient_mode, depth_prior=depth_prior,
-                                   backend=c.backend, ctx=inv["ctx"],
-                                   normalize=c.normalize,
-                                   robust_kind=c.robust_kind, patch_warp=pw,
-                                   point_order=p.point_order,
-                                   grouped_stats=c.grouped_stats)
+        return (yield from evaluate_compressed_steps(
+            cam, t, x, p.patch, p.channels, p.grads, inv["obs"], p.offsets,
+            c.huber_delta, c.gradient_mode, depth_prior=depth_prior,
+            backend=c.backend, ctx=inv["ctx"], normalize=c.normalize,
+            robust_kind=c.robust_kind, patch_warp=pw,
+            point_order=p.point_order, grouped_stats=c.grouped_stats))
 
     def prior_cost_terms(t):
         return prior_cost(t, motion_prior_weight=wm, rel0=inv["rel0"],
@@ -393,13 +412,14 @@ def program(p: LMProblem, c: LMConfig):
             bc = bc - w6 * r_abs
         return hd, coup, bc
 
-    def start():
+    def start(ctx=None):
         t_wc, x_world = p.t_wc, p.x_world
         dtype, dev = t_wc.dtype, t_wc.device
         # The cuda backend's planes (by gradient mode; the warped grid
         # reads the 'sampled' planes) are loop-invariant: built here.
-        inv["ctx"] = (make_cuda_ctx(p.channels, p.grads, c.gradient_mode)
-                      if c.backend == "cuda" else None)
+        if ctx is None and c.backend == "cuda":
+            ctx = make_cuda_ctx(p.channels, p.grads, c.gradient_mode)
+        inv["ctx"] = ctx
         inv["obs"] = p.obs_mask & p.point_valid[:, None]
         inv["rel0"] = None
         if use_motion:
@@ -407,7 +427,7 @@ def program(p: LMProblem, c: LMConfig):
                            else se3.se3_inverse(t_wc[:-1]) @ t_wc[1:])
         inv["w6"] = _twist_weights(wa_t, wa_r, t_wc)
         inv["slots"] = torch.arange(max_it, dtype=torch.int32, device=dev)
-        res = eval_stats(t_wc, x_world)
+        res = yield from eval_stats(t_wc, x_world)
         init_cost = res.cost + prior_cost_terms(t_wc)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         nan = torch.full((max_it,), torch.nan, dtype=dtype, device=dev)
@@ -446,7 +466,7 @@ def program(p: LMProblem, c: LMConfig):
 
         t_new = se3.retract_right(st.t_wc, dc)
         x_new = st.x_world + dp
-        res_new = eval_stats(t_new, x_new)
+        res_new = yield from eval_stats(t_new, x_new)
         new_cost = res_new.cost + prior_cost_terms(t_new)
 
         pred = torch.clamp(schur.predicted_reduction(eq, st.lam, dc, dp),
@@ -503,6 +523,88 @@ def program(p: LMProblem, c: LMConfig):
             accept_log=torch.where(slot, accept, st.accept_log))
 
     return start, body
+
+
+def stacked(trees) -> tuple:
+    """B NamedTuples of tensors (nested ones too) -> one, every tensor
+    stacked on a new leading axis."""
+    return type(trees[0])(*(
+        stacked(f) if isinstance(f[0], tuple) else torch.stack(f)
+        for f in zip(*trees)))
+
+
+def _lockstep(steps: list, planes):
+    """Run B windows' generators of evaluation steps together (the start
+    or the body of each window's `program_steps`). They ask for their K1
+    launches in lockstep (one configuration); each round of them is one
+    launch of K1's batch axis over `planes` (B, W, C, H, Wi, 4), of which
+    window b's calls read planes[b], and each window is sent a copy of
+    its slice of the sums, bitwise what its own launch returns. Returns
+    the windows' results."""
+    results, ended = [None] * len(steps), [False] * len(steps)
+
+    def advance(k, sums):
+        try:
+            return steps[k].send(sums)
+        except StopIteration as done:
+            results[k], ended[k] = done.value, True
+            return None
+
+    calls = [advance(k, None) for k in range(len(steps))]
+    while not all(ended):
+        if any(ended) or any(call.planes.data_ptr() != planes[k].data_ptr()
+                             for k, call in enumerate(calls)):
+            raise RuntimeError("the windows of a batched solve left "
+                               "lockstep")
+        first = calls[0]
+        sums = pw_mod.patch_stats(
+            planes, torch.stack([call.uv for call in calls]),
+            torch.stack([call.valid for call in calls]),
+            torch.stack([call.patch for call in calls]), first.patch_radius,
+            first.norm)
+        calls = [advance(k, sums[k].clone()) for k in range(len(steps))]
+    return results
+
+
+def batched_program(problems: tuple, c: LMConfig):
+    """(start, body) of B solves of one configuration as one program: the
+    state is the tuple of the windows' `LMState`s (start returns it and
+    the tuple of their `LMStart`s); start and body run every window's own
+    start and body (`program_steps`, the single solve's operations in its
+    order, on tensors of the single solve's layouts), with K1 launched
+    once per evaluation for all the windows over its batch axis
+    (`_lockstep`); the other kernels run once per window. Each window
+    keeps its own lam, nu, iteration count, termination and logs, and an
+    ended window passes through a body unchanged, so every window's
+    results are bitwise those of its own solve. The cuda backend's planes
+    are built for all windows at once (window b's view of them is its
+    sampling context)."""
+    steps = [program_steps(p, c) for p in problems]
+    kept = {}
+
+    def start():
+        planes = None
+        if c.backend == "cuda" and c.gradient_mode == "sampled":
+            planes = pw_mod.build_planes(
+                torch.stack([p.channels for p in problems]),
+                torch.stack([p.grads for p in problems]))
+        kept["planes"] = planes
+        out = _lockstep([start_steps(None if planes is None
+                                     else (c.gradient_mode, planes[k]))
+                         for k, (start_steps, _) in enumerate(steps)], planes)
+        states, begun = zip(*out)
+        return states, begun
+
+    def body(states: tuple) -> tuple:
+        return tuple(_lockstep([body_steps(st) for st, (_, body_steps)
+                                in zip(states, steps)], kept["planes"]))
+
+    return start, body
+
+
+def _all_ended(states: tuple) -> bool:
+    """The host read of a batched solve: every window has ended."""
+    return bool(torch.all(torch.stack([st.term for st in states]) != 0))
 
 
 def _drive(step, ended, max_iterations: int) -> None:
@@ -599,11 +701,13 @@ def _capture(fn, what: str):
 
 class _Graphs:
     """One problem key's captured start and body, and their static
-    inputs (copies of the first call's tensors, same strides)."""
+    inputs (copies of the first call's tensors, same strides). `make`
+    builds (start, body) from the problem (`program`, or
+    `batched_program` from a tuple of B problems)."""
 
-    def __init__(self, spec, leaves: list, config: LMConfig):
+    def __init__(self, spec, leaves: list, make):
         self.inputs = [t.clone() for t in leaves]
-        start, body = program(_rebuild(spec, iter(self.inputs)), config)
+        start, body = make(_rebuild(spec, iter(self.inputs)))
         dev = leaves[0].device
         # Warm-up on a side stream: what runs once per process or per
         # kernel (library load, shared-memory attributes, library
@@ -628,7 +732,7 @@ class _Graphs:
         self.body, _, self.body_launches = _capture(step, "body")
         self.out_spec = _leaves((self.state, self.begun), [])
 
-    def run(self, leaves: list, max_iterations: int):
+    def run(self, leaves: list, max_iterations: int, ended):
         for dst, src in zip(self.inputs, leaves):
             dst.copy_(src)
         self.start.replay()
@@ -640,7 +744,7 @@ class _Graphs:
             runs["bodies"] += 1
             _common.add_launches(self.body_launches)
 
-        _drive(step, lambda: bool(self.state.term), max_iterations)
+        _drive(step, lambda: ended(self.state), max_iterations)
         # Copies: the next call of this key overwrites the static state.
         out = [t.clone() for t in _flat((self.state, self.begun))]
         return _rebuild(self.out_spec, iter(out))
@@ -655,23 +759,33 @@ def clear_graph_cache() -> None:
     _GRAPHS.clear()
 
 
-def _run_captured(problem: LMProblem, config: LMConfig):
+def _program(problem, config: LMConfig):
+    """(start, body, the host read of the end) of one solve's problem or
+    of a tuple of B problems (`batched_program`)."""
+    if isinstance(problem, LMProblem):
+        return (*program(problem, config), lambda st: bool(st.term))
+    return (*batched_program(problem, config), _all_ended)
+
+
+def _run_captured(problem, config: LMConfig):
     leaves = []
     key = (config, _leaves(problem, leaves))
     dev = leaves[0].device
+    ended = _program(problem, config)[2]
     with torch.cuda.device(dev):
         graphs = _GRAPHS.get(key)
         if graphs is None:
-            graphs = _Graphs(key[1], leaves, config)
+            graphs = _Graphs(key[1], leaves,
+                             lambda p: _program(p, config)[:2])
             _GRAPHS[key] = graphs
             while len(_GRAPHS) > GRAPH_CACHE_SIZE:
                 _GRAPHS.popitem(last=False)
         _GRAPHS.move_to_end(key)
-        return graphs.run(leaves, config.max_iterations)
+        return graphs.run(leaves, config.max_iterations, ended)
 
 
-def _run_eager(problem: LMProblem, config: LMConfig):
-    start, body = program(problem, config)
+def _run_eager(problem, config: LMConfig):
+    start, body, ended = _program(problem, config)
     state, begun = start()
     runs["starts"] += 1
     cur = [state]
@@ -680,7 +794,7 @@ def _run_eager(problem: LMProblem, config: LMConfig):
         cur[0] = body(cur[0])
         runs["bodies"] += 1
 
-    _drive(step, lambda: bool(cur[0].term), config.max_iterations)
+    _drive(step, lambda: ended(cur[0]), config.max_iterations)
     return cur[0], begun
 
 
@@ -702,4 +816,33 @@ def lm_solve(*args, capture: bool | None = None, **options):
                          f"{problem.t_wc.device}")
     run = _run_captured if capture else _run_eager
     state, begun = run(problem, config)
+    return state.t_wc, state.x_world, _stats(state, begun)
+
+
+def lm_solve_batched(requests: list, capture: bool | None = None):
+    """B solves of one configuration as one program (`batched_program`),
+    the twin of the JAX package's vmapped solve. Returns (t_wc (B, W, 4,
+    4), x_world (B, N, 3), LMStats with a leading B axis); window b's
+    results are bitwise those of `lm_solve` on its request.
+
+    requests: B (args, options) pairs, each what `lm_solve` takes for one
+    window; shapes and options must agree. capture: as `lm_solve`'s. On a
+    card the start and the body replay as two CUDA graphs per problem key
+    (the B problems' shapes and options), K1 launched once per evaluation
+    for all the windows, and the host reads whether every window has
+    ended once per LM_READBACK bodies."""
+    setups = [setup(*args, **options) for args, options in requests]
+    config = setups[0][1]
+    if any(c != config for _, c in setups):
+        raise ValueError("the solves of a batch must share every option")
+    problems = tuple(p for p, _ in setups)
+    on_card = problems[0].t_wc.device.type == "cuda"
+    if capture is None:
+        capture = on_card
+    if capture and not on_card:
+        raise ValueError(f"capture=True needs tensors on a card, not "
+                         f"{problems[0].t_wc.device}")
+    run = _run_captured if capture else _run_eager
+    states, begun = run(problems, config)
+    state, begun = stacked(states), stacked(begun)
     return state.t_wc, state.x_world, _stats(state, begun)

@@ -50,6 +50,10 @@ Two backends:
   fixed grid's bilinear path with mean or no normalization samples through
   K4's row store (ops/patch_samples.warp_patches) and reduces in plain
   tensor ops, the JAX package's unfused branch.
+  `evaluate_compressed_steps` is the evaluation as a generator that
+  yields its K1 launch (`KernelCall`) and is sent the sums: a batched
+  solve (core/lm.py `batched_program`) launches K1 once for all its
+  windows; `evaluate_compressed` launches it on its own window.
 """
 
 from __future__ import annotations
@@ -530,6 +534,32 @@ def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
     )
 
 
+class KernelCall(NamedTuple):
+    """The K1 launch an evaluation's steps ask for
+    (`evaluate_compressed_steps`): ops/patch_warp.patch_stats' arguments
+    for one window."""
+
+    planes: torch.Tensor
+    uv: torch.Tensor
+    valid: torch.Tensor
+    patch: torch.Tensor
+    patch_radius: int
+    norm: str
+
+
+def run_steps(steps):
+    """Drive a generator of evaluation steps (`evaluate_compressed_steps`,
+    or a solve's start or body built on it, core/lm.py): launch each K1
+    call it yields on its own window and send the sums back. Returns the
+    generator's result."""
+    try:
+        call = next(steps)
+        while True:
+            call = steps.send(pw_mod.patch_stats(*call))
+    except StopIteration as done:
+        return done.value
+
+
 def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               obs_mask, huber_delta: float,
                               depth_prior: tuple | None, ctx,
@@ -537,11 +567,13 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               mode: str = "sampled",
                               patch_warp: tuple | None = None,
                               point_order=None,
-                              grouped_stats: bool = True
-                              ) -> CompressedResiduals:
+                              grouped_stats: bool = True):
     """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`):
     the fused kernel returns the six un-whitened sums per observation; the
-    prior row and the whitening are added here, outside it. Dispatch:
+    prior row and the whitening are added here, outside it. A generator:
+    the K1 launch is yielded as a `KernelCall` and its sums received
+    (`run_steps` launches it; a batched solve launches it once for all its
+    windows); it returns the CompressedResiduals. Dispatch:
 
       fixed grid, bilinear        -> patch_stats   (K1; affine: K4), or
                                      sorted_patch_stats with a point_order
@@ -621,10 +653,12 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     elif point_order is not None and mode == "sampled":
         stats = pw_mod.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
                                           point_order, norm=norm_mode)
+    elif mode == "bicubic":
+        stats = pb_mod.bicubic_stats(planes, uv_nm, valid_nm, patch, pr,
+                                     norm=norm_mode)
     else:
-        kernel = (pb_mod.bicubic_stats if mode == "bicubic"
-                  else pw_mod.patch_stats)
-        stats = kernel(planes, uv_nm, valid_nm, patch, pr, norm=norm_mode)
+        stats = yield KernelCall(planes, uv_nm, valid_nm, patch, pr,
+                                 norm_mode)
     g00, g01, g11, gxr, gyr, rr = stats                    # (W, N) each
     gtg = torch.stack([torch.stack([g00, g01], dim=1),
                        torch.stack([g01, g11], dim=1)], dim=1)  # (W,2,2,N)
@@ -704,19 +738,29 @@ def _evaluate_compressed_torch(cam, t_wc, x_world, patch, channels, grads,
                    valid, r_norm2, huber_delta, robust_kind)
 
 
-def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
-                        offsets, huber_delta: float,
-                        gradient_mode: str = "sampled",
-                        depth_prior: tuple | None = None,
-                        backend: str = "torch",
-                        ctx=None,
-                        normalize=True,
-                        robust_kind: str = "huber",
-                        patch_warp: tuple | None = None,
-                        point_order=None,
-                        grouped_stats: bool = True) -> CompressedResiduals:
+def evaluate_compressed(*args, **kwargs) -> CompressedResiduals:
     """Factored Gauss-Newton statistics of all (point, window-frame)
-    observations.
+    observations: `evaluate_compressed_steps` run to its end, each K1
+    launch on its own window (`run_steps`). Arguments as there."""
+    return run_steps(evaluate_compressed_steps(*args, **kwargs))
+
+
+def evaluate_compressed_steps(cam, t_wc, x_world, patch, channels, grads,
+                              obs_mask, offsets, huber_delta: float,
+                              gradient_mode: str = "sampled",
+                              depth_prior: tuple | None = None,
+                              backend: str = "torch",
+                              ctx=None,
+                              normalize=True,
+                              robust_kind: str = "huber",
+                              patch_warp: tuple | None = None,
+                              point_order=None,
+                              grouped_stats: bool = True):
+    """Factored Gauss-Newton statistics of all (point, window-frame)
+    observations, as a generator: it yields the K1 launch of the cuda
+    backend's fixed bilinear grid as a `KernelCall`, is sent its sums, and
+    returns the CompressedResiduals (the torch backend and the other
+    kernels yield nothing).
 
     Args:
       cam: Camera. t_wc: (W, 4, 4) window poses. x_world: (N, 3) points.
@@ -747,11 +791,11 @@ def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads, obs_mask,
         if gradient_mode not in CUDA_MODES:
             raise ValueError(f"cuda backend implements gradient_mode "
                              f"{CUDA_MODES}, not '{gradient_mode}'")
-        return _evaluate_compressed_cuda(
+        return (yield from _evaluate_compressed_cuda(
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
             huber_delta, depth_prior, ctx, normalize, robust_kind,
             mode=gradient_mode, patch_warp=patch_warp,
-            point_order=point_order, grouped_stats=grouped_stats)
+            point_order=point_order, grouped_stats=grouped_stats))
     if backend != "torch":
         raise ValueError(f"unknown backend '{backend}' (want one of "
                          f"{BACKENDS})")

@@ -65,6 +65,11 @@
 // centring before multiplying, channels summed in order, no atomics), only
 // where the texels are read from differs.
 //
+// A launch takes B windows of the same shapes on a grid axis (blockIdx.y;
+// the batched window solve, core/batched.py, runs one launch for all its
+// windows): each block row offsets every pointer to its window's slices
+// and runs the unchanged per-observation code.
+//
 // A second entry, pb_patch_stats_sorted, is K1's sort-reuse variant: the
 // same sums with observations visited in a sorted point order and each
 // block's union box staged in shared memory where it fits (see below).
@@ -100,6 +105,26 @@ constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 template <int R>
 using Plan = pb::Plan<R, kThreads>;
 
+// The batch axis (the twin of the grid axis that vmap of the JAX
+// package's pallas_call adds, photobundle_tpu/ops/patch_warp.py:577): the
+// block row blockIdx.y is a window of the launch, which reads and writes
+// its own slices of every tensor, planes (B, W, C, H, Wi), uv and valid
+// (B, N, W), patch (B, N, C, P) and out (B, 6, W, N), so the sums of each
+// window are bitwise those of a single-window launch on its slices.
+struct WindowOffsets {
+  long long planes;   // float4 texels
+  long long obs;      // uv, valid; out takes 6 * obs
+  long long patch;    // floats
+};
+
+__device__ __forceinline__ WindowOffsets window_offsets(int n, int w, int c,
+                                                        int h, int wi,
+                                                        int p) {
+  const long long b = blockIdx.y;
+  const long long obs = static_cast<long long>(n) * w;
+  return {b * w * c * h * wi, b * obs, b * n * c * p};
+}
+
 // K1 for R <= kMaxStagedRadius: the block's windows staged in shared
 // memory one channel at a time, then each thread's sums from its tile
 // window (thread o owns observation o of the block).
@@ -118,6 +143,12 @@ staged_patch_stats_kernel(const float4* __restrict__ planes,
   extern __shared__ float4 tile[];
   __shared__ long long base[PL::kObs];
   const long long total = static_cast<long long>(n) * w;
+  const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
   const long long idx =
       static_cast<long long>(blockIdx.x) * PL::kObs + threadIdx.x;
   const bool live = idx < total;
@@ -179,6 +210,12 @@ patch_stats_kernel(const float4* __restrict__ planes,
   const int r = R == pb::kRuntimeRadius ? radius : R;
   const int P = (2 * r + 1) * (2 * r + 1);
   const long long total = static_cast<long long>(n) * w;
+  const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -205,12 +242,12 @@ patch_stats_kernel(const float4* __restrict__ planes,
 
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
-            const void* patch, void* out, int n, int w, int c, int h, int wi,
-            int radius, cudaStream_t stream) {
+            const void* patch, void* out, int b, int n, int w, int c, int h,
+            int wi, int radius, cudaStream_t stream) {
   using PL = Plan<R>;
   const long long total = static_cast<long long>(n) * w;
-  const unsigned blocks =
-      static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs);
+  const dim3 blocks(static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs),
+                    static_cast<unsigned>(b));
   const auto* pl = static_cast<const float4*>(planes);
   const auto* q = static_cast<const float2*>(uv);
   const auto* ok = static_cast<const unsigned char*>(valid);
@@ -357,16 +394,17 @@ void launch_sorted(const void* planes, const void* uv, const void* valid,
 
 }  // namespace
 
+// b: windows of the launch (the batch axis, grid y; 1 for one window).
 extern "C" int pb_patch_stats(const void* planes, const void* uv,
                               const void* valid, const void* patch, void* out,
-                              int n, int w, int c, int h, int wi, int radius,
-                              int norm, void* stream) {
+                              int b, int n, int w, int c, int h, int wi,
+                              int radius, int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+            planes, uv, valid, patch, out, b, n, w, c, h, wi, radius, s);
       },
       kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());

@@ -35,6 +35,13 @@ Both kernels take patch radii `_common.FIXED_RADII` (1..19, the JAX
 package's fixed-grid limit); to R = 3, K1 stages each block's windows in
 shared memory, and above R = 9 both run one instance with a runtime
 radius.
+
+`patch_stats` also takes a leading batch axis of B windows of the same
+shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas call
+(photobundle_tpu/ops/patch_warp.py:577): one launch for all B windows,
+each window's sums bitwise those of its own unbatched launch. The batched
+solve (core/lm.py `lm_solve_batched`) launches it once per evaluation for
+all its windows.
 """
 
 from __future__ import annotations
@@ -110,7 +117,14 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     planes (W, C, H, Wi, 4) from `build_planes`; uv (N, W, 2) f32;
     valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2; norm one of
     ops/_common.NORMS. Returns (6, W, N) f32 rows [g00, g01, g11, gxr,
-    gyr, rr], un-whitened, exact zeros for invalid observations."""
+    gyr, rr], un-whitened, exact zeros for invalid observations. With a
+    leading batch axis (planes (B, W, C, H, Wi, 4), uv (B, N, W, 2), valid
+    (B, N, W), patch (B, N, C, P)) it returns (B, 6, W, N), each window's
+    rows as its unbatched call gives them."""
+    if planes.dim() == 6:
+        return torch.stack([
+            patch_stats_reference(*window, patch_radius, norm)
+            for window in zip(planes, uv, valid, patch)])
     n, w = valid.shape
     c = planes.shape[1]
     ps = 2 * patch_radius + 1
@@ -131,15 +145,18 @@ def _check(planes, uv, valid, patch, patch_radius: int):
             f"{FIXED_RADII[-1]}, not {patch_radius}: a window of {win} px "
             f"(3*{win} lanes) does not fit the reference's 128-lane panel "
             f"with a positive stride")
-    w, c, h, wi, four = planes.shape
-    n = uv.shape[0]
+    lead = tuple(planes.shape[:-5])          # () or (B,): the batch axis
+    w, c, h, wi, four = planes.shape[-5:]
+    n = uv.shape[-3] if uv.dim() >= 3 else -1
     ps = 2 * patch_radius + 1
     check_tensors("patch_stats", planes.device, {
-        "planes": (planes, torch.float32, (w, c, h, wi, 4)),
-        "uv": (uv, torch.float32, (n, w, 2)),
-        "valid": (valid, torch.bool, (n, w)),
-        "patch": (patch, torch.float32, (n, c, ps * ps))})
-    check_texels("patch_stats", planes, uv, patch_radius)
+        "planes": (planes, torch.float32, (*lead, w, c, h, wi, 4)),
+        "uv": (uv, torch.float32, (*lead, n, w, 2)),
+        "valid": (valid, torch.bool, (*lead, n, w)),
+        "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
+    # Window b's slices start b whole windows on: aligned as the first.
+    check_texels("patch_stats", planes[0] if lead else planes,
+                 uv[0] if lead else uv, patch_radius)
 
 
 def check_texels(what: str, planes, uv, patch_radius: int) -> None:
@@ -158,7 +175,7 @@ def _kernel():
     built = _build.library("patch_warp")
     fn = built.lib.pb_patch_stats          # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fs = built.lib.pb_patch_stats_sorted
@@ -181,13 +198,14 @@ def _raise_on(lib, err: int, what: str) -> None:
 def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
                 patch: torch.Tensor, patch_radius: int,
                 norm: str = "mean") -> torch.Tensor:
-    """The six Gauss-Newton sums per observation, (6, W, N) f32.
+    """The six Gauss-Newton sums per observation, (6, W, N) f32, or
+    (B, 6, W, N) for B windows on a leading batch axis.
 
     Same arguments and result as `patch_stats_reference`. CPU tensors run
     that plain version; CUDA tensors launch the kernel on the current
-    stream without synchronising (and raise if it cannot launch).
-    `patch_stats.launches` counts kernel launches by normalization
-    mode."""
+    stream without synchronising (and raise if it cannot launch), one
+    launch for all B windows. `patch_stats.launches` counts kernel
+    launches by normalization mode."""
     code = norm_code(norm)
     if planes.device.type == "cpu":
         return patch_stats_reference(planes, uv, valid, patch, patch_radius,
@@ -196,9 +214,15 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"patch_stats runs on cpu or cuda tensors, not "
                          f"{planes.device}")
     _check(planes, uv, valid, patch, patch_radius)
-    w, c, h, wi, _ = planes.shape
-    n = uv.shape[0]
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    lead = tuple(planes.shape[:-5])
+    b = lead[0] if lead else 1
+    w, c, h, wi, _ = planes.shape[-5:]
+    n = uv.shape[-3]
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"patch_stats takes 1..{MAX_BATCH} windows a "
+                         f"launch, not {b}")
+    out = torch.empty((*lead, 6, w, n), dtype=torch.float32,
+                      device=planes.device)
     if n * w == 0:
         return out
     lib = _kernel()
@@ -206,11 +230,15 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.pb_patch_stats(
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
-            patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
-            code, stream)
+            patch.data_ptr(), out.data_ptr(), b, n, w, c, h, wi,
+            patch_radius, code, stream)
     _raise_on(lib, err, "patch_stats")
     count_launch(patch_stats, norm)
     return out
+
+
+# Windows one launch takes: the grid's y extent.
+MAX_BATCH = 65535
 
 
 # Observations per block of the sorted kernel: a block takes this many

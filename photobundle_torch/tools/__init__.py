@@ -1,6 +1,8 @@
 """Command-line tools of the port: `bench_warp_kernel` (the store variants
-of `ops/patch_samples.warp_patches`) and `ablate_patch_stats` (K1's stages,
-`ops/patch_ablate`). Each runs on the card unless given `--device cpu`."""
+of `ops/patch_samples.warp_patches`), `ablate_patch_stats` (K1's stages,
+`ops/patch_ablate`) and `bench_batched` (total keyframes/s of the batched
+engine, core/batched.py). Each runs on the card unless given `--device
+cpu`."""
 
 from __future__ import annotations
 

@@ -121,14 +121,20 @@ def test_unported_kernel_raises_on_a_card(case, backend):
     ported resolve to the kernel path on a card now, at every patch radius
     their kernel takes (K4 and bicubic 1..19 and more, the warped grid
     1..9). What still raises there is a radius outside that range: a
-    ValueError, never a quiet fall back to the gather path."""
+    ValueError, never a quiet fall back to the gather path; except that
+    'auto' runs a warped grid past R = 9 on the gather path, as the
+    reference's 'auto' runs it on XLA."""
     kw, kernel = UNPORTED[case]
     cfg = tcfg.PBAConfig(solverBackend=backend, **kw)
     assert cfg.resolve_backend("cuda") == "cuda", kernel
     assert cfg.replace(patchRadius=5).resolve_backend("cuda") == "cuda"
     too_wide = 62 if kernel == "K2" else 20 if kernel == "K4" else 10
-    with pytest.raises(ValueError, match="patchRadius"):
-        cfg.replace(patchRadius=too_wide).resolve_backend("cuda")
+    if backend == "auto" and kernel in ("K3", "K5"):
+        assert cfg.replace(patchRadius=too_wide).resolve_backend(
+            "cuda") == "torch"
+    else:
+        with pytest.raises(ValueError, match="patchRadius"):
+            cfg.replace(patchRadius=too_wide).resolve_backend("cuda")
     # Off the card, and with solverBackend=torch on it, the plain path runs.
     assert cfg.replace(solverBackend="torch").resolve_backend("cuda") == "torch"
     if backend == "auto":
@@ -155,7 +161,9 @@ def test_wide_patch_radius_resolves_by_kernel(mode, radius):
     accelerator path: the fixed bilinear grid (K1, K4) 1..19, bicubic (K2)
     1..61, the warped grid (K3, K5) 1..9, under 'auto' and 'cuda'. Past
     its kernel's range a configuration raises, naming the range, and never
-    takes the gather path on a card."""
+    takes the gather path on a card; except a warped grid under 'auto',
+    which takes the gather path there, as the reference's 'auto' takes
+    XLA (photobundle_tpu/config.py, resolve_backend)."""
     kw = WIDE_MODES[mode]
     auto = tcfg.PBAConfig(patchRadius=radius, **kw)
     assert auto.resolve_backend("cpu") == "torch"
@@ -169,9 +177,12 @@ def test_wide_patch_radius_resolves_by_kernel(mode, radius):
         assert auto.replace(solverBackend="cuda").resolve_backend(
             "cuda") == "cuda"
         return
-    with pytest.raises(ValueError, match=f"takes patchRadius 1..{radii[-1]}"
-                                         f", not {radius}"):
-        auto.resolve_backend("cuda")
+    if kw.get("patchWarp") == "scale":
+        assert auto.resolve_backend("cuda") == "torch"
+    else:
+        with pytest.raises(ValueError, match=f"takes patchRadius "
+                                             f"1..{radii[-1]}, not {radius}"):
+            auto.resolve_backend("cuda")
     # solverBackend=cuda: validate() refuses it already, naming the range.
     with pytest.raises(ValueError, match=f"patchRadius 1..{radii[-1]}"):
         auto.replace(solverBackend="cuda").resolve_backend("cuda")

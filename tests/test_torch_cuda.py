@@ -1071,3 +1071,64 @@ def test_replays_and_the_body_make_no_host_sync(cuda_device, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(st.iterations) == GRAPH_KW["max_iterations"]
+
+
+# ---------------------------------------------------------------------------
+# Batched windows: K1's batch axis and the batched solve
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("radius", (2, 9, 19))
+@pytest.mark.parametrize("norm", _common.NORMS)
+def test_k1_batch_axis_is_bitwise_single_launches(cuda_device, radius, norm):
+    """B = 3 windows in one launch: each window's sums bitwise its own
+    launch's, within the kernel tolerance of the batched plain version;
+    one launch counted."""
+    rng = np.random.default_rng(radius)
+    b, w, c, h, wi, n = 3, 3, 2, 40, 70, 129
+    planes = torch.as_tensor(rng.standard_normal((b, w, c, h, wi, 4)),
+                             dtype=torch.float32, device=cuda_device)
+    uv = torch.as_tensor(rng.uniform(-3.0, 72.0, size=(b, n, w, 2)),
+                         dtype=torch.float32, device=cuda_device)
+    valid = torch.as_tensor(rng.uniform(size=(b, n, w)) > 0.2,
+                            device=cuda_device)
+    patch = torch.as_tensor(
+        rng.standard_normal((b, n, c, (2 * radius + 1) ** 2)),
+        dtype=torch.float32, device=cuda_device)
+    before = pw.patch_stats.launches[norm]
+    got = pw.patch_stats(planes, uv, valid, patch, radius, norm)
+    assert pw.patch_stats.launches[norm] == before + 1
+    singles = torch.stack([pw.patch_stats(planes[k], uv[k], valid[k],
+                                          patch[k], radius, norm)
+                           for k in range(b)])
+    want = pw.patch_stats_reference(planes, uv, valid, patch, radius, norm)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 6, w, n)
+    assert torch.equal(got, singles)
+    assert within_f32_tolerance(got, want, want.abs().amax())
+
+
+def test_batched_solve_is_bitwise_each_window(cuda_device):
+    """Three windows as one captured batched solve: each window's poses,
+    points and stats bitwise its own captured solve's; K1 launched once
+    per evaluation for all three (replays + 1, + 2 for the cold key)."""
+    cam, off, args = entry.make_problem(96, 4, 48, 80, 2, seed=2,
+                                        device=cuda_device)
+    t_wc, x_world, *rest = args
+    kw = dict(GRAPH_KW, function_tolerance=0.05, max_iterations=12)
+    requests = [((cam, t_wc, x_world + d, *rest, off), kw)
+                for d in (0.0, 1e-3, 2e-3)]
+    singles = [lm.lm_solve(*a, **o) for a, o in requests]
+    lm.clear_graph_cache()
+    _common.reset_launches(pw.patch_stats)
+    lm.reset_runs()
+    t_b, x_b, st_b = lm.lm_solve_batched(requests)
+    torch.cuda.synchronize()
+    for k, (t_s, x_s, st_s) in enumerate(singles):
+        assert torch.equal(t_b[k], t_s) and torch.equal(x_b[k], x_s)
+        for a, b in zip(st_b, st_s):                  # NaN-aware, bitwise
+            np.testing.assert_array_equal(a[k].cpu().numpy(),
+                                          b.cpu().numpy())
+    runs = lm.runs
+    assert (runs["warm_ups"], runs["captures"]) == (1, 2)
+    assert pw.patch_stats.launches["mean"] == runs["starts"] + runs["bodies"]
+    assert runs["bodies"] >= max(int(s.iterations) for _, _, s in singles)

@@ -20,7 +20,10 @@ def test_import_loads_no_jax():
             "photobundle_torch.cli, photobundle_torch.io.kitti, "
             "photobundle_torch.io.png, photobundle_torch.io.speckle, "
             "photobundle_torch.io.trajectory, photobundle_torch.image.stereo, "
-            "photobundle_torch.utils.logging, photobundle_torch.utils.timer; "
+            "photobundle_torch.utils.logging, photobundle_torch.utils.timer, "
+            "photobundle_torch.core.batched, photobundle_torch.multi, "
+            "photobundle_torch.parallel, "
+            "photobundle_torch.tools.bench_batched; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'photobundle_tpu'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -628,3 +628,54 @@ def test_engine_window_solve_with_warp_matches_jax(warp_solve, backend):
     assert float(got.final_cost) < float(got.initial_cost)
     np.testing.assert_allclose(tw.t_wc.numpy(), np.asarray(jw.t_wc),
                                atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def wide_warp_solve():
+    """`warp_solve` at patchRadius=10, past the warped-grid kernel's radii:
+    the JAX engine's 'auto' runs it on XLA."""
+    cam, images, depths, poses = make_sequence(np.random.default_rng(3),
+                                               n_frames=6, shape=(96, 144))
+    init = perturb_poses(np.random.default_rng(11), poses, trans_sigma=0.03,
+                         rot_sigma=0.003, keep_first=2)
+    cfg = small_cfg(maxIterations=8, functionTolerance=0.0,
+                    parameterTolerance=0.0, patchWarp="scale", patchRadius=10)
+    assert cfg.resolve_backend() == "xla"
+    jpba = JPBA(cam, images[0].shape, cfg)
+    trace = EngineTrace(jpba)
+    for i in range(5):
+        jpba.add_frame(images[i], depths[i], init[i])
+    return cam, images[0].shape, cfg, jpba, trace.solves[0]["before"]
+
+
+def test_engine_window_solve_with_wide_warp_matches_jax(wide_warp_solve):
+    """A warped grid at patchRadius=10 resolves to the gather path under
+    'auto' on a card, as the reference's 'auto' resolves it to XLA; one
+    window solve of it from the JAX engine's carried-over state, with
+    `test_engine_window_solve_with_warp_matches_jax`'s bounds."""
+    cam, shape, cfg, jpba, before = wide_warp_solve
+    tcfg = port_config(cfg)
+    assert tcfg.resolve_backend("cuda") == "torch"
+    with pytest.raises(ValueError, match="patchRadius 1..9"):
+        tcfg.replace(solverBackend="cuda").resolve_backend("cuda")
+    tpba = TPBA(port_camera(cam), shape, tcfg, device="cpu")
+    assert tpba.backend == "torch"
+    points_np, window_np = without_observations_at_margins(tpba, *before)
+    jw, jp, want, _ = jpba._optimize(
+        type(window_np)(*map(jnp.asarray, window_np)),
+        type(points_np)(*map(jnp.asarray, points_np)))
+    points, win = convert.engine_state_from_numpy(points_np, window_np)
+    tw, tp, got, _ = tpba._optimize(win, points)
+    assert int(got.iterations) == int(want.iterations) == 8
+    np.testing.assert_array_equal(got.accept_log.numpy(),
+                                  np.asarray(want.accept_log))
+    assert int(got.n_residuals) == int(want.n_residuals) > 0
+    np.testing.assert_allclose(float(got.initial_cost),
+                               float(want.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(got.final_cost), float(want.final_cost),
+                               rtol=1e-4)
+    assert float(got.final_cost) < float(got.initial_cost)
+    np.testing.assert_allclose(tw.t_wc.numpy(), np.asarray(jw.t_wc),
+                               atol=1e-4)
+    np.testing.assert_allclose(tp.x_world.numpy(), np.asarray(jp.x_world),
+                               atol=1e-3, rtol=1e-4)
