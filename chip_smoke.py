@@ -126,7 +126,27 @@ Drives the port's paths at the repository's full size (370x1226 images,
  17. multi-sequence refinement: `python -m photobundle_torch.multi` on
      phase 12's KITTI-format sequence in configs/kitti_production.cfg,
      units of 6 frames, with 2 spawned workers and then 1 inline: the
-     merged trajectories byte-identical.
+     merged trajectories byte-identical;
+ 18. device meshes (parallel/mesh.py, parallel/sharded.py) on the one
+     card: (a) NCCL at world size 1 in this process, captured:
+     ShardedLMSolver (points = 1) on phase 3's problem and the engine's
+     wrapper on a window of phase 6's scene, each bitwise the unsharded
+     captured solve, K1 launched as its replays count, the collectives per
+     body and ms per solve beside the unsharded solve's; (b) two gloo
+     ranks sharing the card (this script run as `chip_smoke.py mesh-rank
+     <k> <port>`), capture=False: points = 2 on phase 3's problem, frames
+     = 2 x points = 1 on a 4096 x 4 instance (both on phase 4's parity
+     observations from a start damped by MESH_LAMBDA), the engine with
+     meshPoints = 2 (default configuration, phase 6's scene, 8 frames)
+     and the batched engine with meshWindows = 2 (B = 2): every output
+     bitwise equal across the ranks, the solves within tests/
+     test_sharding.py's tolerances of the single-rank solve (poses 1e-4,
+     points 1e-3, cost 1e-3, equal iterations), the engine within 5e-5 of
+     the single engine, each batched window bitwise its single engine;
+     and the witness that MESH_LAMBDA's damping hides no fault of the
+     layouts: both solves again from phase 4's start (lambda 1), in f64
+     (plain evaluation) within 1e-8 of the single-rank f64 solve, the
+     f32 differences from that start printed beside them.
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
@@ -240,6 +260,21 @@ BATCH_POSE_ATOL, BATCH_COST_RTOL = 1e-3, 1e-3
 MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
 MULTI_DIR = os.path.join("build", "chip_smoke_multi")
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
+# Phase 18: device meshes. Two gloo ranks share the card (NCCL refuses two
+# ranks on one device); their solves are held to the single-rank solve
+# within tests/test_sharding.py's tolerances, on phase 4's parity
+# observations from a start damped by MESH_LAMBDA: the slice problem's
+# point depths are near-null directions (baselines of ~1 cm at 4-30 m),
+# which amplify summation-order differences between layouts (from an
+# initial lambda of 1 single points end ~1-2 cm apart in f32; from 100,
+# 6e-5 on the CPU); the engine within that file's 5e-5. The witness that
+# the layouts are right from lambda 1 too: the same solves in f64 within
+# MESH_F64_TOL of the single-rank f64 solve (~7e-11 on the CPU).
+MESH_DIR = os.path.join("build", "chip_smoke_mesh")
+MESH_RANKS, MESH_TIMEOUT_S, MESH_TIMED, MESH_LAMBDA = 2, 600, 3, 100.0
+MESH_F64_TOL = 1e-8
+MESH_POSE_TOL, MESH_POINT_TOL, MESH_COST_RTOL = 1e-4, 1e-3, 1e-3
+MESH_ENGINE_ATOL, MESH_FRAMES_W = 5e-5, 4
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
 SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
            "patch_stats", "patch_ablate")
@@ -2127,6 +2162,443 @@ def batched_phase(scene, kernels) -> int:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def leaves(tree) -> list:
+    """The tensors of nested tuples, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for item in tree for t in leaves(item)]
+
+
+def tree_difference(got, want):
+    """None if two nested tuples of tensors are equal bit for bit (NaN
+    where NaN), else the first leaf (its index) that differs."""
+    for k, (a, b) in enumerate(zip(leaves(got), leaves(want))):
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        if a.shape != b.shape or not bool(same.all()):
+            return f"leaf {k} of shape {tuple(a.shape)}"
+    return None
+
+
+def mesh_solver_kw(**extra) -> dict:
+    """Phase 4's solve (8 fixed iterations, K1) as a sharded solver's
+    options."""
+    return {**dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
+                   backend="cuda", max_iterations=ITERS,
+                   function_tolerance=0.0, parameter_tolerance=0.0), **extra}
+
+
+def collectives_per_body(run) -> float:
+    """Collectives one LM body issues (one per dtype of each
+    parallel/sharded.Collective call): those of run(ITERS) less those of
+    run(ITERS // 2), over ITERS // 2 (run: an eager solve of that many
+    iterations)."""
+    from photobundle_torch.parallel import sharded
+
+    apply = sharded.Collective.apply
+    count = [0]
+
+    def counting(self, *tensors):
+        count[0] += len({t.dtype for t in tensors})
+        return apply(self, *tensors)
+
+    sharded.Collective.apply = counting
+    try:
+        totals = []
+        for iters in (ITERS, ITERS // 2):
+            count[0] = 0
+            run(iters)
+            totals.append(count[0])
+    finally:
+        sharded.Collective.apply = apply
+    return (totals[0] - totals[1]) / (ITERS - ITERS // 2)
+
+
+def mesh_nccl_phase(dev, solve, cam, offsets, args, scene, drifted,
+                    kernels) -> int:
+    """Phase 18 (a): NCCL at world size 1 in this process. ShardedLMSolver
+    (points = 1) on phase 3's problem and the engine's wrapper on a window
+    of phase 6's scene (default configuration), both captured, each
+    bitwise the unsharded captured solve, K1 launched as its replays
+    count; collectives per body; ms per solve beside the unsharded
+    solve's. Returns K1's launches in the sharded solve."""
+    import torch.distributed as dist
+
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+    from photobundle_torch.ops import patch_warp as pw
+    from photobundle_torch.parallel import mesh as mesh_mod
+    from photobundle_torch.parallel import sharded
+
+    dist.init_process_group(mesh_mod.backend_for(dev),
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = mesh_mod.make_mesh(points=1)
+        solver = sharded.ShardedLMSolver(mesh, cam, offsets, n_points=N_PTS,
+                                         **mesh_solver_kw())
+        base = solve("cuda")
+        torch.cuda.synchronize()
+        reset_all(kernels)
+        got = solver(*args)
+        torch.cuda.synchronize()
+        k1 = pw.patch_stats.launches["mean"]
+        runs = lm_runs()
+        iters = int(got[2].iterations)
+        expected = expected_launches([iters])
+        check(k1 == expected and runs["captures"] == 2
+              and runs["warm_ups"] == 1,
+              f"sharded solve: K1 launched {k1} times, expected {expected};"
+              f" {runs}")
+        check(sum(sum(k.launches.values()) for k in kernels) == k1,
+              "another kernel or mode ran in the sharded solve")
+        differs = tree_difference(got, base)
+        check(differs is None, f"ShardedLMSolver (NCCL, world size 1) "
+              f"differs from the unsharded captured solve at {differs}")
+        per_body = collectives_per_body(
+            lambda n: sharded.ShardedLMSolver(
+                mesh, cam, offsets, n_points=N_PTS,
+                **mesh_solver_kw(max_iterations=n, capture=False))(*args))
+        # The engine's wrapper on the state after a window of the scene.
+        cam_s, images, depths, _ = scene
+        pba = PhotometricBundleAdjustment(cam_s, images[0].shape,
+                                          PBAConfig())
+        for i in range(W):
+            pba.add_frame(images[i], depths[i], drifted[i])
+        window, points = pba.window, pba.points
+        ref = pba._optimize(window, points)
+        wrapped = sharded.wrap_engine_optimize(pba._optimize, mesh)
+        torch.cuda.synchronize()
+        reset_all(kernels)
+        out = wrapped(window, points)
+        torch.cuda.synchronize()
+        eng_k1 = pw.patch_stats.launches["mean"]
+        eng_expected = expected_launches([int(out[2].iterations)])
+        check(eng_k1 == eng_expected, f"engine wrapper: K1 launched "
+              f"{eng_k1} times, expected {eng_expected}")
+        eng_differs = tree_difference(out, ref)
+        check(eng_differs is None, f"the engine's wrapper (NCCL, world size "
+              f"1) differs from the unsharded window solve at {eng_differs}")
+        times = {"unsharded": [], "sharded": []}
+        for _ in range(TIMED_SOLVES):
+            for name, fn in (("unsharded", lambda: solve("cuda")),
+                             ("sharded", lambda: solver(*args))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        say(f"phase 18 (a) NCCL at world size 1, captured: ShardedLMSolver "
+            f"(points = 1) on phase 3's problem bitwise the unsharded "
+            f"captured solve ({iters} iterations), K1 launches {k1} "
+            f"({iters} replays + 1, + 2 for the cold key's warm-up; lm runs "
+            f"{runs}); {per_body:g} collectives per body | the engine's "
+            f"wrapper (wrap_engine_optimize) on a window of phase 6's scene "
+            f"bitwise the unsharded window solve, K1 launches {eng_k1} | ms "
+            f"per solve (median of {TIMED_SOLVES}, interleaved): sharded "
+            f"{ms['sharded']:.3f}, unsharded {ms['unsharded']:.3f} (all: "
+            f"{' '.join(f'{t:.2f}' for t in times['sharded'])} / "
+            f"{' '.join(f'{t:.2f}' for t in times['unsharded'])})")
+        return k1
+    finally:
+        dist.destroy_process_group()
+
+
+def interior_obs(cam, t_wc, x_world, obs):
+    """obs inside both backends' margins by PARITY_MARGIN_PX (phase 4's
+    parity inputs)."""
+    from photobundle_torch.core import residuals as res_mod
+
+    uv = res_mod._observation_geometry_pm(cam, t_wc, x_world)[1]
+    m, pr = PARITY_MARGIN_PX, PATCH_RADIUS
+    inside = ((uv[:, 0] >= pr + m) & (uv[:, 0] <= WI - 2 - pr - m)
+              & (uv[:, 1] >= pr + m) & (uv[:, 1] <= H - 2 - pr - m)).T
+    return obs & inside
+
+
+def mesh_problems(dev, dtype=torch.float32):
+    """Phase 18 (b)'s two solve problems on `dev`: phase 3's (W frames)
+    and a MESH_FRAMES_W-frame instance of it, each with phase 4's parity
+    observations, in `dtype`. Returns [(cam, offsets, args), ...]."""
+    from photobundle_torch import entry
+
+    out = []
+    for w in (W, MESH_FRAMES_W):
+        cam, offsets, args = entry.make_problem(N_PTS, w, H, WI, PATCH_RADIUS,
+                                                seed=SEED, device=dev)
+        args = list(args)
+        args[5] = interior_obs(cam, args[0], args[1], args[5])
+        if dtype != torch.float32:
+            args = [a.to(dtype) if a.is_floating_point() else a
+                    for a in args]
+            cam = type(cam)(*(v.to(dtype) for v in cam))
+            offsets = offsets.to(dtype)
+        out.append((cam, offsets, tuple(args)))
+    return out
+
+
+def mesh_witness_kw(dtype) -> dict:
+    """The witness solves' options: phase 4's start (lambda 1); f64 takes
+    the plain evaluation (K1 is f32)."""
+    return mesh_solver_kw(initial_lambda=PARITY_LAMBDA, **(
+        {} if dtype == torch.float32 else {"backend": "torch"}))
+
+
+def mesh_rank(rank: int, port: int) -> None:
+    """One of phase 18 (b)'s gloo ranks on the card (this script run as
+    `chip_smoke.py mesh-rank <rank> <port>`): the points = 2 solve, the
+    (frames 2, points 1) solve, the engine with meshPoints = 2 and the
+    batched engine with meshWindows = 2 (B = 2), eager (gloo), on the
+    inputs in MESH_DIR; writes rank<k>.npz there."""
+    import torch.distributed as dist
+
+    from photobundle_torch import entry
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.core.batched import \
+        BatchedPhotometricBundleAdjustment
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+    from photobundle_torch.geometry.camera import Camera
+    from photobundle_torch.ops import _build, _common
+    from photobundle_torch.ops import patch_warp as pw
+    from photobundle_torch.parallel import make_mesh, sharded
+    from photobundle_torch.parallel import mesh as mesh_mod
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all(SOURCES)
+    mesh_mod.initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                                    device=dev, backend="gloo")
+    out, ms = {}, {}
+
+    def timed(name, fn):
+        result = fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+        return result
+
+    (cam, offsets, args), (cam4, off4, args4) = mesh_problems(dev)
+    kw = mesh_solver_kw(initial_lambda=MESH_LAMBDA)
+    points = sharded.ShardedLMSolver(make_mesh(points=MESH_RANKS), cam,
+                                     offsets, n_points=N_PTS, **kw)
+    frames = sharded.make_frames_sharded_solver(
+        sharded.make_frames_mesh(frames=MESH_RANKS, points=1), cam4, off4,
+        n_points=N_PTS, window_size=MESH_FRAMES_W, **kw)
+    _common.reset_launches(pw.patch_stats)
+    for name, solver, a in (("points", points, args),
+                            ("frames", frames, args4)):
+        t, x, st = timed(name, lambda: solver(*a))
+        out.update({f"{name}/t_wc": t, f"{name}/x": x,
+                    **{f"{name}/{k}": v for k, v in st._asdict().items()}})
+    out["k1_launches"] = torch.tensor(pw.patch_stats.launches["mean"])
+    for dtype in (torch.float64, torch.float32):
+        (cam, offsets, args), (cam4, off4, args4) = mesh_problems(dev, dtype)
+        kw = mesh_witness_kw(dtype)
+        witness = (
+            ("points", sharded.ShardedLMSolver(
+                make_mesh(points=MESH_RANKS), cam, offsets, n_points=N_PTS,
+                **kw), args),
+            ("frames", sharded.make_frames_sharded_solver(
+                sharded.make_frames_mesh(frames=MESH_RANKS, points=1), cam4,
+                off4, n_points=N_PTS, window_size=MESH_FRAMES_W, **kw),
+             args4))
+        for name, solver, a in witness:
+            t, x, st = solver(*a)
+            key = f"lambda1/{str(dtype)[6:]}/{name}"
+            out.update({f"{key}/t_wc": t, f"{key}/x": x,
+                        f"{key}/iterations": st.iterations,
+                        f"{key}/final_cost": st.final_cost})
+    with np.load(os.path.join(MESH_DIR, "scene.npz")) as data:
+        scene = {k: data[k] for k in data.files}
+    cam_s = Camera.create(*(float(v) for v in scene["cam"]), device=dev)
+    images, depths, gt = scene["images"], scene["depths"], scene["gt"]
+    pba = PhotometricBundleAdjustment(cam_s, images[0].shape,
+                                      PBAConfig(meshPoints=MESH_RANKS))
+    t0 = time.perf_counter()
+    results = [r for i in range(len(images)) if (
+        r := pba.add_frame(images[i], depths[i], scene["drifted"][i]))]
+    out["engine/poses"] = np.stack([r.poses for r in results])
+    out["engine/iterations"] = np.array([r.iterations for r in results])
+    ms["engine (8 frames)"] = (time.perf_counter() - t0) * 1e3
+    inits = [entry.drift_poses(np.random.default_rng(k), gt, DRIFT_TRANS,
+                               DRIFT_ROT, 1) for k in (1, 2)]
+    bp = BatchedPhotometricBundleAdjustment(
+        cam_s, images[0].shape, PBAConfig(meshWindows=MESH_RANKS), 2)
+    t0 = time.perf_counter()
+    out["batched/poses"] = torch.as_tensor(np.stack([
+        np.stack([r.poses for r in rs]) for i in range(len(images))
+        if (rs := bp.add_frames([images[i]] * 2, [depths[i]] * 2,
+                                [init[i] for init in inits]))]))
+    ms["batched engine (8 frames)"] = (time.perf_counter() - t0) * 1e3
+    out["ms"] = np.frombuffer(json.dumps(ms).encode(), np.uint8)
+    np.savez(os.path.join(MESH_DIR, f"rank{rank}.npz"),
+             **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()})
+    dist.destroy_process_group()
+
+
+def mesh_gloo_phase(dev, scene, drifted) -> None:
+    """Phase 18 (b): MESH_RANKS spawned gloo ranks sharing the card
+    (`mesh_rank`), capture=False. Their outputs must be bitwise equal, the
+    solves within the JAX tests' tolerances of the single-rank captured
+    solve on the card, the engine within MESH_ENGINE_ATOL of the single
+    engine, and each batched window bitwise its single engine's."""
+    from photobundle_torch import entry
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.core import lm
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+
+    cam_s, images, depths, gt = scene
+    n = DEFAULT_FRAMES
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    np.savez(os.path.join(MESH_DIR, "scene.npz"),
+             cam=np.array([float(v) for v in cam_s], np.float32),
+             images=np.stack(images[:n]), depths=np.stack(depths[:n]),
+             gt=gt[:n], drifted=drifted[:n])
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "mesh-rank", str(k),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True) for k in range(MESH_RANKS)]
+    try:
+        # The single-rank references while the ranks run.
+        refs = []
+        for cam, offsets, args in mesh_problems(dev):
+            refs.append(lm.lm_solve(cam, *args, offsets, **mesh_solver_kw(
+                initial_lambda=MESH_LAMBDA)))
+        witness_refs = {}
+        for dtype in (torch.float64, torch.float32):
+            for name, (cam, offsets, args) in zip(
+                    ("points", "frames"), mesh_problems(dev, dtype)):
+                witness_refs[f"{str(dtype)[6:]}/{name}"] = lm.lm_solve(
+                    cam, *args, offsets, **mesh_witness_kw(dtype))
+        pba = PhotometricBundleAdjustment(cam_s, images[0].shape,
+                                          PBAConfig())
+        results = [r for i in range(n) if (
+            r := pba.add_frame(images[i], depths[i], drifted[i]))]
+        engine = np.stack([r.poses for r in results])
+        engine_its = [r.iterations for r in results]
+        singles = []
+        for k in (1, 2):
+            init = entry.drift_poses(np.random.default_rng(k), gt,
+                                     DRIFT_TRANS, DRIFT_ROT, 1)
+            pba = PhotometricBundleAdjustment(cam_s, images[0].shape,
+                                              PBAConfig())
+            singles.append(np.stack([r.poses for i in range(n) if (
+                r := pba.add_frame(images[i], depths[i], init[i]))]))
+        logs = []
+        for proc in procs:
+            log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+            logs.append(log)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    for k, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"mesh rank {k} exited "
+              f"{proc.returncode}:\n{log[-4000:]}")
+    ranks = []
+    for k in range(MESH_RANKS):
+        with np.load(os.path.join(MESH_DIR, f"rank{k}.npz")) as data:
+            ranks.append({key: data[key] for key in data.files})
+    for key in ranks[0]:
+        if key != "ms":
+            check(all(np.array_equal(r[key], ranks[0][key], equal_nan=True)
+                      for r in ranks[1:]), f"mesh ranks differ in {key}")
+    r = ranks[0]
+    worst, fails = {}, []
+    for name, (t, x, st) in zip(("points", "frames"), refs):
+        t, x = t.cpu().numpy(), x.cpu().numpy()
+        dt = float(np.abs(r[f"{name}/t_wc"] - t).max())
+        dx = float(np.abs(r[f"{name}/x"] - x).max())
+        dc = abs(float(r[f"{name}/final_cost"]) / float(st.final_cost) - 1)
+        its = (int(r[f"{name}/iterations"]), int(st.iterations))
+        if not (its[0] == its[1]
+                and np.allclose(r[f"{name}/t_wc"], t, atol=MESH_POSE_TOL,
+                                rtol=MESH_POSE_TOL)
+                and np.allclose(r[f"{name}/x"], x, atol=MESH_POINT_TOL,
+                                rtol=MESH_POINT_TOL)
+                and dc <= MESH_COST_RTOL):
+            fails.append(f"{name} solve vs single: iterations {its}, poses "
+                         f"{dt:.3e}, points {dx:.3e}, cost {dc:.3e}")
+        worst[name] = (dt, dx, dc)
+    witness = {}
+    for key, (t, x, st) in witness_refs.items():
+        got = {k: r[f"lambda1/{key}/{k}"] for k in ("t_wc", "x",
+                                                      "iterations",
+                                                      "final_cost")}
+        dt = float(np.abs(got["t_wc"] - t.cpu().numpy()).max())
+        dx = float(np.abs(got["x"] - x.cpu().numpy()).max())
+        dc = abs(float(got["final_cost"]) / float(st.final_cost) - 1)
+        its = (int(got["iterations"]), int(st.iterations))
+        witness[key] = (dt, dx, dc)
+        if key.startswith("float64") and not (
+                its[0] == its[1] and max(dt, dx, dc) <= MESH_F64_TOL):
+            fails.append(f"{key} solve from lambda {PARITY_LAMBDA:g} vs "
+                         f"single: iterations {its}, poses {dt:.3e}, points "
+                         f"{dx:.3e}, cost {dc:.3e} (tolerance "
+                         f"{MESH_F64_TOL:g})")
+    same_shape = r["engine/poses"].shape == engine.shape
+    de = (float(np.abs(r["engine/poses"] - engine).max()) if same_shape
+          else float("inf"))
+    if de > MESH_ENGINE_ATOL:
+        fails.append(f"engine (meshPoints = {MESH_RANKS}) vs single: shapes "
+                     f"{r['engine/poses'].shape} {engine.shape}, poses "
+                     f"{de:.3e}, iterations {r['engine/iterations'].tolist()}"
+                     f" vs {engine_its}")
+    bitwise = [bool(np.array_equal(r["batched/poses"][:, b], single))
+               for b, single in enumerate(singles)]
+    if not all(bitwise):
+        fails.append(f"batched windows (meshWindows = {MESH_RANKS}) bitwise "
+                     f"their single engines: {bitwise}")
+    ms = json.loads(bytes(r["ms"]).decode())
+    say(f"phase 18 (b) {MESH_RANKS} gloo ranks sharing the card "
+        f"(capture=False), {wall:.1f} s: every output bitwise equal across "
+        f"ranks | points = {MESH_RANKS} on phase 3's problem and frames = "
+        f"{MESH_RANKS} x points = 1 on a {N_PTS} x {MESH_FRAMES_W} instance "
+        f"(phase 4's parity observations, initial lambda {MESH_LAMBDA:g}) vs "
+        f"the single-rank captured solve: "
+        + ", ".join(f"{k} poses {v[0]:.3e}, points {v[1]:.3e}, cost rel "
+                    f"{v[2]:.3e}" for k, v in worst.items())
+        + f" (tolerances {MESH_POSE_TOL:g}, {MESH_POINT_TOL:g}, "
+        f"{MESH_COST_RTOL:g}; equal iterations) | witness from phase 4's "
+        f"start (lambda {PARITY_LAMBDA:g}) vs the single-rank solve of its "
+        f"dtype (f64 held to {MESH_F64_TOL:g}, equal iterations; f32 "
+        f"printed): " + ", ".join(
+            f"{k} poses {v[0]:.3e}, points {v[1]:.3e}, cost rel {v[2]:.3e}"
+            for k, v in witness.items())
+        + f" | engine meshPoints = "
+        f"{MESH_RANKS}, default configuration, {n} frames: {len(engine)} "
+        f"windows (iterations {r['engine/iterations'].tolist()}, single "
+        f"{engine_its}), poses within {de:.3e} of the single engine (atol "
+        f"{MESH_ENGINE_ATOL:g}) | batched engine meshWindows = {MESH_RANKS},"
+        f" B = 2: windows bitwise their single engines {bitwise} | K1 "
+        f"launches per rank in the two solves {int(r['k1_launches'])} | ms "
+        f"on rank 0: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    check(not fails, "; ".join(fails))
+
+
 def multi_phase(dev) -> None:
     """Phase 17: `python -m photobundle_torch.multi` on phase 12's
     sequence, units of MULTI_FRAMES_PER_UNIT frames, with 2 spawned
@@ -2529,6 +3001,11 @@ def main() -> None:
     # -- phase 17: multi-sequence refinement -----------------------------
     multi_phase(dev)
 
+    # -- phase 18: device meshes (NCCL at world size 1; two gloo ranks) ---
+    mesh_launches = mesh_nccl_phase(dev, solve, cam, offsets, args, scene,
+                                    drifted, kernels)
+    mesh_gloo_phase(dev, scene, drifted)
+
     pw_py = "photobundle_tpu/ops/patch_warp.py"
 
     def entry_json(name, source, replaces, launches, numbers):
@@ -2542,6 +3019,8 @@ def main() -> None:
                    k1),
         entry_json(f"patch_stats/batch{BATCH_KERNEL}", "patch_warp.cu",
                    f"{pw_py}:577", batched_launches, k1b),
+        entry_json("patch_stats/mesh", "patch_warp.cu", f"{pw_py}:577",
+                   mesh_launches, k1),
         entry_json("bicubic_stats", "patch_bicubic.cu", f"{pw_py}:176",
                    run6["launches"], k2),
         entry_json("scaled_stats", "patch_scaled.cu", f"{pw_py}:775",
@@ -2581,4 +3060,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]))
+    else:
+        main()

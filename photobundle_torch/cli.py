@@ -8,7 +8,11 @@ refined trajectory.
         --poses vo.txt --output refined.txt [--device cpu] [key=value ...]
 
 Runs on the card unless `--device cpu` is given (and raises where there is
-none). Adds over the reference: JSONL solve records, a per-phase timing
+none). A configuration with meshPoints / meshFrames > 1 runs under
+`torchrun --nproc-per-node N python -m photobundle_torch.cli ...` (N =
+meshFrames x meshPoints; on cards rank k takes card LOCAL_RANK): every
+rank runs the frame loop, rank 0 alone writes the outputs, and at the end
+every rank's trajectory must be bitwise rank 0's. Adds over the reference: JSONL solve records, a per-phase timing
 report, checkpoint/resume (the trajectory written after every window, a
 restarted run resuming after the last completed one) and bitwise-exact
 engine snapshots (`--snapshot-every`).
@@ -27,6 +31,7 @@ import torch
 from .config import ConfigFile, PBAConfig
 from .core.engine import PhotometricBundleAdjustment, require_device
 from .io import kitti as kitti_mod
+from .parallel import mesh as mesh_mod
 from .io import trajectory as traj_mod
 from .utils import logging as log
 from .utils.timer import Timer
@@ -73,8 +78,13 @@ def run(cfg: PBAConfig, dataset, init_traj: traj_mod.Trajectory,
         resume: bool = False, progress: bool = True,
         points_dir: str | None = None, on_window=None,
         snapshot_every: int = 0, device="cuda"):
-    """The frame loop on `device`. Returns the refined Trajectory."""
+    """The frame loop on `device`. Returns the refined Trajectory. In a
+    torch.distributed world only rank 0 writes files (the engine's
+    snapshots included; every rank calls for them)."""
     timer = Timer()
+    lead = mesh_mod.is_lead()
+    if not lead:
+        jsonl_path = points_dir = None
     h, w = dataset.image_shape
     pba = PhotometricBundleAdjustment(dataset.camera, (h, w), cfg,
                                       device=device)
@@ -172,15 +182,16 @@ def run(cfg: PBAConfig, dataset, init_traj: traj_mod.Trajectory,
                              result.step_log[k],
                              "accept" if result.accept_log[k] else "reject")
         with timer.time("io.checkpoint"):
-            traj_mod.write_poses_kitti(output, refined)
             if snapshot_every > 0 and i % snapshot_every == 0:
                 pba.save_state(snap)
-            # tmp + os.replace: a concurrent reader (resume) never sees an
-            # empty or partial frame counter.
-            tmp = f"{ckpt}.tmp.{os.getpid()}"
-            with open(tmp, "w") as f:
-                f.write(str(i))
-            os.replace(tmp, ckpt)
+            if lead:
+                traj_mod.write_poses_kitti(output, refined)
+                # tmp + os.replace: a concurrent reader (resume) never
+                # sees an empty or partial frame counter.
+                tmp = f"{ckpt}.tmp.{os.getpid()}"
+                with open(tmp, "w") as f:
+                    f.write(str(i))
+                os.replace(tmp, ckpt)
         if on_window is not None:
             on_window()
 
@@ -220,9 +231,14 @@ def run(cfg: PBAConfig, dataset, init_traj: traj_mod.Trajectory,
         for i, a in anchor_of.items():
             rel = np.linalg.inv(init_traj.poses[a]) @ init_traj.poses[i]
             refined.poses[index[i]] = refined.poses[index[a]] @ rel
-    traj_mod.write_poses_kitti(output, refined)
-    if os.path.exists(ckpt):
-        os.remove(ckpt)
+    if torch.distributed.is_initialized():
+        mesh_mod.check_replicated(
+            torch.as_tensor(refined.poses, device=pba.device),
+            "the refined trajectory")
+    if lead:
+        traj_mod.write_poses_kitti(output, refined)
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
     log.info("timing report:\n%s", timer.report())
     return refined
 
@@ -241,7 +257,7 @@ def _profile(trace_dir: str):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device = require_device(args.device)
+    device = mesh_mod.initialize_from_env(require_device(args.device))
     cfg = load_config(args)
     dataset = kitti_mod.create_dataset(cfg, device=device)
     pose_file = args.poses or dataset.pose_file()

@@ -29,8 +29,14 @@ reductions and products differently; on the card its point sets left
 the single engines' at the fourth window.)
 
 Results are returned when the windows' solves end (cfg.pipelineResults is
-not applied, as in the reference's batched engine). Device meshes
-(meshWindows / meshPoints > 1) are not ported (ROADMAP.md queue 1 item 3).
+not applied, as in the reference's batched engine).
+
+Device meshes: cfg.meshWindows x cfg.meshPoints on an initialized
+torch.distributed world of that many ranks (parallel/mesh.py; without one
+it raises). Ingest stays replicated; a 'windows' group solves B /
+meshWindows windows as one program, each window's points split over the
+'points' group (parallel/sharded.wrap_batched_optimize), and the results
+are gathered, so `add_frames` returns all B results on every rank.
 """
 
 from __future__ import annotations
@@ -44,8 +50,7 @@ import torch
 from ..config import PBAConfig
 from ..geometry.camera import Camera
 from . import lm
-from .engine import (PhotometricBundleAdjustment, WindowResult, _Fetch,
-                     _not_ported)
+from .engine import PhotometricBundleAdjustment, WindowResult, _Fetch
 
 
 def _slice(tree, b: int):
@@ -72,17 +77,34 @@ class BatchedPhotometricBundleAdjustment:
     def __init__(self, camera: Camera, image_shape, cfg: PBAConfig,
                  batch: int, device="cuda"):
         cfg.validate()
-        if cfg.meshWindows > 1 or cfg.meshPoints > 1:
-            raise _not_ported("meshWindows / meshPoints > 1 (the batched "
-                              "engine over a device mesh)",
-                              "queue 1 item 3, multi-GPU")
         if batch < 1:
             raise ValueError(f"batch must be >= 1, not {batch}")
+        if cfg.meshFrames > 1:
+            raise ValueError("the batched engine shards over meshWindows "
+                             "and meshPoints; meshFrames must be 1")
+        mw, mp = cfg.meshWindows, cfg.meshPoints
+        sharded_cfg = mw > 1 or mp > 1
         self.batch = batch
         self.cfg = cfg
-        # A single engine provides the steps; its own state is unused.
-        self._proto = PhotometricBundleAdjustment(camera, image_shape, cfg,
-                                                  device=device)
+        # A single engine provides the steps; its own state is unused. It
+        # builds no mesh: the ('windows', 'points') wiring is done here.
+        self._proto = PhotometricBundleAdjustment(
+            camera, image_shape,
+            cfg.replace(meshPoints=1, meshWindows=1) if sharded_cfg else cfg,
+            device=device)
+        self._mesh = None
+        self._sharded_optimize = None
+        if sharded_cfg:
+            from ..parallel import mesh as mesh_mod
+            from ..parallel import sharded
+
+            if batch % mw != 0:
+                raise ValueError(
+                    f"batch {batch} not divisible by meshWindows {mw}")
+            self._mesh = mesh_mod.make_mesh(points=mp, windows=mw)
+            sharded.check_point_capacity(cfg.maxNumPoints, self._mesh)
+            self._sharded_optimize = sharded.wrap_batched_optimize(
+                self._optimize, self._mesh)
         self.device = self._proto.device
         self.backend = self._proto.backend
         self.window = lm.stacked([self._proto.window] * batch)
@@ -128,7 +150,8 @@ class BatchedPhotometricBundleAdjustment:
             return None
         t0 = time.perf_counter()
         t_pre = self.window.t_wc
-        self.window, self.points, stats, point_valid = self._optimize(
+        solve = self._sharded_optimize or self._optimize
+        self.window, self.points, stats, point_valid = solve(
             self.window, self.points)
         fetched = _Fetch([*stats, self.window.frame_ids, self.window.t_wc,
                           point_valid, self.points.x_world,
@@ -136,14 +159,16 @@ class BatchedPhotometricBundleAdjustment:
         return [proto._make_result([a[k] for a in fetched], t0)
                 for k in range(b)]
 
-    def _optimize(self, window, points):
-        """The B window solves of the stacked state: each window's
-        `_optimize_plan`, their LM solves batched. Returns the stacked
-        (window, points, stats, point_valid); the inputs are not
-        modified."""
+    def _optimize(self, window, points, shard_ctx=None):
+        """The window solves of the stacked state (its leading axis; a
+        mesh's windows group passes its own windows, their point rows, and
+        the points context `shard_ctx`): each window's `_optimize_plan`,
+        their LM solves batched. Returns the stacked (window, points,
+        stats, point_valid); the inputs are not modified."""
+        b = window.t_wc.shape[0]
         plans = [self._proto._optimize_plan(_slice(window, k),
-                                            _slice(points, k))
-                 for k in range(self.batch)]
+                                            _slice(points, k), shard_ctx)
+                 for k in range(b)]
         requests = [next(plan) for plan in plans]
         while True:
             t_wc, x_world, stats = lm.lm_solve_batched(requests)
@@ -158,7 +183,7 @@ class BatchedPhotometricBundleAdjustment:
             if done:
                 # Every window's plan asks for the same solves (one
                 # configuration), so all end together.
-                assert len(done) == self.batch and not requests
+                assert len(done) == b and not requests
                 windows, points, stats, valid = zip(*done)
                 return (lm.stacked(windows), lm.stacked(points),
                         lm.stacked(stats), torch.stack(valid))

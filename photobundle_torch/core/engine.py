@@ -18,12 +18,21 @@ cfg.pipelineResults that copy runs behind the next frame's work and the
 result arrives one frame late. `save_state` / `load_state` snapshot the
 whole state for a bitwise-exact resume.
 
-Not ported yet (raises NotImplementedError; ROADMAP.md queue 1 item 3):
-device meshes (meshPoints / meshFrames > 1).
+Device meshes (cfg.meshPoints / cfg.meshFrames > 1) run on an initialized
+torch.distributed world of meshFrames x meshPoints ranks (`torchrun
+--nproc-per-node N`; parallel/mesh.py), one rank per device: state and
+ingest stay replicated, every rank running the identical frame loop on
+identical inputs, and the window solve runs on the rank's point rows
+through parallel/sharded.py. Under meshFrames the window's image leaves
+rest sharded (a rank holds W / meshFrames slots; poses, ids and the count
+replicated): every rank computes the new frame's level and its owner
+stores it, and the ring's slide moves each rank's oldest slot to its left
+neighbour. Without such a world a mesh configuration raises.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -83,12 +92,6 @@ class WindowResult:
             f"({self.accepted_steps} accepted), {self.num_points} pts / "
             f"{self.num_residuals} obs, {self.termination}"
         )
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to photobundle_torch yet (ROADMAP.md {item}); "
-        f"run it with photobundle_tpu")
 
 
 def require_device(device) -> torch.device:
@@ -160,9 +163,6 @@ class PhotometricBundleAdjustment:
         cfg.validate()
         self.cfg = cfg
         self.device = require_device(device)
-        if cfg.meshPoints > 1 or cfg.meshFrames > 1:
-            raise _not_ported("meshPoints / meshFrames > 1 (device meshes)",
-                              "queue 1 item 3, multi-GPU")
         self.backend = cfg.resolve_backend(self.device)
         self.camera_full = camera.to(self.device)
         lvl = cfg.refinementLevel
@@ -197,6 +197,32 @@ class PhotometricBundleAdjustment:
         self._ingest_seq = 0    # ingested-frame ordinal: the age clock
         self._window_count = 0  # host mirror of window.count
         self._pending = None    # (fetch, t0) under pipelineResults
+        # The ring push and, under a mesh, the window solve of its layout
+        # (every sharding spec lives in parallel/sharded.py); add_frame
+        # calls _optimize unsharded.
+        self._mesh = None
+        self._sharded_optimize = None
+        self._push = state.push_frame
+        if cfg.meshPoints > 1 or cfg.meshFrames > 1:
+            from ..parallel import mesh as mesh_mod
+            from ..parallel import sharded
+
+            if cfg.maxNumPoints % cfg.meshPoints != 0:
+                raise ValueError(
+                    f"maxNumPoints {cfg.maxNumPoints} not divisible by "
+                    f"meshPoints {cfg.meshPoints}")
+            if cfg.meshFrames > 1:
+                self._mesh = sharded.make_frames_mesh(
+                    frames=cfg.meshFrames, points=cfg.meshPoints)
+                self.window = sharded.frames_window(self.window, self._mesh)
+                self._push = functools.partial(sharded.push_frame_frames,
+                                               mesh=self._mesh)
+                self._sharded_optimize = sharded.wrap_engine_optimize_frames(
+                    self._optimize, self._mesh)
+            else:
+                self._mesh = mesh_mod.make_mesh(points=cfg.meshPoints)
+                self._sharded_optimize = sharded.wrap_engine_optimize(
+                    self._optimize, self._mesh)
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -223,11 +249,11 @@ class PhotometricBundleAdjustment:
         depth = depth.to(torch.float32)
         depth_ok = depth > 0
         lvl, depth_l, ok_l = self._prepare_level(image, depth, depth_ok)
-        window, points = state.push_frame(
+        window, points = self._push(
             window, lvl.channels, lvl.grads, lvl.saliency, t_wc, frame_id,
             depth_l, ok_l, points, count)
         points = state.cull_points(points, window.frame_ids[0])
-        slot = min(count + 1, window.size) - 1
+        slot = min(count + 1, cfg.slidingWindowSize) - 1
 
         tr = tracking.track_into_frame(
             points, self.camera, t_wc, lvl.channels, frame_id, slot,
@@ -278,13 +304,18 @@ class PhotometricBundleAdjustment:
         return point_valid, ref_slot, depth_prior, patch_warp
 
     def _coarse_level(self, k: int, window, t_wc, x_world, ref_slot,
-                      point_valid):
+                      point_valid, off: int = 0, shard_ctx=None):
         """Coarse level k of the schedule, derived from the window: the
         channels blurred and decimated k times (build_pyramid's kernel),
         their gradients, the camera scaled by 0.5**k, and each point's
         reference descriptor re-extracted from its reference frame's
         coarse image at its current projection (t_wc, x_world). Returns
-        (camera, patch, channels, grads, point_valid) of the level."""
+        (camera, patch, channels, grads, point_valid) of the level.
+
+        Under frames sharding (`off` the rank's first slot) the window
+        holds the rank's frames; exactly one shard owns a point's
+        reference frame, so a one-hot select among the rank's frames plus
+        a sum over 'frames' gives every rank its patch."""
         cfg = self.cfg
         ch = window.channels
         for _ in range(k):
@@ -295,26 +326,39 @@ class PhotometricBundleAdjustment:
         cam = self.camera.scaled(0.5 ** k)
         found, ok = [], []
         for f in range(window.size):
-            t_cw = se3.se3_inverse(t_wc[f])
+            t_cw = se3.se3_inverse(t_wc[off + f])
             uv, in_front = cam_mod.project(
                 cam, x_world @ t_cw[:3, :3].T + t_cw[:3, 3])
             p, inside = patches_mod.extract_patches(ch[f], uv, self.offsets)
             found.append(p)
             ok.append(inside & in_front)
         slot = torch.clamp(ref_slot, min=0).long()
-        pts = torch.arange(slot.shape[0], device=slot.device)
-        patch = patches_mod.normalize_patches(torch.stack(found)[slot, pts],
+        if shard_ctx is None:
+            pts = torch.arange(slot.shape[0], device=slot.device)
+            p_ref = torch.stack(found)[slot, pts]
+            ok_ref = torch.stack(ok)[slot, pts]
+        else:
+            mine = (torch.arange(window.size, device=slot.device)[:, None]
+                    == (slot - off)[None, :])                 # (W_local, N)
+            p_ref = torch.sum(torch.where(mine[..., None, None],
+                                          torch.stack(found), 0.0), dim=0)
+            ok_ref = torch.any(mine & torch.stack(ok), dim=0)
+            p_ref, ok_ref = shard_ctx.reduce_frames(p_ref,
+                                                    ok_ref.to(torch.int32))
+            ok_ref = ok_ref > 0
+        patch = patches_mod.normalize_patches(p_ref,
                                               cfg.resolve_normalization())
-        valid = point_valid & torch.stack(ok)[slot, pts] & (ref_slot >= 0)
+        valid = point_valid & ok_ref & (ref_slot >= 0)
         return cam, patch, ch, torch.stack([gx, gy], dim=-1), valid
 
-    def _optimize(self, window, points):
+    def _optimize(self, window, points, shard_ctx=None):
         """One full window solve: the coarse levels of the schedule (each
         warm-starting the next), the fine-cost guard, then the solve at the
         refinement level on the stored descriptors. Returns (window,
         points, stats, point_valid), stats of the last level; the inputs
-        are not modified."""
-        plan = self._optimize_plan(window, points)
+        are not modified. `shard_ctx` (core/lm.ShardCtx) runs it on a
+        shard of a mesh (parallel/sharded.py wraps it)."""
+        plan = self._optimize_plan(window, points, shard_ctx)
         request = next(plan)
         while True:
             args, options = request
@@ -323,15 +367,27 @@ class PhotometricBundleAdjustment:
             except StopIteration as done:
                 return done.value
 
-    def _optimize_plan(self, window, points):
+    def _optimize_plan(self, window, points, shard_ctx=None):
         """`_optimize` as a generator: it yields each LM solve it needs,
         as the (args, options) of `lm.lm_solve`, is sent that solve's
         (t_wc, x_world, stats), and returns what `_optimize` returns. The
         batched engine (core/batched.py) runs B windows' plans in
-        lockstep, their solves as one program."""
+        lockstep, their solves as one program.
+
+        Under a `shard_ctx` the point table holds the rank's rows and,
+        under frames sharding, the window the rank's image slots (poses
+        and ids whole): each solve runs on that shard, the coarse levels
+        extract their patches from the rank's frames and the fine-cost
+        guard sums its cost over the mesh."""
         cfg = self.cfg
         w = cfg.slidingWindowSize
         dev = self.device
+        w_local = window.channels.shape[0]
+        frames_sharded = shard_ctx is not None and w_local != w
+        off = shard_ctx.frame_offset if frames_sharded else 0
+        # The point table's obs columns of the rank's frames.
+        obs = (points.obs[:, off:off + w_local].contiguous()
+               if frames_sharded else points.obs)
         frozen = torch.arange(w, device=dev) < cfg.numFixedPoses
         point_valid, ref_slot, depth_prior, patch_warp = self.solve_terms(
             window, points)
@@ -350,7 +406,7 @@ class PhotometricBundleAdjustment:
                     channels, grads, valid):
             prior = ((ref_slot, points.inv_depth_seed, prior_scale)
                      if cfg.depthPriorWeight > 0 else None)
-            return (cam, t_wc, x_world, patch, channels, grads, points.obs,
+            return (cam, t_wc, x_world, patch, channels, grads, obs,
                     valid, frozen, self.offsets), dict(
                 huber_delta=cfg.robustThreshold,
                 robust_kind=cfg.robustLoss,
@@ -370,6 +426,7 @@ class PhotometricBundleAdjustment:
                 parameter_tolerance=cfg.parameterTolerance,
                 gradient_tolerance=cfg.gradientTolerance,
                 min_obs_per_frame=cfg.minObsPerFrame,
+                shard_ctx=shard_ctx,
             )
 
         # Coarse-to-fine warm start, coarsest level first. Poses and points
@@ -377,7 +434,8 @@ class PhotometricBundleAdjustment:
         t_cur, x_cur = window.t_wc, points.x_world
         for k in range(self._n_coarse, 0, -1):
             cam, patch, channels, grads, valid = self._coarse_level(
-                k, window, t_cur, x_cur, ref_slot, point_valid)
+                k, window, t_cur, x_cur, ref_slot, point_valid, off,
+                shard_ctx if frames_sharded else None)
             t_cur, x_cur, _ = yield request(
                 cam, self._prior_scale * 0.5 ** k, cfg.coarseIterations,
                 t_cur, x_cur, patch, channels, grads, valid)
@@ -390,21 +448,32 @@ class PhotometricBundleAdjustment:
                                            gradient_mode)
                    if self.backend == "cuda" else None)
 
+            # Under frames sharding (as lm_solve evaluates): the rank's
+            # slice of the poses and obs columns, reference slots shifted
+            # into it; the cost summed over the mesh.
+            local_prior = depth_prior
+            if frames_sharded and depth_prior is not None:
+                local_prior = (depth_prior[0] - off, *depth_prior[1:])
+
             def fine_cost(t_wc, x_world):
                 warp = None
                 if patch_warp is not None:
                     warp = (patch_warp[0], *residuals.patch_warp_ref_geometry(
                         t_wc, x_world, ref_slot))
                 res = residuals.evaluate_compressed(
-                    self.camera, t_wc, x_world, points.patch,
-                    window.channels, window.grads,
-                    points.obs & point_valid[:, None], self.offsets,
+                    self.camera,
+                    t_wc[off:off + w_local] if frames_sharded else t_wc,
+                    x_world,
+                    points.patch, window.channels, window.grads,
+                    obs & point_valid[:, None], self.offsets,
                     cfg.robustThreshold, gradient_mode,
-                    depth_prior=depth_prior, backend=self.backend, ctx=ctx,
+                    depth_prior=local_prior, backend=self.backend, ctx=ctx,
                     normalize=normalize, robust_kind=cfg.robustLoss,
                     patch_warp=warp,
                     grouped_stats=residuals.grouped_stats_from_env())
-                return res.cost + lm.prior_cost(
+                cost = (res.cost if shard_ctx is None
+                        else shard_ctx.reduce_obs(res.cost))
+                return cost + lm.prior_cost(
                     t_wc, motion_prior_weight=cfg.motionPriorWeight,
                     rel0=anchor, pose_prior=pose_prior)
 
@@ -470,7 +539,8 @@ class PhotometricBundleAdjustment:
 
         t0 = time.perf_counter()
         t_pre = self.window.t_wc
-        self.window, self.points, stats, point_valid = self._optimize(
+        solve = self._sharded_optimize or self._optimize
+        self.window, self.points, stats, point_valid = solve(
             self.window, self.points)
         # ONE batched device fetch per window. Under cfg.pipelineResults it
         # runs behind the next frame's work: this call returns the previous
@@ -558,11 +628,21 @@ class PhotometricBundleAdjustment:
         and ingest counters) to one npz under the JAX package's key names
         (`points.<field>`, `window.<field>`, `frame_count`, `ingest_seq`).
         Written to a temporary file and renamed, so a reader never sees a
-        partial snapshot."""
+        partial snapshot. Under a mesh every rank calls it (the frames
+        layout gathers the window's image leaves) and rank 0 writes."""
+        from ..parallel import mesh as mesh_mod
+
+        window = self.window
+        if self.cfg.meshFrames > 1:
+            from ..parallel import sharded
+
+            window = sharded.gather_window(window, self._mesh)
+        if not mesh_mod.is_lead():
+            return
         state_np = {f"points.{k}": v.cpu().numpy()
                     for k, v in self.points._asdict().items()}
         state_np.update({f"window.{k}": v.cpu().numpy()
-                         for k, v in self.window._asdict().items()})
+                         for k, v in window._asdict().items()})
         state_np["frame_count"] = np.asarray(self._frame_count)
         state_np["ingest_seq"] = np.asarray(self._ingest_seq)
         tmp = path + ".tmp.npz"
@@ -573,7 +653,7 @@ class PhotometricBundleAdjustment:
     def load_state(self, path: str) -> None:
         """Restore a `save_state` snapshot (its shapes must match this
         engine's configuration); the engine then continues exactly as the
-        one that wrote it."""
+        one that wrote it. Under a mesh every rank reads the same file."""
         with np.load(path) as data:
             def field(name, like):
                 arr = data[name]
@@ -586,9 +666,13 @@ class PhotometricBundleAdjustment:
             self.points = type(self.points)(*(
                 field(f"points.{k}", v)
                 for k, v in self.points._asdict().items()))
+            full = state.init_window(self.cfg, self.level_shape, "meta")
             self.window = type(self.window)(*(
-                field(f"window.{k}", v)
-                for k, v in self.window._asdict().items()))
+                field(f"window.{k}", v) for k, v in full._asdict().items()))
+            if self.cfg.meshFrames > 1:
+                from ..parallel import sharded
+
+                self.window = sharded.frames_window(self.window, self._mesh)
             self._frame_count = int(data["frame_count"])
             self._ingest_seq = int(data["ingest_seq"])
         self._window_count = int(self.window.count)

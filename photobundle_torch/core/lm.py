@@ -35,6 +35,19 @@ or replayed), warm-ups, captures and host reads of the termination code.
 A kernel launched once per evaluation thus launched runs["starts"] +
 runs["bodies"] times: per solve, its replays + 1, plus 2 per cold key.
 
+Sharded solves (parallel/sharded.py) pass a `ShardCtx`: its hooks are
+the collectives of a device mesh on torch.distributed, one rank per
+device, each rank running this program on its shard (the JAX package's
+shard_map). The identity context (`points_only_ctx(None)`, the default)
+leaves the program exactly as it is unsharded. A context whose groups are
+all NCCL groups is captured with the rest of the body (collectives in the
+same order on every rank, their warm-up included); gloo groups carry card
+tensors through the host and cannot be captured, so on a card a solve
+with gloo groups runs the eager loop unless capture=True is asked for,
+which raises. Every host decision (`_drive`'s termination read) reads
+replicated values: each rank sees the same reduced buffers, so all ranks
+replay the same number of bodies.
+
 B solves of one configuration run as one program (`lm_solve_batched`,
 `batched_program`; the batched engine's, core/batched.py): start and
 body run every window's own start and body, written as generators
@@ -53,7 +66,7 @@ from __future__ import annotations
 import os
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -103,6 +116,56 @@ TERMINATION_NAMES = {
     4: "lambda_overflow",
     5: "gradient_tolerance",
 }
+
+
+def _same(*tensors):
+    """The identity hook: its tensors unchanged (one alone, else a
+    tuple)."""
+    return tensors[0] if len(tensors) == 1 else tensors
+
+
+class ShardCtx(NamedTuple):
+    """Cross-shard hooks for a ('frames', 'points') mesh (the JAX
+    package's ShardCtx): window images sharded over 'frames' (a rank holds
+    W / n_frames frames), point tensors over 'points'. The distributed
+    Schur assembly is then:
+
+        hpp, bp          summed over 'frames'   (point blocks: all frames)
+        hcc, bc          summed over 'points', gathered over 'frames'
+        hpc              gathered over 'frames' (dim 0), point-minor
+                         (W_local, 3, 6, N_local) -> (W, 3, 6, N_local)
+        S, rhs           summed over 'points'
+        cost / n_res     summed over both axes
+
+    and the reduced 6W x 6W solve is replicated on every rank. Each hook
+    takes one or more tensors and returns them (one alone, else a tuple)
+    summed, or gathered along dim 0; the collectives pack the tensors of
+    one call into one buffer per dtype (parallel/sharded.Collective).
+    Hooks are hashable (they join the graph key). A points-only mesh is
+    the context with identity frames hooks (`points_only_ctx`)."""
+
+    reduce_points: Callable     # sum over the points axis
+    reduce_frames: Callable     # sum over the frames axis
+    reduce_obs: Callable        # sum over both axes (per-observation sums)
+    gather_frames: Callable     # gather over the frames axis, dim 0
+    frame_offset: int           # global slot index of local frame 0
+
+
+def points_only_ctx(reduce_fn: Callable | None) -> ShardCtx:
+    """The 1-D (points-sharded, or with None unsharded) context."""
+    r = reduce_fn if reduce_fn is not None else _same
+    return ShardCtx(reduce_points=r, reduce_frames=_same, reduce_obs=r,
+                    gather_frames=_same, frame_offset=0)
+
+
+UNSHARDED = points_only_ctx(None)
+
+
+def capturable(ctx: ShardCtx | None) -> bool:
+    """Whether a solve under `ctx` can be captured in a CUDA graph: every
+    hook is the identity or a collective that says it can be (NCCL)."""
+    return ctx is None or all(getattr(h, "capturable", True)
+                              for h in ctx[:4])
 
 
 class LMState(NamedTuple):
@@ -174,6 +237,7 @@ class LMConfig(NamedTuple):
     gradient_tolerance: float
     min_obs_per_frame: int
     grouped_stats: bool
+    shard: ShardCtx | None         # None: unsharded
 
 
 runs = {}
@@ -263,6 +327,7 @@ def setup(
     parameter_tolerance: float = 1e-8,
     gradient_tolerance: float = 0.0,
     min_obs_per_frame: int = 1,
+    shard_ctx: ShardCtx | None = None,
 ) -> tuple[LMProblem, LMConfig]:
     """A solve's (LMProblem, LMConfig) from lm_solve's arguments.
 
@@ -293,13 +358,23 @@ def setup(
     fixed grid with bilinear sampling and mean or off normalization samples
     through K4's row-store kernel and reduces in plain tensor ops
     (residuals.evaluate_compressed's `grouped_stats`); sorted dispatch
-    does not apply there."""
+    does not apply there.
+
+    Sharding (the JAX package's hooks): `shard_ctx` is the context of a
+    points-sharded solve (`points_only_ctx`) or of a ('frames', 'points')
+    mesh; None is the unsharded solve. Under frames sharding
+    t_wc and frozen stay the full replicated (W, ...) window while
+    channels / grads hold the rank's W_local frames and obs_mask is
+    (N_local, W_local); depth_prior's ref_slot holds global slots."""
+    frames_sharded = (shard_ctx is not None
+                      and channels.shape[0] != t_wc.shape[0])
     norm = patches_mod.norm_mode(normalize)
     grouped_stats = grouped_stats_from_env()
     point_order = None
     if (os.environ.get("PB_SORTED_DISPATCH", "0") == "1" and grouped_stats
             and backend == "cuda" and gradient_mode == "sampled"
-            and patch_warp is None and norm in ("mean", "off")):
+            and patch_warp is None and norm in ("mean", "off")
+            and not frames_sharded):
         point_order = sorted_dispatch_order(dispatch_key(
             cam, t_wc, x_world, obs_mask & point_valid[:, None],
             channels.shape[-2:]))
@@ -328,7 +403,7 @@ def setup(
         parameter_tolerance=float(parameter_tolerance),
         gradient_tolerance=float(gradient_tolerance),
         min_obs_per_frame=int(min_obs_per_frame),
-        grouped_stats=grouped_stats)
+        grouped_stats=grouped_stats, shard=shard_ctx)
     return problem, config
 
 
@@ -359,18 +434,25 @@ def program_steps(p: LMProblem, c: LMConfig):
     use_abs = wa_t > 0.0 or wa_r > 0.0
     use_any_prior = use_motion or use_abs
     pose_prior = (p.pose_prior_t, wa_t, wa_r) if use_abs else None
-    depth_prior = (None if p.depth_prior is None
-                   else (*p.depth_prior, c.depth_weight))
+    sc = UNSHARDED if c.shard is None else c.shard
+    w_local = p.channels.shape[0]
+    frames_sharded = c.shard is not None and w_local != p.t_wc.shape[0]
+    off = sc.frame_offset if frames_sharded else 0
     inv = {}                     # the loop invariants, set by start()
 
     def eval_stats(t, x):
+        # The warp's reference geometry comes from the full replicated
+        # poses (a point's reference frame may live on another frame
+        # shard); the evaluation sees the rank's frames.
         pw = None
         if c.patch_warp is not None:
             pw = (c.patch_warp,
                   *patch_warp_ref_geometry(t, x, p.warp_ref_slot))
+        if frames_sharded:
+            t = t[off:off + w_local]
         return (yield from evaluate_compressed_steps(
             cam, t, x, p.patch, p.channels, p.grads, inv["obs"], p.offsets,
-            c.huber_delta, c.gradient_mode, depth_prior=depth_prior,
+            c.huber_delta, c.gradient_mode, depth_prior=inv["depth_prior"],
             backend=c.backend, ctx=inv["ctx"], normalize=c.normalize,
             robust_kind=c.robust_kind, patch_warp=pw,
             point_order=p.point_order, grouped_stats=c.grouped_stats))
@@ -421,6 +503,15 @@ def program_steps(p: LMProblem, c: LMConfig):
             ctx = make_cuda_ctx(p.channels, p.grads, c.gradient_mode)
         inv["ctx"] = ctx
         inv["obs"] = p.obs_mask & p.point_valid[:, None]
+        inv["depth_prior"] = None
+        if p.depth_prior is not None:
+            # ref_slot holds global window slots; under frames sharding
+            # the evaluation compares them with local frame indices, so
+            # slots owned by other shards never match.
+            ref_slot = (p.depth_prior[0] - off if frames_sharded
+                        else p.depth_prior[0])
+            inv["depth_prior"] = (ref_slot, p.depth_prior[1],
+                                  c.depth_weight)
         inv["rel0"] = None
         if use_motion:
             inv["rel0"] = (p.motion_anchor if p.motion_anchor is not None
@@ -428,7 +519,10 @@ def program_steps(p: LMProblem, c: LMConfig):
         inv["w6"] = _twist_weights(wa_t, wa_r, t_wc)
         inv["slots"] = torch.arange(max_it, dtype=torch.int32, device=dev)
         res = yield from eval_stats(t_wc, x_world)
-        init_cost = res.cost + prior_cost_terms(t_wc)
+        cost, n_res = sc.reduce_obs(res.cost, res.n_residuals)
+        init_cost = cost + prior_cost_terms(t_wc)
+        obs_per_frame = sc.gather_frames(sc.reduce_points(
+            torch.sum(res.valid, dim=0, dtype=torch.int32)))
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         nan = torch.full((max_it,), torch.nan, dtype=dtype, device=dev)
         # Fresh tensors throughout: a graph's body writes the state in
@@ -442,8 +536,8 @@ def program_steps(p: LMProblem, c: LMConfig):
             cost_log=nan, lambda_log=nan.clone(), step_log=nan.clone(),
             accept_log=torch.zeros((max_it,), dtype=torch.bool, device=dev))
         return state, LMStart(
-            initial_cost=init_cost, n_residuals=res.n_residuals.clone(),
-            obs_per_frame=torch.sum(res.valid, dim=0, dtype=torch.int32))
+            initial_cost=init_cost, n_residuals=n_res.clone(),
+            obs_per_frame=obs_per_frame)
 
     def body(st: LMState) -> LMState:
         running = (st.it < max_it) & (st.term == 0)
@@ -452,25 +546,48 @@ def program_steps(p: LMProblem, c: LMConfig):
         # when it was the accepted candidate).
         res = st.res
         eq = schur.build_normal_equations_compressed(res)
+        # Global assembly (see ShardCtx); with the identity context the
+        # blocks pass through unchanged. Gathers over 'frames' come before
+        # sums over 'points' (the two commute), so the point-summed Schur
+        # terms travel in one buffer with hcc, bc and the per-frame
+        # observation counts (as floats: exact below 2^24).
+        hpp, bp = sc.reduce_frames(eq.hpp, eq.bp)
+        hcc, bc, hpc, obs_per_frame = sc.gather_frames(
+            eq.hcc, eq.bc, eq.hpc, torch.sum(res.valid, dim=0, dtype=dtype))
+        eq = schur.NormalEq(hpp=hpp, hpc=hpc, hcc=hcc, bp=bp, bc=bc)
+        terms = schur.point_terms(eq, st.lam, p.point_valid)
+        hcc, bc, obs_per_frame, s_off, rhs_off = sc.reduce_points(
+            eq.hcc, eq.bc, obs_per_frame, terms.s_off, terms.rhs_off)
+        eq = eq._replace(hcc=hcc, bc=bc)
+        terms = terms._replace(s_off=s_off, rhs_off=rhs_off)
         coupling = None
         if use_any_prior:
+            # Added after the reductions: the priors are replicated pose
+            # math.
             hd, coupling, bc_p = prior_system(st.t_wc)
             eq = eq._replace(hcc=eq.hcc + hd, bc=eq.bc + bc_p)
         # Freeze poses with too little support in addition to the gauge.
-        obs_per_frame = torch.sum(res.valid, dim=0, dtype=torch.int32)
         frz = p.frozen | (obs_per_frame < max(1, c.min_obs_per_frame))
 
-        sys_parts = schur.reduce_camera_system(eq, st.lam, p.point_valid,
-                                               frz, pose_coupling=coupling)
+        sys_parts = schur.reduce_camera_system(
+            eq, st.lam, p.point_valid, frz, pose_coupling=coupling,
+            terms=terms)
         dc, dp = schur.solve_reduced(sys_parts)
 
         t_new = se3.retract_right(st.t_wc, dc)
         x_new = st.x_world + dp
         res_new = yield from eval_stats(t_new, x_new)
-        new_cost = res_new.cost + prior_cost_terms(t_new)
+        new_cost = sc.reduce_obs(res_new.cost) + prior_cost_terms(t_new)
 
-        pred = torch.clamp(schur.predicted_reduction(eq, st.lam, dc, dp),
-                           min=1e-20)
+        # The point terms of the model decrease and of the step, parameter
+        # and gradient norms sum over the rank's points, so they are
+        # reduced (one buffer); the pose terms are replicated.
+        term_p, dp2, x2, bp2 = sc.reduce_points(
+            schur.predicted_point_term(eq, st.lam, dp), torch.sum(dp * dp),
+            torch.sum(st.x_world ** 2),
+            torch.sum((eq.bp * p.point_valid.to(dtype)[None, :]) ** 2))
+        pred = torch.clamp(schur.predicted_reduction(
+            eq, st.lam, dc, dp, term_p=term_p), min=1e-20)
         actual = st.cost - new_cost
         rho = actual / pred
         accept = (rho > 0) & torch.isfinite(new_cost)
@@ -483,9 +600,8 @@ def program_steps(p: LMProblem, c: LMConfig):
             torch.clamp(st.lam * st.nu, max=c.max_lambda * 10.0))
         nu_new = torch.where(accept, 2.0, st.nu * 2.0)
 
-        step_norm = torch.sqrt(torch.sum(dp * dp) + torch.sum(dc * dc))
-        param_norm2 = (torch.sum(st.x_world ** 2)
-                       + torch.sum(se3.se3_log(st.t_wc) ** 2))
+        step_norm = torch.sqrt(dp2 + torch.sum(dc * dc))
+        param_norm2 = x2 + torch.sum(se3.se3_log(st.t_wc) ** 2)
 
         cost_out = torch.where(accept, new_cost, st.cost)
         # Termination tests (only on accepted steps, Ceres-style).
@@ -494,8 +610,7 @@ def program_steps(p: LMProblem, c: LMConfig):
             torch.sqrt(param_norm2) + c.parameter_tolerance))
         lam_hit = ~accept & (st.lam >= c.max_lambda)
         # Gradient stop: ||J^T r||_2 over free poses + valid points.
-        g2 = (torch.sum((eq.bc * (~frz).to(dtype)[:, None]) ** 2)
-              + torch.sum((eq.bp * p.point_valid.to(dtype)[None, :]) ** 2))
+        g2 = torch.sum((eq.bc * (~frz).to(dtype)[:, None]) ** 2) + bp2
         gtol_hit = ((torch.sqrt(g2) <= c.gradient_tolerance)
                     & (c.gradient_tolerance > 0))
         zero = torch.zeros_like(st.term)
@@ -803,20 +918,31 @@ def lm_solve(*args, capture: bool | None = None, **options):
 
     Arguments: those of `setup` (cam, t_wc, x_world, patch, channels,
     grads, obs_mask, point_valid, frozen, offsets, then the options by
-    keyword). capture: None (default) replays the solve's CUDA graphs for
-    tensors on a card and runs the eager host loop on the CPU; False runs
-    the eager loop on a card too (the same body, to hold the graphs
-    against it); True requires tensors on a card."""
+    keyword, `shard_ctx` for a sharded solve). capture:
+    None (default) replays the solve's CUDA graphs for tensors on a card
+    (where its collectives can be captured: no gloo group) and runs the
+    eager host loop on the CPU; False runs the eager loop on a card too
+    (the same body, to hold the graphs against it); True requires tensors
+    on a card."""
     problem, config = setup(*args, **options)
-    on_card = problem.t_wc.device.type == "cuda"
-    if capture is None:
-        capture = on_card
-    if capture and not on_card:
-        raise ValueError(f"capture=True needs tensors on a card, not "
-                         f"{problem.t_wc.device}")
-    run = _run_captured if capture else _run_eager
+    run = _runner(problem.t_wc.device, config, capture)
     state, begun = run(problem, config)
     return state.t_wc, state.x_world, _stats(state, begun)
+
+
+def _runner(device: torch.device, config: LMConfig, capture: bool | None):
+    """The captured or the eager loop, by `capture` (see `lm_solve`)."""
+    on_card = device.type == "cuda"
+    if capture is None:
+        capture = on_card and capturable(config.shard)
+    if capture and not on_card:
+        raise ValueError(f"capture=True needs tensors on a card, not "
+                         f"{device}")
+    if capture and not capturable(config.shard):
+        raise ValueError("a solve with gloo collectives cannot be captured "
+                         "in a CUDA graph; pass capture=False (or use "
+                         "NCCL groups)")
+    return _run_captured if capture else _run_eager
 
 
 def lm_solve_batched(requests: list, capture: bool | None = None):
@@ -836,13 +962,7 @@ def lm_solve_batched(requests: list, capture: bool | None = None):
     if any(c != config for _, c in setups):
         raise ValueError("the solves of a batch must share every option")
     problems = tuple(p for p, _ in setups)
-    on_card = problems[0].t_wc.device.type == "cuda"
-    if capture is None:
-        capture = on_card
-    if capture and not on_card:
-        raise ValueError(f"capture=True needs tensors on a card, not "
-                         f"{problems[0].t_wc.device}")
-    run = _run_captured if capture else _run_eager
+    run = _runner(problems[0].t_wc.device, config, capture)
     states, begun = run(problems, config)
     state, begun = stacked(states), stacked(begun)
     return state.t_wc, state.x_world, _stats(state, begun)

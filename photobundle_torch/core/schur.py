@@ -141,29 +141,51 @@ class SchurSystem(NamedTuple):
     bp: torch.Tensor         # (3, N)
 
 
-def reduce_camera_system(eq: NormalEq, lam: torch.Tensor,
-                         point_valid: torch.Tensor, frozen: torch.Tensor,
-                         pose_coupling: torch.Tensor | None = None
-                         ) -> SchurSystem:
-    """Eliminate point blocks; assemble the reduced (6W, 6W) camera system.
+class PointTerms(NamedTuple):
+    """The point-summed parts of the reduced system (`point_terms`)."""
+    hpp_inv: torch.Tensor    # (3, 3, N) damped inverses W_p
+    s_off: torch.Tensor      # (W, W, 6, 6) sum_n Hpc W_p Hpc^T
+    rhs_off: torch.Tensor    # (W, 6) sum_n Hpc W_p bp
 
-    frozen: (W,) bool — gauge-fixed poses (identity rows/cols, zero rhs).
-    point_valid: (N,) bool — points that may move.
-    pose_coupling: optional (W, W, 6, 6) off-diagonal pose-pose blocks
-        (the relative-motion prior).
-    """
-    w = eq.hcc.shape[0]
+
+def point_terms(eq: NormalEq, lam: torch.Tensor,
+                point_valid: torch.Tensor) -> PointTerms:
+    """Eliminate point blocks: the terms of S and rhs that sum over points.
+    Under a points mesh a rank's are the sums over its own points; the
+    caller sums s_off and rhs_off over the axis (core/lm.py's body packs
+    them with hcc and bc) before `reduce_camera_system`."""
     hpp_inv = inv3x3_nlast(_damped_nlast(eq.hpp, lam), point_valid)
     # T[w, i, k, n] = sum_j W_p[i, j, n] Hpc[w, j, k, n]
     t = torch.sum(hpp_inv[None, :, :, None] * eq.hpc[:, None], dim=2)
     # S[f, g] -= sum_{j,n} Hpc[f, j, i, n] T[g, j, k, n]: one contraction
     # of size 3N.
-    s = -torch.einsum("fjin,gjkn->fgik", eq.hpc, t)          # (W, W, 6, 6)
+    s_off = torch.einsum("fjin,gjkn->fgik", eq.hpc, t)       # (W, W, 6, 6)
+    rhs_off = torch.einsum("fjin,jn->fi", t, eq.bp)          # (W, 6)
+    return PointTerms(hpp_inv=hpp_inv, s_off=s_off, rhs_off=rhs_off)
+
+
+def reduce_camera_system(eq: NormalEq, lam: torch.Tensor,
+                         point_valid: torch.Tensor, frozen: torch.Tensor,
+                         pose_coupling: torch.Tensor | None = None,
+                         terms: PointTerms | None = None) -> SchurSystem:
+    """Eliminate point blocks; assemble the reduced (6W, 6W) camera system.
+
+    frozen: (W,) bool — gauge-fixed poses (identity rows/cols, zero rhs).
+    point_valid: (N,) bool — points that may move.
+    pose_coupling: optional (W, W, 6, 6) off-diagonal pose-pose blocks
+        (the relative-motion prior); replicated, never summed over points.
+    terms: the `point_terms` of (eq, lam, point_valid), already summed
+        over a points mesh (default: computed here, unsharded).
+    """
+    w = eq.hcc.shape[0]
+    if terms is None:
+        terms = point_terms(eq, lam, point_valid)
+    s = -terms.s_off
     idx = torch.arange(w, device=s.device)
     s[idx, idx] += _damped(eq.hcc, lam)
     if pose_coupling is not None:
         s = s + pose_coupling
-    rhs = eq.bc - torch.einsum("fjin,jn->fi", t, eq.bp)      # (W, 6)
+    rhs = eq.bc - terms.rhs_off                              # (W, 6)
 
     # Gauge fixing: frozen pose blocks become identity rows/cols with zero
     # rhs, so their update is exactly zero.
@@ -175,8 +197,8 @@ def reduce_camera_system(eq: NormalEq, lam: torch.Tensor,
     rhs = rhs * free[:, None]
 
     s_flat = s.permute(0, 2, 1, 3).reshape(6 * w, 6 * w)
-    return SchurSystem(s=s_flat, rhs=rhs.reshape(-1), hpp_inv=hpp_inv,
-                       hpc_d=eq.hpc, bp=eq.bp)
+    return SchurSystem(s=s_flat, rhs=rhs.reshape(-1),
+                       hpp_inv=terms.hpp_inv, hpc_d=eq.hpc, bp=eq.bp)
 
 
 def solve_reduced(sys: SchurSystem):
@@ -198,17 +220,29 @@ def solve_reduced(sys: SchurSystem):
     return dc, dp.T
 
 
-def predicted_reduction(eq: NormalEq, lam: torch.Tensor, dc: torch.Tensor,
-                        dp: torch.Tensor) -> torch.Tensor:
-    """LM model decrease 0.5 * dx^T (lam * D dx + b) for the gain ratio
-    (Madsen/Nielsen form), over pose and point blocks. dp: (N, 3)."""
-    d_c = torch.clamp(torch.diagonal(eq.hcc, dim1=-2, dim2=-1),
-                      _DIAG_MIN, _DIAG_MAX)
+def predicted_point_term(eq: NormalEq, lam: torch.Tensor,
+                         dp: torch.Tensor) -> torch.Tensor:
+    """The point blocks' part of `predicted_reduction` (before its 0.5),
+    a sum over the points (a rank's own under a points mesh). dp: (N, 3)."""
     d_p = torch.clamp(torch.stack([eq.hpp[0, 0], eq.hpp[1, 1], eq.hpp[2, 2]]),
                       _DIAG_MIN, _DIAG_MAX)                   # (3, N)
     dpt = dp.T                                                # (3, N)
+    return torch.sum(dpt * (lam * d_p * dpt + eq.bp))
+
+
+def predicted_reduction(eq: NormalEq, lam: torch.Tensor, dc: torch.Tensor,
+                        dp: torch.Tensor,
+                        term_p: torch.Tensor | None = None) -> torch.Tensor:
+    """LM model decrease 0.5 * dx^T (lam * D dx + b) for the gain ratio
+    (Madsen/Nielsen form), over pose and point blocks. dp: (N, 3). term_p:
+    the point term (`predicted_point_term`), already summed over a points
+    mesh (default: computed here, unsharded); the pose term uses the
+    replicated blocks."""
+    d_c = torch.clamp(torch.diagonal(eq.hcc, dim1=-2, dim2=-1),
+                      _DIAG_MIN, _DIAG_MAX)
+    if term_p is None:
+        term_p = predicted_point_term(eq, lam, dp)
     term_c = torch.sum(dc * (lam * d_c * dc + eq.bc))
-    term_p = torch.sum(dpt * (lam * d_p * dpt + eq.bp))
     return 0.5 * (term_c + term_p)
 
 

@@ -109,6 +109,37 @@ def init_window(cfg: PBAConfig, image_shape, device="cpu",
     )
 
 
+def _push_slot(arr, value, count: int, w: int):
+    """`arr` with `value` in the slot a push fills: slot `count` while the
+    ring fills, else the newest slot after dropping the oldest."""
+    full = count >= w
+    arr = torch.roll(arr, -1, dims=0) if full else arr.clone()
+    arr[w - 1 if full else min(count, w - 1)] = value
+    return arr
+
+
+def push_replicated(win: Window, t_wc, frame_id: int, points: PointTable,
+                    count: int):
+    """The push of the leaves every rank of a frames-sharded mesh holds
+    whole (poses, frame ids, the count, the point table's obs columns);
+    the image leaves are left as they are (`push_frame` fills them, or
+    parallel/sharded.push_frame_frames for the frames layout)."""
+    w = win.t_wc.shape[0]
+    new_win = win._replace(
+        t_wc=_push_slot(win.t_wc, t_wc, count, w),
+        # The incoming pose is the caller's raw VO estimate; t_wc gets
+        # refined by window solves while t_vo keeps the original.
+        t_vo=_push_slot(win.t_vo, t_wc, count, w),
+        frame_ids=_push_slot(win.frame_ids, frame_id, count, w),
+        count=torch.clamp(win.count + 1, max=w),
+    )
+    obs = points.obs
+    if count >= w:
+        obs = torch.roll(obs, -1, dims=1)
+        obs[:, w - 1] = False
+    return new_win, points._replace(obs=obs)
+
+
 def push_frame(win: Window, channels, grads, saliency, t_wc, frame_id: int,
                depth, depth_ok, points: PointTable, count: int):
     """Append a frame to the newest slot; if the ring is full, slide (drop
@@ -119,32 +150,15 @@ def push_frame(win: Window, channels, grads, saliency, t_wc, frame_id: int,
     slot W-1 column cleared). Returns new tensors; the inputs are not
     modified."""
     w = win.size
-    full = count >= w
-    idx = min(count, w - 1)
-
-    def put(arr, value):
-        arr = torch.roll(arr, -1, dims=0) if full else arr.clone()
-        arr[w - 1 if full else idx] = value
-        return arr
-
-    new_win = Window(
-        channels=put(win.channels, channels),
-        grads=put(win.grads, grads),
-        saliency=put(win.saliency, saliency),
-        t_wc=put(win.t_wc, t_wc),
-        # The incoming pose is the caller's raw VO estimate; t_wc gets
-        # refined by window solves while t_vo keeps the original.
-        t_vo=put(win.t_vo, t_wc),
-        frame_ids=put(win.frame_ids, frame_id),
-        depth=put(win.depth, depth),
-        depth_ok=put(win.depth_ok, depth_ok),
-        count=torch.clamp(win.count + 1, max=w),
+    new_win, points = push_replicated(win, t_wc, frame_id, points, count)
+    new_win = new_win._replace(
+        channels=_push_slot(win.channels, channels, count, w),
+        grads=_push_slot(win.grads, grads, count, w),
+        saliency=_push_slot(win.saliency, saliency, count, w),
+        depth=_push_slot(win.depth, depth, count, w),
+        depth_ok=_push_slot(win.depth_ok, depth_ok, count, w),
     )
-    obs = points.obs
-    if full:
-        obs = torch.roll(obs, -1, dims=1)
-        obs[:, w - 1] = False
-    return new_win, points._replace(obs=obs)
+    return new_win, points
 
 
 def cull_points(points: PointTable, oldest_frame_id: torch.Tensor,

@@ -17,8 +17,9 @@
   relative), and bitwise, at B = 2 and B = 1.
 - A window that has ended passes through further bodies bitwise while the
   other window runs on.
-- The refusals: device meshes (ROADMAP.md queue 1 item 3), and a card the
-  machine does not have (the card is the default device).
+- The refusals: a device mesh outside a torch.distributed world of its
+  size, and a card the machine does not have (the card is the default
+  device).
 """
 
 import functools
@@ -302,9 +303,12 @@ def test_ended_window_passes_through_bodies(scene, solves):
 
 @pytest.mark.parametrize("mesh", ["meshWindows", "meshPoints"])
 def test_device_meshes_raise(scene, mesh):
+    """A ('windows', 'points') mesh needs a torch.distributed world of its
+    size (tests/test_torch_sharding.py runs one); outside one it raises,
+    naming torchrun."""
     cam, images = scene[:2]
     cfg = port_config(small_cfg(**{mesh: 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="world of 2 ranks.*torchrun"):
         BPBA(port_camera(cam), images[0].shape, cfg, 2, device="cpu")
 
 

@@ -381,8 +381,13 @@ def test_snapshot_of_another_configuration_is_refused(scene, tmp_path):
 
 
 NOT_PORTED = {   # what -> (configuration, exception, message)
-    "meshPoints": (dict(meshPoints=2), NotImplementedError, "ROADMAP"),
-    "meshFrames": (dict(meshFrames=5), NotImplementedError, "ROADMAP"),
+    # Ported (photobundle_torch/parallel): a mesh raises only outside a
+    # torch.distributed world of its size, naming torchrun
+    # (tests/test_torch_sharding.py runs them in one).
+    "meshPoints": (dict(meshPoints=2), RuntimeError,
+                   "world of 2 ranks.*torchrun"),
+    "meshFrames": (dict(meshFrames=5), RuntimeError,
+                   "world of 5 ranks.*torchrun"),
     # Ported (photobundle_torch/native): it raises only where the native
     # runtime does not build, as the JAX package's does.
     "dataLoader-native": (dict(dataLoader="native"), RuntimeError,
@@ -392,9 +397,9 @@ NOT_PORTED = {   # what -> (configuration, exception, message)
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
 def test_parts_still_to_port_raise(scene, what, tmp_path, monkeypatch):
-    """Device meshes (ROADMAP.md queue 1, multi-GPU) raise, naming their
-    ROADMAP item; the native data loader raises where its runtime does not
-    build, with the build error."""
+    """Device meshes raise outside a torch.distributed world of their
+    size, naming torchrun; the native data loader raises where its runtime
+    does not build, with the build error."""
     from photobundle_torch import native
     from photobundle_torch.io import kitti
 

@@ -23,7 +23,13 @@ def test_import_loads_no_jax():
             "photobundle_torch.utils.logging, photobundle_torch.utils.timer, "
             "photobundle_torch.core.batched, photobundle_torch.multi, "
             "photobundle_torch.parallel, "
-            "photobundle_torch.tools.bench_batched; "
+            "photobundle_torch.parallel.mesh, "
+            "photobundle_torch.parallel.sharded, "
+            "photobundle_torch.tools.bench_batched, "
+            "photobundle_torch.tools.comm_model, "
+            "photobundle_torch.tools.demo_multiprocess, "
+            "photobundle_torch.tools.bench_multihost, "
+            "photobundle_torch.tools.validate_frames_sharding; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'photobundle_tpu'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
