@@ -146,7 +146,31 @@ Drives the port's paths at the repository's full size (370x1226 images,
      and the witness that MESH_LAMBDA's damping hides no fault of the
      layouts: both solves again from phase 4's start (lambda 1), in f64
      (plain evaluation) within 1e-8 of the single-rank f64 solve, the
-     f32 differences from that start printed beside them.
+     f32 differences from that start printed beside them;
+ 19. the remaining tools on the card (photobundle_torch/tools), in this
+     process but for verify_e2e's command line and the breakdown: (a)
+     `bench_lm_breakdown` in one process of its own at 4096 and 65 536
+     points x 5: each phase's ms (CUDA events) and
+     device ms against its bytes floor (none below it), each phase
+     bitwise the outputs of one capture=False body on that body's
+     inputs, and the body's per-phase device time, kernel count and
+     heaviest kernels (torch.profiler) beside the replayed body's median
+     time, each of its two traces holding one device activity per launch
+     of the body; (b) `probe_eval65k` at 65 536 x 5, stage by stage; (c)
+     `verify_e2e`: `python -m photobundle_torch.cli` on its synthetic
+     sequence, VERIFY OK; (d) the golden: GOLDEN_FRAMES frames of the box
+     room at 370x1226 rendered on the card (torch renderer; frame 0 held
+     to the numpy renderer within tests/test_torch_golden.py's bounds),
+     `golden_kitti` with the iid error model in W5_production (K1) and
+     reference_exact (K2): every window's cost non-increasing, K1 and K2
+     launched, W5_production's refined ATE below the input's, and each
+     reference_exact window solved again from its pre-solve state on the
+     plain backend: the same observations, the initial cost within 1e-5
+     and K2's final cost at most 2 % above the plain one; then
+     `golden_aggregate` on its printed table, `diagnose_rpe`,
+     `eval_traj` and `plot_traj` (where matplotlib is installed) on its
+     output; (e) `bench_keyframes`, `bench_sampling` and `bench_scaling`
+     at their JAX twins' sizes. It prints its wall time.
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
@@ -275,14 +299,35 @@ MESH_RANKS, MESH_TIMEOUT_S, MESH_TIMED, MESH_LAMBDA = 2, 600, 3, 100.0
 MESH_F64_TOL = 1e-8
 MESH_POSE_TOL, MESH_POINT_TOL, MESH_COST_RTOL = 1e-4, 1e-3, 1e-3
 MESH_ENGINE_ATOL, MESH_FRAMES_W = 5e-5, 4
+# Phase 19: the tools. The golden's sequence length (its stereo runs the
+# host speckle filter, ~0.7 s a frame on the card's machine) and where its
+# files go.
+TOOLS_DIR = os.path.join("build", "chip_smoke_tools")
+GOLDEN_FRAMES = 24
+# bench_lm_breakdown's calls per phase at 4096 points: its default (the
+# JAX tool's 1024) spends ~30 s of host time on event-timed calls; 256
+# average as well.
+BREAKDOWN_CALLS = 256
+BREAKDOWN_TIMEOUT_S = 300
+GOLDEN_CONFIGS = ("W5_production", "reference_exact")
+# reference_exact's window solves (K2) against the plain backend's from the
+# same states: the initial costs agree within GOLDEN_INIT_RTOL, and the
+# final cost may exceed the plain solve's by GOLDEN_COST_RTOL. The scale
+# of its windows is free (one fixed pose, no prior), so the solves end at
+# the function tolerance a few iterations apart in a flat valley (the
+# port against the JAX package from the same states on the CPU: 2.3 %
+# below to 0.68 % above, tests/test_torch_golden.py), and the chain's
+# poses part from there: no bound on its ATE is held.
+GOLDEN_INIT_RTOL, GOLDEN_COST_RTOL = 1e-5, 2e-2
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
 SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
            "patch_stats", "patch_ablate")
-# One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bandwidth and f32 rate
-# outside the tensor cores. Bounds take bytes at the HBM rate, so device
-# times are taken with the 50 MB L2 flushed before each launch (every input
-# then comes from HBM): a warm L2 serves a kernel's inputs faster than HBM.
-H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
+# One NVIDIA H100 SXM: HBM bandwidth and f32 rate outside the tensor
+# cores (photobundle_torch/tools). Bounds take bytes at the HBM rate, so
+# device times are taken with the 50 MB L2 flushed before each launch
+# (every input then comes from HBM): a warm L2 serves a kernel's inputs
+# faster than HBM.
+from photobundle_torch.tools import H100_BYTES_PER_S, H100_F32_FLOPS  # noqa: E402
 # L2 is write-back: a kernel may end with up to this much of its output in
 # L2, written to HBM after its end, so its device time can undercut the
 # bound (each output written once at the HBM rate) by that much.
@@ -2654,6 +2699,265 @@ def multi_phase(dev) -> None:
         "byte-identical")
 
 
+def tee(fn, *args):
+    """(fn(*args), what it printed): its standard output is captured and
+    echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    sys.stdout.write(buf.getvalue())
+    sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def golden_frame_check(synthetic, root: str, dev) -> None:
+    """Frame 0 of the golden rendered on the card (float32) against the
+    numpy renderer (float64) at full size: image within 1/255, depth
+    within 1e-4 relative on > 90 % of the pixels, validity masks
+    disagreeing on < 1 %; and the PNG on disk within one level of the
+    numpy image's quantization."""
+    from photobundle_torch.config import PBAConfig
+    from photobundle_torch.io import kitti as kitti_mod
+    from photobundle_torch.io import trajectory as traj_mod
+
+    ks = kitti_mod.KittiStereoDataset(
+        root=root, sequence=0,
+        cfg=PBAConfig(dataDir=root, numFrames=1), device=dev)
+    pose = traj_mod.load_poses_kitti(os.path.join(
+        root, "poses", "00.txt")).poses[0].astype(np.float32)
+    tex = synthetic.make_texture(np.random.default_rng(12), n_waves=96,
+                                 min_wavelength=0.25, max_wavelength=4.0)
+    boxes = synthetic.default_obstacles()
+    t0 = time.perf_counter()
+    img_np, depth_np = synthetic.render_box(tex, ks.camera, pose, (H, WI),
+                                            obstacles=boxes)
+    np_s = time.perf_counter() - t0
+    render = synthetic.make_render_box_torch((H, WI), obstacles=boxes,
+                                             device=dev)
+    render(tex, ks.camera, pose)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_t, depth_t = render(tex, ks.camera, pose)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    d_img = float(np.max(np.abs(img_t - img_np)))
+    valid = (depth_np > 0) & (depth_t > 0)
+    d_depth = float(np.max(np.abs(depth_t - depth_np)[valid]
+                           / depth_np[valid]))
+    mask = float(np.mean((depth_np > 0) != (depth_t > 0)))
+    png_u8 = np.rint(kitti_mod._imread_gray(ks.left_files[0]) * 255)
+    d_png = float(np.max(np.abs(png_u8 - np.clip(img_np * 255, 0, 255)
+                                .astype(np.uint8))))
+    say(f"phase 19 golden frame 0 at {H}x{WI}, torch renderer on the card "
+        f"({card_ms:.1f} ms) vs numpy ({np_s:.1f} s on the host): image "
+        f"max |d| {d_img:.3e} (< 1/255), depth max rel {d_depth:.3e} (< "
+        f"1e-4) on {valid.mean():.4f} of the pixels (> 0.9), masks differ "
+        f"on {mask:.5f} (< 0.01); the PNG on disk within {d_png:.0f} level "
+        f"of the numpy image's")
+    check(d_img < 1.0 / 255.0 and valid.mean() > 0.9 and d_depth < 1e-4
+          and mask < 0.01 and d_png <= 1,
+          "the card's golden renderer left the numpy renderer's bounds")
+
+
+class PlainTwinSolves:
+    """While open: every window solve of an engine in bicubic
+    interpolation (the golden's reference_exact, K2) is solved again from
+    the same pre-solve state by a twin engine on the plain backend
+    (`solverBackend=torch`, the same card). `rows` holds each pair's
+    (initial cost, final cost, obs per frame, residuals), K2's first."""
+
+    def __init__(self):
+        from photobundle_torch.core import engine
+        self.cls = engine.PhotometricBundleAdjustment
+        self.solve = self.cls._optimize
+        self.rows = []
+
+    def __enter__(self):
+        solve, rows, cls, twins = self.solve, self.rows, self.cls, {}
+
+        def fields(stats):
+            return (float(stats.initial_cost), float(stats.final_cost),
+                    stats.obs_per_frame.tolist(), int(stats.n_residuals))
+
+        def recorded(pba, window, points, shard_ctx=None):
+            out = solve(pba, window, points, shard_ctx)
+            if pba.cfg.interpolation == "bicubic":
+                if id(pba) not in twins:
+                    twins[id(pba)] = cls(
+                        pba.camera_full, pba.image_shape,
+                        pba.cfg.replace(solverBackend="torch"),
+                        device=pba.device)
+                plain = solve(twins[id(pba)], window, points)
+                rows.append((fields(out[2]), fields(plain[2])))
+            return out
+
+        cls._optimize = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._optimize = self.solve
+
+
+def tools_phase_19(dev, kernels) -> None:
+    """Phase 19: the remaining tools on the card (see the docstring)."""
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_warp as pw
+    from photobundle_torch.tools import (bench_keyframes, bench_lm_breakdown,
+                                         bench_sampling, bench_scaling,
+                                         diagnose_rpe, eval_traj,
+                                         golden_aggregate, golden_kitti,
+                                         plot_traj, probe_eval65k, synthetic,
+                                         verify_e2e)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    # (a) one LM iteration phase by phase, and one body's profile.
+    # One process of its own for both sizes: in this process, after
+    # phases 3-18, the body's traces missed most of the assembly's device
+    # activities (two whole runs); a fresh process traces them all, and a
+    # trace that misses one fails the phase.
+    sizes = [(n, min(BREAKDOWN_CALLS, bench_lm_breakdown.default_calls(n)))
+             for n in (N_PTS, DENSE_PTS)]
+    code = "from photobundle_torch.tools import bench_lm_breakdown as b\n"
+    code += "".join(f"b.main(['{n}', '{W}', '{k}'])\n" for n, k in sizes)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=BREAKDOWN_TIMEOUT_S)
+    sys.stdout.write(run.stdout)
+    check(run.returncode == 0, f"bench_lm_breakdown exited "
+          f"{run.returncode}:\n{run.stderr[-4000:]}")
+    recs = [json.loads(line) for line in run.stdout.splitlines()
+            if line.startswith('{"tool": "bench_lm_breakdown"')]
+    check(len(recs) == len(sizes), f"bench_lm_breakdown printed "
+          f"{len(recs)} records, not {len(sizes)}")
+    say(f"phase 19a bench_lm_breakdown at {len(sizes)} sizes in one process: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for (n, calls), rec in zip(sizes, recs):
+        for key, row in rec["phases"].items():
+            check(row["bitwise"], f"bench_lm_breakdown {n}: the phase "
+                  f"{key} is not bitwise the body's on its inputs")
+            check(min(row["ms"], row["device_ms"]) >= row["floor_ms"],
+                  f"bench_lm_breakdown {n}: {key} took {row['ms']:.4f} ms "
+                  f"(device {row['device_ms']:.4f}) under its bytes floor "
+                  f"{row['floor_ms']:.4f} ms")
+        check(rec["n_pts"] == n and rec["body"]["evaluate"]["kernels"] > 0
+              and rec["body_ms"] > 0, f"bench_lm_breakdown {n}: the body's "
+              "trace attributes no device time to the evaluation")
+        check(rec["trace_complete"], f"bench_lm_breakdown {n}: the body's "
+              f"traces hold {rec['trace_kernels']} device activities for "
+              f"{rec['launches']} launches")
+        say(f"phase 19a bench_lm_breakdown {n} x {W}, K = {calls}: every "
+            f"phase bitwise the body's and above its bytes floor; the "
+            f"body's phases {rec['body_ms']:.3f} ms of device time in "
+            f"{rec['body_kernels']} kernels (every trace whole: "
+            f"{rec['trace_kernels']} of {rec['launches']} launches), the "
+            f"replayed body {rec['replayed_body_ms']:.3f} ms")
+    # (b) the evaluation stage by stage at 65 536 points.
+    t0 = time.perf_counter()
+    rec = probe_eval65k.main([str(DENSE_PTS), str(W)])
+    check(all(row["device_ms"] > 0 for row in rec["stages"].values()),
+          "probe_eval65k measured no device time in a stage")
+    say(f"phase 19b probe_eval65k {DENSE_PTS} x {W} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # (c) the command line on verify_e2e's synthetic sequence.
+    t0 = time.perf_counter()
+    rec = verify_e2e.main(["--root", os.path.join(TOOLS_DIR, "verify_e2e")])
+    check(rec["windows"] > 0 and rec["ate_refined"] < rec["ate_init"],
+          f"verify_e2e: {rec}")
+    say(f"phase 19c verify_e2e ({time.perf_counter() - t0:.1f} s): VERIFY "
+        f"OK, {rec['windows']} windows, ATE {rec['ate_init']:.5f} -> "
+        f"{rec['ate_refined']:.5f}")
+    # (d) the golden: render on the card, refine in two configurations.
+    root = os.path.join(TOOLS_DIR, "golden_box")
+    out = os.path.join(TOOLS_DIR, "golden_out")
+    t0 = time.perf_counter()
+    reset_all(kernels)
+    with PlainTwinSolves() as twins:
+        golden, text = tee(golden_kitti.main, [
+            "--root", root, "--frames", str(GOLDEN_FRAMES), "--error-model",
+            "iid", "--configs", ",".join(GOLDEN_CONFIGS), "--out-dir", out])
+    k1, k2 = (pw.patch_stats.launches["mean"],
+              pb.bicubic_stats.launches["mean"])
+    golden_s = time.perf_counter() - t0
+    with open(os.path.join(root, "render_provenance.json")) as f:
+        check(json.load(f)["renderer"] == "torch",
+              "the golden was not rendered on the card")
+    for name in GOLDEN_CONFIGS:
+        recs = read_jsonl(os.path.join(out, f"refined_{name}.txt.jsonl"))
+        check(len(recs) == GOLDEN_FRAMES - W + 1,
+              f"golden {name}: {len(recs)} windows solved")
+        check(all(r["final_cost"] <= r["initial_cost"] for r in recs),
+              f"golden {name}: a window's cost rose")
+    prod = golden["rows"]["W5_production"]
+    check(prod["ate"] < golden["ate_init"], f"golden W5_production: refined "
+          f"ATE {prod['ate']:.4f} not below the input's "
+          f"{golden['ate_init']:.4f}")
+    check(k1 > 0 and k2 > 0, f"golden: K1 launched {k1}, K2 {k2} times")
+    # reference_exact (K2) window by window against its plain twin, from
+    # the same pre-solve states.
+    check(len(twins.rows) == GOLDEN_FRAMES - W + 1,
+          f"golden reference_exact: {len(twins.rows)} twin solves")
+    worst_init = worst_final = 0.0
+    for k, (kern, plain) in enumerate(twins.rows):
+        check(kern[2] == plain[2] and kern[3] == plain[3],
+              f"golden reference_exact window {k}: observations per frame "
+              f"{kern[2]} / residuals {kern[3]} against the plain solve's "
+              f"{plain[2]} / {plain[3]}")
+        init_gap = abs(kern[0] - plain[0]) / plain[0]
+        final_gap = kern[1] / plain[1] - 1.0
+        worst_init = max(worst_init, init_gap)
+        worst_final = max(worst_final, final_gap)
+        check(init_gap <= GOLDEN_INIT_RTOL and final_gap <= GOLDEN_COST_RTOL,
+              f"golden reference_exact window {k}: costs {kern[0]:.6f} -> "
+              f"{kern[1]:.6f} against the plain solve's {plain[0]:.6f} -> "
+              f"{plain[1]:.6f}")
+    say(f"phase 19d golden reference_exact against its plain twin, "
+        f"{len(twins.rows)} windows from the same states: observations "
+        f"equal, initial costs within {worst_init:.2e} (<= "
+        f"{GOLDEN_INIT_RTOL:g}), final costs at most {worst_final:+.2%} "
+        f"above the plain solve's (<= {GOLDEN_COST_RTOL:.0%})")
+    say(f"phase 19d golden_kitti ({golden_s:.1f} s, {GOLDEN_FRAMES} frames "
+        f"rendered on the card and refined twice): every window's cost "
+        f"non-increasing; ATE {golden['ate_init']:.4f} -> "
+        + ", ".join(f"{n} {r['ate']:.4f} ({r['reduction']:+.1f} %)"
+                    for n, r in golden["rows"].items())
+        + f"; K1 launched {k1}, K2 {k2} times")
+    golden_frame_check(synthetic, root, dev)
+    log = os.path.join(out, "golden.log")
+    with open(log, "w") as f:
+        f.write(text)
+    check(golden_aggregate.main(["--logs", log]) == 0,
+          "golden_aggregate found no table")
+    refined = os.path.join(out, "refined_W5_production.txt")
+    gt = os.path.join(root, "poses", "00.txt")
+    init = os.path.join(out, "vo_init.txt")
+    check(diagnose_rpe.main(["--run", refined, "--gt", gt, "--init",
+                             init]) == 0, "diagnose_rpe failed")
+    lines = eval_traj.main([refined, gt, init])
+    check(lines[1]["ate_rmse_m"] < lines[0]["ate_rmse_m"],
+          "eval_traj: the refined ATE is not below the input's")
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is None:
+        say("phase 19d plot_traj not run: matplotlib is not installed on "
+            "this machine (tests/test_torch_tools.py runs it on the CPU)")
+    else:
+        png_path = os.path.join(out, "traj.png")
+        plot_traj.main([refined, gt, init, "--jsonl", refined + ".jsonl",
+                        "--out", png_path])
+        check(os.path.getsize(png_path) > 10_000, "plot_traj wrote no plot")
+    # (e) the engine's and the solve's benches at their JAX twins' sizes.
+    for label, fn in (("bench_keyframes", bench_keyframes.main),
+                      ("bench_sampling", bench_sampling.main),
+                      ("bench_scaling", bench_scaling.main)):
+        t0 = time.perf_counter()
+        fn([])
+        say(f"phase 19e {label} ({time.perf_counter() - t0:.1f} s)")
+    say(f"phase 19 done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3005,6 +3309,9 @@ def main() -> None:
     mesh_launches = mesh_nccl_phase(dev, solve, cam, offsets, args, scene,
                                     drifted, kernels)
     mesh_gloo_phase(dev, scene, drifted)
+
+    # -- phase 19: the remaining tools on the card -----------------------
+    tools_phase_19(dev, kernels)
 
     pw_py = "photobundle_tpu/ops/patch_warp.py"
 

@@ -45,19 +45,27 @@ K_CPU = 2            # the CPU chain: shorter, the same link length
 REPEATS, CPU_REPEATS = 5, 3
 
 
-def chain_rate(device, k: int, repeats: int, shape) -> float:
+def chain_rate(device, k: int, repeats: int, shape, backend: str = "cuda",
+               gradient_mode: str = "sampled",
+               patch_warp: str | None = None) -> float:
     """LM iterations/s of K chained M_ITERS-iteration solves on `device`:
     k * M_ITERS over the median time of `repeats` chains. `shape` =
-    (points, frames, height, width, patch radius)."""
+    (points, frames, height, width, patch radius). The sampling path
+    (the tools' bench_sampling): `backend`, `gradient_mode`, and
+    `patch_warp` ('scale' or None; every point's reference slot 0)."""
     dev = require_device(device)
     cam, offsets, args = entry.make_problem(*shape, seed=SEED, device=dev)
     t_wc, x_world, *rest = args
+    warp = None
+    if patch_warp is not None:
+        warp = (patch_warp, torch.zeros((shape[0],), dtype=torch.int32,
+                                        device=dev))
 
     def solve(x0):
         return lm.lm_solve(cam, t_wc, x0, *rest, offsets, huber_delta=0.05,
-                           gradient_mode="sampled", backend="cuda",
-                           max_iterations=M_ITERS, function_tolerance=0.0,
-                           parameter_tolerance=0.0)
+                           gradient_mode=gradient_mode, backend=backend,
+                           patch_warp=warp, max_iterations=M_ITERS,
+                           function_tolerance=0.0, parameter_tolerance=0.0)
 
     # Probe: the rate's numerator assumes every link runs all M_ITERS
     # (with the tolerances zeroed only a lambda overflow ends a solve

@@ -12,6 +12,8 @@ whole points-first elimination is batched dense algebra:
 
 `solve_dense_full` assembles and solves the whole (6W + 3N) system
 densely: the tests' oracle for the Schur step, never on the solve's path.
+`build_normal_equations` (from the dense `evaluate` output) and `inv3x3`
+(the (..., 3, 3) layout) are oracles for tests and tiny problems too.
 
 Every per-point tensor keeps the point axis LAST, the JAX package's layout,
 so the two packages' tensors compare one for one. Invalid observations
@@ -26,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from .residuals import CompressedResiduals
+from .residuals import CompressedResiduals, Residuals
 
 _DIAG_MIN = 1e-6
 _DIAG_MAX = 1e32
@@ -60,6 +62,19 @@ def to_point_minor(eq: NormalEqDense) -> NormalEq:
     return NormalEq(hpp=eq.hpp.permute(1, 2, 0),
                     hpc=eq.hpc.permute(1, 2, 3, 0), hcc=eq.hcc,
                     bp=eq.bp.T, bc=eq.bc)
+
+
+def build_normal_equations(res: Residuals) -> NormalEqDense:
+    """Oracle path from the dense (N, W, D, .) residual tensor of
+    `residuals.evaluate`: tests and tiny problems only. Each einsum is a
+    batched matmul; masked entries are exact zeros."""
+    jp, jc, r = res.j_point, res.j_pose, res.r
+    hpp = torch.einsum("nwdi,nwdj->nij", jp, jp)
+    hpc = torch.einsum("nwdi,nwdj->nwij", jp, jc)
+    hcc = torch.einsum("nwdi,nwdj->wij", jc, jc)
+    bp = -torch.einsum("nwdi,nwd->ni", jp, r)
+    bc = -torch.einsum("nwdi,nwd->wi", jc, r)
+    return NormalEqDense(hpp=hpp, hpc=hpc, hcc=hcc, bp=bp, bc=bc)
 
 
 def build_normal_equations_compressed(res: CompressedResiduals) -> NormalEq:
@@ -108,10 +123,19 @@ def _damped_nlast(h: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return h + lam * d[:, None, :] * eye
 
 
+def inv3x3(m: torch.Tensor, valid: torch.Tensor | None = None,
+           eps: float = 1e-12) -> torch.Tensor:
+    """Batched closed-form (adjugate) 3x3 inverse, (..., 3, 3) layout: the
+    oracle of `inv3x3_nlast`. Singular or invalid blocks return zeros."""
+    return torch.movedim(inv3x3_nlast(torch.movedim(m, (-2, -1), (0, 1)),
+                                      valid, eps), (0, 1), (-2, -1))
+
+
 def inv3x3_nlast(m: torch.Tensor, valid: torch.Tensor | None = None,
                  eps: float = 1e-12) -> torch.Tensor:
-    """Closed-form (adjugate) inverse of (3, 3, N) blocks. Singular or
-    invalid blocks return zeros, which makes their point update zero."""
+    """Closed-form (adjugate) inverse of (3, 3, N) blocks (any trailing
+    batch shape). Singular or invalid blocks return zeros, which makes
+    their point update zero."""
     a, b, c = m[0, 0], m[0, 1], m[0, 2]
     d, e, f = m[1, 0], m[1, 1], m[1, 2]
     g, h, i = m[2, 0], m[2, 1], m[2, 2]

@@ -1,14 +1,41 @@
-"""Command-line tools of the port: `bench_warp_kernel` (the store variants
-of `ops/patch_samples.warp_patches`), `ablate_patch_stats` (K1's stages,
-`ops/patch_ablate`) and `bench_batched` (total keyframes/s of the batched
-engine, core/batched.py). Each runs on the card unless given `--device
-cpu`."""
+"""Command-line tools of the port, the twins of the repository's
+`tools/` scripts, each run as `python -m photobundle_torch.tools.<name>`:
+
+  kernels      bench_warp_kernel (the store variants of
+               `ops/patch_samples.warp_patches`), ablate_patch_stats
+               (K1's stages, `ops/patch_ablate`)
+  the solve    bench_lm_breakdown (one LM iteration per phase, and the
+               profile of one body), probe_eval65k (the evaluation stage
+               by stage), bench_sampling, bench_scaling
+  the engine   bench_keyframes, bench_batched (core/batched.py)
+  meshes       comm_model, validate_frames_sharding, demo_multiprocess,
+               bench_multihost
+  accuracy     verify_e2e (the command line on a synthetic sequence),
+               golden_kitti (the KITTI-scale box room, `synthetic`),
+               golden_aggregate, diagnose_rpe, diagnose_w5, eval_traj,
+               plot_traj
+
+Each that computes runs on the card unless given `--device cpu`, and
+raises where there is none."""
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
+
+# One NVIDIA H100 SXM (NVIDIA's data sheet): HBM bandwidth and the f32
+# rate outside the tensor cores, the rates every bound of the port takes.
+H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
+
+
+def build_path(*parts: str) -> str:
+    """A path under the repository's ignored build/ directory, where the
+    tools write their datasets and outputs by default."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, "build", *parts)
 
 
 def device_name(device: torch.device) -> str:

@@ -39,29 +39,38 @@ H, WI = 370, 1226
 TIMED_FROM = 6          # the first frame whose step is timed
 
 
-def scene(frames: int):
-    """(frames of the texture, depth map): the JAX tool's draws."""
+def scene(frames: int, shape=(H, WI)):
+    """(frames of the texture, depth map): the JAX tool's draws at its
+    370x1226 (another `shape` for a small run)."""
+    h, wi = shape
     rng = np.random.default_rng(0)
-    base = np.zeros((H + 40, WI + 40), np.float32)
-    ys, xs = np.meshgrid(np.arange(H + 40), np.arange(WI + 40),
+    base = np.zeros((h + 40, wi + 40), np.float32)
+    ys, xs = np.meshgrid(np.arange(h + 40), np.arange(wi + 40),
                          indexing="ij")
     for _ in range(40):
         f1, f2, ph = (rng.uniform(0.02, 0.5), rng.uniform(0.02, 0.5),
                       rng.uniform(0, 6))
         base += np.sin(f1 * xs + f2 * ys + ph).astype(np.float32)
     base = 0.5 + base / 60
-    images = [np.ascontiguousarray(base[k:k + H, k:k + WI])
+    images = [np.ascontiguousarray(base[k:k + h, k:k + wi])
               for k in range(frames)]
-    depth = rng.uniform(5, 60, (H, WI)).astype(np.float32)
+    depth = rng.uniform(5, 60, (h, wi)).astype(np.float32)
     return images, depth
+
+
+def kitti_camera(shape=(H, WI)) -> Camera:
+    """KITTI 00's left camera (the JAX tools' intrinsics), scaled to
+    `shape`'s width and height where it is not 370x1226."""
+    sy, sx = shape[0] / H, shape[1] / WI
+    return Camera.create(fx=718.856 * sx, fy=718.856 * sx, cx=607.19 * sx,
+                         cy=185.21 * sy, baseline=0.537)
 
 
 def measure(batch: int, device="cuda", frames: int = 12,
             scene_data=None) -> dict:
     """Run `frames` frames of `batch` sequences; the JSON record."""
     device = require_device(device)
-    cam = Camera.create(fx=718.856, fy=718.856, cx=607.19, cy=185.21,
-                        baseline=0.537)
+    cam = kitti_camera()
     cfg = PBAConfig(maxNumPoints=4096, maxPointsPerFrame=1024,
                     slidingWindowSize=5, patchRadius=2, maxIterations=30,
                     functionTolerance=1e-6)

@@ -10,6 +10,12 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "photobundle_torch"
+# The twins of the repository's tools/ scripts and tests/synthetic.py's
+# golden half.
+NEW_TOOLS = ("bench_lm_breakdown", "probe_eval65k", "eval_traj",
+             "verify_e2e", "synthetic", "golden_kitti", "golden_aggregate",
+             "diagnose_rpe", "diagnose_w5", "bench_keyframes",
+             "bench_sampling", "bench_scaling", "plot_traj")
 
 
 def test_import_loads_no_jax():
@@ -29,9 +35,11 @@ def test_import_loads_no_jax():
             "photobundle_torch.tools.comm_model, "
             "photobundle_torch.tools.demo_multiprocess, "
             "photobundle_torch.tools.bench_multihost, "
-            "photobundle_torch.tools.validate_frames_sharding; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'jaxlib', 'photobundle_tpu'))]; print(bad)")
+            "photobundle_torch.tools.validate_frames_sharding, "
+            + ", ".join(f"photobundle_torch.tools.{m}" for m in NEW_TOOLS)
+            + "; bad = [m for m in sys.modules if m in ('jax', 'synthetic', "
+            "'tools') or m.startswith(('jax.', 'jaxlib', 'photobundle_tpu', "
+            "'tools.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -41,9 +49,19 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix()
                                         for p in PKG.rglob("*.py")))
 def test_source_names_no_jax(path):
+    """No module imports jax, the JAX package, the repository's tools/
+    scripts or tests/synthetic.py, nor puts either directory on the
+    import path."""
     text = (REPO / path).read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|photobundle_tpu)\b",
-                         text, re.M), path
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|photobundle_tpu"
+                         r"|tools|synthetic|tests|conftest)\b", text,
+                         re.M), path
+    assert not re.search(r"sys\.path\.(insert|append)", text), path
+
+
+def test_every_tool_twin_is_scanned():
+    scanned = {p.stem for p in (PKG / "tools").glob("*.py")}
+    assert set(NEW_TOOLS) <= scanned
 
 
 def test_import_sets_full_f32_matmul():

@@ -3,6 +3,8 @@
 Each port function gets exactly the JAX function's inputs (converted from
 numpy), so the comparison isolates that function."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +171,125 @@ def test_schur_solve_matches_dense_oracle(eqs):
                                rtol=1e-3)
     assert float(dc_s[0].abs().max()) == float(dc_d[0].abs().max()) == 0.0
     assert float(dp_d[[3, 7]].abs().max()) == 0.0
+
+
+# -- the dense oracles: inv3x3 and build_normal_equations ----------------
+
+def test_inv3x3_matches_numpy_and_jax():
+    """tests/test_schur.py's inverse on seeded SPD blocks, (..., 3, 3):
+    against numpy's f64 inverse of the f32 blocks and the JAX inv3x3."""
+    rng = np.random.default_rng(5)
+    m = rng.standard_normal((20, 3, 3)).astype(np.float32)
+    m = (m @ m.transpose(0, 2, 1) + 0.5 * np.eye(3)).astype(np.float32)
+    inv = to_np(tschur.inv3x3(tt(m)))
+    np.testing.assert_allclose(inv, np.linalg.inv(m.astype(np.float64)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(inv, np.asarray(jschur.inv3x3(jnp.asarray(m))),
+                               rtol=1e-5, atol=1e-5)
+    # The (3, 3, N) form is the same function.
+    assert torch.equal(tschur.inv3x3(tt(m)),
+                       tschur.inv3x3_nlast(tt(m).permute(1, 2, 0))
+                       .permute(2, 0, 1))
+
+
+def test_inv3x3_singular_returns_zero():
+    assert float(tschur.inv3x3(torch.zeros((2, 3, 3))).abs().max()) == 0.0
+
+
+def test_inv3x3_respects_valid_mask():
+    m = torch.eye(3).repeat(3, 1, 1)
+    inv = tschur.inv3x3(m, torch.tensor([True, False, True]))
+    assert float(inv[1].abs().max()) == 0.0
+    assert torch.equal(inv[0], torch.eye(3)) and torch.equal(inv[2],
+                                                             torch.eye(3))
+
+
+@functools.lru_cache(maxsize=1)
+def dense_eqs(n, w):
+    """Both packages' dense `evaluate` on tests/test_schur.py's problem
+    (setup_problem, x + 0.01), and each one's build_normal_equations."""
+    from torch_parity import port_problem
+    rng = np.random.default_rng(0)
+    problem = setup_problem(rng, n_pts=n, w=w)
+    cam, t_wc, x, patch, ch, g, obs, off = problem
+    kw = dict(huber_delta=1e9, gradient_mode="exact")
+    ref = jres.evaluate(cam, t_wc, x + 0.01, patch, ch, g, obs, off, **kw)
+    pcam, pt, px, ppatch, pch, pg, pobs, poff = port_problem(problem)
+    out = tres.evaluate(pcam, pt, px + 0.01, ppatch, pch, pg, pobs, poff,
+                        **kw)
+    return (jschur.build_normal_equations(ref), ref,
+            tschur.build_normal_equations(out), out)
+
+
+@pytest.mark.parametrize("name", ["hpp", "hpc", "hcc", "bp", "bc"])
+def test_dense_normal_equations_match_jax(name):
+    """The port's oracle on the port's `evaluate` against the JAX one on
+    the JAX `evaluate`, from the same numpy problem, at
+    tests/test_schur.py's tolerance (atol 1e-3)."""
+    ref, _, out, _ = dense_eqs(5, 3)
+    assert isinstance(out, tschur.NormalEqDense)
+    np.testing.assert_allclose(to_np(getattr(out, name)),
+                               np.asarray(getattr(ref, name)), atol=1e-3,
+                               rtol=1e-4)
+
+
+def test_dense_normal_equations_are_the_dense_jtj():
+    """tests/test_schur.py's dense J^T J check on the port."""
+    _, _, eq, out = dense_eqs(5, 3)
+    n, w, d = out.r.shape
+    j = np.zeros((n * w * d, 6 * w + 3 * n), np.float32)
+    r_flat = np.zeros((n * w * d,), np.float32)
+    jp, jx, rr = to_np(out.j_pose), to_np(out.j_point), to_np(out.r)
+    for p in range(n):
+        for f in range(w):
+            rows = slice((p * w + f) * d, (p * w + f + 1) * d)
+            j[rows, 6 * f:6 * f + 6] = jp[p, f]
+            j[rows, 6 * w + 3 * p:6 * w + 3 * p + 3] = jx[p, f]
+            r_flat[rows] = rr[p, f]
+    h, b = j.T @ j, -j.T @ r_flat
+    for f in range(w):
+        np.testing.assert_allclose(to_np(eq.hcc[f]),
+                                   h[6 * f:6 * f + 6, 6 * f:6 * f + 6],
+                                   atol=1e-3)
+    for p in range(n):
+        o = 6 * w + 3 * p
+        np.testing.assert_allclose(to_np(eq.hpp[p]), h[o:o + 3, o:o + 3],
+                                   atol=1e-3)
+        for f in range(w):
+            np.testing.assert_allclose(to_np(eq.hpc[p, f]),
+                                       h[o:o + 3, 6 * f:6 * f + 6], atol=1e-3)
+    np.testing.assert_allclose(to_np(eq.bc).reshape(-1), b[:6 * w],
+                               atol=1e-3)
+    np.testing.assert_allclose(to_np(eq.bp).reshape(-1), b[6 * w:],
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_compressed_normal_equations_match_dense(prior):
+    """tests/test_schur.py:136-167 on the port: the compressed equations
+    (the solve's) against the dense oracle's, Huber and masks included,
+    with and without the inverse-depth prior, atol 2e-3."""
+    from torch_parity import port_problem
+    rng = np.random.default_rng(0)
+    n = 7 if prior else 9
+    cam, t_wc, x, patch, ch, g, obs, off = port_problem(
+        setup_problem(rng, n_pts=n, w=3))
+    kw = dict(huber_delta=0.05, gradient_mode="sampled")
+    if prior:
+        kw["depth_prior"] = (torch.as_tensor(rng.integers(0, 3, size=n)),
+                             torch.as_tensor(rng.uniform(
+                                 0.05, 0.4, size=n).astype(np.float32)), 5.0)
+    else:
+        obs = obs.clone()
+        obs[1, 2] = obs[4, 0] = False
+    full = tres.evaluate(cam, t_wc, x + 0.02, patch, ch, g, obs, off, **kw)
+    comp = tres.evaluate_compressed(cam, t_wc, x + 0.02, patch, ch, g, obs,
+                                    off, **kw)
+    np.testing.assert_allclose(float(comp.cost), float(full.cost), rtol=1e-5)
+    assert int(comp.n_residuals) == int(full.n_residuals)
+    got = tschur.to_point_major(tschur.build_normal_equations_compressed(comp))
+    want = tschur.build_normal_equations(full)
+    for name in ("hpp", "hpc", "hcc", "bp", "bc"):
+        np.testing.assert_allclose(to_np(getattr(got, name)),
+                                   to_np(getattr(want, name)), atol=2e-3,
+                                   rtol=1e-4, err_msg=name)
