@@ -113,16 +113,23 @@ Drives the port's paths at the repository's full size (370x1226 images,
      inputs stacked for B = 4 windows (window b's uv shifted b x 0.37 px)
      against its plain version and bitwise 4 single-window launches at R
      = 2, 9 and 19, its device time at B = 1, 2 and 4; then the batched
-     engine in the default configuration on phase 6's scene, 8 frames,
-     B = 2 and 4 sequences each drifted from its own seed (1..B), against
-     B single engines fed the same frames (equal frame ids and point
-     counts, poses within 1e-3, final costs within 1e-3 relative: the
-     reference's oracle, tests/test_engine.py:376-385), K1 launched once
-     per evaluation for the whole batch (the batched solve's replays + 1,
-     + 2 per cold key); host syncs per batched solve, the cold key's
-     warm-up + capture ms, its graphs' memory and the card's idle share
-     over a warm batched solve per B; then
-     `tools/bench_batched` in this process at B = 1, 2, 4 and 8;
+     engine in the default configuration, 8 frames, B = 2 and 4
+     sequences, sequence k phase 6's frames shifted k px and brightened
+     0.001 k and drifted from its own seed (k + 1): every batched
+     ingest's result, sequence by sequence, bitwise the single engine's
+     `_ingest` from that sequence's slice of the state; the windows
+     against B single engines fed the same frames (equal frame ids and
+     point counts, poses within 1e-3, final costs within 1e-3 relative:
+     the reference's oracle, tests/test_engine.py:376-385; and bitwise:
+     poses, points, final cost), K1 launched once per evaluation for the
+     whole batch (the batched solve's replays + 1, + 2 per cold key);
+     host syncs per batched solve, the cold key's warm-up + capture ms,
+     its graphs' memory and the card's idle share over a warm batched
+     solve per B; the batched ingest at B = 1, 2, 4 and 8 into full
+     rings, warm, beside one and B single ingests: ms (CUDA events),
+     device activities and launch calls (torch.profiler), host syncs,
+     each the same at every B; then `tools/bench_batched` in this
+     process at B = 1, 2, 4 and 8;
  17. multi-sequence refinement: `python -m photobundle_torch.multi` on
      phase 12's KITTI-format sequence in configs/kitti_production.cfg,
      units of 6 frames, with 2 spawned workers and then 1 inline: the
@@ -280,6 +287,10 @@ CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
 BATCH_KERNEL, BATCH_RADII, BATCH_SHIFT_PX = 4, (2, 9, 19), 0.37
 BATCH_SIZES, BENCH_BATCHES = (2, 4), (1, 2, 4, 8)
 BATCH_POSE_ATOL, BATCH_COST_RTOL = 1e-3, 1e-3
+# Phase 16's sequence k: phase 6's frames shifted left by k px and
+# brightened by BATCH_BRIGHTEN x k; the batched ingest's cost at
+# INGEST_BATCHES, warm, each number the median of INGEST_CALLS calls.
+BATCH_BRIGHTEN, INGEST_BATCHES, INGEST_CALLS = 0.001, (1, 2, 4, 8), 5
 # Phase 17: the multi-sequence runs' units and their time limit.
 MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
 MULTI_DIR = os.path.join("build", "chip_smoke_multi")
@@ -2087,6 +2098,210 @@ def batched_kernel_phase(planes, uv_nm, seen_nm, patch) -> dict:
     return numbers
 
 
+def shifted_sequence(scene, k: int):
+    """Phase 16's sequence k: phase 6's images and depth maps shifted left
+    by k px (the last column repeated), the images brightened by
+    BATCH_BRIGHTEN x k, as tools/bench_batched builds its sequences; no
+    two sequences of a batch ingest the same frame."""
+    _, images, depths, _ = scene
+
+    def shift(a):
+        if not k:
+            return a
+        return np.concatenate([a[:, k:], np.repeat(a[:, -1:], k, axis=1)],
+                              axis=1)
+
+    return ([shift(im) + np.float32(BATCH_BRIGHTEN * k) for im in images],
+            [shift(d) for d in depths])
+
+
+def single_ingest(proto, window, points, k, image, depth, t_wc, frame_id,
+                  age_id, count):
+    """The single engine's `_ingest` of sequence k's frame from sequence
+    k's slice of a stacked state, the frame transported as a single
+    engine transports it."""
+    from photobundle_torch.core.batched import _slice
+
+    image, depth = proto._host_frame(image, depth)
+    put = lambda a: torch.as_tensor(a).to(proto.device)  # noqa: E731
+    return proto._ingest(_slice(window, k), _slice(points, k), put(image),
+                         put(depth), put(np.asarray(t_wc, np.float32)),
+                         frame_id, age_id, count)
+
+
+class IngestRecord:
+    """Wraps a batched engine's `_ingest` and keeps each call's state,
+    arguments and result; `check(frames)` then holds every sequence's
+    slice of the result bitwise to the single engine's `_ingest` from
+    that sequence's slice of the state (outside the timed step)."""
+
+    def __init__(self, bp):
+        self.bp, self.calls, self.checked = bp, [], 0
+        self.inner = bp._ingest
+        bp._ingest = self
+
+    def __call__(self, window, points, *args):
+        out = self.inner(window, points, *args)
+        self.calls.append((window, points, args, out))
+        return out
+
+    def check(self, frames, what: str) -> None:
+        from photobundle_torch.core.batched import _slice
+
+        window, points, args, out = self.calls.pop()
+        frame_id, age_id, count = args[3:]
+        for k, (image, depth, t_wc) in enumerate(frames):
+            want = single_ingest(self.bp._proto, window, points, k, image,
+                                 depth, t_wc, frame_id, age_id, count)
+            diff = tree_difference(tuple(_slice(t, k) for t in out), want)
+            check(diff is None, f"{what}, frame {frame_id}, sequence {k}: "
+                  f"the batched ingest differs from the single ingest at "
+                  f"{diff}")
+        self.checked += 1
+
+
+def traced_activities(fn, tries: int = 3):
+    """One call of fn under torch.profiler: (device activities, host
+    runtime calls that put one on the device: kernel launches, memsets
+    and copies, bench_lm_breakdown.LAUNCH_CALLS). A trace that holds fewer
+    activities than launch calls dropped some (PERF.md section 7) and is
+    retaken, up to `tries` traces."""
+    from torch.autograd import DeviceType
+
+    from photobundle_torch.tools.bench_lm_breakdown import LAUNCH_CALLS
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = sum(e.device_type == DeviceType.CUDA for e in events)
+        host = sum(e.device_type == DeviceType.CPU
+                   and any(c in e.name for c in LAUNCH_CALLS)
+                   for e in events)
+        if device == host:
+            break
+    return device, host
+
+
+def written_out_vs_einsum(scene) -> None:
+    """Phase 16: the ingest's batch-exact pose products
+    (`se3.transform_points_each`, `se3.se3_inverse_each`) against the
+    einsums a single pose's ingest ran before them (cuBLAS's GEMM and
+    GEMV), on phase 6's poses and the points they see: the elements that
+    differ (0: the single engine rounds as it did)."""
+    from photobundle_torch.geometry import camera as cam_mod
+    from photobundle_torch.geometry import se3
+
+    cam, _, _, gt = scene
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    t_wc = torch.as_tensor(np.stack(gt).astype(np.float32), device=dev)
+    inv_d = sum(int((se3.se3_inverse_each(t) != se3.se3_inverse(t)).sum())
+                for t in t_wc)
+    tr_d, tr_n = 0, 0
+    for k, t in enumerate(t_wc):
+        for n in (N_PTS, 1024):
+            uv = torch.as_tensor(rng.uniform([0, 0], [WI - 1, H - 1], (
+                n, 2)).astype(np.float32), device=dev)
+            z = torch.as_tensor(rng.uniform(2, 60, n).astype(np.float32),
+                                device=dev)
+            x = cam_mod.backproject(cam.to(dev), uv, z)
+            tr_d += int((se3.transform_points_each(t, x)
+                         != se3.transform_points(t, x)).sum())
+            tr_n += x.numel()
+    say(f"phase 16 the ingest's written-out pose products against the "
+        f"einsums on this card: se3_inverse {inv_d} of {t_wc.numel()} "
+        f"elements differ ({len(t_wc)} poses, one GEMV each), "
+        f"transform_points {tr_d} of {tr_n} ({len(t_wc)} poses x "
+        f"{N_PTS} and 1024 points, one GEMM each)")
+
+
+def ingest_cost_phase(scene, cfg) -> dict:
+    """Phase 16's cost of one batched ingest at INGEST_BATCHES, warm: B
+    sequences (shifted_sequence) ingested into full rings (the steady
+    state: a slide, a cull, tracking and selection), beside one single
+    ingest and B single ingests from the same states. Returns per B the
+    numbers: ms (CUDA events), device activities and host launch calls
+    (torch.profiler), host syncs (set_sync_debug_mode)."""
+    from photobundle_torch.core.batched import \
+        BatchedPhotometricBundleAdjustment, _slice
+
+    cam, _, _, gt = scene
+    h, wi = scene[1][0].shape
+    out = {}
+    for b in INGEST_BATCHES:
+        bp = BatchedPhotometricBundleAdjustment(cam, (h, wi), cfg, b)
+        proto = bp._proto
+        seqs = [shifted_sequence(scene, k) for k in range(b)]
+
+        def inputs(i):
+            frames = [proto._host_frame(seqs[k][0][i], seqs[k][1][i])
+                      for k in range(b)]
+            return (bp._frame_images([im for im, _ in frames]),
+                    bp._put(np.stack([d for _, d in frames])),
+                    bp._put(np.stack([np.asarray(gt[i], np.float32)] * b)))
+
+        window, points = bp.window, bp.points
+        for i in range(W):
+            window, points = bp._ingest(window, points, *inputs(i), i, i, i)
+        args = (*inputs(W), W, W, W)
+        # The single ingests' states and frames, on the card beforehand as
+        # the batched ingest's are.
+        alone = []
+        for k in range(b):
+            image, depth = proto._host_frame(seqs[k][0][W], seqs[k][1][W])
+            alone.append((_slice(window, k), _slice(points, k),
+                          torch.as_tensor(image).to(proto.device),
+                          torch.as_tensor(depth).to(proto.device),
+                          args[2][k].clone(), W, W, W))
+
+        def batched():
+            return bp._ingest(window, points, *args)
+
+        def single(k=0):
+            return proto._ingest(*alone[k])
+
+        def singles():
+            return [single(k) for k in range(b)]
+
+        got = batched()
+        for k in range(b):
+            diff = tree_difference(tuple(_slice(t, k) for t in got),
+                                   single(k))
+            check(diff is None, f"phase 16 ingest cost, B = {b}, sequence "
+                  f"{k}: the batched ingest differs from the single "
+                  f"ingest at {diff}")
+        row = {}
+        for name, fn in (("batched", batched), ("single", single),
+                         ("singles", singles)):
+            device, host = traced_activities(fn)
+            row[name] = {"ms": median_ms(fn, INGEST_CALLS, warmup=2),
+                         "device_activities": device,
+                         "launch_calls": host, "host_syncs": host_syncs(fn)}
+        out[b] = row
+        say(f"phase 16 batched ingest, B = {b} (warm, full rings, "
+            f"{h}x{wi}; bitwise {b} single ingests): "
+            + " | ".join(
+                f"{name} {r['ms']:.3f} ms, {r['device_activities']} device "
+                f"activities, {r['launch_calls']} launch calls, "
+                f"{r['host_syncs']} host syncs"
+                for name, r in (("batched ingest", row["batched"]),
+                                ("one single ingest", row["single"]),
+                                (f"{b} single ingests", row["singles"]))))
+        del bp, window, points, got, alone
+        torch.cuda.empty_cache()
+    written_out_vs_einsum(scene)
+    for key in ("device_activities", "launch_calls", "host_syncs"):
+        seen = {b: out[b]["batched"][key] for b in INGEST_BATCHES}
+        check(len(set(seen.values())) == 1, f"phase 16: the batched "
+              f"ingest's {key} differ with B: {seen}")
+    return out
+
+
 def batched_phase(scene, kernels) -> int:
     """Phase 16's engine part (see the module docstring). Returns K1's
     launches in the batched engine's run at the largest batch size (the
@@ -2107,25 +2322,30 @@ def batched_phase(scene, kernels) -> int:
     for b in BATCH_SIZES:
         inits = [entry.drift_poses(np.random.default_rng(k), gt, DRIFT_TRANS,
                                    DRIFT_ROT, 1) for k in range(1, b + 1)]
+        seqs = [shifted_sequence(scene, k) for k in range(b)]
         singles = []
         for k in range(b):
             pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
             singles.append([r for i in range(n) if (r := pba.add_frame(
-                images[i], depths[i], inits[k][i]))])
+                seqs[k][0][i], seqs[k][1][i], inits[k][i]))])
         bp = BatchedPhotometricBundleAdjustment(cam, images[0].shape, cfg, b)
         check(bp.device.type == "cuda" and bp.backend == "cuda",
               f"batched engine on {bp.device}, backend {bp.backend}")
+        record = IngestRecord(bp)
         batched = [[] for _ in range(b)]
         step_ms = []
         torch.cuda.synchronize()
         reset_all(kernels)
         for i in range(n):
+            frames = [(seqs[k][0][i], seqs[k][1][i], inits[k][i])
+                      for k in range(b)]
             t0 = time.perf_counter()
-            rs = bp.add_frames([images[i]] * b, [depths[i]] * b,
-                               [init[i] for init in inits])
+            rs = bp.add_frames(*map(list, zip(*frames)))
+            dt = (time.perf_counter() - t0) * 1e3
+            record.check(frames, f"phase 16 B = {b}")
             if rs is None:
                 continue
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append(dt)
             for k, r in enumerate(rs):
                 batched[k].append(r)
         counts = launch_counts(kernels)
@@ -2134,7 +2354,7 @@ def batched_phase(scene, kernels) -> int:
         others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
         its = [max(r.iterations for r in solve) for solve in zip(*batched)]
         expected = expected_launches(its)
-        pose_d, cost_d = 0.0, 0.0
+        pose_d, cost_d, unequal = 0.0, 0.0, []
         for ra_list, rb_list in zip(singles, batched):
             check(len(ra_list) == len(rb_list) == n - W + 1,
                   f"B = {b}: {len(ra_list)} single and {len(rb_list)} "
@@ -2151,8 +2371,16 @@ def batched_phase(scene, kernels) -> int:
                       f"{rb.initial_cost} -> {rb.final_cost}")
                 pose_d = max(pose_d, float(np.abs(ra.poses - rb.poses).max()))
                 cost_d = max(cost_d, abs(rb.final_cost / ra.final_cost - 1))
+                if not (np.array_equal(ra.poses, rb.poses)
+                        and np.array_equal(ra.points_xyz, rb.points_xyz)
+                        and ra.final_cost == rb.final_cost):
+                    unequal.append(ra.frame_ids.tolist())
         say(f"phase 16 batched engine, B = {b} (default configuration, "
-            f"{n} frames, drift seeds 1..{b}): {len(its)} batched solves, "
+            f"{n} frames, sequence k phase 6's frames shifted k px and "
+            f"brightened {BATCH_BRIGHTEN:g} k, drift seeds 1..{b}): each "
+            f"sequence's window and point table after each of the "
+            f"{record.checked} batched ingests bitwise the single engine's "
+            f"_ingest from its slice; {len(its)} batched solves, "
             f"iterations per solve (the longest window) {its}; K1 launches "
             f"{k1} (once per evaluation for the whole batch: replays + 1, "
             f"+ 2 per cold key: {expected}; lm runs {runs}), other kernels "
@@ -2160,8 +2388,14 @@ def batched_phase(scene, kernels) -> int:
             f"largest pose difference {pose_d:.3e} (atol "
             f"{BATCH_POSE_ATOL:g}), largest final-cost rel difference "
             f"{cost_d:.3e} (rtol {BATCH_COST_RTOL:g}); frame ids and point "
-            f"counts equal | median ms per step (B frames ingested + the "
-            f"batched solve + the fetch) {statistics.median(step_ms):.1f}")
+            f"counts equal; windows whose poses, points or final cost are "
+            f"not bitwise the single engine's: {unequal or 'none'} | median "
+            f"ms per step (B frames ingested + the batched solve + the "
+            f"fetch) {statistics.median(step_ms):.1f}")
+        check(record.checked == n and not record.calls,
+              f"B = {b}: {record.checked} of {n} batched ingests checked")
+        check(not unequal, f"B = {b}: windows {unequal} are not bitwise the "
+              f"single engines'")
         check(k1 == expected > 0, f"B = {b}: K1 launched {k1} times, "
               f"expected {expected}")
         check(not others, f"B = {b}: other kernels or modes ran: {others}")
@@ -2193,7 +2427,8 @@ def batched_phase(scene, kernels) -> int:
             f"(memory_reserved after empty_cache) | host syncs per batched "
             f"solve {syncs} (set_sync_debug_mode('warn')) | "
             + busy_text(*busy, warm_ms, "batched solve"))
-        del bp
+        del bp, record
+    ingest_cost_phase(scene, cfg)
     data = bench_batched.scene(12)
     for b in BENCH_BATCHES:
         t0 = time.perf_counter()

@@ -6,9 +6,14 @@ sequence refinement"): B sequences share one camera and one frame clock
 shared ingest ordinal), and their engines' states, the point tables and
 window rings, are stacked along a leading axis.
 
-- Ingest runs the single engine's `_ingest` on each sequence's slice of
-  the stacked state, one sequence after the other, so it is bitwise the
-  single engine's (ROADMAP.md queues a batched ingest).
+- Ingest is one pass over the batch axis (the twin of the reference's
+  `jax.vmap(_ingest_impl)`): the single engine's `_ingest` runs once on
+  the stacked state with the B frames stacked, every step written over
+  leading axes (the image and descriptor functions, the ring push, the
+  cull, tracking and selection), so its launches and host syncs do not
+  grow with B. Each sequence's slice of the result is bitwise the single
+  engine's ingest of that sequence: no step mixes rows, and no float
+  reduction or 3x3 product rounds by the batch's shape.
 - The window solves run as one program: each sequence's `_optimize_plan`
   (core/engine.py: the coarse levels, the fine-cost guard, the
   maxPoseCorrection gate, the reanchor of excluded points) advances in
@@ -33,10 +38,11 @@ not applied, as in the reference's batched engine).
 
 Device meshes: cfg.meshWindows x cfg.meshPoints on an initialized
 torch.distributed world of that many ranks (parallel/mesh.py; without one
-it raises). Ingest stays replicated; a 'windows' group solves B /
-meshWindows windows as one program, each window's points split over the
-'points' group (parallel/sharded.wrap_batched_optimize), and the results
-are gathered, so `add_frames` returns all B results on every rank.
+it raises). Ingest stays replicated (every rank ingests all B
+sequences); a 'windows' group solves B / meshWindows windows as one
+program, each window's points split over the 'points' group
+(parallel/sharded.wrap_batched_optimize), and the results are gathered,
+so `add_frames` returns all B results on every rank.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ import torch
 from ..config import PBAConfig
 from ..geometry.camera import Camera
 from . import lm
-from .engine import PhotometricBundleAdjustment, WindowResult, _Fetch
+from .engine import (_INV_255, PhotometricBundleAdjustment, WindowResult,
+                     _Fetch)
 
 
 def _slice(tree, b: int):
@@ -134,17 +141,14 @@ class BatchedPhotometricBundleAdjustment:
         count = self._window_count
         self._window_count = min(count + 1, self.cfg.slidingWindowSize)
 
-        put = lambda a: torch.as_tensor(a).to(self.device)  # noqa: E731
-        windows, points = [], []
-        for k in range(b):
-            image, depth = proto._host_frame(images[k], depths[k], valids[k])
-            win, pts = proto._ingest(
-                _slice(self.window, k), _slice(self.points, k), put(image),
-                put(depth), put(np.asarray(t_wcs[k], np.float32)),
-                int(frame_id), age_id, count)
-            windows.append(win)
-            points.append(pts)
-        self.window, self.points = lm.stacked(windows), lm.stacked(points)
+        frames = [proto._host_frame(images[k], depths[k], valids[k])
+                  for k in range(b)]
+        image = self._frame_images([im for im, _ in frames])
+        depth = self._put(np.stack([d for _, d in frames]))
+        t_wc = self._put(np.stack([np.asarray(t, np.float32) for t in t_wcs]))
+        self.window, self.points = self._ingest(
+            self.window, self.points, image, depth, t_wc, int(frame_id),
+            age_id, count)
 
         if self._window_count < self.cfg.slidingWindowSize:
             return None
@@ -158,6 +162,35 @@ class BatchedPhotometricBundleAdjustment:
                           self.points.ref_frame, t_pre]).result()
         return [proto._make_result([a[k] for a in fetched], t0)
                 for k in range(b)]
+
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, in one copy. A pageable
+        copy waits for the stream; staging through pinned memory instead
+        made a one-sequence step slower on an H100 (PERF.md, section 6)."""
+        return torch.as_tensor(array).to(self.device)
+
+    def _frame_images(self, images) -> torch.Tensor:
+        """The B transported images (`_host_frame`'s, each uint8 or f32) as
+        one (B, H, W) tensor on the device: uint8 when all are, which
+        `_ingest` scales; else f32, the uint8 rows scaled on the device by
+        the shared reciprocal as `_ingest` scales them (the f32 rows times
+        1, which is exact), so each row is what its single ingest sees."""
+        stack = np.stack(images)
+        u8 = np.array([im.dtype == np.uint8 for im in images])
+        if u8.all() or not u8.any():
+            return self._put(stack)
+        scale = np.where(u8, np.float32(_INV_255), np.float32(1.0))
+        return (self._put(stack.astype(np.float32))
+                * self._put(scale.astype(np.float32)[:, None, None]))
+
+    def _ingest(self, window, points, images, depths, t_wcs, frame_id: int,
+                age_id: int, count: int):
+        """Frame `frame_id` of every sequence, ingested as one pass over
+        the batch axis of the stacked state: the single engine's `_ingest`
+        on (B, ...) tensors (images and depths (B, H, W), poses (B, 4,
+        4)). Returns (window, points); the inputs are not modified."""
+        return self._proto._ingest(window, points, images, depths, t_wcs,
+                                   frame_id, age_id, count)
 
     def _optimize(self, window, points, shard_ctx=None):
         """The window solves of the stacked state (its leading axis; a

@@ -229,20 +229,28 @@ class PhotometricBundleAdjustment:
     # ------------------------------------------------------------------ #
     def _prepare_level(self, image, depth, depth_ok):
         """Full-res image -> descriptor channels/grads/saliency + depth at
-        the refinement level. Only the levels down to it are built."""
+        the refinement level. Only the levels down to it are built.
+        image, depth, depth_ok: (..., H, W)."""
         cfg = self.cfg
         img_l = pyramid_mod.build_pyramid(image, cfg.refinementLevel + 1)[-1]
         lvl = descriptor_mod.build_descriptor_level(
             img_l, cfg.descriptor, cfg.sigmaPriorToCensusTransform,
             cfg.sigmaBitPlanes, cfg.gradientSigma)
         s = 2 ** cfg.refinementLevel
-        return lvl, depth[::s, ::s], depth_ok[::s, ::s]
+        return lvl, depth[..., ::s, ::s], depth_ok[..., ::s, ::s]
 
     def _ingest(self, window, points, image, depth, t_wc, frame_id: int,
                 age_id: int, count: int):
         """Push the frame, cull, track and select. `count` is the window
         fill before the push (the host mirror). Returns (window, points);
-        the inputs are not modified."""
+        the inputs are not modified.
+
+        The same code ingests B sequences' frames at once (the batched
+        engine): a state stacked along a leading axis, image and depth (B,
+        H, W), t_wc (B, 4, 4); the sequences share frame_id, age_id and
+        count. Each sequence's slice of the result is bitwise what this
+        call gives for that sequence alone: no step mixes rows, and every
+        float reduction runs over an axis of the sequence's own data."""
         cfg = self.cfg
         if image.dtype == torch.uint8:
             image = image.to(torch.float32) * _INV_255
@@ -252,7 +260,7 @@ class PhotometricBundleAdjustment:
         window, points = self._push(
             window, lvl.channels, lvl.grads, lvl.saliency, t_wc, frame_id,
             depth_l, ok_l, points, count)
-        points = state.cull_points(points, window.frame_ids[0])
+        points = state.cull_points(points, window.frame_ids[..., 0])
         slot = min(count + 1, cfg.slidingWindowSize) - 1
 
         tr = tracking.track_into_frame(

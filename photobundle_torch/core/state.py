@@ -29,6 +29,12 @@ P = patch pixels):
 The JAX package decides with `lax.cond` on the device-side count whether
 the ring slides; here the caller passes its host mirror of that count, so
 no step reads the device.
+
+The batched engine (core/batched.py) stacks B such states along a leading
+axis (x_world (B, N, 3), channels (B, W, C, H, W_img), count (B,), ...);
+`push_frame`, `push_replicated` and `cull_points` take either, and do to
+each sequence's slice what they do to a single state. The sequences fill
+in lockstep, so one host count serves them all.
 """
 
 from __future__ import annotations
@@ -48,10 +54,6 @@ class PointTable(NamedTuple):
     active: torch.Tensor
     obs: torch.Tensor
     inv_depth_seed: torch.Tensor
-
-    @property
-    def capacity(self) -> int:
-        return self.x_world.shape[0]
 
     def num_active(self) -> torch.Tensor:
         return torch.sum(self.active, dtype=torch.int32)
@@ -109,12 +111,20 @@ def init_window(cfg: PBAConfig, image_shape, device="cpu",
     )
 
 
-def _push_slot(arr, value, count: int, w: int):
+def _push_slot(arr, value, count: int, w: int, dim: int = 0):
     """`arr` with `value` in the slot a push fills: slot `count` while the
-    ring fills, else the newest slot after dropping the oldest."""
+    ring fills, else the newest slot after dropping the oldest. `dim` is
+    the slot axis (1 under a batch axis; `value` then has the batch axis
+    and no slot axis)."""
     full = count >= w
-    arr = torch.roll(arr, -1, dims=0) if full else arr.clone()
-    arr[w - 1 if full else min(count, w - 1)] = value
+    arr = torch.roll(arr, -1, dims=dim) if full else arr.clone()
+    slot = arr.select(dim, w - 1 if full else min(count, w - 1))
+    # A Python scalar is filled in: assigned through an index into a 0-d
+    # slot, it is copied from the host, and that waits for the stream.
+    if isinstance(value, torch.Tensor):
+        slot.copy_(value)
+    else:
+        slot.fill_(value)
     return arr
 
 
@@ -123,20 +133,22 @@ def push_replicated(win: Window, t_wc, frame_id: int, points: PointTable,
     """The push of the leaves every rank of a frames-sharded mesh holds
     whole (poses, frame ids, the count, the point table's obs columns);
     the image leaves are left as they are (`push_frame` fills them, or
-    parallel/sharded.push_frame_frames for the frames layout)."""
-    w = win.t_wc.shape[0]
+    parallel/sharded.push_frame_frames for the frames layout). Under a
+    batch axis t_wc is (B, 4, 4), one pose per sequence."""
+    dim = win.t_wc.ndim - 3                  # the slot axis
+    w = win.t_wc.shape[dim]
     new_win = win._replace(
-        t_wc=_push_slot(win.t_wc, t_wc, count, w),
+        t_wc=_push_slot(win.t_wc, t_wc, count, w, dim),
         # The incoming pose is the caller's raw VO estimate; t_wc gets
         # refined by window solves while t_vo keeps the original.
-        t_vo=_push_slot(win.t_vo, t_wc, count, w),
-        frame_ids=_push_slot(win.frame_ids, frame_id, count, w),
+        t_vo=_push_slot(win.t_vo, t_wc, count, w, dim),
+        frame_ids=_push_slot(win.frame_ids, frame_id, count, w, dim),
         count=torch.clamp(win.count + 1, max=w),
     )
     obs = points.obs
     if count >= w:
-        obs = torch.roll(obs, -1, dims=1)
-        obs[:, w - 1] = False
+        obs = torch.roll(obs, -1, dims=-1)
+        obs[..., w - 1] = False
     return new_win, points._replace(obs=obs)
 
 
@@ -148,15 +160,16 @@ def push_frame(win: Window, channels, grads, saliency, t_wc, frame_id: int,
     Sliding shifts slot indices down by one, so the point table's per-slot
     observation mask rolls with it (slot 0's column is discarded and the new
     slot W-1 column cleared). Returns new tensors; the inputs are not
-    modified."""
-    w = win.size
+    modified. A batched state takes the B frames' leaves stacked."""
+    dim = win.t_wc.ndim - 3
+    w = win.t_wc.shape[dim]
     new_win, points = push_replicated(win, t_wc, frame_id, points, count)
     new_win = new_win._replace(
-        channels=_push_slot(win.channels, channels, count, w),
-        grads=_push_slot(win.grads, grads, count, w),
-        saliency=_push_slot(win.saliency, saliency, count, w),
-        depth=_push_slot(win.depth, depth, count, w),
-        depth_ok=_push_slot(win.depth_ok, depth_ok, count, w),
+        channels=_push_slot(win.channels, channels, count, w, dim),
+        grads=_push_slot(win.grads, grads, count, w, dim),
+        saliency=_push_slot(win.saliency, saliency, count, w, dim),
+        depth=_push_slot(win.depth, depth, count, w, dim),
+        depth_ok=_push_slot(win.depth_ok, depth_ok, count, w, dim),
     )
     return new_win, points
 
@@ -164,8 +177,9 @@ def push_frame(win: Window, channels, grads, saliency, t_wc, frame_id: int,
 def cull_points(points: PointTable, oldest_frame_id: torch.Tensor,
                 min_obs: int = 1) -> PointTable:
     """Deactivate points whose reference frame has left the window, or that
-    have no remaining window observations."""
-    n_obs = torch.sum(points.obs, dim=1)
-    keep = (points.active & (points.ref_frame >= oldest_frame_id)
+    have no remaining window observations. oldest_frame_id: () or, under
+    a batch axis, (B,), one per sequence."""
+    n_obs = torch.sum(points.obs, dim=-1)
+    keep = (points.active & (points.ref_frame >= oldest_frame_id[..., None])
             & (n_obs >= min_obs))
-    return points._replace(active=keep, obs=points.obs & keep[:, None])
+    return points._replace(active=keep, obs=points.obs & keep[..., None])

@@ -150,6 +150,34 @@ def transform_points(t_mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             + t_mat[..., :3, 3])
 
 
+def _dot3(m: torch.Tensor, v: torch.Tensor, fuse_last: bool) -> torch.Tensor:
+    """sum_j m[..., :, j] v[..., j] written out, broadcasting the leading
+    axes: fma(m1, v1, m0 v0), then m2 v2 fused in (`fuse_last`) or added.
+    Elementwise, so each row rounds as it does alone."""
+    acc = torch.addcmul(m[..., :, 0] * v[..., 0:1], m[..., :, 1],
+                        v[..., 1:2])
+    if fuse_last:
+        return torch.addcmul(acc, m[..., :, 2], v[..., 2:3])
+    return acc + m[..., :, 2] * v[..., 2:3]
+
+
+def se3_inverse_each(t_mat: torch.Tensor) -> torch.Tensor:
+    """`se3_inverse` whose rounding does not depend on the leading axes.
+    The einsum becomes a GEMV for one pose and a batched GEMM for many,
+    and those round differently; this writes out the order the card's
+    GEMV takes for one pose (chip_smoke phase 16 prints the match)."""
+    rt = t_mat[..., :3, :3].transpose(-1, -2)
+    return _rt_to_mat(rt, -_dot3(rt, t_mat[..., :3, 3], fuse_last=False))
+
+
+def transform_points_each(t_mat: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """`transform_points` whose rounding does not depend on the leading
+    axes: the order the card's GEMM takes for one pose's points (three
+    fused multiply-adds), then the translation."""
+    return _dot3(t_mat[..., :3, :3], x, fuse_last=True) + t_mat[..., :3, 3]
+
+
 def retract_right(t_mat: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Right-multiplicative retraction: T <- T @ exp(xi).
 

@@ -2,10 +2,13 @@
 
 Twin of photobundle_tpu/image/descriptor.py. A descriptor level is
 
-    channels:  (C, H, W) float   — what residuals sample (C = 1 / 3 / 8)
-    grads:     (C, H, W, 2)      — central-difference gradients of each
-                                   channel, for gradientMode='sampled'
-    saliency:  (H, W)            — selection map
+    channels:  (..., C, H, W) float — what residuals sample (C = 1, 3, 8)
+    grads:     (..., C, H, W, 2)    — central-difference gradients of each
+                                      channel, for gradientMode='sampled'
+    saliency:  (..., H, W)          — selection map
+
+Leading axes (`...`) are a batch of images: the batched engine builds B
+sequences' levels in one pass, and each is the level of its image alone.
 """
 
 from __future__ import annotations
@@ -23,9 +26,9 @@ from . import interp, pyramid, saliency
 
 
 class DescriptorLevel(NamedTuple):
-    channels: torch.Tensor   # (C, H, W)
-    grads: torch.Tensor      # (C, H, W, 2) — [..., 0] = d/dx, [..., 1] = d/dy
-    saliency: torch.Tensor   # (H, W)
+    channels: torch.Tensor   # (..., C, H, W)
+    grads: torch.Tensor      # (..., C, H, W, 2): d/dx, d/dy last
+    saliency: torch.Tensor   # (..., H, W)
 
 
 # The 8 census neighbors in raster order (dy, dx), excluding the center —
@@ -38,11 +41,12 @@ _CENSUS_OFFSETS = (
 
 
 def _shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """Shift with edge replication so comparisons stay in range."""
-    h, w = img.shape
+    """Shift with edge replication so comparisons stay in range.
+    img: (..., H, W)."""
+    h, w = img.shape[-2:]
     ys = torch.clamp(torch.arange(h, device=img.device) + dy, 0, h - 1)
     xs = torch.clamp(torch.arange(w, device=img.device) + dx, 0, w - 1)
-    return img[ys][:, xs]
+    return img.index_select(-2, ys).index_select(-1, xs)
 
 
 def _bitplanes_channels(img: torch.Tensor, sigma_pre: float,
@@ -52,18 +56,19 @@ def _bitplanes_channels(img: torch.Tensor, sigma_pre: float,
     base = pyramid.gaussian_blur_sigma(img, sigma_pre)
     planes = [torch.where(base > _shift2d(base, dy, dx), 1.0, -1.0)
               .to(img.dtype) for dy, dx in _CENSUS_OFFSETS]
-    return pyramid.gaussian_blur_sigma(torch.stack(planes), sigma_post)
+    return pyramid.gaussian_blur_sigma(torch.stack(planes, dim=-3),
+                                       sigma_post)
 
 
 def make_channels(img: torch.Tensor, descriptor: str,
                   sigma_pre: float = 0.5,
                   sigma_post: float = 0.75) -> torch.Tensor:
-    """img: (H, W) -> (C, H, W) descriptor channels."""
+    """img: (..., H, W) -> (..., C, H, W) descriptor channels."""
     if descriptor == DESCRIPTOR_INTENSITY:
-        return img[None]
+        return img[..., None, :, :]
     if descriptor == DESCRIPTOR_INTENSITY_AND_GRADIENT:
         gx, gy = interp.image_gradients(img)
-        return torch.stack([img, gx, gy])
+        return torch.stack([img, gx, gy], dim=-3)
     if descriptor == DESCRIPTOR_BITPLANES:
         return _bitplanes_channels(img, sigma_pre, sigma_post)
     raise ValueError(f"unknown descriptor '{descriptor}'")
@@ -72,7 +77,7 @@ def make_channels(img: torch.Tensor, descriptor: str,
 def build_descriptor_level(img: torch.Tensor, descriptor: str,
                            sigma_pre: float = 0.5, sigma_post: float = 0.75,
                            gradient_sigma: float = 0.0) -> DescriptorLevel:
-    """One pyramid level -> DescriptorLevel. img: (H, W).
+    """One pyramid level -> DescriptorLevel. img: (..., H, W).
 
     gradient_sigma > 0 takes the gradient planes of a Gaussian-blurred copy
     of the channels (gradient-of-Gaussian); the value channels stay sharp.

@@ -23,16 +23,18 @@ import numpy as np
 import torch
 
 
-def _gather2d(img: torch.Tensor, iy: torch.Tensor,
-              ix: torch.Tensor) -> torch.Tensor:
-    """img: (H, W) or (C, H, W); iy/ix: in-bounds integer tensors of one
-    shape S. Returns (S,) or (C,) + S values."""
-    w = img.shape[-1]
-    lin = iy * w + ix
-    if img.ndim == 2:
-        return img.reshape(-1)[lin]
-    flat = img.reshape(img.shape[0], -1)
-    return flat[:, lin.reshape(-1)].reshape(img.shape[0], *iy.shape)
+def _gather2d(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+              batch: int = 0) -> torch.Tensor:
+    """img: (*L, H, W) or (*L, C, H, W), its first `batch` axes L a batch;
+    iy/ix: in-bounds integer tensors of one shape (*L, *S), row l of them
+    indexing image l. Returns (*L, *S) or (*L, C, *S) values."""
+    lead = img.shape[:batch]
+    chans = img.shape[batch:-2]
+    h, w = img.shape[-2:]
+    flat = img.reshape(*lead, -1, h * w)                  # (*L, C or 1, HW)
+    lin = (iy * w + ix).reshape(*lead, 1, -1)             # (*L, 1, M)
+    values = torch.take_along_dim(flat, lin, dim=-1)      # (*L, C or 1, M)
+    return values.reshape(*lead, *chans, *iy.shape[batch:])
 
 
 def _cell(xc: torch.Tensor, size: int):
@@ -41,13 +43,17 @@ def _cell(xc: torch.Tensor, size: int):
     return i0, torch.clamp(i0 + 1, max=size - 1)
 
 
-def bilinear(img: torch.Tensor, uv: torch.Tensor, eps_margin: float = 0.0):
+def bilinear(img: torch.Tensor, uv: torch.Tensor, eps_margin: float = 0.0,
+             batch: int = 0):
     """Bilinear sample. img: (H, W) or (C, H, W); uv: (..., 2) as [x, y].
+    With `batch` > 0 the first `batch` axes of img and uv are a batch L:
+    img (*L, H, W) or (*L, C, H, W), uv (*L, ..., 2), and row l of uv
+    samples image l alone.
 
     Returns (values, valid):
-      values: (...,) for 2D img, (C, ...) for 3D img
-      valid:  (...,) bool — True where the full 2x2 support is inside the
-              image (and `eps_margin` pixels away from the border).
+      values: (*L, ...) for an image without channels, (*L, C, ...) with
+      valid:  (*L, ...) bool — True where the full 2x2 support is inside
+              the image (and `eps_margin` pixels away from the border).
     """
     h, w = img.shape[-2], img.shape[-1]
     x = uv[..., 0]
@@ -61,10 +67,14 @@ def bilinear(img: torch.Tensor, uv: torch.Tensor, eps_margin: float = 0.0):
     fx = xc - x0.to(img.dtype)
     fy = yc - y0.to(img.dtype)
 
-    v00 = _gather2d(img, y0, x0)
-    v01 = _gather2d(img, y0, x1)
-    v10 = _gather2d(img, y1, x0)
-    v11 = _gather2d(img, y1, x1)
+    v00 = _gather2d(img, y0, x0, batch)
+    v01 = _gather2d(img, y0, x1, batch)
+    v10 = _gather2d(img, y1, x0, batch)
+    v11 = _gather2d(img, y1, x1, batch)
+    if batch and img.ndim - batch == 3:
+        # The channel axis sits after the batch axes: the weights of one
+        # sample broadcast over it.
+        fx, fy = fx.unsqueeze(batch), fy.unsqueeze(batch)
 
     w00 = (1.0 - fx) * (1.0 - fy)
     w01 = fx * (1.0 - fy)

@@ -24,13 +24,16 @@ def extract_patches(img: torch.Tensor, centers: torch.Tensor,
                     offsets: torch.Tensor):
     """Sample patches at float centers.
 
-    img (C, H, W), centers (..., 2) as [x, y], offsets (P, 2).
-    Returns (patches (..., C, P), valid (...,)) — valid iff every sample of
-    the patch has full bilinear support inside the image.
+    img (*L, C, H, W), centers (*L, ..., 2) as [x, y], offsets (P, 2): the
+    leading axes L of img (none for one image) are a batch, and row l of
+    centers samples image l.
+    Returns (patches (*L, ..., C, P), valid (*L, ...)) — valid iff every
+    sample of the patch has full bilinear support inside the image.
     """
-    pts = centers[..., None, :] + offsets                 # (..., P, 2)
-    values, valid = interp.bilinear(img, pts)             # (C, ..., P)
-    return torch.movedim(values, 0, -2), torch.all(valid, dim=-1)
+    batch = img.ndim - 3
+    pts = centers[..., None, :] + offsets                 # (*L, ..., P, 2)
+    values, valid = interp.bilinear(img, pts, batch=batch)  # (*L, C, ..., P)
+    return torch.movedim(values, batch, -2), torch.all(valid, dim=-1)
 
 
 def mean_normalize(patches: torch.Tensor) -> torch.Tensor:

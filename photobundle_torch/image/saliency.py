@@ -27,13 +27,17 @@ def channel_saliency(channels: torch.Tensor) -> torch.Tensor:
 
 def window_max(s: torch.Tensor, radius: int) -> torch.Tensor:
     """Max over the (2r+1)^2 window centred on each pixel ('SAME' size,
-    out-of-image cells ignored). s: (H, W) float."""
+    out-of-image cells ignored). s: (..., H, W) float; the leading axes
+    go to the pool's batch axis."""
     k = 2 * radius + 1
-    return F.max_pool2d(s[None, None], k, stride=1, padding=radius)[0, 0]
+    h, w = s.shape[-2:]
+    pooled = F.max_pool2d(s.reshape(-1, 1, h, w), k, stride=1,
+                          padding=radius)
+    return pooled.reshape(s.shape)
 
 
 def non_max_suppression(s: torch.Tensor, radius: int,
                         threshold: float) -> torch.Tensor:
     """Boolean map of local maxima of s within a (2r+1)^2 window that
-    also reach `threshold`. s: (H, W)."""
+    also reach `threshold`. s: (..., H, W)."""
     return (s >= window_max(s, radius)) & (s >= threshold)
