@@ -4,7 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Drives the port's paths at the repository's full size (370x1226 images,
-4096 points, 5-frame window, 5x5 patches, C = 1), from seeds:
+4096 points, 5-frame window, 5x5 patches, C = 1 but for phase 20's
+descriptors and the shipped configurations' own sizes), from seeds:
 
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. build: the six kernel sources compiled from photobundle_torch/csrc/
@@ -71,16 +72,19 @@ Drives the port's paths at the repository's full size (370x1226 images,
      calib.txt, times.txt, poses/00.txt and a drifted VO input, refined
      in configs/kitti_production.cfg (BM stereo with 128 disparities on
      the card, the speckle filter, 3-level coarse-to-fine, motion and pose
-     priors; dataDir, numFrames and maxNumPoints=4096 as key=value
-     overrides) three times: `python -m photobundle_torch.cli` as a
-     subprocess with PB_SORTED_DISPATCH=1, then cli.main in this process
-     with it (launch counts checked) and without it. The three trajectory
+     priors; dataDir, numFrames, maxNumPoints=4096 and a depth cache,
+     CLI_DEPTH_CACHE, as key=value overrides) three times: `python -m
+     photobundle_torch.cli` as a subprocess with PB_SORTED_DISPATCH=1
+     (computing the stereo and writing the cache), then cli.main in this
+     process with it (launch counts checked) and without it (both reading
+     the cache). The three trajectory
      files must be byte-identical, every window's cost non-increasing and
      the refined ATE below the input's. First the dataset alone: the depth
      producer dataLoader=auto takes (the native host runtime where it
      builds, else the torch matcher; the build error is printed),
      dataLoader=native running the runtime or raising where it does not
-     build, and the dataset's ms per frame for each producer; then the
+     build, and the dataset's ms per frame for each producer (over
+     DATASET_FRAMES frames, 3 for the torch matcher); then the
      card's stereo time per frame (BM, and SGM once) and the host speckle
      filter's (Python, and native where it builds);
  13. K4's sample store and K6 (csrc/patch_samples.cu, the 'rows', 'block'
@@ -113,7 +117,7 @@ Drives the port's paths at the repository's full size (370x1226 images,
      inputs stacked for B = 4 windows (window b's uv shifted b x 0.37 px)
      against its plain version and bitwise 4 single-window launches at R
      = 2, 9 and 19, its device time at B = 1, 2 and 4; then the batched
-     engine in the default configuration, 8 frames, B = 2 and 4
+     engine in the default configuration, 8 frames, B = 4
      sequences, sequence k phase 6's frames shifted k px and brightened
      0.001 k and drifted from its own seed (k + 1): every batched
      ingest's result, sequence by sequence, bitwise the single engine's
@@ -129,11 +133,12 @@ Drives the port's paths at the repository's full size (370x1226 images,
      rings, warm, beside one and B single ingests: ms (CUDA events),
      device activities and launch calls (torch.profiler), host syncs,
      each the same at every B; then `tools/bench_batched` in this
-     process at B = 1, 2, 4 and 8;
+     process at B = 1 and 4;
  17. multi-sequence refinement: `python -m photobundle_torch.multi` on
      phase 12's KITTI-format sequence in configs/kitti_production.cfg,
-     units of 6 frames, with 2 spawned workers and then 1 inline: the
-     merged trajectories byte-identical;
+     units of 6 frames, with 2 spawned workers and then 1 inline, both
+     reading phase 12's depth cache: the merged trajectories
+     byte-identical;
  18. device meshes (parallel/mesh.py, parallel/sharded.py) on the one
      card: (a) NCCL at world size 1 in this process, captured:
      ShardedLMSolver (points = 1) on phase 3's problem and the engine's
@@ -177,7 +182,30 @@ Drives the port's paths at the repository's full size (370x1226 images,
      `golden_aggregate` on its printed table, `diagnose_rpe`,
      `eval_traj` and `plot_traj` (where matplotlib is installed) on its
      output; (e) `bench_keyframes`, `bench_sampling` and `bench_scaling`
-     at their JAX twins' sizes. It prints its wall time.
+     at their JAX twins' sizes (bench_scaling at three of its six). It
+     prints its wall time;
+ 20. the shipped configurations no earlier phase runs, through cli.main on
+     phase 12's sequence, each as shipped but for dataDir and numFrames
+     (SHIPPED_CONFIGS: kitti_stereo, kitti_large_window (12 frames, three
+     windows of ten poses, 8192 points), kitti_sgbm_bicubic (SGBM stereo,
+     K2), kitti_minimum_slice (R = 1), 8 frames each but the wide one):
+     (A) each with solverBackend=cuda and with solverBackend=torch: every
+     pose finite, every window's cost non-increasing, the configuration's
+     kernel launched once per evaluation of every solve on the cuda run and
+     no kernel on the torch run, both runs' first windows from bitwise the
+     same state and its initial cost within ENGINE_COST_RTOL on the two
+     backends; under pipelineResults (kitti_stereo, kitti_large_window) the
+     trajectory file byte-identical to a run with pipelineResults=False
+     (the card's non-blocking result fetch); per run the wall s, dataset
+     and stereo ms per frame, window-solve ms, LM iterations, ATE, peak
+     device memory and the card; (B) K1 with the IntensityAndGradient (C =
+     3) and BitPlanes (C = 8) descriptors at R = 2 and 19 and K2 with C = 3
+     at R = 2, each against its plain version at 4096 x 5 with its bound,
+     then the engine over 8 frames of phase 6's scene with each
+     descriptor (K1) and in kitti_sgbm_bicubic.cfg's settings with C = 3
+     (K2), each first window held across backends.
+
+Each phase prints its time ("phase N took ... s").
 
 Each kernel comparison reports the kernel's and the plain version's median
 time per call (CUDA events), the kernel's device time per launch
@@ -279,13 +307,16 @@ UNFUSED_RADIUS = 5
 # instance (10, 19) and, on fewer points, at the reference's widest patch.
 K7_WIDE_RADII = (5, 9, 10, 19)
 K7_WIDEST_PTS = 512
-CLI_FRAMES, CLI_TIMEOUT_S = 12, 600         # phase 12
+# Phase 12: the sequence, the CLI runs' time limit, and the frames the
+# dataset alone is timed over (dataLoader=auto; the runs read all 12).
+CLI_FRAMES, CLI_TIMEOUT_S, DATASET_FRAMES = 12, 600, 4
 # Phase 16: the batch-axis K1 at B windows and these radii; the batched
 # engine at these batch sizes, held to single engines within the bounds
 # of the reference's oracle (tests/test_engine.py:376-385); the batched
-# bench tool at its batch sizes.
+# bench tool at its batch sizes (the engine at B = 2 and the bench at B =
+# 2 and 8 cut to keep the script's time: the ingest runs B = 1-8).
 BATCH_KERNEL, BATCH_RADII, BATCH_SHIFT_PX = 4, (2, 9, 19), 0.37
-BATCH_SIZES, BENCH_BATCHES = (2, 4), (1, 2, 4, 8)
+BATCH_SIZES, BENCH_BATCHES = (4,), (1, 4)
 BATCH_POSE_ATOL, BATCH_COST_RTOL = 1e-3, 1e-3
 # Phase 16's sequence k: phase 6's frames shifted left by k px and
 # brightened by BATCH_BRIGHTEN x k; the batched ingest's cost at
@@ -295,6 +326,11 @@ BATCH_BRIGHTEN, INGEST_BATCHES, INGEST_CALLS = 0.001, (1, 2, 4, 8), 5
 MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
 MULTI_DIR = os.path.join("build", "chip_smoke_multi")
 CLI_DIR = os.path.join("build", "chip_smoke_cli")
+# The depth cache (depthCacheDir) of phase 12's command-line runs: run (a)
+# computes and writes every frame's stereo depth, runs (b) and (c) and
+# phase 17's read it (the host speckle filter takes ~0.7-1 s a frame on
+# the card's machine; phase 20's runs compute their own stereo).
+CLI_DEPTH_CACHE = os.path.join(CLI_DIR, "depth")
 # Phase 18: device meshes. Two gloo ranks share the card (NCCL refuses two
 # ranks on one device); their solves are held to the single-rank solve
 # within tests/test_sharding.py's tolerances, on phase 4's parity
@@ -311,16 +347,20 @@ MESH_F64_TOL = 1e-8
 MESH_POSE_TOL, MESH_POINT_TOL, MESH_COST_RTOL = 1e-4, 1e-3, 1e-3
 MESH_ENGINE_ATOL, MESH_FRAMES_W = 5e-5, 4
 # Phase 19: the tools. The golden's sequence length (its stereo runs the
-# host speckle filter, ~0.7 s a frame on the card's machine) and where its
-# files go.
+# host speckle filter, ~0.7 s a frame on the card's machine; 24 frames
+# until phase 20 took the time: 16 still reach the box room's turn) and
+# where its files go.
 TOOLS_DIR = os.path.join("build", "chip_smoke_tools")
-GOLDEN_FRAMES = 24
+GOLDEN_FRAMES = 16
 # bench_lm_breakdown's calls per phase at 4096 points: its default (the
 # JAX tool's 1024) spends ~30 s of host time on event-timed calls; 256
 # average as well.
 BREAKDOWN_CALLS = 256
 BREAKDOWN_TIMEOUT_S = 300
 GOLDEN_CONFIGS = ("W5_production", "reference_exact")
+# bench_scaling's smallest, widest-point and widest-window sizes of its six
+# (all six until phase 20 took the time).
+SCALING_SIZES = "4096x5,65536x5,32768x32"
 # reference_exact's window solves (K2) against the plain backend's from the
 # same states: the initial costs agree within GOLDEN_INIT_RTOL, and the
 # final cost may exceed the plain solve's by GOLDEN_COST_RTOL. The scale
@@ -330,6 +370,18 @@ GOLDEN_CONFIGS = ("W5_production", "reference_exact")
 # below to 0.68 % above, tests/test_torch_golden.py), and the chain's
 # poses part from there: no bound on its ATE is held.
 GOLDEN_INIT_RTOL, GOLDEN_COST_RTOL = 1e-5, 2e-2
+# Phase 20: the shipped configurations no earlier phase runs, through
+# cli.main on phase 12's sequence, as shipped but for dataDir and
+# numFrames (kitti_large_window: three windows of ten poses; the others:
+# DEFAULT_FRAMES, four windows of five), on both backends; then K1 with the
+# three- and eight-channel descriptors (IntensityAndGradient, BitPlanes)
+# at these radii, K2 with the three-channel one, and the engine with each.
+SHIPPED_CONFIGS = ("kitti_stereo", "kitti_large_window", "kitti_sgbm_bicubic",
+                   "kitti_minimum_slice")
+SHIPPED_FRAMES = {"kitti_large_window": 12}
+SHIPPED_DIR = os.path.join("build", "chip_smoke_shipped")
+DESCRIPTORS = ("IntensityAndGradient", "BitPlanes")
+DESCRIPTOR_RADII = (2, 19)
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
 SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
            "patch_stats", "patch_ablate")
@@ -959,20 +1011,19 @@ def run_engine(tag, cfg, scene, init, n_frames, counted, kernels,
             + f" | the next frame ({res_s.iterations} iterations, "
             f"{ms_s:.1f} ms): host syncs {syncs}")
     return dict(engine=pba, first_state=first_state[0], results=results,
-                launches=launches)
+                launches=launches, first_cost=results[0].initial_cost)
 
 
 def first_window_cost(pba, state, backend, restrict=None):
     """Initial cost, observation count and (N, W) valid set of a window
     solve's start state, evaluated on `backend` with the solve's own terms
-    (depth prior, patch warp); `restrict` (N, W) narrows the observations.
-    The configuration has no pose priors, so this is the solve's initial
-    cost."""
+    (depth prior, patch warp, and the pose priors' cost at the start, as
+    lm_solve counts it); `restrict` (N, W) narrows the observations."""
+    from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
+    from photobundle_torch.geometry import se3
 
     cfg = pba.cfg
-    check(cfg.motionPriorWeight == 0 and cfg.posePriorWeight <= 0
-          and cfg.posePriorRotWeight <= 0, "expected no pose priors")
     window, points = state
     point_valid, _, depth_prior, patch_warp = pba.solve_terms(window, points)
     obs = points.obs & point_valid[:, None]
@@ -987,14 +1038,23 @@ def first_window_cost(pba, state, backend, restrict=None):
         cfg.resolve_gradient_mode(), depth_prior=depth_prior,
         backend=backend, normalize=cfg.resolve_normalization(),
         robust_kind=cfg.robustLoss, patch_warp=patch_warp)
-    return float(res.cost), int(res.n_residuals), res.valid
+    anchor = (se3.se3_inverse(window.t_wc[:-1]) @ window.t_wc[1:]
+              if cfg.motionPriorWeight > 0 else None)
+    pose_prior = ((window.t_vo, cfg.posePriorWeight, cfg.posePriorRotWeight)
+                  if cfg.posePriorWeight > 0 or cfg.posePriorRotWeight > 0
+                  else None)
+    prior = lm.prior_cost(window.t_wc,
+                          motion_prior_weight=cfg.motionPriorWeight,
+                          rel0=anchor, pose_prior=pose_prior)
+    return float(res.cost + prior), int(res.n_residuals), res.valid
 
 
 def check_first_window(tag, run, restrict_torch):
     """The first window's initial cost on both backends from the state its
-    solve started from: equal observation counts (the torch run restricted
-    to the cuda path's valid set when `restrict_torch`), costs within
-    ENGINE_COST_RTOL, and the cuda cost equal to the solve's own."""
+    solve started from (`run`: engine, first_state, first_cost): equal
+    observation counts (the torch run restricted to the cuda path's valid
+    set when `restrict_torch`), costs within ENGINE_COST_RTOL, and the cuda
+    cost equal to the solve's own. Returns the torch cost."""
     cc, nc, valid = first_window_cost(run["engine"], run["first_state"],
                                       "cuda")
     ct, nt, _ = first_window_cost(run["engine"], run["first_state"], "torch",
@@ -1007,10 +1067,11 @@ def check_first_window(tag, run, restrict_torch):
     check(nc == nt, "backends take different observations in the first "
           "window")
     check(rel <= ENGINE_COST_RTOL, f"first window cost rel diff {rel:.3e}")
-    first = run["results"][0].initial_cost
+    first = run["first_cost"]
     check(abs(cc / first - 1) <= ENGINE_COST_RTOL,
           f"first window cost {cc:.6f} differs from its solve's initial "
           f"cost {first:.6f}")
+    return ct
 
 
 def sorted_instance(n_pts: int, dev, pr: int = PATCH_RADIUS,
@@ -1827,7 +1888,7 @@ def cli_phase(kernels, dev) -> int:
         ["--config", "configs/kitti_production.cfg", f"dataDir={data}"]))
     built = native.available()
     dataset_ms = {}
-    for mode, frames in (("auto", CLI_FRAMES), ("python", 3)):
+    for mode, frames in (("auto", DATASET_FRAMES), ("python", 3)):
         t0 = time.perf_counter()
         ds = kitti.create_dataset(cfg.replace(dataLoader=mode,
                                               numFrames=frames), device=dev)
@@ -1904,7 +1965,8 @@ def cli_phase(kernels, dev) -> int:
                 vo_path, "--output", os.path.join(CLI_DIR, f"{tag}.txt"),
                 "--log", os.path.join(CLI_DIR, f"{tag}.jsonl"),
                 "--device", dev.type, f"dataDir={data}",
-                f"numFrames={CLI_FRAMES}", f"maxNumPoints={N_PTS}"]
+                f"numFrames={CLI_FRAMES}", f"maxNumPoints={N_PTS}",
+                f"depthCacheDir={CLI_DEPTH_CACHE}"]
 
     # (a) the command a user types, in its own process.
     t0 = time.perf_counter()
@@ -2160,18 +2222,22 @@ class IngestRecord:
         self.checked += 1
 
 
-def traced_activities(fn, tries: int = 3):
+def traced_activities(fn, tries: int = 5):
     """One call of fn under torch.profiler: (device activities, host
     runtime calls that put one on the device: kernel launches, memsets
     and copies, bench_lm_breakdown.LAUNCH_CALLS). A trace that holds fewer
-    activities than launch calls dropped some (PERF.md section 7) and is
-    retaken, up to `tries` traces."""
+    activities than launch calls may have dropped some (PERF.md section
+    7): it is retaken, up to `tries` traces, and the trace with the most
+    device activities counts: a trace drops activities, never adds one
+    (one run's last trace of the batched ingest at B = 1 held 357, those
+    at B = 2, 4 and 8 held 390, each with 399 launch calls)."""
     from torch.autograd import DeviceType
 
     from photobundle_torch.tools.bench_lm_breakdown import LAUNCH_CALLS
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    best = None
     for _ in range(tries):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -2182,9 +2248,11 @@ def traced_activities(fn, tries: int = 3):
         host = sum(e.device_type == DeviceType.CPU
                    and any(c in e.name for c in LAUNCH_CALLS)
                    for e in events)
+        if best is None or device > best[0]:
+            best = (device, host)
         if device == host:
             break
-    return device, host
+    return best
 
 
 def written_out_vs_einsum(scene) -> None:
@@ -2899,7 +2967,8 @@ def multi_phase(dev) -> None:
                "0", "--output-dir", out, "--workers", str(workers),
                "--frames-per-unit", str(MULTI_FRAMES_PER_UNIT),
                "--poses-dir", poses, "--device", dev.type,
-               f"dataDir={data}", f"maxNumPoints={N_PTS}"]
+               f"dataDir={data}", f"maxNumPoints={N_PTS}",
+               f"depthCacheDir={CLI_DEPTH_CACHE}"]
         t0 = time.perf_counter()
         # A process group of its own: a time-out stops it and its workers.
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -3183,14 +3252,318 @@ def tools_phase_19(dev, kernels) -> None:
         plot_traj.main([refined, gt, init, "--jsonl", refined + ".jsonl",
                         "--out", png_path])
         check(os.path.getsize(png_path) > 10_000, "plot_traj wrote no plot")
-    # (e) the engine's and the solve's benches at their JAX twins' sizes.
-    for label, fn in (("bench_keyframes", bench_keyframes.main),
-                      ("bench_sampling", bench_sampling.main),
-                      ("bench_scaling", bench_scaling.main)):
+    # (e) the engine's and the solve's benches at their JAX twins' sizes
+    # (bench_scaling at SCALING_SIZES of them).
+    for label, fn, argv in (
+            ("bench_keyframes", bench_keyframes.main, []),
+            ("bench_sampling", bench_sampling.main, []),
+            ("bench_scaling", bench_scaling.main, ["--sizes", SCALING_SIZES])):
         t0 = time.perf_counter()
-        fn([])
+        fn(argv)
         say(f"phase 19e {label} ({time.perf_counter() - t0:.1f} s)")
     say(f"phase 19 done in {time.perf_counter() - t_phase:.1f} s")
+
+
+class FirstWindow:
+    """While open: the engine of the next run (cli.main builds its own)
+    and the state its first window solve starts from are recorded
+    (`engine`, `state`), and every lm_solve's iteration count, as a device
+    tensor read after the run (a read here would make the run wait where
+    it does not)."""
+
+    def __init__(self):
+        from photobundle_torch.core import engine, lm
+        self.cls, self.lm = engine.PhotometricBundleAdjustment, lm
+        self.optimize, self.solve = self.cls._optimize, lm.lm_solve
+        self.engine = self.state = None
+        self.iterations = []
+
+    def __enter__(self):
+        rec = self
+
+        def optimize(pba, window, points, shard_ctx=None):
+            if rec.engine is None:   # _optimize leaves its inputs as they are
+                rec.engine, rec.state = pba, (window, points)
+            return rec.optimize(pba, window, points, shard_ctx)
+
+        def solve(*args, **kwargs):
+            out = rec.solve(*args, **kwargs)
+            rec.iterations.append(out[2].iterations)
+            return out
+
+        self.cls._optimize, self.lm.lm_solve = optimize, solve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._optimize, self.lm.lm_solve = self.optimize, self.solve
+
+
+def shipped_run(path, data, n, out, kernels, **overrides) -> dict:
+    """cli.main on the configuration file `path` over the first `n` frames
+    of the sequence under `data` (its vo.txt in), key=value overrides
+    besides dataDir and numFrames, writing `out`.txt and `out`.jsonl.
+    Returns the run's wall s, its dataset's s per frame (`get_frame`:
+    decode, stereo, depth) and stereo s per frame (`_compute_depth`, the
+    torch matcher and depth; none where the native producer runs), launch
+    counts, lm_solve iterations and expected launches, peak device memory,
+    records, trajectory text, and the engine with its first window's
+    pre-solve state."""
+    from photobundle_torch import cli
+    from photobundle_torch.io import kitti
+
+    argv = ["--config", path, "--poses", os.path.join(data, "vo.txt"),
+            "--output", f"{out}.txt", "--log", f"{out}.jsonl",
+            f"dataDir={data}", f"numFrames={n}",
+            *(f"{k}={v}" for k, v in overrides.items())]
+    cls = kitti.KittiStereoDataset
+    timed = {"get_frame": [], "_compute_depth": []}
+    methods = {name: getattr(cls, name) for name in timed}
+
+    def timer(name):
+        def call(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = methods[name](self, *args, **kwargs)   # host arrays out
+            timed[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(kernels)
+    for name in timed:
+        setattr(cls, name, timer(name))
+    try:
+        with FirstWindow() as rec:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, method in methods.items():
+            setattr(cls, name, method)
+    check(rc == 0, f"cli.main {' '.join(argv)} returned {rc}")
+    its = [int(i) for i in rec.iterations]
+    with open(f"{out}.txt") as f:
+        text = f.read()
+    return dict(wall=wall, dataset_s=timed["get_frame"],
+                stereo_s=timed["_compute_depth"],
+                counts={k: v for k, v in launch_counts(kernels).items() if v},
+                iterations=its, expected=expected_launches(its),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                records=read_jsonl(f"{out}.jsonl"), text=text,
+                engine=rec.engine, first_state=rec.state)
+
+
+def same_state(a, b) -> bool:
+    """Two engine states (window, points), every tensor bitwise equal."""
+    return all(torch.equal(x, y) for sa, sb in zip(a, b)
+               for x, y in zip(sa, sb))
+
+
+def shipped_phase(kernels, dev) -> None:
+    """Phase 20 (A): SHIPPED_CONFIGS through cli.main on phase 12's
+    sequence, each as shipped but for dataDir and numFrames, run with
+    solverBackend=cuda (what auto resolves to on the card) and
+    solverBackend=torch: every frame's pose finite, every window's cost
+    non-increasing, the configuration's kernel launched once per
+    evaluation of every solve on the cuda run and no kernel on the torch
+    run, both runs' first windows starting from bitwise the same state,
+    and that state's initial cost within ENGINE_COST_RTOL on the two
+    backends (the torch evaluation restricted to the cuda path's valid
+    set where sampling is bilinear, as phase 10 restricts it); under
+    pipelineResults the cuda run's trajectory file byte-identical to a
+    run with pipelineResults=False. Later windows are chained (f32
+    differences compound), so their costs are printed, not held."""
+    from photobundle_torch.config import ConfigFile, PBAConfig
+    from photobundle_torch.io import trajectory as traj
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_warp as pw
+
+    data = os.path.join(CLI_DIR, "kitti")
+    check(os.path.isfile(os.path.join(data, "vo.txt")),
+          "phase 12's sequence is missing")
+    shutil.rmtree(SHIPPED_DIR, ignore_errors=True)
+    os.makedirs(SHIPPED_DIR)
+    gt = traj.load_poses_kitti(os.path.join(data, "poses", "00.txt")).poses
+    vo = traj.load_poses_kitti(os.path.join(data, "vo.txt")).poses
+    smi = nvidia_smi()
+    for name in SHIPPED_CONFIGS:
+        path = os.path.join("configs", f"{name}.cfg")
+        cfg = PBAConfig.from_config_file(ConfigFile(path))
+        check(cfg.resolve_backend(dev) == "cuda", f"{name}: solverBackend="
+              f"{cfg.solverBackend} resolves to {cfg.resolve_backend(dev)}")
+        n = SHIPPED_FRAMES.get(name, DEFAULT_FRAMES)
+        windows = n - cfg.slidingWindowSize + 1
+        kernel = (pb.bicubic_stats if cfg.interpolation == "bicubic"
+                  else pw.patch_stats)
+        counted = (kernel_label(kernel), cfg.resolve_normalization())
+        runs = {be: shipped_run(path, data, n,
+                                os.path.join(SHIPPED_DIR, f"{name}_{be}"),
+                                kernels, solverBackend=be)
+                for be in ("cuda", "torch")}
+        ate_vo = ate(vo[:n], gt[:n])
+        for be, run in runs.items():
+            poses = traj.load_poses_kitti(
+                os.path.join(SHIPPED_DIR, f"{name}_{be}.txt")).poses
+            check(len(poses) == len(vo) and bool(np.isfinite(poses).all()),
+                  f"{name} ({be}): {len(poses)} poses written, finite "
+                  f"{bool(np.isfinite(poses).all())}")
+            recs = run["records"]
+            check(len(recs) == windows == len(run["iterations"]),
+                  f"{name} ({be}): {len(recs)} windows logged, "
+                  f"{len(run['iterations'])} solves, expected {windows}")
+            for r in recs:
+                check(r["final_cost"] <= r["initial_cost"], f"{name} ({be}) "
+                      f"window {r['frame_ids']} cost {r['initial_cost']} -> "
+                      f"{r['final_cost']}")
+            counts = dict(run["counts"])
+            if be == "cuda":
+                n_k = counts.pop(counted, 0)
+                check(n_k == run["expected"] >= windows,
+                      f"{name}: {counted} launched {n_k} times, expected "
+                      f"{run['expected']} (iterations {run['iterations']})")
+                check(not counts, f"{name}: other kernels ran: {counts}")
+                what = f"{counted[0]}/{counted[1]} launches {n_k} (expected " \
+                       f"{run['expected']})"
+            else:
+                check(not counts, f"{name} (torch): kernels ran: {counts}")
+                what = "no kernel launched"
+            solve_ms = statistics.median(r["solve_time_s"] * 1e3
+                                         for r in recs)
+            stereo = (f"{statistics.median(run['stereo_s']) * 1e3:.1f}"
+                      if run["stereo_s"] else "not separable (native "
+                      "producer)")
+            say(f"phase 20 {name} ({be}): {n} frames, {windows} windows, "
+                f"{what} | wall {run['wall'] / n:.3f} s per frame | dataset "
+                f"{statistics.median(run['dataset_s']) * 1e3:.1f} ms per "
+                f"frame, of it stereo ({cfg.stereoAlgorithm}) {stereo} ms "
+                f"(medians over {n} frames) | median window "
+                f"solve {solve_ms:.1f} ms, LM iterations {run['iterations']} "
+                f"| ATE (unaligned) VO input {ate_vo:.6f} m, refined "
+                f"{ate(poses[:n], gt[:n]):.6f} m | peak device memory "
+                f"{run['peak_mib']:.1f} MiB | {smi}")
+        cuda, plain = runs["cuda"], runs["torch"]
+        check(same_state(cuda["first_state"], plain["first_state"]),
+              f"{name}: the two runs' first windows start from different "
+              f"states")
+        first = dict(engine=cuda["engine"], first_state=cuda["first_state"],
+                     first_cost=cuda["records"][0]["initial_cost"])
+        ct = check_first_window(f"20 {name}", first,
+                                restrict_torch=cfg.interpolation != "bicubic")
+        say(f"phase 20 {name} the torch run's own first window starts at "
+            f"{plain['records'][0]['initial_cost']:.6f} (its valid set; the "
+            f"cuda path's valid set: {ct:.6f}); windows' costs, cuda / "
+            f"torch (chained, not held): " + "; ".join(
+                f"{a['initial_cost']:.5f} -> {a['final_cost']:.5f} / "
+                f"{b['initial_cost']:.5f} -> {b['final_cost']:.5f}"
+                for a, b in zip(cuda["records"], plain["records"])))
+        if cfg.pipelineResults:
+            sync = shipped_run(path, data, n,
+                               os.path.join(SHIPPED_DIR, f"{name}_sync"),
+                               kernels, solverBackend="cuda",
+                               pipelineResults=False)
+            check(sync["text"] == cuda["text"], f"{name}: the trajectory "
+                  f"under pipelineResults differs from the one without it")
+            say(f"phase 20 {name} pipelineResults: the trajectory file is "
+                f"byte-identical to the run with pipelineResults=False "
+                f"({sync['wall'] / n:.3f} s per frame there)")
+
+
+def descriptor_instance(dev, descriptor: str, pr: int):
+    """Phase 3's problem at radius `pr` (`sorted_instance`) with its frames
+    turned into `descriptor`'s channels, as ingest builds them
+    (image/descriptor.make_channels, gradients of each channel), and each
+    point's descriptor extracted from frame 0 at its projection there,
+    mean-normalized. Returns (channels (W, C, H, Wi), planes, uv_nm,
+    valid_nm, patch (N, C, P))."""
+    from photobundle_torch.image import descriptor as descriptor_mod
+    from photobundle_torch.image import interp
+    from photobundle_torch.image import patches as patches_mod
+    from photobundle_torch.ops import patch_warp as pw
+
+    planes1, uv_nm, valid_nm, _, _, _ = sorted_instance(N_PTS, dev, pr,
+                                                        time_sort=False)
+    channels = descriptor_mod.make_channels(planes1[:, 0, ..., 0],
+                                            descriptor).contiguous()
+    gx, gy = interp.image_gradients(channels)
+    planes = pw.build_planes(channels, torch.stack([gx, gy], dim=-1))
+    patch, _ = patches_mod.extract_patches(
+        channels[0], uv_nm[:, 0].contiguous(),
+        patches_mod.patch_offsets(pr, device=dev))
+    return (channels, planes, uv_nm, valid_nm,
+            patches_mod.mean_normalize(patch).contiguous())
+
+
+def descriptor_phase(dev, kernels, scene, drifted) -> dict:
+    """Phase 20 (B): K1 with the DESCRIPTORS' channels (C = 3 and 8) at
+    DESCRIPTOR_RADII and K2 with C = 3 at R = 2, each against its plain
+    version at 4096 x 5 with its bound; then the engine over
+    DEFAULT_FRAMES of phase 6's scene in the default configuration with
+    each descriptor (K1) and in kitti_sgbm_bicubic.cfg's settings with
+    IntensityAndGradient (K2), each first window held across backends.
+    Returns {label: (numbers for the JSON line, the engine's launches)}."""
+    from photobundle_torch.config import ConfigFile, PBAConfig
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_warp as pw
+
+    out = {}
+    for descriptor in DESCRIPTORS:
+        for pr in DESCRIPTOR_RADII:
+            channels, planes, uv_nm, valid_nm, patch = descriptor_instance(
+                dev, descriptor, pr)
+            c = channels.shape[1]
+            texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
+            numbers = kernel_phase(
+                "20", f"K1 C={c} ({descriptor})",
+                lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr),
+                lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm,
+                                                 patch, pr),
+                valid_nm, kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm, c,
+                                       pr, "bilinear", "mean"),
+                radius=pr, calls=KERNEL_CALLS if pr == 2 else WIDE_CALLS)
+            if pr == PATCH_RADIUS:
+                out[f"K1 C{c}"] = numbers
+            if descriptor == DESCRIPTORS[0] and pr == PATCH_RADIUS:
+                x, y = uv_nm[..., 0], uv_nm[..., 1]
+                valid_bc = (valid_nm & (x >= pr + 1) & (x <= WI - 3 - pr)
+                            & (y >= pr + 1) & (y <= H - 3 - pr)).contiguous()
+                texels_bc = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4,
+                                          pr + 1, H, WI)
+                out[f"K2 C{c}"] = kernel_phase(
+                    "20", f"K2 C={c} ({descriptor})",
+                    lambda: pb.bicubic_stats(channels, uv_nm, valid_bc, patch,
+                                             pr),
+                    lambda: pb.bicubic_stats_reference(channels, uv_nm,
+                                                       valid_bc, patch, pr),
+                    valid_bc, kernel_bound(texels_bc, VALUE_TEXEL_BYTES,
+                                           valid_bc, c, pr, "bicubic",
+                                           "mean"))
+    sgbm = PBAConfig.from_config_file(ConfigFile(
+        os.path.join("configs", "kitti_sgbm_bicubic.cfg")))
+    for label, cfg, counted in (
+            ("K1 C3", PBAConfig(descriptor=DESCRIPTORS[0]),
+             (pw.patch_stats, "mean")),
+            ("K1 C8", PBAConfig(descriptor=DESCRIPTORS[1]),
+             (pw.patch_stats, "mean")),
+            ("K2 C3", sgbm.replace(descriptor=DESCRIPTORS[0]),
+             (pb.bicubic_stats, "mean"))):
+        tag = f"20 {label} ({cfg.descriptor})"
+        run = run_engine(tag, cfg, scene, drifted, DEFAULT_FRAMES, counted,
+                         kernels, ate_must_fall=False)
+        check_first_window(tag, run,
+                           restrict_torch=cfg.interpolation != "bicubic")
+        out[label] = (out[label], run["launches"])
+    return out
+
+
+_lap = [0.0]
+
+
+def lap(label: str) -> None:
+    """Prints the seconds since the previous lap: each phase's time."""
+    now = time.perf_counter()
+    say(f"{label} took {now - _lap[0]:.1f} s")
+    _lap[0] = now
 
 
 def main() -> None:
@@ -3211,6 +3584,7 @@ def main() -> None:
     from photobundle_torch.ops import patch_warp as pw
 
     t_start = time.perf_counter()
+    _lap[0] = t_start
     kernels = (pw.patch_stats, pb.bicubic_stats, ps.scaled_stats,
                pw.sorted_patch_stats, smp.warp_patches, k7.patch_stats,
                pa.ablate_stats)
@@ -3232,6 +3606,7 @@ def main() -> None:
         print_ptxas(source, builds[source], (0, *_common.WARPED_RADII))
     for source in ("patch_samples", "patch_stats", "patch_ablate"):
         print_ptxas_instances(source, builds[source])
+    lap("phases 1-2")
 
     # -- phase 3: kernel vs plain version on the solve's inputs ----------
     cam, offsets, args = entry.make_problem(N_PTS, W, H, WI, PATCH_RADIUS,
@@ -3253,6 +3628,7 @@ def main() -> None:
         valid_nm, kernel_bound(win1, GRAD_TEXEL_BYTES, valid_nm, 1, pr,
                                "bilinear", "mean"), warm=True)
     k2_wide = wide_phase(dev)
+    lap("phase 3 (with the wide radii of phases 3, 5, 8 and 9)")
 
     # -- phase 4: the slice ----------------------------------------------
     kw = dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
@@ -3409,6 +3785,7 @@ def main() -> None:
         f"photobundle_torch.bench): {json.dumps(record)}")
     check(record["value"] > 0 and record["vs_baseline"] > 0,
           "the bench measured no rate")
+    lap("phase 4")
 
     # -- phase 5: K2 vs its plain version on phase 3's inputs ------------
     in_bicubic = ((uv[:, 0] >= pr + 1) & (uv[:, 0] <= WI - 3 - pr)
@@ -3423,6 +3800,7 @@ def main() -> None:
                                            patch, pr),
         valid_bc, kernel_bound(win2, VALUE_TEXEL_BYTES, valid_bc, 1, pr,
                                "bicubic", "mean"))
+    lap("phase 5")
 
     # -- phase 6: the engine, reference-exact configuration (K2) ---------
     scene = entry.make_sequence(
@@ -3439,6 +3817,7 @@ def main() -> None:
     # Both port backends take the same observations under the bicubic
     # margins.
     check_first_window("6", run6, restrict_torch=False)
+    lap("phase 6")
 
     # -- phase 7: the engine, default configuration (K1) -----------------
     run_engine("7", PBAConfig(), scene, drifted, DEFAULT_FRAMES,
@@ -3453,6 +3832,7 @@ def main() -> None:
     run7c = run_engine("7c", exact_cfg.replace(patchRadius=ENGINE_WIDE_RADIUS),
                        scene, drifted, W + 1, (pb.bicubic_stats, "mean"),
                        kernels, ate_must_fall=False)
+    lap("phase 7")
 
     # -- phase 8: K3 vs its plain version on phase 3's inputs ------------
     rho_np = np.random.default_rng(RHO_SEED).uniform(
@@ -3497,6 +3877,7 @@ def main() -> None:
                                            patch_aff, pr, "affine"),
         valid_bc, kernel_bound(win2, VALUE_TEXEL_BYTES, valid_bc, 1, pr,
                                "bicubic", "affine"))
+    lap("phases 8-9")
 
     # -- phase 10: the engine with the warp and affine normalization -----
     runs10 = {}
@@ -3514,39 +3895,55 @@ def main() -> None:
         # per-sample validity (bilinear and warped grids): hold the torch
         # run to the cuda path's valid set.
         check_first_window(tag, runs10[tag], restrict_torch=True)
+    lap("phase 10")
 
     # -- phase 11: K1's sort-reuse variant ------------------------------
     k1s = sorted_phase(dev)
+    lap("phase 11")
 
     # -- phase 12: the command line on a KITTI-format sequence -----------
     cli_launches = cli_phase(kernels, dev)
+    lap("phase 12")
 
     # -- phase 13: K4's sample store, K6, and PB_GROUPED_STATS=0 ----------
     k6, rows_launches = samples_phase(planes, uv_nm, valid_nm, win1, solve,
                                       obs, interior, kernels)
+    lap("phase 13")
 
     # -- phase 14: K7 ----------------------------------------------------
     k7_runs = k7_phase(planes, channels, uv_nm, valid_nm, patch, kernels,
                        dev)
+    lap("phase 14")
 
     # -- phase 15: the tools (the store benchmark, the K1 ablation K8) ---
     k8, tool_launches = tools_phase(planes, uv_nm, valid_nm, patch, kernels)
+    lap("phase 15")
 
     # -- phase 16: batched windows (K1's batch axis, the batched engine) --
     k1b = batched_kernel_phase(planes, uv_nm,
                                (obs.T & in_front).T.contiguous(), patch)
     batched_launches = batched_phase(scene, kernels)
+    lap("phase 16")
 
     # -- phase 17: multi-sequence refinement -----------------------------
     multi_phase(dev)
+    lap("phase 17")
 
     # -- phase 18: device meshes (NCCL at world size 1; two gloo ranks) ---
     mesh_launches = mesh_nccl_phase(dev, solve, cam, offsets, args, scene,
                                     drifted, kernels)
     mesh_gloo_phase(dev, scene, drifted)
+    lap("phase 18")
 
     # -- phase 19: the remaining tools on the card -----------------------
     tools_phase_19(dev, kernels)
+    lap("phase 19")
+
+    # -- phase 20: the shipped configurations; descriptors with C > 1 ----
+    shipped_phase(kernels, dev)
+    lap("phase 20 (A)")
+    described = descriptor_phase(dev, kernels, scene, drifted)
+    lap("phase 20 (B)")
 
     pw_py = "photobundle_tpu/ops/patch_warp.py"
 
@@ -3594,6 +3991,12 @@ def main() -> None:
                      "tools/ablate_packed_kernel.py:49",
                      tool_launches[("patch_ablate.ablate_stats", mode)],
                      k8[mode]) for mode in pa.MODES),
+        *(entry_json(f"patch_stats/{label.split()[1]}", "patch_warp.cu",
+                     f"{pw_py}:350", launches_c, numbers_c)
+          for label, (numbers_c, launches_c) in described.items()
+          if label.startswith("K1")),
+        entry_json("bicubic_stats/C3", "patch_bicubic.cu", f"{pw_py}:176",
+                   described["K2 C3"][1], described["K2 C3"][0]),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

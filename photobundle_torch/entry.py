@@ -18,6 +18,7 @@ seen by a stereo pair, as a KITTI-format sequence on disk (the layout
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -152,6 +153,14 @@ def render_view(tex, intrinsics, t_wc: np.ndarray, shape,
     return img, depth.astype(np.float32)
 
 
+def _each_view(fn, items) -> list:
+    """[fn(item) for item in items], the items in threads: rendering and
+    PNG encoding are numpy and zlib work that releases the GIL, and each
+    result is the loop's."""
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
 def _se3_exp_np(xi: np.ndarray) -> np.ndarray:
     return se3.se3_exp(torch.as_tensor(xi)).numpy()
 
@@ -192,8 +201,9 @@ def make_sequence(rng, n_frames=6, shape=(96, 144), motion_scale=0.1,
                        max_wavelength=2.5 * texture_scale)
     intrinsics = tuple(float(v) for v in cam[:4])
     poses = _track(rng, n_frames, motion_scale, rot_scale)
-    images, depths = zip(*(render_view(tex, intrinsics, t_wc, shape,
-                                       mark_misses) for t_wc in poses))
+    images, depths = zip(*_each_view(
+        lambda t_wc: render_view(tex, intrinsics, t_wc, shape, mark_misses),
+        poses))
     return cam, list(images), list(depths), poses
 
 
@@ -219,14 +229,20 @@ def write_kitti_sequence(root: str, rng, n_frames=12, shape=(96, 144),
     for sub in ("image_0", "image_1"):
         os.makedirs(os.path.join(seq, sub), exist_ok=True)
     os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    views = []
     for i, t_wc in enumerate(poses):
         t_right = t_wc.copy()
         t_right[:3, 3] = t_wc[:3, 3] + t_wc[:3, :3] @ np.array(
             [baseline, 0.0, 0.0], np.float32)
-        for sub, pose in (("image_0", t_wc), ("image_1", t_right)):
-            img, _ = render_view(tex, intrinsics, pose, shape, mark_misses)
-            png.write_png_gray(os.path.join(seq, sub, f"{i:06d}.png"),
-                               np.clip(img * 255, 0, 255).astype(np.uint8))
+        views += [(os.path.join(seq, sub, f"{i:06d}.png"), pose)
+                  for sub, pose in (("image_0", t_wc), ("image_1", t_right))]
+
+    def write(view):
+        img, _ = render_view(tex, intrinsics, view[1], shape, mark_misses)
+        png.write_png_gray(view[0],
+                           np.clip(img * 255, 0, 255).astype(np.uint8))
+
+    _each_view(write, views)
     with open(os.path.join(seq, "calib.txt"), "w") as f:
         f.write(f"P0: {fx} 0 {cx} 0 0 {fx} {cy} 0 0 0 1 0\n")
         f.write(f"P1: {fx} 0 {cx} {-fx * baseline} 0 {fx} {cy} 0 0 0 1 0\n")
