@@ -28,7 +28,8 @@ descriptors and the shipped configurations' own sizes), from seeds:
      termination, costs within GRAPH_RTOL, and whether the two are
      bitwise equal (else the first field that differs); K1's device time
      per launch inside the solve (L2 as the solve leaves it) and its
-     traced launches against the count; for both, LM iterations/s, host
+     traced launches against the count (the fullest of up to 5 traces);
+     for both, LM iterations/s, host
      syncs per solve and the card's idle share over one solve; a sweep of
      lm.LM_READBACK over the fixed solve and two that end early; then the
      torch backend, LM iterations/s of both backends, and a parity solve
@@ -116,8 +117,14 @@ descriptors and the shipped configurations' own sizes), from seeds:
  16. batched windows (core/batched.py): K1's batch axis on phase 3's
      inputs stacked for B = 4 windows (window b's uv shifted b x 0.37 px)
      against its plain version and bitwise 4 single-window launches at R
-     = 2, 9 and 19, its device time at B = 1, 2 and 4; then the batched
-     engine in the default configuration, 8 frames, B = 4
+     = 2, 9 and 19, its device time at B = 1, 2 and 4; the batch axes of
+     K2, K3, K5 (K3's affine mode), K4's row store and sorted K1 on the
+     same windows (each inside its own margins; K3's scales phase 8's
+     draw; sorted K1's order each window's own), each bitwise 4
+     single-window launches at R = 2 and at its wide radius (AXES: 19,
+     9, 9, 19, 19), then at B = 3 against its plain version and timed,
+     and its device time at B = 1, 2, 3 and 4 beside its bound; then the
+     batched engine in the default configuration, 8 frames, B = 4
      sequences, sequence k phase 6's frames shifted k px and brightened
      0.001 k and drifted from its own seed (k + 1): every batched
      ingest's result, sequence by sequence, bitwise the single engine's
@@ -133,7 +140,15 @@ descriptors and the shipped configurations' own sizes), from seeds:
      rings, warm, beside one and B single ingests: ms (CUDA events),
      device activities and launch calls (torch.profiler), host syncs,
      each the same at every B; then `tools/bench_batched` in this
-     process at B = 1 and 4;
+     process at B = 1 and 4; last the batched engine at B = 3 on the same
+     sequences over 6 frames (two window solves) beside 3 single engines
+     in each configuration that runs one of those batch axes
+     (AXIS_CONFIGS: configs/reference_exact.cfg, patchWarp=scale, with
+     patchNormalization=affine too, PB_GROUPED_STATS=0,
+     PB_SORTED_DISPATCH=1, each variable set for its run alone): every
+     window's poses, points and final cost bitwise the single engine's,
+     its kernel launched once per evaluation for the whole batch and no
+     other kernel or mode;
  17. multi-sequence refinement: `python -m photobundle_torch.multi` on
      phase 12's KITTI-format sequence in configs/kitti_production.cfg,
      units of 6 frames, with 2 spawned workers and then 1 inline, both
@@ -318,6 +333,30 @@ CLI_FRAMES, CLI_TIMEOUT_S, DATASET_FRAMES = 12, 600, 4
 BATCH_KERNEL, BATCH_RADII, BATCH_SHIFT_PX = 4, (2, 9, 19), 0.37
 BATCH_SIZES, BENCH_BATCHES = (4,), (1, 4)
 BATCH_POSE_ATOL, BATCH_COST_RTOL = 1e-3, 1e-3
+# Phase 16's other batch axes, each held at R = 2 and at its wide radius
+# (label: wide radius; K2's, K3's and the row store's and sorted K1's
+# widest instances but K3's, whose limit is 9), and the batched engine at
+# B = ENGINE_BATCH over W + 1 frames (two window solves) in each
+# configuration that runs one of them (label: (configuration, its
+# environment), the label naming the wrapper and mode it launches).
+AXES = {"bicubic_stats": 19, "scaled_stats": 9, "scaled_stats/affine": 9,
+        "warp_patches/rows": 19, "sorted_patch_stats": 19}
+ENGINE_BATCH = 3
+# Each axis's source and the line of the JAX kernel body it replaces in
+# photobundle_tpu/ops/patch_warp.py (sorted K1: K1's body with sort_reuse).
+AXIS_SOURCES = {"bicubic_stats": ("patch_bicubic.cu", 176),
+                "scaled_stats": ("patch_scaled.cu", 775),
+                "scaled_stats/affine": ("patch_scaled.cu", 613),
+                "warp_patches/rows": ("patch_samples.cu", 100),
+                "sorted_patch_stats": ("patch_warp.cu", 393)}
+AXIS_CONFIGS = {
+    "bicubic_stats": ("configs/reference_exact.cfg", {}),
+    "scaled_stats": (dict(patchWarp="scale"), {}),
+    "scaled_stats/affine": (dict(patchWarp="scale",
+                                 patchNormalization="affine"), {}),
+    "warp_patches/rows": ({}, {"PB_GROUPED_STATS": "0"}),
+    "sorted_patch_stats": ({}, {"PB_SORTED_DISPATCH": "1"}),
+}
 # Phase 16's sequence k: phase 6's frames shifted left by k px and
 # brightened by BATCH_BRIGHTEN x k; the batched ingest's cost at
 # INGEST_BATCHES, warm, each number the median of INGEST_CALLS calls.
@@ -1228,23 +1267,33 @@ def wide_phase(dev) -> dict:
     return numbers
 
 
-def insitu_us(fn, match: str):
+def insitu_us(fn, match: str, launched: int, tries: int = 5):
     """Device time per launch of the kernels named `match` inside one call
     of fn (a solve), L2 as the call leaves it: (us, launches in the
-    trace)."""
+    trace, traces taken). A trace can drop device activities (PERF.md
+    section 7): it is retaken, up to `tries` traces, until it holds the
+    `launched` launches the wrapper counted, and the fullest trace counts
+    (a trace drops activities, never adds one), as `traced_activities`
+    does."""
     from torch.autograd import DeviceType
 
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    best = None
+    for taken in range(1, tries + 1):
         torch.cuda.synchronize()
-    evts = [evt for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA and match in evt.key]
-    launches = sum(evt.count for evt in evts)
-    total = sum(evt.self_device_time_total for evt in evts)
-    return (total / launches if total > 0 else None), launches
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA and match in evt.key]
+        launches = sum(evt.count for evt in evts)
+        total = sum(evt.self_device_time_total for evt in evts)
+        if best is None or launches > best[1]:
+            best = ((total / launches if total > 0 else None), launches)
+        if launches >= launched:
+            break
+    return (*best, taken)
 
 
 def first_difference(got, want):
@@ -2132,17 +2181,10 @@ def batched_kernel_phase(planes, uv_nm, seen_nm, patch) -> dict:
                 f"single-window launches; vs plain max abs err "
                 f"{max_abs:.3e}, {worst:.3f} of the tolerance")
             continue
-        bound = None
-        for k in range(b):
-            part = kernel_bound(
-                window_texels(args[1][k], args[2][k], pr, 2 * pr + 2, pr, H,
-                              WI), GRAD_TEXEL_BYTES, args[2][k], 1, pr,
-                "bilinear", "mean")
-            bound = part if bound is None else {
-                key: bound[key] + part[key]
-                for key in ("bytes", "flops", "out_bytes")}
-        bound = bytes_ops_bound(bound["bytes"], bound["flops"],
-                                bound["out_bytes"])
+        bound = summed_bound([kernel_bound(
+            window_texels(args[1][k], args[2][k], pr, 2 * pr + 2, pr, H, WI),
+            GRAD_TEXEL_BYTES, args[2][k], 1, pr, "bilinear", "mean")
+            for k in range(b)])
         numbers = kernel_phase(
             "16", f"K1 batch axis (B = {b}; bitwise {b} single-window "
             f"launches)", lambda: pw.patch_stats(*args, pr),
@@ -2158,6 +2200,165 @@ def batched_kernel_phase(planes, uv_nm, seen_nm, patch) -> dict:
             + ", ".join(f"B = {k} {us_text(v)}" for k, v in by_batch.items()))
         numbers["device_us_by_batch"] = by_batch
     return numbers
+
+
+def uv_dispatch_key(uv_nm, valid_nm):
+    """`residuals.dispatch_key` from the observations' own coordinates in
+    the window's middle frame: (16-row band, column), observations not
+    valid there last."""
+    from photobundle_torch.core import residuals as res_mod
+
+    mid = uv_nm.shape[1] // 2
+    ok = valid_nm[:, mid]
+    q = torch.where(ok[:, None], uv_nm[:, mid], 0.0)
+    col = torch.clamp(torch.floor(q[:, 0]), 0, WI - 1).long()
+    row = torch.clamp(torch.floor(q[:, 1]), 0, H - 1).long()
+    band = res_mod.DISPATCH_BAND
+    return torch.where(ok, (row // band) * WI + col, -(-H // band) * WI)
+
+
+def axis_inputs(label, planes, value_planes, uv_nm, seen_nm, patch, pr: int,
+                b: int):
+    """Phase 16's inputs of one new batch axis (a label of AXES) at radius
+    pr for b windows: (kernel, plain, args, valid, bounds, match): the
+    wrapper and its plain version, both called as f(*args) with every
+    operand on a leading batch axis (so args sliced [k] or [:e] is window
+    k's call or the first e windows'), the valid observations (B, N, W),
+    each window's bound, and the kernels' device-time name. Windows as
+    `batched_inputs` makes them, valid inside the kernel's own margins;
+    K3/K5's scales phase 8's draw (numpy seed RHO_SEED) per window; sorted
+    K1's order each window's own: `uv_dispatch_key` of its coordinates,
+    reversed in odd windows."""
+    from photobundle_torch.core import residuals as res_mod
+    from photobundle_torch.image import patches as patches_mod
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_samples as smp
+    from photobundle_torch.ops import patch_scaled as ps
+    from photobundle_torch.ops import patch_warp as pw
+
+    kind, _, norm = label.partition("/")
+    norm = norm or "mean"
+    tex, q, _, desc = batched_inputs(planes, uv_nm, seen_nm, patch, pr, b)
+    if norm == "affine":
+        desc = patches_mod.affine_normalize(desc).contiguous()
+    n = uv_nm.shape[0]
+    lo, hi = ((pr + 1, 3 + pr) if kind == "bicubic_stats" else (pr, 2 + pr))
+    if kind == "scaled_stats":
+        rho = torch.as_tensor(np.clip(np.random.default_rng(RHO_SEED).uniform(
+            RHO_LO, RHO_HI, size=(b, n, W)), 0.5, 2.0).astype(np.float32),
+            device=uv_nm.device)
+        lo, hi = 1 + rho * pr, 2 + rho * pr
+    valid = seen_nm[None] & ((q[..., 0] >= lo) & (q[..., 0] <= WI - hi)
+                             & (q[..., 1] >= lo) & (q[..., 1] <= H - hi))
+    if kind == "bicubic_stats":
+        args = (value_planes.expand(b, *value_planes.shape).contiguous(), q,
+                valid, desc)
+        kernel, plain, match = pb.bicubic_stats, pb.bicubic_stats_reference, \
+            "stats"
+        bounds = [kernel_bound(window_texels(q[k], valid[k], pr, 2 * pr + 4,
+                                             pr + 1, H, WI),
+                               VALUE_TEXEL_BYTES, valid[k], 1, pr, "bicubic",
+                               norm) for k in range(b)]
+    elif kind == "scaled_stats":
+        args = (tex, q, rho, valid, desc)
+        kernel, plain, match = ps.scaled_stats, ps.scaled_stats_reference, \
+            "stats"
+        bounds = [kernel_bound(scaled_texels(q[k], rho[k], valid[k], pr, H,
+                                             WI),
+                               GRAD_TEXEL_BYTES, valid[k], 1, pr, "scaled",
+                               norm, with_rho=True) for k in range(b)]
+    elif kind == "warp_patches":
+        args = (tex, q, valid)
+        bounds = [samples_bound(window_texels(q[k], valid[k], pr, 2 * pr + 2,
+                                              pr, H, WI), valid[k], pr,
+                                "rows") for k in range(b)]
+        return (lambda *a: smp.store(*a, pr, "rows"),
+                lambda *a: smp.store_reference(*a, pr, "rows"), args, valid,
+                bounds, "samples")
+    else:
+        feed = []
+        for k in range(b):
+            f, _ = res_mod.sorted_dispatch_order(uv_dispatch_key(q[k],
+                                                                 valid[k]))
+            feed.append(f.flip(0) if k % 2 else f)
+        feed = torch.stack(feed)
+        args = (tex, q, valid, desc, feed, torch.argsort(feed, dim=1))
+        bounds = []
+        for k in range(b):
+            bounds.append(kernel_bound(
+                window_texels(q[k], valid[k], pr, 2 * pr + 2, pr, H, WI),
+                GRAD_TEXEL_BYTES, valid[k], 1, pr, "bilinear", norm))
+            bounds[-1]["bytes"] += 8 * n          # the window's feed
+        return (lambda *a: pw.sorted_patch_stats(*a[:4], pr, a[4:], norm),
+                lambda *a: pw.sorted_patch_stats_reference(*a[:4], pr, a[4:],
+                                                           norm),
+                args, valid, bounds, "sorted")
+    return (lambda *a: kernel(*a, pr, norm), lambda *a: plain(*a, pr, norm),
+            args, valid, bounds, match)
+
+
+def summed_bound(bounds):
+    """One bound of several windows' work: their bytes, operations and
+    output bytes summed."""
+    return bytes_ops_bound(*(sum(part[key] for part in bounds)
+                             for key in ("bytes", "flops", "out_bytes")))
+
+
+def batched_axes_phase(planes, channels, uv_nm, seen_nm, patch) -> dict:
+    """Phase 16's kernel part for the batch axes of K2, K3, K5, K4's row
+    store and sorted K1 (AXES): each held bitwise to BATCH_KERNEL
+    single-window launches at R = 2 and at its wide radius (AXES); then, at
+    R = 2, against its plain version and timed at B = ENGINE_BATCH (the
+    JSON line's numbers, beside the launches of its engine run), and its
+    cold device time per launch at B = 1, 2 and BATCH_KERNEL beside its
+    bound (the B windows' bounds summed) and the share. Returns {label:
+    numbers}."""
+    from photobundle_torch.ops import patch_bicubic as pb
+
+    value_planes = pb.build_value_planes(channels)
+    b, e = BATCH_KERNEL, ENGINE_BATCH
+    out = {}
+    for label, wide in AXES.items():
+        for pr in (wide, PATCH_RADIUS):
+            kernel, plain, args, valid, bounds, match = axis_inputs(
+                label, planes, value_planes, uv_nm, seen_nm, patch, pr, b)
+            got = kernel(*args)
+            singles = torch.stack([kernel(*(a[k] for a in args))
+                                   for k in range(b)])
+            torch.cuda.synchronize()
+            check(torch.equal(got, singles), f"phase 16 {label} batch axis "
+                  f"at R = {pr} is not bitwise {b} single-window launches")
+            say(f"phase 16 {label} batch axis, B = {b}, R = {pr} "
+                f"({int(valid.sum())} valid observations): bitwise {b} "
+                f"single-window launches")
+            del got, singles
+        first = tuple(a[:e] for a in args)
+        stores = label.startswith("warp_patches")
+        numbers = kernel_phase(
+            "16", f"{label} batch axis (B = {e})", lambda: kernel(*first),
+            lambda: plain(*first), valid[:e].reshape(-1, W),
+            summed_bound(bounds[:e]),
+            compare=compare_bitwise if stores else (
+                lambda g, w_, v: compare_with_plain(
+                    batched_rows(g), batched_rows(w_), v)),
+            match=match)
+        cold = {e: numbers["device_us"]}
+        bound_us = {k: summed_bound(bounds[:k])["bound_ms"] * 1e3
+                    for k in (1, 2, e, b)}
+        for size in (1, 2, b):
+            part = tuple(a[:size] for a in args)
+            cold[size] = device_us_per_launch(lambda: kernel(*part),
+                                              match=match)
+        say(f"phase 16 {label} batch axis device time per launch (L2 "
+            f"flushed) | bound (the B windows' bounds summed) | share: "
+            + ", ".join(
+                f"B = {k} {us_text(cold[k])} | {bound_us[k]:.3f} us | "
+                + share_text(None if cold[k] is None
+                             else bound_us[k] / cold[k])
+                for k in sorted(cold)))
+        numbers["device_us_by_batch"] = cold
+        out[label] = numbers
+    return out
 
 
 def shifted_sequence(scene, k: int):
@@ -2508,6 +2709,115 @@ def batched_phase(scene, kernels) -> int:
               f"bench_batched at B = {b} measured no rate")
         torch.cuda.empty_cache()
     return launches
+
+
+def axis_config(label):
+    """AXIS_CONFIGS' configuration of a label, a PBAConfig."""
+    from photobundle_torch.config import ConfigFile, PBAConfig
+
+    cfg, _ = AXIS_CONFIGS[label]
+    if isinstance(cfg, str):
+        return PBAConfig.from_config_file(ConfigFile(cfg))
+    return PBAConfig(**cfg)
+
+
+def batched_configs_phase(scene, kernels) -> dict:
+    """Phase 16's engine runs of the other batch axes: for each label of
+    AXIS_CONFIGS, with its environment set for its run alone, the batched
+    engine at B = ENGINE_BATCH on phase 16's sequences (W + 1 frames, two
+    window solves) beside ENGINE_BATCH single engines fed the same frames:
+    every window's poses, points and final cost bitwise the single
+    engine's, the label's kernel launched once per evaluation for the
+    whole batch (`expected_launches`) and no other kernel or mode. Returns
+    {label: its launches in the batched run}."""
+    from photobundle_torch import entry
+    from photobundle_torch.core.batched import \
+        BatchedPhotometricBundleAdjustment
+    from photobundle_torch.core.engine import PhotometricBundleAdjustment
+
+    cam, images, _, gt = scene
+    b, n = ENGINE_BATCH, W + 1
+    inits = [entry.drift_poses(np.random.default_rng(k), gt, DRIFT_TRANS,
+                               DRIFT_ROT, 1) for k in range(1, b + 1)]
+    seqs = [shifted_sequence(scene, k) for k in range(b)]
+    out = {}
+    for label, (_, env) in AXIS_CONFIGS.items():
+        cfg = axis_config(label)
+        saved = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            singles = []
+            for k in range(b):
+                pba = PhotometricBundleAdjustment(cam, images[0].shape, cfg)
+                singles.append([r for i in range(n) if (r := pba.add_frame(
+                    seqs[k][0][i], seqs[k][1][i], inits[k][i]))])
+            bp = BatchedPhotometricBundleAdjustment(cam, images[0].shape,
+                                                    cfg, b)
+            check(bp.device.type == "cuda" and bp.backend == "cuda",
+                  f"batched engine on {bp.device}, backend {bp.backend}")
+            batched = [[] for _ in range(b)]
+            torch.cuda.synchronize()
+            reset_all(kernels)
+            for i in range(n):
+                rs = bp.add_frames([s[0][i] for s in seqs],
+                                   [s[1][i] for s in seqs],
+                                   [init[i] for init in inits])
+                for k, r in enumerate(rs or []):
+                    batched[k].append(r)
+            counts = launch_counts(kernels)
+            runs = lm_runs()
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        name, _, mode = label.partition("/")
+        wrapper = {"bicubic_stats": "patch_bicubic.bicubic_stats",
+                   "scaled_stats": "patch_scaled.scaled_stats",
+                   "warp_patches": "patch_samples.warp_patches",
+                   "sorted_patch_stats": "patch_warp.sorted_patch_stats"}
+        launched = counts.pop((wrapper[name], mode or "mean"))
+        others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
+        its = [max(r.iterations for r in solve) for solve in zip(*batched)]
+        expected = expected_launches(its)
+        unequal = []
+        for ra_list, rb_list in zip(singles, batched):
+            check(len(ra_list) == len(rb_list) == n - W + 1,
+                  f"{label}: {len(ra_list)} single and {len(rb_list)} "
+                  f"batched window results")
+            for ra, rb in zip(ra_list, rb_list):
+                check(bool(np.isfinite(rb.poses).all())
+                      and rb.final_cost <= rb.initial_cost,
+                      f"{label} window {rb.frame_ids.tolist()}: cost "
+                      f"{rb.initial_cost} -> {rb.final_cost}")
+                if not (np.array_equal(ra.frame_ids, rb.frame_ids)
+                        and ra.num_points == rb.num_points
+                        and np.array_equal(ra.poses, rb.poses)
+                        and np.array_equal(ra.points_xyz, rb.points_xyz)
+                        and ra.final_cost == rb.final_cost):
+                    unequal.append(ra.frame_ids.tolist())
+        setting = ", ".join([str(AXIS_CONFIGS[label][0] or
+                                 "default configuration"),
+                             *(f"{k}={v}" for k, v in env.items())])
+        say(f"phase 16 batched engine, B = {b}, {label} ({setting}; {n} "
+            f"frames of phase 16's sequences, "
+            f"{time.perf_counter() - t0:.1f} s with the single engines): "
+            f"{len(its)} batched solves, iterations per solve (the longest "
+            f"window) {its}; {label} launches {launched} (once per "
+            f"evaluation for the whole batch: {expected}; lm runs {runs}), "
+            f"other kernels and modes {others or 'none'} | windows whose "
+            f"frame ids, point count, poses, points or final cost are not "
+            f"bitwise the single engine's: {unequal or 'none'}")
+        check(not unequal, f"{label}: windows {unequal} are not bitwise the "
+              f"single engines'")
+        check(launched == expected > 0, f"{label}: launched {launched} "
+              f"times, expected {expected}")
+        check(not others, f"{label}: other kernels or modes ran: {others}")
+        out[label] = launched
+        del bp
+    return out
 
 
 def free_port() -> int:
@@ -3712,12 +4022,18 @@ def main() -> None:
         f"{'yes' if differs is None else 'no, first at ' + differs}")
     # K1 inside the solve, L2 as the solve leaves it (not flushed); the
     # trace's K1 launches against the per-replay count.
-    situ_us, situ_n = insitu_us(lambda: solve("cuda"), "patch_stats_kernel")
+    reset_all(kernels)
+    situ_us, situ_n, traces = insitu_us(lambda: solve("cuda"),
+                                        "patch_stats_kernel", ITERS + 1)
+    counted = pw.patch_stats.launches["mean"]
     say(f"phase 4 K1 in the solve: {us_text(situ_us)} per launch over "
-        f"{situ_n} traced launches (L2 as the solve leaves it) | phase 3: "
-        f"cold {us_text(k1['device_us'])}, warm {us_text(k1['warm_us'])}")
-    check(situ_n == ITERS + 1, f"the profiler traced {situ_n} K1 launches "
-          f"in one warm solve, counted {ITERS + 1}")
+        f"{situ_n} traced launches, the fullest of {traces} trace(s) (L2 "
+        f"as the solve leaves it) | phase 3: cold "
+        f"{us_text(k1['device_us'])}, warm {us_text(k1['warm_us'])}")
+    check(counted == traces * (ITERS + 1) and situ_n == ITERS + 1,
+          f"{traces} warm solves launched K1 {counted} times (counted), the "
+          f"fullest of their traces held {situ_n}, expected {ITERS + 1} "
+          f"each")
 
     def its_per_s(backend, **extra):
         times = []
@@ -3920,9 +4236,11 @@ def main() -> None:
     lap("phase 15")
 
     # -- phase 16: batched windows (K1's batch axis, the batched engine) --
-    k1b = batched_kernel_phase(planes, uv_nm,
-                               (obs.T & in_front).T.contiguous(), patch)
+    seen_nm = (obs.T & in_front).T.contiguous()
+    k1b = batched_kernel_phase(planes, uv_nm, seen_nm, patch)
+    axes = batched_axes_phase(planes, channels, uv_nm, seen_nm, patch)
     batched_launches = batched_phase(scene, kernels)
+    axis_launches = batched_configs_phase(scene, kernels)
     lap("phase 16")
 
     # -- phase 17: multi-sequence refinement -----------------------------
@@ -3960,6 +4278,9 @@ def main() -> None:
                    f"{pw_py}:577", batched_launches, k1b),
         entry_json("patch_stats/mesh", "patch_warp.cu", f"{pw_py}:577",
                    mesh_launches, k1),
+        *(entry_json(f"{label}/batch{ENGINE_BATCH}", AXIS_SOURCES[label][0],
+                     f"{pw_py}:{AXIS_SOURCES[label][1]}",
+                     axis_launches[label], axes[label]) for label in AXES),
         entry_json("bicubic_stats", "patch_bicubic.cu", f"{pw_py}:176",
                    run6["launches"], k2),
         entry_json("scaled_stats", "patch_scaled.cu", f"{pw_py}:775",

@@ -22,7 +22,9 @@ layouts rows, block and raw) at R = 2 and 9 (or --store-radii); K7
 checkout's K7 takes them); K8
 (`patch_ablate.ablate_stats`, full/own and loads/own at 64 threads) at
 R = 2; and K1, sorted K1 and K8 also at 65 536 points,
-R = 2 (phase 11's dense windows). --kernels keeps the kernels whose names
+R = 2 (phase 11's dense windows); K1's batch axis (`K1_batch`, where the
+checkout's `patch_stats` takes one) at R = 2 on chip_smoke.py phase 16's
+windows at B = 1, 2 and 4. --kernels keeps the kernels whose names
 start with one of the given prefixes (K1 always runs) and builds only
 their sources. For each: the
 median time per call over 50 calls (CUDA events), and the device time per
@@ -64,7 +66,7 @@ K8_THREADS = 64
 
 
 # Each kernel source and the names of the kernels timed from it.
-SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1"),
+SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1", "K1_batch"),
                   "patch_bicubic": ("K2_mean", "K2_affine"),
                   "patch_scaled": ("K3", "K5"),
                   "patch_samples": ("store_rows", "store_block",
@@ -91,9 +93,27 @@ def output_hash(out: torch.Tensor) -> str:
     return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def use_tree(tree: str):
+    """Make `import photobundle_torch` take the checkout at `tree`: put it
+    first on the path and forget the package this process imported
+    already (chip_smoke.py imports this checkout's at its top). Returns
+    the tree's package."""
+    import importlib
+
+    sys.path.insert(0, os.path.abspath(tree))
+    for name in [m for m in sys.modules if m == "photobundle_torch"
+                 or m.startswith("photobundle_torch.")]:
+        del sys.modules[name]
+    package = importlib.import_module("photobundle_torch")
+    where = os.path.dirname(os.path.abspath(package.__file__))
+    if where != os.path.join(os.path.abspath(tree), "photobundle_torch"):
+        raise RuntimeError(f"{tree}: imported photobundle_torch from {where}")
+    return package
+
+
 def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
     """The numbers of one checkout, in this process."""
-    sys.path.insert(0, os.path.abspath(tree))
+    use_tree(tree)
     from photobundle_torch import entry
     from photobundle_torch.core import lm
     from photobundle_torch.core import residuals as res_mod
@@ -162,6 +182,20 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
                 lambda: pw.sorted_patch_stats(planes, uv_nm, valid_k1, patch,
                                               pr, order), bound_k1,
                 "stats")
+        if (pr == 2 and not dense and wanted("K1_batch")
+                and "batch axis" in (pw.patch_stats.__doc__ or "")):
+            batch = cs.batched_inputs(planes, uv_nm,
+                                      (obs.T & in_front).T.contiguous(),
+                                      patch, pr, cs.BATCH_KERNEL)
+            for b in (1, 2, cs.BATCH_KERNEL):
+                part = tuple(a[:b] for a in batch)
+                calls[f"K1_batch{b}"] = (
+                    lambda part=part: pw.patch_stats(*part, pr),
+                    cs.summed_bound([cs.kernel_bound(
+                        cs.window_texels(part[1][k], part[2][k], pr,
+                                         2 * pr + 2, pr, h, wi),
+                        cs.GRAD_TEXEL_BYTES, part[2][k], 1, pr, "bilinear",
+                        "mean") for k in range(b)]), "stats")
         if not dense and pr in radii_timed and pr in radii["K2"]:
             texels_k2 = cs.window_texels(uv_nm, valid_k2, pr, 2 * pr + 4,
                                          pr + 1, h, wi)
@@ -261,11 +295,11 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
                                                            flush=False)
             for name, mode, match in (("K1", "sampled", "patch_stats_kernel"),
                                       ("K2", "bicubic", "bicubic")):
-                situ, n_situ = cs.insitu_us(lambda: lm.lm_solve(
+                situ, n_situ, _ = cs.insitu_us(lambda: lm.lm_solve(
                     cam, *args, offsets, huber_delta=cs.HUBER_DELTA,
                     gradient_mode=mode, max_iterations=cs.ITERS,
                     function_tolerance=0.0, parameter_tolerance=0.0,
-                    backend="cuda"), match)
+                    backend="cuda"), match, cs.ITERS + 1)
                 out[f"{name}_R2_insitu_us"] = situ
                 print(f"[kernel_times] {tree} {name}_R2: inside an "
                       f"{cs.ITERS}-iteration {mode} solve {cs.us_text(situ)} "

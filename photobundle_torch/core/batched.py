@@ -20,18 +20,21 @@ window rings, are stacked along a leading axis.
   lockstep, and each LM solve they ask for is one `lm.lm_solve_batched`
   over all B windows: every window's start and body, the single solve's
   operations, in one program that replays as two CUDA graphs per problem
-  key on a card. K1 launches once per evaluation for the whole batch
-  (its batch axis, ops/patch_warp.py); every window keeps its own lam,
-  nu, iteration count, termination and logs, and the host reads whether
-  every window has ended once per lm.LM_READBACK bodies.
+  key on a card. The configuration's kernel (K1, sorted K1, K2, K3/K5 or
+  K4's row store: the twin of jax.vmap over its pallas_call) launches
+  once per evaluation for the whole batch, over its batch axis
+  (csrc/patch_batch.cuh), with the sampling planes built once for all
+  windows; every window keeps its own lam, nu, iteration count,
+  termination and logs, and the host reads whether every window has
+  ended once per lm.LM_READBACK bodies.
 - One batched device-to-host copy returns the B WindowResults.
 
 Every window's results are bitwise those of a single engine fed the same
 frames: each step is the single engine's, on tensors of its layouts, and
-K1's batch axis sums each window as its own launch does. (A solve
-vmapped over the windows, the reference's route, rounds its batched
-reductions and products differently; on the card its point sets left
-the single engines' at the fourth window.)
+each kernel's batch axis computes each window as its own launch does. (A
+solve vmapped over the windows, the reference's route, rounds its
+batched reductions and products differently; on the card its point sets
+left the single engines' at the fourth window.)
 
 Results are returned when the windows' solves end (cfg.pipelineResults is
 not applied, as in the reference's batched engine).

@@ -51,9 +51,12 @@ replay the same number of bodies.
 B solves of one configuration run as one program (`lm_solve_batched`,
 `batched_program`; the batched engine's, core/batched.py): start and
 body run every window's own start and body, written as generators
-(`program_steps`) that yield their K1 launch, so that one launch of K1's
-batch axis serves all B windows per evaluation; everything else is the
-single solve's, so each window's results are bitwise its own solve's.
+(`program_steps`) that yield their kernel launch (residuals.KernelCall:
+K1, sorted K1, K2, K3/K5 or K4's row store, by configuration), so that
+one launch of that kernel's batch axis serves all B windows per
+evaluation (the twin of jax.vmap over each pallas_call); everything else
+is the single solve's, so each window's results are bitwise its own
+solve's.
 
 Lambda policy: Nielsen's adaptive damping (the policy Ceres uses):
   accept: lam *= max(1/3, 1 - (2*rho - 1)^3); nu = 2
@@ -74,11 +77,11 @@ from ..geometry import se3
 from ..geometry.camera import Camera
 from ..image import patches as patches_mod
 from ..ops import _common
-from ..ops import patch_warp as pw_mod
 from . import schur
 from .residuals import (CompressedResiduals, dispatch_key,
                         evaluate_compressed_steps, grouped_stats_from_env,
-                        make_cuda_ctx, patch_warp_ref_geometry, run_steps,
+                        launch_batched, make_cuda_ctx,
+                        patch_warp_ref_geometry, run_steps,
                         sorted_dispatch_order)
 
 # Bodies between two host reads of the termination code. Results do not
@@ -413,7 +416,7 @@ def program(p: LMProblem, c: LMConfig):
     on a finished state. Both read the tensors of `p` when they run (a
     graph's static inputs), and body reads what the last start computed
     (the loop invariants: sampling planes, masks, prior anchors). They run
-    `program_steps`' generators, each K1 launch on this window."""
+    `program_steps`' generators, each kernel launch on this window."""
     start_steps, body_steps = program_steps(p, c)
     return (lambda: run_steps(start_steps()),
             lambda st: run_steps(body_steps(st)))
@@ -421,10 +424,10 @@ def program(p: LMProblem, c: LMConfig):
 
 def program_steps(p: LMProblem, c: LMConfig):
     """`program`'s start and body as generator functions: each yields the
-    K1 launch of its evaluation (residuals.KernelCall, for the cuda
-    backend's fixed bilinear grid), is sent the sums, and returns what
-    `program`'s returns. `start_steps(ctx)` takes a prebuilt sampling
-    context of the cuda backend (`batched_program` passes window b's view
+    kernel launch of its evaluation (residuals.KernelCall, for the cuda
+    backend), is sent its result, and returns what `program`'s returns.
+    `start_steps(ctx)` takes a prebuilt sampling context of the cuda
+    backend (`batched_program` passes window b's view
     of planes built for all its windows); by default it builds its own."""
     cam = Camera(*p.cam)
     max_it = c.max_iterations
@@ -650,12 +653,14 @@ def stacked(trees) -> tuple:
 
 def _lockstep(steps: list, planes):
     """Run B windows' generators of evaluation steps together (the start
-    or the body of each window's `program_steps`). They ask for their K1
-    launches in lockstep (one configuration); each round of them is one
-    launch of K1's batch axis over `planes` (B, W, C, H, Wi, 4), of which
-    window b's calls read planes[b], and each window is sent a copy of
-    its slice of the sums, bitwise what its own launch returns. Returns
-    the windows' results."""
+    or the body of each window's `program_steps`). They ask for their
+    kernel launches in lockstep (one configuration): each round of them is
+    one launch of that kernel's batch axis over `planes` (the windows'
+    sampling planes stacked, (B, ...)), of which window b's calls read
+    planes[b] (`residuals.launch_batched`, which raises if the windows ask
+    for different kernels, radii or modes), and each window is sent a copy
+    of its slice of the result, bitwise what its own launch returns.
+    Returns the windows' results."""
     results, ended = [None] * len(steps), [False] * len(steps)
 
     def advance(k, sums):
@@ -667,17 +672,11 @@ def _lockstep(steps: list, planes):
 
     calls = [advance(k, None) for k in range(len(steps))]
     while not all(ended):
-        if any(ended) or any(call.planes.data_ptr() != planes[k].data_ptr()
-                             for k, call in enumerate(calls)):
+        if any(ended):
             raise RuntimeError("the windows of a batched solve left "
                                "lockstep")
-        first = calls[0]
-        sums = pw_mod.patch_stats(
-            planes, torch.stack([call.uv for call in calls]),
-            torch.stack([call.valid for call in calls]),
-            torch.stack([call.patch for call in calls]), first.patch_radius,
-            first.norm)
-        calls = [advance(k, sums[k].clone()) for k in range(len(steps))]
+        out = launch_batched(calls, planes)
+        calls = [advance(k, out[k].clone()) for k in range(len(steps))]
     return results
 
 
@@ -686,23 +685,24 @@ def batched_program(problems: tuple, c: LMConfig):
     state is the tuple of the windows' `LMState`s (start returns it and
     the tuple of their `LMStart`s); start and body run every window's own
     start and body (`program_steps`, the single solve's operations in its
-    order, on tensors of the single solve's layouts), with K1 launched
-    once per evaluation for all the windows over its batch axis
-    (`_lockstep`); the other kernels run once per window. Each window
-    keeps its own lam, nu, iteration count, termination and logs, and an
-    ended window passes through a body unchanged, so every window's
-    results are bitwise those of its own solve. The cuda backend's planes
-    are built for all windows at once (window b's view of them is its
-    sampling context)."""
+    order, on tensors of the single solve's layouts), with the
+    configuration's kernel (K1, sorted K1, K2, K3/K5 or K4's row store)
+    launched once per evaluation for all the windows over its batch axis
+    (`_lockstep`). Each window keeps its own lam, nu, iteration count,
+    termination and logs, and an ended window passes through a body
+    unchanged, so every window's results are bitwise those of its own
+    solve. The cuda backend's sampling planes (texel or value planes, by
+    gradient mode) are built for all windows at once; window b's view of
+    them is its sampling context."""
     steps = [program_steps(p, c) for p in problems]
     kept = {}
 
     def start():
         planes = None
-        if c.backend == "cuda" and c.gradient_mode == "sampled":
-            planes = pw_mod.build_planes(
-                torch.stack([p.channels for p in problems]),
-                torch.stack([p.grads for p in problems]))
+        if c.backend == "cuda":
+            planes = make_cuda_ctx(torch.stack([p.channels for p in problems]),
+                                   torch.stack([p.grads for p in problems]),
+                                   c.gradient_mode)[1]
         kept["planes"] = planes
         out = _lockstep([start_steps(None if planes is None
                                      else (c.gradient_mode, planes[k]))
@@ -954,9 +954,9 @@ def lm_solve_batched(requests: list, capture: bool | None = None):
     requests: B (args, options) pairs, each what `lm_solve` takes for one
     window; shapes and options must agree. capture: as `lm_solve`'s. On a
     card the start and the body replay as two CUDA graphs per problem key
-    (the B problems' shapes and options), K1 launched once per evaluation
-    for all the windows, and the host reads whether every window has
-    ended once per LM_READBACK bodies."""
+    (the B problems' shapes and options), the configuration's kernel
+    launched once per evaluation for all the windows, and the host reads
+    whether every window has ended once per LM_READBACK bodies."""
     setups = [setup(*args, **options) for args, options in requests]
     config = setups[0][1]
     if any(c != config for _, c in setups):

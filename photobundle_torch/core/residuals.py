@@ -535,27 +535,79 @@ def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
 
 
 class KernelCall(NamedTuple):
-    """The K1 launch an evaluation's steps ask for
-    (`evaluate_compressed_steps`): ops/patch_warp.patch_stats' arguments
-    for one window."""
+    """A kernel launch an evaluation's steps ask for
+    (`evaluate_compressed_steps`), for one window: `kernel` names it (a
+    key of KERNELS), `operands` are its per-observation tensors after the
+    planes, in the order KERNELS' launcher takes them, and `mode` its
+    normalization (the row store's: its layout)."""
 
+    kernel: str
     planes: torch.Tensor
-    uv: torch.Tensor
-    valid: torch.Tensor
-    patch: torch.Tensor
+    operands: tuple
     patch_radius: int
-    norm: str
+    mode: str
+
+
+# The kernels an evaluation yields, each called as launcher(planes,
+# *operands, patch_radius, mode), the operands as listed; every one takes a
+# leading batch axis on its planes and operands (one launch for B
+# windows). Each looks its wrapper up when it runs, so a wrapper replaced
+# on its module (a test's counter) is the one called.
+KERNELS = {
+    # K1, K2 (value planes): uv, valid, patch
+    "patch_stats": lambda *a: pw_mod.patch_stats(*a),
+    "bicubic_stats": lambda *a: pb_mod.bicubic_stats(*a),
+    # K3 (K5 in the affine mode): uv, rho, valid, patch
+    "scaled_stats": lambda *a: ps_mod.scaled_stats(*a),
+    # sorted K1: uv, valid, patch, feed, inverse
+    "sorted_patch_stats": lambda planes, uv, valid, patch, feed, inverse, pr,
+    mode: pw_mod.sorted_patch_stats(planes, uv, valid, patch, pr,
+                                    (feed, inverse), mode),
+    # K4's row store: uv, valid; mode 'rows', its layout
+    "warp_patches": lambda *a: samples_mod.store(*a),
+}
+
+
+def launch(call: KernelCall) -> torch.Tensor:
+    """Launch one window's KernelCall: its kernel's result."""
+    return KERNELS[call.kernel](call.planes, *call.operands,
+                                call.patch_radius, call.mode)
+
+
+def launch_batched(calls: list, planes: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel B windows' KernelCalls ask for, over its
+    batch axis: window b's call must read planes[b] of `planes` (the B
+    windows' planes stacked); its operands are stacked along a new leading
+    axis. Returns the (B, ...) result, window b's slice bitwise its own
+    `launch`'s. Raises unless every call asks for the same kernel, radius
+    and mode (the windows left lockstep)."""
+    first = calls[0]
+    key = (first.kernel, first.patch_radius, first.mode)
+    for b, call in enumerate(calls):
+        if (call.kernel, call.patch_radius, call.mode) != key:
+            raise RuntimeError(
+                f"the windows of a batched solve left lockstep: window {b} "
+                f"asks for {call.kernel} (R = {call.patch_radius}, "
+                f"{call.mode}), window 0 for {first.kernel} (R = "
+                f"{first.patch_radius}, {first.mode})")
+        if call.planes.data_ptr() != planes[b].data_ptr():
+            raise RuntimeError(f"the windows of a batched solve left "
+                               f"lockstep: window {b}'s call does not read "
+                               f"its slice of the batch's planes")
+    operands = [torch.stack(ts) for ts in zip(*(c.operands for c in calls))]
+    return KERNELS[first.kernel](planes, *operands, first.patch_radius,
+                                 first.mode)
 
 
 def run_steps(steps):
     """Drive a generator of evaluation steps (`evaluate_compressed_steps`,
-    or a solve's start or body built on it, core/lm.py): launch each K1
-    call it yields on its own window and send the sums back. Returns the
-    generator's result."""
+    or a solve's start or body built on it, core/lm.py): launch each
+    KernelCall it yields on its own window (`launch`) and send the result
+    back. Returns the generator's result."""
     try:
         call = next(steps)
         while True:
-            call = steps.send(pw_mod.patch_stats(*call))
+            call = steps.send(launch(call))
     except StopIteration as done:
         return done.value
 
@@ -571,9 +623,10 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`):
     the fused kernel returns the six un-whitened sums per observation; the
     prior row and the whitening are added here, outside it. A generator:
-    the K1 launch is yielded as a `KernelCall` and its sums received
-    (`run_steps` launches it; a batched solve launches it once for all its
-    windows); it returns the CompressedResiduals. Dispatch:
+    its kernel launch, whichever the configuration runs, is yielded as a
+    `KernelCall` and its result received (`run_steps` launches it; a
+    batched solve launches it once for all its windows, over the kernel's
+    batch axis); it returns the CompressedResiduals. Dispatch:
 
       fixed grid, bilinear        -> patch_stats   (K1; affine: K4), or
                                      sorted_patch_stats with a point_order
@@ -643,22 +696,23 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
     patch = patch.contiguous()
     if (not grouped_stats and rho is None and mode == "sampled"
             and norm_mode in ("mean", "off")):
-        gtg, gtr, rr = _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr,
-                                        norm_mode)
+        gtg, gtr, rr = yield from _ungrouped_stats(planes, uv_nm, valid_nm,
+                                                   patch, pr, norm_mode)
         return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
                        robust_kind)
     if rho is not None:
-        stats = ps_mod.scaled_stats(planes, uv_nm, rho.T.contiguous(),
-                                    valid_nm, patch, pr, norm=norm_mode)
+        call = KernelCall("scaled_stats", planes,
+                          (uv_nm, rho.T.contiguous(), valid_nm, patch), pr,
+                          norm_mode)
     elif point_order is not None and mode == "sampled":
-        stats = pw_mod.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
-                                          point_order, norm=norm_mode)
-    elif mode == "bicubic":
-        stats = pb_mod.bicubic_stats(planes, uv_nm, valid_nm, patch, pr,
-                                     norm=norm_mode)
+        call = KernelCall("sorted_patch_stats", planes,
+                          (uv_nm, valid_nm, patch, *point_order), pr,
+                          norm_mode)
     else:
-        stats = yield KernelCall(planes, uv_nm, valid_nm, patch, pr,
-                                 norm_mode)
+        call = KernelCall(
+            "bicubic_stats" if mode == "bicubic" else "patch_stats", planes,
+            (uv_nm, valid_nm, patch), pr, norm_mode)
+    stats = yield call
     g00, g01, g11, gxr, gyr, rr = stats                    # (W, N) each
     gtg = torch.stack([torch.stack([g00, g01], dim=1),
                        torch.stack([g01, g11], dim=1)], dim=1)  # (W,2,2,N)
@@ -680,10 +734,14 @@ def _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr: int,
     """(gtg (W,2,2,N), gtr (W,2,N), rnorm2 (W,N)) from K4's row-store
     samples, reduced in plain tensor ops in the order of the JAX package's
     unfused branch (residuals.py:822-850): each plane centred on its patch
-    mean (mean normalization), then r = s - d."""
+    mean (mean normalization), then r = s - d. A generator: the store's
+    launch is yielded as a `KernelCall` and the stored rows received, as
+    `_evaluate_compressed_cuda` yields its fused kernels."""
     n, w = valid_nm.shape
-    s, gx, gy = (t.permute(1, 2, 3, 0) for t in samples_mod.warp_patches(
-        planes, uv_nm, valid_nm, pr, variant="rows"))      # (W, C, P, N)
+    rows = yield KernelCall("warp_patches", planes, (uv_nm, valid_nm), pr,
+                            "rows")
+    s, gx, gy = (t.permute(1, 2, 3, 0) for t in samples_mod.unpack(
+        rows, uv_nm, valid_nm, pr, "rows"))                # (W, C, P, N)
     if norm_mode != "off":
         s = s - s.mean(dim=2, keepdim=True)
         gx = gx - gx.mean(dim=2, keepdim=True)
@@ -740,7 +798,7 @@ def _evaluate_compressed_torch(cam, t_wc, x_world, patch, channels, grads,
 
 def evaluate_compressed(*args, **kwargs) -> CompressedResiduals:
     """Factored Gauss-Newton statistics of all (point, window-frame)
-    observations: `evaluate_compressed_steps` run to its end, each K1
+    observations: `evaluate_compressed_steps` run to its end, its kernel
     launch on its own window (`run_steps`). Arguments as there."""
     return run_steps(evaluate_compressed_steps(*args, **kwargs))
 
@@ -757,10 +815,10 @@ def evaluate_compressed_steps(cam, t_wc, x_world, patch, channels, grads,
                               point_order=None,
                               grouped_stats: bool = True):
     """Factored Gauss-Newton statistics of all (point, window-frame)
-    observations, as a generator: it yields the K1 launch of the cuda
-    backend's fixed bilinear grid as a `KernelCall`, is sent its sums, and
-    returns the CompressedResiduals (the torch backend and the other
-    kernels yield nothing).
+    observations, as a generator: the cuda backend yields its kernel
+    launch (K1, sorted K1, K2, K3/K5 or K4's row store, by configuration)
+    as a `KernelCall`, is sent its result, and returns the
+    CompressedResiduals (the torch backend yields nothing).
 
     Args:
       cam: Camera. t_wc: (W, 4, 4) window poses. x_world: (N, 3) points.

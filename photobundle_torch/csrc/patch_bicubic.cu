@@ -80,9 +80,20 @@
 // runtime-radius instance at any radius for that check. Taps combine in
 // the JAX kernel's order (patch_warp.py:199-203): rows along x, then
 // columns along y.
+//
+// pb_bicubic_stats takes B windows of the same shapes on a grid axis
+// (blockIdx.y, csrc/patch_batch.cuh; the twin of the axis jax.vmap adds
+// to the pallas_call at photobundle_tpu/ops/patch_warp.py:265): planes
+// (B, W, C, H, Wi), uv and valid (B, N, W), patch (B, N, C, P), out
+// (B, 6, W, N); each block row offsets its pointers to its window's slices
+// and runs the unchanged per-observation code, in every design and
+// radius instance, so each window's sums are bitwise its own launch's.
+// The batched window solve (core/batched.py) launches it once per
+// evaluation for all its windows.
 
 #include <cuda_runtime.h>
 
+#include "patch_batch.cuh"
 #include "patch_epilogue.cuh"
 
 namespace {
@@ -244,6 +255,12 @@ bicubic_stats_kernel(const float* __restrict__ planes,
   const int r = R == pb::kRuntimeRadius ? radius : R;
   const int P = (2 * r + 1) * (2 * r + 1);
   const long long total = static_cast<long long>(n) * w;
+  const pb::WindowOffsets at = pb::window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -293,11 +310,11 @@ bicubic_stats_kernel(const float* __restrict__ planes,
 
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
-            const void* patch, void* out, int n, int w, int c, int h, int wi,
-            int radius, cudaStream_t stream) {
+            const void* patch, void* out, int b, int n, int w, int c, int h,
+            int wi, int radius, cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * w;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  const dim3 blocks(static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(b));
   bicubic_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
@@ -307,16 +324,17 @@ void launch(const void* planes, const void* uv, const void* valid,
 
 }  // namespace
 
+// b: windows of the launch (the batch axis, grid y; 1 for one window).
 extern "C" int pb_bicubic_stats(const void* planes, const void* uv,
                                 const void* valid, const void* patch,
-                                void* out, int n, int w, int c, int h, int wi,
-                                int radius, int norm, void* stream) {
+                                void* out, int b, int n, int w, int c, int h,
+                                int wi, int radius, int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+            planes, uv, valid, patch, out, b, n, w, c, h, wi, radius, s);
       },
       kMaxBicubicRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
@@ -338,7 +356,7 @@ extern "C" int pb_bicubic_stats_one_thread(const void* planes,
       norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, n, w, c, h, wi, radius, s);
+            planes, uv, valid, patch, out, 1, n, w, c, h, wi, radius, s);
       },
       std::integral_constant<int, pb::kRuntimeRadius>{});
   return bad ? bad : static_cast<int>(cudaGetLastError());

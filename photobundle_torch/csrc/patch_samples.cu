@@ -56,9 +56,19 @@
 // staged window copy (csrc/patch_stage.cuh) before the samples (1.08x at
 // R = 2 in rows and block, a tie in raw): here the gathers already
 // coalesce, and the copy adds a barrier.
+//
+// A launch takes B windows of the same shapes on a grid axis (blockIdx.y,
+// csrc/patch_batch.cuh; the twin of the axis jax.vmap adds to K4's
+// pallas_call, photobundle_tpu/ops/patch_warp.py:1112): planes
+// (B, W, C, H, Wi), uv and valid (B, N, W), out (B, <layout>); each block
+// row offsets its pointers to its window's slices and runs the unchanged
+// code, so each window's store is bitwise its own launch's. The batched
+// window solve (core/batched.py) launches the row store once per
+// evaluation for all its windows under PB_GROUPED_STATS=0.
 
 #include <cuda_runtime.h>
 
+#include "patch_batch.cuh"
 #include "patch_bilinear.cuh"
 
 namespace {
@@ -96,6 +106,11 @@ warp_samples_kernel(const float4* __restrict__ planes,
   __shared__ pb::Weights wts[OBS];
   __shared__ float scratch[kWarps][96];   // one warp's 32 float3 items
   const long long m = static_cast<long long>(n) * w;
+  const pb::WindowOffsets at = pb::window_offsets(n, w, c, h, wi, 0);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  out += 3 * c * at.obs * cells;          // a window's stored tensor
   const long long o0 = static_cast<long long>(blockIdx.x) * OBS;
   const int nb = static_cast<int>(min(static_cast<long long>(OBS), m - o0));
   const long long chan = static_cast<long long>(h) * wi;
@@ -171,11 +186,11 @@ warp_samples_kernel(const float4* __restrict__ planes,
 
 template <int R, int LAYOUT>
 void launch(const void* planes, const void* uv, const void* valid, void* out,
-            int n, int w, int c, int h, int wi, int radius,
+            int b, int n, int w, int c, int h, int wi, int radius,
             cudaStream_t stream) {
   const long long m = static_cast<long long>(n) * w;
-  const unsigned blocks =
-      static_cast<unsigned>((m + kObs<R> - 1) / kObs<R>);
+  const dim3 blocks(static_cast<unsigned>((m + kObs<R> - 1) / kObs<R>),
+                    static_cast<unsigned>(b));
   warp_samples_kernel<R, LAYOUT><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid), static_cast<float*>(out), n, w,
@@ -184,19 +199,20 @@ void launch(const void* planes, const void* uv, const void* valid, void* out,
 
 }  // namespace
 
-// layout: 0 rows, 1 block, 2 raw; radius 1..kMaxFixedRadius. Returns 0 or
+// layout: 0 rows, 1 block, 2 raw; radius 1..kMaxFixedRadius; b: windows
+// of the launch (the batch axis, grid y; 1 for one window). Returns 0 or
 // a CUDA error code (cudaErrorInvalidValue, with nothing launched, for a
 // radius or layout the kernel does not take).
 extern "C" int pb_warp_samples(const void* planes, const void* uv,
-                               const void* valid, void* out, int n, int w,
-                               int c, int h, int wi, int radius, int layout,
-                               void* stream) {
+                               const void* valid, void* out, int b, int n,
+                               int w, int c, int h, int wi, int radius,
+                               int layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, layout,
       [&](auto r, auto l) {
         launch<decltype(r)::value, decltype(l)::value>(
-            planes, uv, valid, out, n, w, c, h, wi, radius, s);
+            planes, uv, valid, out, b, n, w, c, h, wi, radius, s);
       },
       kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());

@@ -78,9 +78,20 @@
 // runs the one-thread design with a run-time radius at any radius for
 // that check. Patch radii 1..pb::kMaxSolveRadius, the reference's
 // warped-grid limit.
+//
+// pb_scaled_stats takes B windows of the same shapes on a grid axis
+// (blockIdx.y, csrc/patch_batch.cuh; the twin of the axis jax.vmap adds
+// to the pallas_calls at photobundle_tpu/ops/patch_warp.py:964 (K3) and
+// :722 (K5)): planes (B, W, C, H, Wi), uv, rho and valid (B, N, W), patch
+// (B, N, C, P), out (B, 6, W, N); each block row offsets its pointers to
+// its window's slices and runs the unchanged per-observation code, in
+// every mode and design, so each window's sums are bitwise its own
+// launch's. The batched window solve (core/batched.py) launches it once
+// per evaluation for all its windows.
 
 #include <cuda_runtime.h>
 
+#include "patch_batch.cuh"
 #include "patch_epilogue.cuh"
 
 namespace {
@@ -152,6 +163,13 @@ scaled_stats_kernel(const float4* __restrict__ planes,
   const int ps = 2 * rad + 1;
   const int P = ps * ps;
   const long long total = static_cast<long long>(n) * w;
+  const pb::WindowOffsets at = pb::window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  rho += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -278,6 +296,13 @@ tiled_scaled_stats_kernel(const float4* __restrict__ planes,
   int* fr = reinterpret_cast<int*>(rs + PL::kObs);
   const int o = threadIdx.x;                 // the observation it owns
   const long long total = static_cast<long long>(n) * w;
+  const pb::WindowOffsets at = pb::window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  rho += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
   const long long idx = static_cast<long long>(blockIdx.x) * PL::kObs + o;
   const bool owner = o < PL::kObs;
   const bool live = owner && idx < total;
@@ -362,8 +387,8 @@ tiled_scaled_stats_kernel(const float4* __restrict__ planes,
 
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* rho,
-            const void* valid, const void* patch, void* out, int n, int w,
-            int c, int h, int wi, int radius, cudaStream_t stream) {
+            const void* valid, const void* patch, void* out, int b, int n,
+            int w, int c, int h, int wi, int radius, cudaStream_t stream) {
   using PL = Plan<R>;
   const long long total = static_cast<long long>(n) * w;
   const auto* pl = static_cast<const float4*>(planes);
@@ -380,14 +405,15 @@ void launch(const void* planes, const void* uv, const void* rho,
         tiled_scaled_stats_kernel<R, NORM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, PL::kBytes);
     (void)opted;
-    const unsigned blocks =
-        static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs);
+    const dim3 blocks(static_cast<unsigned>((total + PL::kObs - 1) / PL::kObs),
+                      static_cast<unsigned>(b));
     tiled_scaled_stats_kernel<R, NORM>
         <<<blocks, kThreads, PL::kBytes, stream>>>(pl, q, sc, ok, d, o, n, w,
                                                    c, h, wi);
   } else {
-    const unsigned blocks =
-        static_cast<unsigned>((total + kOneThread - 1) / kOneThread);
+    const dim3 blocks(
+        static_cast<unsigned>((total + kOneThread - 1) / kOneThread),
+        static_cast<unsigned>(b));
     scaled_stats_kernel<R, NORM><<<blocks, kOneThread, 0, stream>>>(
         pl, q, sc, ok, d, o, n, w, c, h, wi, radius);
   }
@@ -395,16 +421,18 @@ void launch(const void* planes, const void* uv, const void* rho,
 
 }  // namespace
 
+// b: windows of the launch (the batch axis, grid y; 1 for one window).
 extern "C" int pb_scaled_stats(const void* planes, const void* uv,
                                const void* rho, const void* valid,
-                               const void* patch, void* out, int n, int w,
-                               int c, int h, int wi, int radius, int norm,
-                               void* stream) {
+                               const void* patch, void* out, int b, int n,
+                               int w, int c, int h, int wi, int radius,
+                               int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad =
       pb::dispatch<pb::kMaxSolveRadius>(radius, norm, [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, rho, valid, patch, out, n, w, c, h, wi, radius, s);
+            planes, uv, rho, valid, patch, out, b, n, w, c, h, wi, radius,
+            s);
       });
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
@@ -426,7 +454,8 @@ extern "C" int pb_scaled_stats_one_thread(const void* planes, const void* uv,
       norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, rho, valid, patch, out, n, w, c, h, wi, radius, s);
+            planes, uv, rho, valid, patch, out, 1, n, w, c, h, wi, radius,
+            s);
       },
       std::integral_constant<int, pb::kRuntimeRadius>{});
   return bad ? bad : static_cast<int>(cudaGetLastError());

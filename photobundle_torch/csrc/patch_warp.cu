@@ -65,10 +65,11 @@
 // centring before multiplying, channels summed in order, no atomics), only
 // where the texels are read from differs.
 //
-// A launch takes B windows of the same shapes on a grid axis (blockIdx.y;
-// the batched window solve, core/batched.py, runs one launch for all its
-// windows): each block row offsets every pointer to its window's slices
-// and runs the unchanged per-observation code.
+// Both entries take B windows of the same shapes on a grid axis
+// (blockIdx.y, csrc/patch_batch.cuh; the batched window solve,
+// core/batched.py, runs one launch for all its windows): each block row
+// offsets every pointer to its window's slices and runs the unchanged
+// per-observation code.
 //
 // A second entry, pb_patch_stats_sorted, is K1's sort-reuse variant: the
 // same sums with observations visited in a sorted point order and each
@@ -83,6 +84,7 @@
 
 #include <cuda_runtime.h>
 
+#include "patch_batch.cuh"
 #include "patch_bilinear.cuh"
 #include "patch_stage.cuh"
 
@@ -95,6 +97,8 @@ using pb::LoadPlain;
 using pb::observation_stats;
 using pb::Weights;
 using pb::window_at;
+using pb::window_offsets;
+using pb::WindowOffsets;
 
 constexpr int kThreads = 64;            // threads (observations) per block
 constexpr int kStageTexels = 1024;      // the sorted entry's union box
@@ -104,26 +108,6 @@ constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 // its kThreads observations, two channel buffers.
 template <int R>
 using Plan = pb::Plan<R, kThreads>;
-
-// The batch axis (the twin of the grid axis that vmap of the JAX
-// package's pallas_call adds, photobundle_tpu/ops/patch_warp.py:577): the
-// block row blockIdx.y is a window of the launch, which reads and writes
-// its own slices of every tensor, planes (B, W, C, H, Wi), uv and valid
-// (B, N, W), patch (B, N, C, P) and out (B, 6, W, N), so the sums of each
-// window are bitwise those of a single-window launch on its slices.
-struct WindowOffsets {
-  long long planes;   // float4 texels
-  long long obs;      // uv, valid; out takes 6 * obs
-  long long patch;    // floats
-};
-
-__device__ __forceinline__ WindowOffsets window_offsets(int n, int w, int c,
-                                                        int h, int wi,
-                                                        int p) {
-  const long long b = blockIdx.y;
-  const long long obs = static_cast<long long>(n) * w;
-  return {b * w * c * h * wi, b * obs, b * n * c * p};
-}
 
 // K1 for R <= kMaxStagedRadius: the block's windows staged in shared
 // memory one channel at a time, then each thread's sums from its tile
@@ -313,6 +297,16 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
   const int P = (2 * r + 1) * (2 * r + 1);
   __shared__ float4 tile[kStageTexels];
   __shared__ int box[4];     // min x0, min y0, max x0, max y0
+  const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
+  feed += static_cast<long long>(blockIdx.y) * n;   // each window's order
+  if (staged != nullptr) {
+    staged += static_cast<long long>(blockIdx.y) * gridDim.x;
+  }
   const int runs = (n + kThreads - 1) / kThreads;
   const int f = blockIdx.x / runs;
   const int rank = (blockIdx.x - f * runs) * kThreads + threadIdx.x;
@@ -380,10 +374,11 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
 template <int R, int NORM>
 void launch_sorted(const void* planes, const void* uv, const void* valid,
                    const void* patch, const void* feed, void* out,
-                   void* staged, int n, int w, int c, int h, int wi,
+                   void* staged, int b, int n, int w, int c, int h, int wi,
                    int radius, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>(w) * ((n + kThreads - 1) / kThreads);
+  const dim3 blocks(
+      static_cast<unsigned>(w) * ((n + kThreads - 1) / kThreads),
+      static_cast<unsigned>(b));
   patch_stats_sorted_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
@@ -410,22 +405,22 @@ extern "C" int pb_patch_stats(const void* planes, const void* uv,
   return bad ? bad : static_cast<int>(cudaGetLastError());
 }
 
-// feed: (N,) int64, sorted rank -> point. staged: null, or one byte per
-// block (W * ceil(N / 64) blocks, frame-major) set to 1 where the block
-// sampled from its staged union box.
+// feed: (B, N) int64, each window's sorted rank -> point. staged: null,
+// or (B, W * ceil(N / 64)) bytes, one per block (frame-major within a
+// window), set to 1 where the block sampled from its staged union box.
 extern "C" int pb_patch_stats_sorted(const void* planes, const void* uv,
                                      const void* valid, const void* patch,
                                      const void* feed, void* out,
-                                     void* staged, int n, int w, int c, int h,
-                                     int wi, int radius, int norm,
-                                     void* stream) {
+                                     void* staged, int b, int n, int w,
+                                     int c, int h, int wi, int radius,
+                                     int norm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, norm,
       [&](auto r, auto m) {
         launch_sorted<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, feed, out, staged, n, w, c, h, wi,
-            radius, s);
+            planes, uv, valid, patch, feed, out, staged, b, n, w, c, h,
+            wi, radius, s);
       },
       kMaxFixedRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());

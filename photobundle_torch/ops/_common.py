@@ -91,6 +91,21 @@ def check_tensors(what: str, device, want: dict) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+# Windows one launch of a kernel's batch axis takes: the grid's y extent.
+MAX_BATCH = 65535
+
+
+def check_batch(what: str, lead: tuple) -> None:
+    """Raise ValueError unless `lead`, the leading batch axis of a
+    launch's tensors, is () (one window) or (B,) with 1 <= B <=
+    MAX_BATCH (csrc/patch_batch.cuh: window b is the grid's block row
+    b)."""
+    if len(lead) > 1 or (lead and not 1 <= lead[0] <= MAX_BATCH):
+        raise ValueError(f"{what} takes one window or a batch axis of "
+                         f"1..{MAX_BATCH} windows, not leading shape "
+                         f"{lead}")
+
+
 def stats_from_samples(s, gx, gy, patch, valid, norm: str = "mean"):
     """The plain statistics epilogue shared by the kernels' plain versions.
 

@@ -22,6 +22,13 @@ tensors on a card and runs `bicubic_stats_reference`, the plain PyTorch
 version of the same contract, for tensors on the CPU. A CUDA tensor gets
 the kernel or an exception.
 
+`bicubic_stats` also takes a leading batch axis of B windows of the same
+shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas call
+(photobundle_tpu/ops/patch_warp.py:265): one launch for all B windows,
+each window's sums bitwise those of its own unbatched launch. The batched
+solve (core/lm.py `lm_solve_batched`) launches it once per evaluation for
+all its windows.
+
 `bicubic_patches_reference` is the plain twin of the TPU sampler alone
 (its (s, gx, gy) patches, window clamping included), in the kernel's f32
 arithmetic; the plain version reduces its patches, and the tests hold it
@@ -36,8 +43,8 @@ import torch
 
 from ..image import interp
 from . import _build
-from ._common import (BICUBIC_MAX, check_tensors, count_launch, norm_code,
-                      reset_launches, stats_from_samples)
+from ._common import (BICUBIC_MAX, check_batch, check_tensors, count_launch,
+                      norm_code, reset_launches, stats_from_samples)
 
 
 def build_value_planes(channels: torch.Tensor) -> torch.Tensor:
@@ -106,7 +113,14 @@ def bicubic_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     gyr, rr], un-whitened, exact zeros for invalid observations. Samples
     through `bicubic_patches_reference`, which repeats the kernel's f32
     arithmetic: one phase per patch, the same weights and tap order (the
-    kernel is built without multiply-add contraction, ops/_build.py)."""
+    kernel is built without multiply-add contraction, ops/_build.py).
+    With a leading batch axis (planes (B, W, C, H, Wi), uv (B, N, W, 2),
+    valid (B, N, W), patch (B, N, C, P)) it returns (B, 6, W, N), each
+    window's rows as its unbatched call gives them."""
+    if planes.dim() == 5:
+        return torch.stack([
+            bicubic_stats_reference(*window, patch_radius, norm)
+            for window in zip(planes, uv, valid, patch)])
     s, gx, gy = bicubic_patches_reference(planes, uv, valid, patch_radius)
     return stats_from_samples(s, gx, gy, patch, valid, norm)
 
@@ -118,14 +132,16 @@ def _check(planes, uv, valid, patch, patch_radius: int):
                          f"{2 * patch_radius + 4} px does not fit the "
                          f"reference's 128-lane value panel with a positive "
                          f"stride")
-    w, c, h, wi = planes.shape
-    n = uv.shape[0]
+    lead = tuple(planes.shape[:-4])          # () or (B,): the batch axis
+    w, c, h, wi = planes.shape[-4:]
+    n = uv.shape[-3] if uv.dim() >= 3 else -1
     ps = 2 * patch_radius + 1
     check_tensors("bicubic_stats", planes.device, {
-        "planes": (planes, torch.float32, (w, c, h, wi)),
-        "uv": (uv, torch.float32, (n, w, 2)),
-        "valid": (valid, torch.bool, (n, w)),
-        "patch": (patch, torch.float32, (n, c, ps * ps))})
+        "planes": (planes, torch.float32, (*lead, w, c, h, wi)),
+        "uv": (uv, torch.float32, (*lead, n, w, 2)),
+        "valid": (valid, torch.bool, (*lead, n, w)),
+        "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
+    check_batch("bicubic_stats", lead)
     if planes.data_ptr() % 16 or uv.data_ptr() % 8:
         raise ValueError("bicubic_stats: planes must be 16-byte and uv "
                          "8-byte aligned (16-byte window copies, float2 "
@@ -139,9 +155,10 @@ def _kernel():
     built = _build.library("patch_bicubic")
     fn = built.lib.pb_bicubic_stats        # ctypes caches the attribute
     if fn.argtypes is None:
-        for fn in (built.lib.pb_bicubic_stats,
-                   built.lib.pb_bicubic_stats_one_thread):
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        # pb_bicubic_stats takes the batch size b after `out`.
+        for fn, ints in ((built.lib.pb_bicubic_stats, 8),
+                         (built.lib.pb_bicubic_stats_one_thread, 7)):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         err = built.lib.pb_bicubic_error_string
@@ -159,19 +176,25 @@ def _launch(wrapper, entry: str, planes, uv, valid, patch, patch_radius,
     if planes.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, "
                          f"not {planes.device}")
+    lead = tuple(planes.shape[:-4])          # () or (B,): the batch axis
+    if lead and wrapper is not bicubic_stats:
+        raise ValueError(f"{wrapper.__name__} takes one window, not a batch "
+                         f"axis")
     _check(planes, uv, valid, patch, patch_radius)
-    w, c, h, wi = planes.shape
-    n = uv.shape[0]
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    w, c, h, wi = planes.shape[-4:]
+    n = uv.shape[-3]
+    out = torch.empty((*lead, 6, w, n), dtype=torch.float32,
+                      device=planes.device)
     if n * w == 0:
         return out
     lib = _kernel()
+    batch = (lead[0] if lead else 1,) if wrapper is bicubic_stats else ()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = getattr(lib, entry)(
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
-            patch.data_ptr(), out.data_ptr(), n, w, c, h, wi, patch_radius,
-            code, stream)
+            patch.data_ptr(), out.data_ptr(), *batch, n, w, c, h, wi,
+            patch_radius, code, stream)
     if err != 0:
         msg = lib.pb_bicubic_error_string(err).decode()
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
@@ -183,13 +206,14 @@ def _launch(wrapper, entry: str, planes, uv, valid, patch, patch_radius,
 def bicubic_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
                   patch: torch.Tensor, patch_radius: int,
                   norm: str = "mean") -> torch.Tensor:
-    """The six Gauss-Newton sums per observation, (6, W, N) f32.
+    """The six Gauss-Newton sums per observation, (6, W, N) f32, or
+    (B, 6, W, N) for B windows on a leading batch axis.
 
     Same arguments and result as `bicubic_stats_reference`. CPU tensors
     run that plain version; CUDA tensors launch the kernel on the current
-    stream without synchronising (and raise if it cannot launch).
-    `bicubic_stats.launches` counts kernel launches by normalization
-    mode."""
+    stream without synchronising (and raise if it cannot launch), one
+    launch for all B windows. `bicubic_stats.launches` counts kernel
+    launches by normalization mode."""
     return _launch(bicubic_stats, "pb_bicubic_stats", planes, uv, valid,
                    patch, patch_radius, norm)
 

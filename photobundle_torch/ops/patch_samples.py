@@ -42,6 +42,13 @@ the samples of a clamped window there.
 `warp_patches` launches the kernel for tensors on a card and runs
 `store_reference`, its plain version, for tensors on the CPU. A CUDA
 tensor gets the kernel or an exception.
+
+`store` and `warp_patches` also take a leading batch axis of B windows of
+the same shapes, the twin of the grid axis that `jax.vmap` adds to K4's
+Pallas call (photobundle_tpu/ops/patch_warp.py:1112): one launch for all
+B windows, each window's store bitwise its own unbatched launch's. The
+batched solve (core/lm.py `lm_solve_batched`) launches the row store once
+per evaluation for all its windows under PB_GROUPED_STATS=0.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ import torch
 
 from . import _build
 from . import patch_warp as pw
-from ._common import (FIXED_RADII, check_tensors, count_launch,
+from ._common import (FIXED_RADII, check_batch, check_tensors, count_launch,
                       reset_launches)
 
 LAYOUTS = ("rows", "block", "raw")                 # kernel codes 0, 1, 2
@@ -74,7 +81,12 @@ def store_reference(planes: torch.Tensor, uv: torch.Tensor,
                     layout: str = "rows") -> torch.Tensor:
     """Plain PyTorch version of the kernel: the stored tensor of `layout`
     (see the module docstring) for planes (W, C, H, Wi, 4) from
-    `patch_warp.build_planes`, uv (N, W, 2) f32, valid (N, W) bool."""
+    `patch_warp.build_planes`, uv (N, W, 2) f32, valid (N, W) bool; with a
+    leading batch axis on each, (B, <layout>), each window's store as its
+    unbatched call gives it."""
+    if planes.dim() == 6:
+        return torch.stack([store_reference(*window, patch_radius, layout)
+                            for window in zip(planes, uv, valid)])
     n, w = valid.shape
     c = planes.shape[1]
     a, fx, fy = pw.gather_windows(planes, uv, valid, patch_radius)
@@ -93,7 +105,7 @@ def _kernel():
     built = _build.library("patch_samples")
     fn = built.lib.pb_warp_samples          # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = built.lib.pb_samples_error_string
@@ -104,10 +116,11 @@ def _kernel():
 
 def store(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
           patch_radius: int, layout: str = "rows") -> torch.Tensor:
-    """The stored tensor of `layout`: the kernel for CUDA tensors (on the
-    current stream, without synchronising; raises if it cannot launch),
-    `store_reference` for CPU tensors. `warp_patches.launches` counts
-    kernel launches by layout."""
+    """The stored tensor of `layout`, (B, <layout>) for B windows on a
+    leading batch axis: the kernel for CUDA tensors (on the current
+    stream, without synchronising; raises if it cannot launch; one launch
+    for all B windows), `store_reference` for CPU tensors.
+    `warp_patches.launches` counts kernel launches by layout."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown store layout '{layout}' (want one of "
                          f"{LAYOUTS})")
@@ -119,25 +132,31 @@ def store(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     if patch_radius not in RADII:
         raise ValueError(f"warp_patches kernel takes patch radius "
                          f"{RADII[0]}..{RADII[-1]}, not {patch_radius}")
-    w, c, h, wi = planes.shape[:4]
-    n = uv.shape[0]
+    lead = tuple(planes.shape[:-5])          # () or (B,): the batch axis
+    w, c, h, wi = planes.shape[len(lead):len(lead) + 4]
+    n = uv.shape[-3] if uv.dim() >= 3 else -1
     check_tensors("warp_patches", planes.device, {
-        "planes": (planes, torch.float32, (w, c, h, wi, 4)),
-        "uv": (uv, torch.float32, (n, w, 2)),
-        "valid": (valid, torch.bool, (n, w))})
-    pw.check_texels("warp_patches", planes, uv, patch_radius)
+        "planes": (planes, torch.float32, (*lead, w, c, h, wi, 4)),
+        "uv": (uv, torch.float32, (*lead, n, w, 2)),
+        "valid": (valid, torch.bool, (*lead, n, w))})
+    check_batch("warp_patches", lead)
+    # Window b's slices start b whole windows on: aligned as the first.
+    pw.check_texels("warp_patches", planes[0] if lead else planes,
+                    uv[0] if lead else uv, patch_radius)
     k = 2 * patch_radius + (2 if layout == "raw" else 1)
     shape = ((c, k, w * n, 3 * k) if layout == "rows"
              else (c, w * n, k, 3 * k))
-    out = torch.empty(shape, dtype=torch.float32, device=planes.device)
+    out = torch.empty((*lead, *shape), dtype=torch.float32,
+                      device=planes.device)
     if n * w == 0:
         return out
     lib = _kernel()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.pb_warp_samples(planes.data_ptr(), uv.data_ptr(),
-                                  valid.data_ptr(), out.data_ptr(), n, w, c,
-                                  h, wi, patch_radius, LAYOUTS.index(layout),
+                                  valid.data_ptr(), out.data_ptr(),
+                                  lead[0] if lead else 1, n, w, c, h, wi,
+                                  patch_radius, LAYOUTS.index(layout),
                                   stream)
     if err != 0:
         msg = lib.pb_samples_error_string(err).decode()
@@ -156,10 +175,15 @@ def warp_patches(planes: torch.Tensor, uv: torch.Tensor,
     f32; valid (N, W) bool (invalid observations sample to zeros); variant
     'rows' | 'packed' | 'block' | 'raw' (the store layout, see the module
     docstring). Returns (s, gx, gy), each (N, W, C, P) with P = (2R+1)^2,
-    the same for every variant."""
+    the same for every variant; with a leading batch axis on every
+    argument, each (B, N, W, C, P) from one store for all B windows."""
     layout = layout_of(variant)
-    return unpack(store(planes, uv, valid, patch_radius, layout), uv, valid,
-                  patch_radius, layout)
+    out = store(planes, uv, valid, patch_radius, layout)
+    if planes.dim() == 6:
+        return tuple(torch.stack(t) for t in zip(*(
+            unpack(*window, patch_radius, layout)
+            for window in zip(out, uv, valid))))
+    return unpack(out, uv, valid, patch_radius, layout)
 
 
 def unpack(out: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,

@@ -23,6 +23,13 @@ on a card and runs `scaled_stats_reference`, the plain PyTorch version of
 the same contract, for tensors on the CPU. A CUDA tensor gets the kernel or
 an exception. `scaled_patches_reference` is the plain sampler alone (its
 (s, gx, gy) patches), so that sampling and statistics are tested apart.
+
+`scaled_stats` also takes a leading batch axis of B windows of the same
+shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas calls
+(photobundle_tpu/ops/patch_warp.py:964 for K3, :722 for K5): one launch
+for all B windows, each window's sums bitwise those of its own unbatched
+launch. The batched solve (core/lm.py `lm_solve_batched`) launches it once
+per evaluation for all its windows.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ import torch
 
 from ..constants import PATCH_SCALE_MAX, PATCH_SCALE_MIN
 from . import _build
-from ._common import (WARPED_RADII, check_tensors, count_launch,
-                      norm_code, reset_launches, stats_from_samples)
+from ._common import (WARPED_RADII, check_batch, check_tensors,
+                      count_launch, norm_code, reset_launches,
+                      stats_from_samples)
 
 
 def scaled_taps(uv: torch.Tensor, rho: torch.Tensor, valid: torch.Tensor,
@@ -104,7 +112,14 @@ def scaled_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     (N, W, 2) f32; rho (N, W) f32; valid (N, W) bool; patch (N, C, P) f32
     with P = (2R+1)^2; norm one of ops/_common.NORMS. Returns (6, W, N)
     f32 rows [g00, g01, g11, gxr, gyr, rr], un-whitened, exact zeros for
-    invalid observations."""
+    invalid observations. With a leading batch axis (planes
+    (B, W, C, H, Wi, 4), uv (B, N, W, 2), rho and valid (B, N, W), patch
+    (B, N, C, P)) it returns (B, 6, W, N), each window's rows as its
+    unbatched call gives them."""
+    if planes.dim() == 6:
+        return torch.stack([
+            scaled_stats_reference(*window, patch_radius, norm)
+            for window in zip(planes, uv, rho, valid, patch)])
     s, gx, gy = scaled_patches_reference(planes, uv, rho, valid,
                                          patch_radius)
     return stats_from_samples(s, gx, gy, patch, valid, norm)
@@ -116,15 +131,18 @@ def _check(planes, uv, rho, valid, patch, patch_radius: int):
                          f"{WARPED_RADII[0]}..{WARPED_RADII[-1]} (the "
                          f"reference's warped-grid limit), not "
                          f"{patch_radius}")
-    w, c, h, wi, four = planes.shape
-    n = uv.shape[0]
+    lead = tuple(planes.shape[:-5])          # () or (B,): the batch axis
+    w, c, h, wi, four = planes.shape[-5:]
+    n = uv.shape[-3] if uv.dim() >= 3 else -1
     ps = 2 * patch_radius + 1
     check_tensors("scaled_stats", planes.device, {
-        "planes": (planes, torch.float32, (w, c, h, wi, 4)),
-        "uv": (uv, torch.float32, (n, w, 2)),
-        "rho": (rho, torch.float32, (n, w)),
-        "valid": (valid, torch.bool, (n, w)),
-        "patch": (patch, torch.float32, (n, c, ps * ps))})
+        "planes": (planes, torch.float32, (*lead, w, c, h, wi, 4)),
+        "uv": (uv, torch.float32, (*lead, n, w, 2)),
+        "rho": (rho, torch.float32, (*lead, n, w)),
+        "valid": (valid, torch.bool, (*lead, n, w)),
+        "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
+    check_batch("scaled_stats", lead)
+    # Window b's slices start b whole windows on: aligned as the first.
     if planes.data_ptr() % 16 or uv.data_ptr() % 8:
         raise ValueError("scaled_stats: planes must be 16-byte and uv "
                          "8-byte aligned (float4 / float2 loads)")
@@ -137,9 +155,10 @@ def _kernel():
     built = _build.library("patch_scaled")
     fn = built.lib.pb_scaled_stats         # ctypes caches the attribute
     if fn.argtypes is None:
-        for fn in (built.lib.pb_scaled_stats,
-                   built.lib.pb_scaled_stats_one_thread):
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        # pb_scaled_stats takes the batch size b after `out`.
+        for fn, ints in ((built.lib.pb_scaled_stats, 8),
+                         (built.lib.pb_scaled_stats_one_thread, 7)):
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         err = built.lib.pb_scaled_error_string
@@ -157,19 +176,25 @@ def _launch(wrapper, entry: str, planes, uv, rho, valid, patch,
     if planes.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, "
                          f"not {planes.device}")
+    lead = tuple(planes.shape[:-5])          # () or (B,): the batch axis
+    if lead and wrapper is not scaled_stats:
+        raise ValueError(f"{wrapper.__name__} takes one window, not a batch "
+                         f"axis")
     _check(planes, uv, rho, valid, patch, patch_radius)
-    w, c, h, wi, _ = planes.shape
-    n = uv.shape[0]
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+    w, c, h, wi, _ = planes.shape[-5:]
+    n = uv.shape[-3]
+    out = torch.empty((*lead, 6, w, n), dtype=torch.float32,
+                      device=planes.device)
     if n * w == 0:
         return out
     lib = _kernel()
+    batch = (lead[0] if lead else 1,) if wrapper is scaled_stats else ()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = getattr(lib, entry)(
             planes.data_ptr(), uv.data_ptr(), rho.data_ptr(),
-            valid.data_ptr(), patch.data_ptr(), out.data_ptr(), n, w, c, h,
-            wi, patch_radius, code, stream)
+            valid.data_ptr(), patch.data_ptr(), out.data_ptr(), *batch, n, w,
+            c, h, wi, patch_radius, code, stream)
     if err != 0:
         msg = lib.pb_scaled_error_string(err).decode()
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
@@ -181,13 +206,15 @@ def _launch(wrapper, entry: str, planes, uv, rho, valid, patch,
 def scaled_stats(planes: torch.Tensor, uv: torch.Tensor, rho: torch.Tensor,
                  valid: torch.Tensor, patch: torch.Tensor, patch_radius: int,
                  norm: str = "mean") -> torch.Tensor:
-    """The six Gauss-Newton sums per observation, (6, W, N) f32.
+    """The six Gauss-Newton sums per observation, (6, W, N) f32, or
+    (B, 6, W, N) for B windows on a leading batch axis.
 
     Same arguments and result as `scaled_stats_reference`. CPU tensors run
     that plain version; CUDA tensors launch the kernel on the current
-    stream without synchronising (and raise if it cannot launch).
-    `scaled_stats.launches` counts kernel launches by normalization mode
-    (norm='affine' is the port's K5, the others K3)."""
+    stream without synchronising (and raise if it cannot launch), one
+    launch for all B windows. `scaled_stats.launches` counts kernel
+    launches by normalization mode (norm='affine' is the port's K5, the
+    others K3)."""
     return _launch(scaled_stats, "pb_scaled_stats", planes, uv, rho, valid,
                    patch, patch_radius, norm)
 

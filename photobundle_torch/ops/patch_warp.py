@@ -36,12 +36,13 @@ package's fixed-grid limit); to R = 3, K1 stages each block's windows in
 shared memory, and above R = 9 both run one instance with a runtime
 radius.
 
-`patch_stats` also takes a leading batch axis of B windows of the same
+Both kernels also take a leading batch axis of B windows of the same
 shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas call
 (photobundle_tpu/ops/patch_warp.py:577): one launch for all B windows,
-each window's sums bitwise those of its own unbatched launch. The batched
-solve (core/lm.py `lm_solve_batched`) launches it once per evaluation for
-all its windows.
+each window's sums bitwise those of its own unbatched launch (the sorted
+kernel's windows each in their own order). The batched solve (core/lm.py
+`lm_solve_batched`) launches the one its configuration runs once per
+evaluation for all its windows.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import (FIXED_RADII, check_tensors, count_launch, norm_code,
-                      reset_launches, stats_from_samples)
+from ._common import (FIXED_RADII, check_batch, check_tensors, count_launch,
+                      norm_code, reset_launches, stats_from_samples)
 
 
 def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -154,6 +155,7 @@ def _check(planes, uv, valid, patch, patch_radius: int):
         "uv": (uv, torch.float32, (*lead, n, w, 2)),
         "valid": (valid, torch.bool, (*lead, n, w)),
         "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
+    check_batch("patch_stats", lead)
     # Window b's slices start b whole windows on: aligned as the first.
     check_texels("patch_stats", planes[0] if lead else planes,
                  uv[0] if lead else uv, patch_radius)
@@ -179,7 +181,7 @@ def _kernel():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fs = built.lib.pb_patch_stats_sorted
-        fs.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fs.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fs.restype = ctypes.c_int
         err = built.lib.pb_cuda_error_string
@@ -218,9 +220,6 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     b = lead[0] if lead else 1
     w, c, h, wi, _ = planes.shape[-5:]
     n = uv.shape[-3]
-    if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"patch_stats takes 1..{MAX_BATCH} windows a "
-                         f"launch, not {b}")
     out = torch.empty((*lead, 6, w, n), dtype=torch.float32,
                       device=planes.device)
     if n * w == 0:
@@ -235,10 +234,6 @@ def patch_stats(planes: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     _raise_on(lib, err, "patch_stats")
     count_launch(patch_stats, norm)
     return out
-
-
-# Windows one launch takes: the grid's y extent.
-MAX_BATCH = 65535
 
 
 # Observations per block of the sorted kernel: a block takes this many
@@ -257,8 +252,14 @@ def sorted_patch_stats_reference(planes, uv, valid, patch,
                                  norm: str = "mean") -> torch.Tensor:
     """Plain version of the sorted kernel: `patch_stats_reference` on the
     rows in sorted order, scattered back to each point's slot. Same
-    arguments as `sorted_patch_stats`."""
+    arguments as `sorted_patch_stats`; with a leading batch axis, each
+    window's rows as its unbatched call gives them."""
     feed, inverse = order
+    if planes.dim() == 6:
+        return torch.stack([
+            sorted_patch_stats_reference(p, q, v, d, patch_radius, o, norm)
+            for p, q, v, d, *o in zip(planes, uv, valid, patch, feed,
+                                      inverse)])
     rows = patch_stats_reference(planes, uv[feed], valid[feed], patch[feed],
                                  patch_radius, norm)
     return rows[:, :, inverse].contiguous()
@@ -269,13 +270,16 @@ def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
                        patch_radius: int, order, norm: str = "mean",
                        staged: torch.Tensor | None = None) -> torch.Tensor:
     """`patch_stats` with the observations visited in a sorted point
-    order; the result is the same (6, W, N), bitwise.
+    order; the result is the same (6, W, N), bitwise, or (B, 6, W, N) for
+    B windows on a leading batch axis (one launch, each window in its own
+    order).
 
     order = (feed (N,) int64, inverse (N,) int64) from
-    `core/residuals.sorted_dispatch_order`: sorted rank -> point and back.
-    `staged`, for CUDA tensors only: None, or a uint8 tensor of
-    `sorted_blocks(N, W)` that receives each block's choice (1: its
-    union box was staged in shared memory). CPU tensors run
+    `core/residuals.sorted_dispatch_order`: sorted rank -> point and back;
+    (B, N) each with a batch axis. `staged`, for CUDA tensors only: None,
+    or a uint8 tensor of `sorted_blocks(N, W)` ((B, sorted_blocks(N, W))
+    with a batch axis) that receives each block's choice (1: its union
+    box was staged in shared memory). CPU tensors run
     `sorted_patch_stats_reference`; CUDA tensors launch the kernel on the
     current stream (and raise if it cannot launch).
     `sorted_patch_stats.launches` counts kernel launches by
@@ -289,21 +293,24 @@ def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
         raise ValueError(f"sorted_patch_stats runs on cpu or cuda tensors, "
                          f"not {planes.device}")
     _check(planes, uv, valid, patch, patch_radius)
-    w, c, h, wi, _ = planes.shape
-    n = uv.shape[0]
+    lead = tuple(planes.shape[:-5])
+    w, c, h, wi, _ = planes.shape[-5:]
+    n = uv.shape[-3]
     for name, t in (("feed", feed), ("inverse", inverse)):
         if (t.device != planes.device or t.dtype != torch.int64
-                or tuple(t.shape) != (n,) or not t.is_contiguous()):
+                or tuple(t.shape) != (*lead, n) or not t.is_contiguous()):
             raise ValueError(f"sorted_patch_stats: {name} must be a "
-                             f"contiguous int64 ({n},) tensor on "
+                             f"contiguous int64 {(*lead, n)} tensor on "
                              f"{planes.device}")
-    blocks = sorted_blocks(n, w)
+    blocks = (*lead, sorted_blocks(n, w))
     if staged is not None and (staged.device != planes.device
                                or staged.dtype != torch.uint8
-                               or tuple(staged.shape) != (blocks,)):
-        raise ValueError(f"sorted_patch_stats: staged must be a uint8 "
-                         f"({blocks},) tensor on {planes.device}")
-    out = torch.empty((6, w, n), dtype=torch.float32, device=planes.device)
+                               or tuple(staged.shape) != blocks
+                               or not staged.is_contiguous()):
+        raise ValueError(f"sorted_patch_stats: staged must be a contiguous "
+                         f"uint8 {blocks} tensor on {planes.device}")
+    out = torch.empty((*lead, 6, w, n), dtype=torch.float32,
+                      device=planes.device)
     if n * w == 0:
         return out
     lib = _kernel()
@@ -312,8 +319,9 @@ def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
         err = lib.pb_patch_stats_sorted(
             planes.data_ptr(), uv.data_ptr(), valid.data_ptr(),
             patch.data_ptr(), feed.data_ptr(), out.data_ptr(),
-            None if staged is None else staged.data_ptr(), n, w, c, h, wi,
-            patch_radius, code, stream)
+            None if staged is None else staged.data_ptr(),
+            lead[0] if lead else 1, n, w, c, h, wi, patch_radius, code,
+            stream)
     _raise_on(lib, err, "sorted_patch_stats")
     count_launch(sorted_patch_stats, norm)
     return out

@@ -35,7 +35,7 @@ import json
 from .. import entry
 from ..core import residuals as res_mod
 from ..core.engine import require_device
-from ..ops import patch_samples, patch_warp
+from ..ops import patch_samples
 from . import device_name, device_us_per_call, ms_per_call
 
 H, WI, PR = 370, 1226, 2
@@ -69,15 +69,16 @@ def main(argv=None) -> dict:
             backend="cuda", ctx=ctx, grouped_stats=grouped)
 
     def kernel_call(x):
-        """The steps up to their K1 launch: its arguments."""
+        """The steps up to their K1 launch: its KernelCall."""
         return next(steps(x))
 
     def fused(x):
-        return patch_warp.patch_stats(*kernel_call(x))
+        return res_mod.launch(kernel_call(x))
 
     def nofuse(x):
         call = kernel_call(x)
-        return patch_samples.warp_patches(call.planes, call.uv, call.valid,
+        uv, valid = call.operands[:2]
+        return patch_samples.warp_patches(call.planes, uv, valid,
                                           call.patch_radius, "rows")
 
     stages = (

@@ -279,9 +279,11 @@ def test_grouped_stats_flag_leaves_other_configurations_fused(problems):
 
 
 def test_lm_solve_reads_pb_grouped_stats(problems, monkeypatch):
-    """lm_solve with PB_GROUPED_STATS=0 runs the unfused path: the same
-    iterations and accepted steps as the fused solve on a damped start,
-    costs within 1e-4 (f32 sums in another order)."""
+    """lm_solve with PB_GROUPED_STATS=0 runs the unfused path (the row
+    store, `smp.store`, once per evaluation, its rows unpacked as
+    `warp_patches` unpacks them): the same iterations and accepted steps
+    as the fused solve on a damped start, costs within 1e-4 (f32 sums in
+    another order)."""
     cam, t_wc, x, patch, ch, g, obs, off = port_problem(problems[2])
     pv = torch.ones(obs.shape[0], dtype=torch.bool)
     frozen = torch.tensor([True, False, False])
@@ -289,16 +291,16 @@ def test_lm_solve_reads_pb_grouped_stats(problems, monkeypatch):
               initial_lambda=1.0, function_tolerance=0.0,
               parameter_tolerance=0.0)
     calls = []
-    real = smp.warp_patches
+    real = smp.store
 
     def counted(*args, **kwargs):
-        calls.append(kwargs.get("variant", args[4] if len(args) > 4 else
+        calls.append(kwargs.get("layout", args[4] if len(args) > 4 else
                                 "rows"))
         return real(*args, **kwargs)
 
     _, _, fused = lm.lm_solve(cam, t_wc, x + 0.01, patch, ch, g, obs, pv,
                               frozen, off, **kw)
-    monkeypatch.setattr(smp, "warp_patches", counted)
+    monkeypatch.setattr(smp, "store", counted)
     assert not calls
     monkeypatch.setenv("PB_GROUPED_STATS", "0")
     _, _, unfused = lm.lm_solve(cam, t_wc, x + 0.01, patch, ch, g, obs, pv,

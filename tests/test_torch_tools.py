@@ -367,3 +367,32 @@ def test_verify_e2e_check(tmp_path):
     log([(2.0, 1.0), (1.5, 1.6)])
     with pytest.raises(AssertionError, match="verification failed"):
         verify_e2e.check(root, poses, vo)
+
+
+def test_kernel_times_imports_each_tree(tmp_path):
+    """kernel_times.py times the checkout each TREE names: `use_tree`
+    imports that tree's `photobundle_torch`, not the package chip_smoke.py
+    imported at its top (which every tree timed before the repair)."""
+    saved_path = list(sys.path)
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "photobundle_torch" or k.startswith("photobundle_torch.")}
+    tree = tmp_path / "tree"
+    (tree / "photobundle_torch").mkdir(parents=True)
+    (tree / "photobundle_torch" / "__init__.py").write_text("TREE = 1\n")
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        import kernel_times
+
+        package = kernel_times.use_tree(str(tree))
+        assert package.TREE == 1
+        assert package.__file__ == str(tree / "photobundle_torch" /
+                                       "__init__.py")
+        with pytest.raises(RuntimeError, match="imported photobundle_torch"):
+            kernel_times.use_tree(str(tmp_path / "empty"))
+    finally:
+        for name in [m for m in sys.modules if m == "photobundle_torch"
+                     or m.startswith("photobundle_torch.")]:
+            del sys.modules[name]
+        sys.modules.update(saved)
+        sys.path[:] = saved_path
