@@ -8,7 +8,7 @@ Drives the port's paths at the repository's full size (370x1226 images,
 descriptors and the shipped configurations' own sizes), from seeds:
 
   1. the card: torch's device name, and nvidia-smi's name and power limit;
-  2. build: the six kernel sources compiled from photobundle_torch/csrc/
+  2. build: the eight kernel sources compiled from photobundle_torch/csrc/
      (one nvcc per source, started together; the build time), ptxas
      registers and spills;
   3. kernel K1 (csrc/patch_warp.cu) vs its plain PyTorch version on a
@@ -22,8 +22,10 @@ descriptors and the shipped configurations' own sizes), from seeds:
      with a run-time radius;
   4. one window solve: lm_solve(backend="cuda"), 8 fixed iterations, as
      CUDA graph replays (core/lm.py) from a cold key: K1's launch count
-     over that run, the call's time cold and warm, the key's graphs'
-     device memory; the same solve with capture=False (the same body in
+     over that run and the LM body's own kernels (the ordered sums of
+     ops/ordered_sum, the Cholesky solve of ops/chol_solve, once per
+     body), captured with it, the call's time cold and warm, the key's
+     graphs' device memory; the same solve with capture=False (the same body in
      the eager host loop): the same iterations, accept log and
      termination, costs within GRAPH_RTOL, and whether the two are
      bitwise equal (else the first field that differs); K1's device time
@@ -123,7 +125,15 @@ descriptors and the shipped configurations' own sizes), from seeds:
      draw; sorted K1's order each window's own), each bitwise 4
      single-window launches at R = 2 and at its wide radius (AXES: 19,
      9, 9, 19, 19), then at B = 3 against its plain version and timed,
-     and its device time at B = 1, 2, 3 and 4 beside its bound; then the
+     and its device time at B = 1, 2, 3 and 4 beside its bound; the LM
+     body's own kernels: the batched Cholesky solve (csrc/chol_solve.cu)
+     at W = 5, 10, 32 and B = 1, 4, 8 against its plain version
+     (cholesky_ex + cholesky_solve) within 1e-4 of the solution's scale,
+     bitwise its single-window launches, NaN in the one non-SPD window
+     alone, timed beside `torch.linalg.solve`; every ordered sum
+     (csrc/ordered_sum.cu) of one eager body at B = 4 against its plain
+     version, timed beside torch's sum / matmul; the body's aten
+     operations at B = 1 and 4, equal; then the
      batched engine in the default configuration, 8 frames, B = 4
      sequences, sequence k phase 6's frames shifted k px and brightened
      0.001 k and drifted from its own seed (k + 1): every batched
@@ -133,16 +143,18 @@ descriptors and the shipped configurations' own sizes), from seeds:
      point counts, poses within 1e-3, final costs within 1e-3 relative:
      the reference's oracle, tests/test_engine.py:376-385; and bitwise:
      poses, points, final cost), K1 launched once per evaluation for the
-     whole batch (the batched solve's replays + 1, + 2 per cold key);
+     whole batch (the batched solve's replays + 1, + 2 per cold key), the
+     Cholesky kernel once per body and the ordered sums launched;
      host syncs per batched solve, the cold key's warm-up + capture ms,
      its graphs' memory and the card's idle share over a warm batched
      solve per B; the batched ingest at B = 1, 2, 4 and 8 into full
      rings, warm, beside one and B single ingests: ms (CUDA events),
      device activities and launch calls (torch.profiler), host syncs,
-     each the same at every B; then `tools/bench_batched` in this
-     process at B = 1 and 4; last the batched engine at B = 3 on the same
-     sequences over 6 frames (two window solves) beside 3 single engines
-     in each configuration that runs one of those batch axes
+     each the same at every B (in a child process, `chip_smoke.py
+     ingest-cost`, whose traces are whole); then `tools/bench_batched`
+     in this process at B = 1 and 4; last the batched engine at B = 3 on
+     the same sequences over 6 frames (two window solves) beside 3 single
+     engines in each configuration that runs one of those batch axes
      (AXIS_CONFIGS: configs/reference_exact.cfg, patchWarp=scale, with
      patchNormalization=affine too, PB_GROUPED_STATS=0,
      PB_SORTED_DISPATCH=1, each variable set for its run alone): every
@@ -176,7 +188,8 @@ descriptors and the shipped configurations' own sizes), from seeds:
      f32 differences from that start printed beside them;
  19. the remaining tools on the card (photobundle_torch/tools), in this
      process but for verify_e2e's command line and the breakdown: (a)
-     `bench_lm_breakdown` in one process of its own at 4096 and 65 536
+     `bench_lm_breakdown` in one process of its own at 4096 (and the body
+     at B = 4 windows beside it: as many kernels per body) and 65 536
      points x 5: each phase's ms (CUDA events) and
      device ms against its bytes floor (none below it), each phase
      bitwise the outputs of one capture=False body on that body's
@@ -361,6 +374,19 @@ AXIS_CONFIGS = {
 # brightened by BATCH_BRIGHTEN x k; the batched ingest's cost at
 # INGEST_BATCHES, warm, each number the median of INGEST_CALLS calls.
 BATCH_BRIGHTEN, INGEST_BATCHES, INGEST_CALLS = 0.001, (1, 2, 4, 8), 5
+# Phase 16: the LM body's own kernels (ops/chol_solve, ops/ordered_sum).
+# The batched Cholesky solve at these window sizes (systems of 6W) and
+# batch sizes against its plain version (cuSOLVER through
+# torch.linalg.cholesky_ex / cholesky_solve) within CHOL_RTOL of the
+# solution's largest entry (systems m m^T / 6W + I: condition ~5), window
+# CHOL_BAD of every batch of more than two not positive definite; the
+# ordered sums of one eager batched body at BODY_BATCH windows against
+# their plain versions within ORDERED_RTOL of each output's sum of
+# absolute terms (both f32, summed in other orders); the body's aten
+# operations at B = 1 and BODY_BATCH.
+CHOL_WINDOWS, CHOL_BATCHES = (5, 10, 32), (1, 4, 8)
+CHOL_BAD, CHOL_RTOL = 2, 1e-4
+BODY_BATCH, ORDERED_RTOL, ORDERED_CALLS = 4, 1e-5, 20
 # Phase 17: the multi-sequence runs' units and their time limit.
 MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
 MULTI_DIR = os.path.join("build", "chip_smoke_multi")
@@ -423,7 +449,7 @@ DESCRIPTORS = ("IntensityAndGradient", "BitPlanes")
 DESCRIPTOR_RADII = (2, 19)
 # Every kernel source of photobundle_torch/csrc/, built together in phase 2.
 SOURCES = ("patch_warp", "patch_bicubic", "patch_scaled", "patch_samples",
-           "patch_stats", "patch_ablate")
+           "patch_stats", "patch_ablate", "ordered_sum", "chol_solve")
 # One NVIDIA H100 SXM: HBM bandwidth and f32 rate outside the tensor
 # cores (photobundle_torch/tools). Bounds take bytes at the HBM rate, so
 # device times are taken with the 50 MB L2 flushed before each launch
@@ -650,6 +676,31 @@ def print_ptxas_instances(name: str, built) -> None:
     cells = [f"{k}<{a}> {g}/{sp}"
              for (k, a), (g, sp) in sorted(ptxas_instances(built.log).items())]
     say(f"  ptxas {name} registers/spill bytes: {'; '.join(cells)}")
+
+
+def print_ptxas_typed(name: str, built) -> None:
+    """One line: registers / spill-store bytes of each f32 (f) and f64 (d)
+    instance of a library whose kernels are templated on their type (the
+    LM body's, csrc/ordered_sum.cu and csrc/chol_solve.cu; nothing if the
+    library was not built in this process)."""
+    cells, current = {}, None
+    for line in built.log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"\w*?(chol_solve|row_dot_\w+?)I([fd])E", line)
+        if m:
+            current = f"{m.group(1)}<{m.group(2)}>"
+            cells.setdefault(current, [None, None])
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            cells[current][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cells[current][0] = int(m.group(1))
+    say(f"  ptxas {name} registers/spill bytes: " + "; ".join(
+        f"{k} {g}/{sp}" for k, (g, sp) in sorted(cells.items())))
 
 
 def compare_with_plain(got, want, valid_nm):
@@ -2489,6 +2540,47 @@ def written_out_vs_einsum(scene) -> None:
         f"{N_PTS} and 1024 points, one GEMM each)")
 
 
+def engine_scene():
+    """Phase 6's scene (the engine phases' and phase 16's): the textured
+    sphere at KITTI 00's intrinsics, ENGINE_FRAMES frames."""
+    from photobundle_torch import entry
+
+    return entry.make_sequence(
+        np.random.default_rng(SCENE_SEED), n_frames=ENGINE_FRAMES,
+        shape=(H, WI), fx=KITTI_FX, cx=KITTI_CX, cy=KITTI_CY,
+        baseline=KITTI_BASELINE, texture_scale=100.0 / KITTI_FX,
+        mark_misses=True)
+
+
+def ingest_cost_child() -> None:
+    """`chip_smoke.py ingest-cost`: `ingest_cost_phase` on phase 6's scene
+    in a process of its own. Its traces must hold every device activity:
+    in chip_smoke's own process, after the earlier phases, each
+    torch.profiler trace of an ingest lost 5 of them, whatever its size
+    (394 of 399 at every B, 393 of 398 for a single ingest, 3179 of 3184
+    for 8), and one trace at B = 1 lost only 1, which failed the check
+    that the activities are equal at every B; in a fresh process every
+    trace held them all (H100 80GB HBM3: 399 of 399 at B = 1, 2, 4, 8)."""
+    from photobundle_torch.config import PBAConfig
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke ingest-cost: no CUDA card")
+    ingest_cost_phase(engine_scene(), PBAConfig())
+
+
+def run_ingest_cost() -> None:
+    """Phase 16's ingest cost in a child process (`ingest_cost_child`):
+    its lines printed here, its failure this run's."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "ingest-cost"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"phase 16 ingest cost: the child process "
+          f"exited with code {proc.returncode}: "
+          f"{proc.stdout.strip().splitlines()[-1:]}")
+
+
 def ingest_cost_phase(scene, cfg) -> dict:
     """Phase 16's cost of one batched ingest at INGEST_BATCHES, warm: B
     sequences (shifted_sequence) ingested into full rings (the steady
@@ -2571,10 +2663,10 @@ def ingest_cost_phase(scene, cfg) -> dict:
     return out
 
 
-def batched_phase(scene, kernels) -> int:
-    """Phase 16's engine part (see the module docstring). Returns K1's
-    launches in the batched engine's run at the largest batch size (the
-    slice's main path)."""
+def batched_phase(scene, kernels) -> tuple:
+    """Phase 16's engine part (see the module docstring). Returns the
+    launches of K1, the ordered sums and the Cholesky solve in the batched
+    engine's run at the largest batch size (the slice's main path)."""
     from photobundle_torch import entry
     from photobundle_torch.config import PBAConfig
     from photobundle_torch.core import lm
@@ -2605,6 +2697,7 @@ def batched_phase(scene, kernels) -> int:
         step_ms = []
         torch.cuda.synchronize()
         reset_all(kernels)
+        reset_body_kernels()
         for i in range(n):
             frames = [(seqs[k][0][i], seqs[k][1][i], inits[k][i])
                       for k in range(b)]
@@ -2619,6 +2712,7 @@ def batched_phase(scene, kernels) -> int:
                 batched[k].append(r)
         counts = launch_counts(kernels)
         runs = lm_runs()
+        body = check_body_launches(f"phase 16 B = {b}", runs)
         k1 = counts.pop((kernel_label(pw.patch_stats), "mean"))
         others = {f"{k}/{m}": v for (k, m), v in counts.items() if v}
         its = [max(r.iterations for r in solve) for solve in zip(*batched)]
@@ -2653,7 +2747,9 @@ def batched_phase(scene, kernels) -> int:
             f"iterations per solve (the longest window) {its}; K1 launches "
             f"{k1} (once per evaluation for the whole batch: replays + 1, "
             f"+ 2 per cold key: {expected}; lm runs {runs}), other kernels "
-            f"and modes {others or 'none'} | against {b} single engines: "
+            f"and modes {others or 'none'}; the body's kernels: row_dot "
+            f"{body[0]}, chol_solve {body[1]} (one per body) | against {b} "
+            f"single engines: "
             f"largest pose difference {pose_d:.3e} (atol "
             f"{BATCH_POSE_ATOL:g}), largest final-cost rel difference "
             f"{cost_d:.3e} (rtol {BATCH_COST_RTOL:g}); frame ids and point "
@@ -2671,7 +2767,7 @@ def batched_phase(scene, kernels) -> int:
         check(pose_d <= BATCH_POSE_ATOL and cost_d <= BATCH_COST_RTOL,
               f"B = {b}: batched results differ from single engines: poses "
               f"{pose_d:.3e}, cost {cost_d:.3e}")
-        launches = k1
+        launches = (k1, *body)
         # One batched solve from the state the run ended in: cold key
         # (warm-up + captures), its graphs' memory, warm, host syncs.
         lm.clear_graph_cache()
@@ -2697,7 +2793,7 @@ def batched_phase(scene, kernels) -> int:
             f"solve {syncs} (set_sync_debug_mode('warn')) | "
             + busy_text(*busy, warm_ms, "batched solve"))
         del bp, record
-    ingest_cost_phase(scene, cfg)
+    run_ingest_cost()
     data = bench_batched.scene(12)
     for b in BENCH_BATCHES:
         t0 = time.perf_counter()
@@ -2709,6 +2805,223 @@ def batched_phase(scene, kernels) -> int:
               f"bench_batched at B = {b} measured no rate")
         torch.cuda.empty_cache()
     return launches
+
+
+def body_kernels() -> tuple:
+    """The wrappers of the LM body's own kernels: the ordered sums and the
+    batched Cholesky solve."""
+    from photobundle_torch.ops import chol_solve as cs
+    from photobundle_torch.ops import ordered_sum as osm
+
+    return osm.row_dot, cs.chol_solve
+
+
+def reset_body_kernels() -> None:
+    from photobundle_torch.ops import _common
+
+    for k in body_kernels():
+        _common.reset_launches(k)
+
+
+def body_launches() -> tuple:
+    """(ordered-sum launches, Cholesky launches) since the last reset."""
+    return tuple(sum(k.launches.values()) for k in body_kernels())
+
+
+def check_body_launches(tag: str, runs: dict) -> tuple:
+    """The body's kernels launched on the path just run: the Cholesky
+    solve once per LM body (lm.runs['bodies'], warm-ups and replays
+    included), the ordered sums at least once. Returns their launches."""
+    dots, chol = body_launches()
+    check(chol == runs["bodies"] > 0, f"{tag}: chol_solve launched {chol} "
+          f"times for {runs['bodies']} LM bodies")
+    check(dots > 0, f"{tag}: row_dot never launched")
+    return dots, chol
+
+
+def chol_systems(w: int, b: int, dev, seed: int):
+    """b reduced-system-sized SPD systems (6W x 6W, m m^T / 6W + I) and
+    right-hand sides from a seed; window CHOL_BAD of a batch of more than
+    two has a negative pivot."""
+    n = 6 * w
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn((b, n, n), generator=g, dtype=torch.float64)
+    s = (m @ m.transpose(-1, -2) / n + torch.eye(n, dtype=torch.float64))
+    s = s.float()
+    if b > 2:
+        s[CHOL_BAD, 3, 3] = -1.0
+    return s.to(dev), torch.randn((b, n), generator=g).to(dev)
+
+
+def chol_phase(dev) -> dict:
+    """The batched Cholesky kernel at CHOL_WINDOWS x CHOL_BATCHES against
+    its plain version, bitwise across B, NaN in the failing window alone,
+    timed. Returns the numbers at W and BODY_BATCH (the main path's)."""
+    from photobundle_torch.ops import chol_solve as cs
+
+    out = None
+    for w in CHOL_WINDOWS:
+        for b in CHOL_BATCHES:
+            s, rhs = chol_systems(w, b, dev, 100 * w + b)
+            n = 6 * w
+            got = cs.chol_solve(s, rhs)
+            want = cs.chol_solve_reference(s, rhs)
+            bad = torch.zeros(b, dtype=torch.bool, device=dev)
+            if b > 2:
+                bad[CHOL_BAD] = True
+            for label, x in (("kernel", got), ("plain", want)):
+                nan = torch.isnan(x)
+                check(torch.equal(nan.all(-1), bad)
+                      and torch.equal(nan.any(-1), bad),
+                      f"phase 16 chol_solve W = {w}, B = {b}: the {label} "
+                      f"has NaN in windows {nan.any(-1).tolist()}, the "
+                      f"failing window is {bad.tolist()}")
+            err = float((got - want)[~bad].abs().max())
+            scale = float(want[~bad].abs().max())
+            check(err <= CHOL_RTOL * scale, f"phase 16 chol_solve W = {w}, "
+                  f"B = {b}: max abs err {err:.3e} > {CHOL_RTOL:g} x "
+                  f"{scale:.3e}")
+            singles = torch.cat([cs.chol_solve(s[k:k + 1], rhs[k:k + 1])
+                                 for k in range(b)])
+            same = torch.equal(got.view(torch.int32),
+                               singles.view(torch.int32))
+            check(same, f"phase 16 chol_solve W = {w}, B = {b}: the batch "
+                  f"is not bitwise its windows' single launches")
+            ms = median_ms(lambda: cs.chol_solve(s, rhs), KERNEL_CALLS)
+            plain_ms = median_ms(lambda: cs.chol_solve_reference(s, rhs),
+                                 KERNEL_CALLS)
+            dev_us = device_us_per_launch(lambda: cs.chol_solve(s, rhs),
+                                          match="chol_solve")
+            lib_us, _ = library_us_per_call(lambda: torch.linalg.solve(s,
+                                                                       rhs))
+            # A symmetric solve reads the lower triangle alone.
+            bound = bytes_ops_bound(
+                b * (n * (n + 1) // 2 + 2 * n) * s.element_size(),
+                b * (n ** 3 / 3 + 2 * n * n), b * n * s.element_size())
+            share = roofline_share(f"phase 16 chol_solve W = {w}, B = {b}",
+                                   dev_us, ms, bound)
+            say(f"phase 16 chol_solve W = {w} (n = {n}), B = {b}: max abs "
+                f"err {err:.3e} of {scale:.3e} (rtol {CHOL_RTOL:g}) vs "
+                f"cholesky_ex + cholesky_solve; NaN in window(s) "
+                f"{bad.nonzero().flatten().tolist()} alone; bitwise its {b} "
+                f"single launches: {same} | median kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms | device time per launch "
+                f"{us_text(dev_us)} (L2 flushed), torch.linalg.solve "
+                f"{us_text(lib_us)} | bound {bound['bound_ms'] * 1e3:.3f} us "
+                f"by {bound['bound_by']}, roofline share {share_text(share)}")
+            if (w, b) == (W, BODY_BATCH):
+                out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound["bound_ms"],
+                           bound_by=bound["bound_by"],
+                           library_ms=None if lib_us is None
+                           else lib_us / 1e3, device_us=dev_us)
+    return out
+
+
+def body_problem(cam, offsets, args, b: int):
+    """(stacked LMProblem, LMConfig) of phase 3's problem as b windows, the
+    points of window k shifted by 1e-4 k."""
+    from photobundle_torch.core import lm
+
+    t_wc, x_world, patch, channels, grads, obs, pv, frozen = args
+    kw = dict(huber_delta=HUBER_DELTA, gradient_mode="sampled",
+              backend="cuda", max_iterations=ITERS)
+    setups = [lm.setup(cam, t_wc, x_world + 1e-4 * k, patch, channels,
+                       grads, obs, pv, frozen, offsets, **kw)
+              for k in range(b)]
+    return lm.stack_problems([p for p, _ in setups]), setups[0][1]
+
+
+def ordered_phase(cam, offsets, args) -> dict:
+    """The ordered sums of one eager body at BODY_BATCH windows: every
+    call recorded, then each held to its plain version and timed at its
+    shapes; and the body's aten operations at B = 1 and BODY_BATCH.
+    Returns the body's summed numbers for the JSON line."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from photobundle_torch.core import lm
+    from photobundle_torch.ops import ordered_sum as osm
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    ops = {}
+    for b in (1, BODY_BATCH):
+        start, body = lm.program(*body_problem(cam, offsets, args, b))
+        state, _ = start()
+        body(state)
+        with Ops() as count:
+            body(state)
+        ops[b] = count.n
+    say(f"phase 16 aten operations per LM body (cuda backend, eager): "
+        f"{ops[1]} at B = 1, {ops[BODY_BATCH]} at B = {BODY_BATCH}")
+    check(ops[1] == ops[BODY_BATCH], "the LM body's operations grow with B")
+
+    recorded, real = [], osm.row_dot
+
+    def rec(a, c=None):
+        out = real(a, c)
+        recorded.append((a, c, out))
+        return out
+
+    rec.launches = real.launches      # the wrapper counts under its name
+
+    start, body = lm.program(*body_problem(cam, offsets, args, BODY_BATCH))
+    state, _ = start()
+    osm.row_dot = rec                 # contract, row_sum, sum_over call it
+    try:
+        body(state)
+    finally:
+        osm.row_dot = real
+    torch.cuda.synchronize()
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, device_us=0.0, max_abs_err=0.0, worst=0.0)
+    for a, c, out in recorded:
+        want = osm.row_dot_reference(a, c)
+        mag = osm.row_dot_reference(a.abs(), None if c is None else c.abs())
+        err = (out - want).abs()
+        worst = float((err / (ORDERED_RTOL * mag + 1e-30)).max())
+        tot["max_abs_err"] = max(tot["max_abs_err"], float(err.max()))
+        tot["worst"] = max(tot["worst"], worst)
+        k = a.shape[-1]
+        nbytes = (a.numel() + (0 if c is None else c.numel())
+                  + out.numel()) * a.element_size()
+        flops = out.numel() * k * (1 if c is None else 2)
+        lib = ((lambda a=a: a.sum(-1)) if c is None else
+               (lambda a=a, c=c: torch.matmul(a, c.transpose(-1, -2))))
+        tot["ms"] += median_ms(lambda a=a, c=c: real(a, c), ORDERED_CALLS)
+        tot["plain_ms"] += median_ms(
+            lambda a=a, c=c: osm.row_dot_reference(a, c), ORDERED_CALLS)
+        tot["library_ms"] += (library_us_per_call(lib)[0] or 0.0) / 1e3
+        tot["device_us"] += device_us_per_launch(
+            lambda a=a, c=c: real(a, c), match="row_dot") or 0.0
+        tot["t_bytes"] += nbytes / H100_BYTES_PER_S
+        tot["t_ops"] += flops / H100_F32_FLOPS
+    bound_ms = max(tot["t_bytes"], tot["t_ops"]) * 1e3
+    bound_by = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    shapes = sorted({tuple(a.shape) for a, _, _ in recorded})
+    say(f"phase 16 row_dot: {len(recorded)} calls in one body at B = "
+        f"{BODY_BATCH} (shapes {shapes}), each held to its plain version: "
+        f"max abs err "
+        f"{tot['max_abs_err']:.3e}, worst {tot['worst']:.3f} of the "
+        f"tolerance ({ORDERED_RTOL:g} x the sum of |terms|) | summed over "
+        f"the body: kernel {tot['ms']:.4f} ms (median per call, CUDA "
+        f"events), plain {tot['plain_ms']:.4f} ms, device "
+        f"{tot['device_us']:.2f} us (L2 flushed before each), torch "
+        f"sum / matmul {tot['library_ms']:.4f} ms, bound "
+        f"{bound_ms * 1e3:.3f} us by {bound_by}")
+    check(tot["worst"] <= 1.0, f"row_dot differs from its plain version by "
+          f"{tot['worst']:.3f} of its tolerance")
+    return dict(max_abs_err=tot["max_abs_err"], ms=tot["ms"],
+                plain_ms=tot["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=tot["library_ms"],
+                device_us=tot["device_us"])
 
 
 def axis_config(label):
@@ -3436,7 +3749,11 @@ def tools_phase_19(dev, kernels) -> None:
     sizes = [(n, min(BREAKDOWN_CALLS, bench_lm_breakdown.default_calls(n)))
              for n in (N_PTS, DENSE_PTS)]
     code = "from photobundle_torch.tools import bench_lm_breakdown as b\n"
-    code += "".join(f"b.main(['{n}', '{W}', '{k}'])\n" for n, k in sizes)
+    # At phase 3's size the body is also traced at BODY_BATCH windows.
+    code += "".join(
+        f"b.main(['{n}', '{W}', '{k}'"
+        f"{f', \'--batch\', \'{BODY_BATCH}\'' if n == N_PTS else ''}])\n"
+        for n, k in sizes)
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=BREAKDOWN_TIMEOUT_S)
@@ -3469,6 +3786,23 @@ def tools_phase_19(dev, kernels) -> None:
             f"{rec['body_kernels']} kernels (every trace whole: "
             f"{rec['trace_kernels']} of {rec['launches']} launches), the "
             f"replayed body {rec['replayed_body_ms']:.3f} ms")
+        bat = rec["batched"]
+        if bat is None:
+            continue
+        check(bat["trace_complete"], f"bench_lm_breakdown {n} at B = "
+              f"{bat['batch']}: the body's traces hold {bat['trace_kernels']}"
+              f" device activities for {bat['launches']} launches")
+        check(bat["body_kernels"] == rec["body_kernels"], f"bench_lm_breakdown"
+              f" {n}: {bat['body_kernels']} kernels per body at B = "
+              f"{bat['batch']}, {rec['body_kernels']} at B = 1")
+        say(f"phase 19a bench_lm_breakdown {n} x {W} per body phase, device "
+            f"ms / kernels at B = 1 | B = {bat['batch']}: " + ", ".join(
+                f"{ph} {rec['body'][ph]['ms']:.3f}/"
+                f"{rec['body'][ph]['kernels']} | {bat['body'][ph]['ms']:.3f}/"
+                f"{bat['body'][ph]['kernels']}" for ph in rec["body"])
+            + f"; body {rec['body_ms']:.3f} | {bat['body_ms']:.3f} ms, "
+            f"replayed {rec['replayed_body_ms']:.3f} | "
+            f"{bat['replayed_body_ms']:.3f} ms")
     # (b) the evaluation stage by stage at 65 536 points.
     t0 = time.perf_counter()
     rec = probe_eval65k.main([str(DENSE_PTS), str(W)])
@@ -3916,6 +4250,8 @@ def main() -> None:
         print_ptxas(source, builds[source], (0, *_common.WARPED_RADII))
     for source in ("patch_samples", "patch_stats", "patch_ablate"):
         print_ptxas_instances(source, builds[source])
+    for source in ("ordered_sum", "chol_solve"):
+        print_ptxas_typed(source, builds[source])
     lap("phases 1-2")
 
     # -- phase 3: kernel vs plain version on the solve's inputs ----------
@@ -3957,12 +4293,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     reset_all(kernels)
+    reset_body_kernels()
     t0 = time.perf_counter()
     t_out, x_out, st = solve("cuda")
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches = pw.patch_stats.launches["mean"]
     runs = lm_runs()
+    body4 = check_body_launches("phase 4", runs)
     iters = int(st.iterations)
     expected = expected_launches([iters])
     torch.cuda.empty_cache()
@@ -3972,7 +4310,9 @@ def main() -> None:
     say(f"phase 4 cuda solve (CUDA graphs, cold key): {iters} iterations, "
         f"cost {c0:.6f} -> {c1:.6f}, accept {st.accept_log.int().tolist()},"
         f" kernel launches {launches} (expected {expected}: {iters} "
-        f"replays + 1, + 2 for the warm-up); lm runs {runs}")
+        f"replays + 1, + 2 for the warm-up); lm runs {runs} | the body's "
+        f"kernels, captured with it: row_dot {body4[0]} launches, "
+        f"chol_solve {body4[1]} (one per body)")
     check(launches == expected and runs["warm_ups"] == 1
           and runs["captures"] == 2,
           f"kernel launched {launches} times, expected {expected}; {runs}")
@@ -4119,11 +4459,7 @@ def main() -> None:
     lap("phase 5")
 
     # -- phase 6: the engine, reference-exact configuration (K2) ---------
-    scene = entry.make_sequence(
-        np.random.default_rng(SCENE_SEED), n_frames=ENGINE_FRAMES,
-        shape=(H, WI), fx=KITTI_FX, cx=KITTI_CX, cy=KITTI_CY,
-        baseline=KITTI_BASELINE, texture_scale=100.0 / KITTI_FX,
-        mark_misses=True)
+    scene = engine_scene()
     drifted = entry.drift_poses(np.random.default_rng(SCENE_SEED + 1),
                                 scene[3], DRIFT_TRANS, DRIFT_ROT, 1)
     exact_cfg = PBAConfig.from_config_file(
@@ -4239,7 +4575,10 @@ def main() -> None:
     seen_nm = (obs.T & in_front).T.contiguous()
     k1b = batched_kernel_phase(planes, uv_nm, seen_nm, patch)
     axes = batched_axes_phase(planes, channels, uv_nm, seen_nm, patch)
-    batched_launches = batched_phase(scene, kernels)
+    chol = chol_phase(dev)
+    dots = ordered_phase(cam, offsets, args)
+    batched_launches, dot_launches, chol_launches = batched_phase(scene,
+                                                                  kernels)
     axis_launches = batched_configs_phase(scene, kernels)
     lap("phase 16")
 
@@ -4318,6 +4657,12 @@ def main() -> None:
           if label.startswith("K1")),
         entry_json("bicubic_stats/C3", "patch_bicubic.cu", f"{pw_py}:176",
                    described["K2 C3"][1], described["K2 C3"][0]),
+        entry_json(f"chol_solve/batch{BODY_BATCH}", "chol_solve.cu",
+                   "photobundle_tpu/core/schur.py:282 (XLA's cho_factor; "
+                   "no TPU kernel)", chol_launches, chol),
+        entry_json(f"row_dot/batch{BODY_BATCH}", "ordered_sum.cu",
+                   "photobundle_tpu/core/schur.py:97 (XLA's einsums and "
+                   "sums; no TPU kernel)", dot_launches, dots),
     ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -4328,5 +4673,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mesh-rank"]:
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1:2] == ["ingest-cost"]:
+        ingest_cost_child()
     else:
         main()

@@ -18,23 +18,23 @@ window rings, are stacked along a leading axis.
   (core/engine.py: the coarse levels, the fine-cost guard, the
   maxPoseCorrection gate, the reanchor of excluded points) advances in
   lockstep, and each LM solve they ask for is one `lm.lm_solve_batched`
-  over all B windows: every window's start and body, the single solve's
-  operations, in one program that replays as two CUDA graphs per problem
-  key on a card. The configuration's kernel (K1, sorted K1, K2, K3/K5 or
-  K4's row store: the twin of jax.vmap over its pallas_call) launches
-  once per evaluation for the whole batch, over its batch axis
-  (csrc/patch_batch.cuh), with the sampling planes built once for all
-  windows; every window keeps its own lam, nu, iteration count,
-  termination and logs, and the host reads whether every window has
-  ended once per lm.LM_READBACK bodies.
+  over all B windows: one start and one body whose every operation
+  carries the batch axis (the twin of jax.vmap(_optimize_impl)), two CUDA
+  graphs per problem key on a card. The configuration's kernel (K1,
+  sorted K1, K2, K3/K5 or K4's row store) launches once per evaluation
+  for the whole batch, over its batch axis (csrc/patch_batch.cuh); every
+  window keeps its own lam, nu, iteration count, termination and logs,
+  and the host reads whether every window has ended once per
+  lm.LM_READBACK bodies.
 - One batched device-to-host copy returns the B WindowResults.
 
 Every window's results are bitwise those of a single engine fed the same
-frames: each step is the single engine's, on tensors of its layouts, and
-each kernel's batch axis computes each window as its own launch does. (A
-solve vmapped over the windows, the reference's route, rounds its
-batched reductions and products differently; on the card its point sets
-left the single engines' at the fourth window.)
+frames: the single engine's solve is the batch of one of the same body,
+whose operations round alike at every B (core/lm.py), each kernel's batch
+axis computes each window as its own launch does, and each plan's own
+steps are the single engine's. (torch.func.vmap of the single solve, tried
+first, rounds its batched reductions and products by B; on the card its
+point sets left the single engines' at the fourth window.)
 
 Results are returned when the windows' solves end (cfg.pipelineResults is
 not applied, as in the reference's batched engine).
@@ -64,11 +64,10 @@ from .engine import (_INV_255, PhotometricBundleAdjustment, WindowResult,
 
 
 def _slice(tree, b: int):
-    """Sequence b's copy of a stacked NamedTuple. A copy, not a view: a
-    view starts wherever sequence b's slice does, and a reduction's order
-    can depend on its data's alignment (the single engine's tensors are
-    contiguous, as these copies are)."""
-    return type(tree)(*(f[b].clone() for f in tree))
+    """Sequence b's view of a stacked NamedTuple. Its reductions run in
+    orders fixed by their lengths (ops/ordered_sum), not by where the
+    view starts."""
+    return type(tree)(*(f[b] for f in tree))
 
 
 class BatchedPhotometricBundleAdjustment:
@@ -212,14 +211,17 @@ class BatchedPhotometricBundleAdjustment:
             for k, plan in enumerate(plans):
                 try:
                     requests.append(plan.send(
-                        (t_wc[k].clone(), x_world[k].clone(),
-                         _slice(stats, k))))
+                        (t_wc[k], x_world[k], _slice(stats, k))))
                 except StopIteration as end:
                     done.append(end.value)
             if done:
                 # Every window's plan asks for the same solves (one
-                # configuration), so all end together.
+                # configuration), so all end together. A plan changes its
+                # poses and points alone: the rest of the state stays.
                 assert len(done) == b and not requests
-                windows, points, stats, valid = zip(*done)
-                return (lm.stacked(windows), lm.stacked(points),
+                windows, pts, stats, valid = zip(*done)
+                return (window._replace(
+                            t_wc=torch.stack([w.t_wc for w in windows])),
+                        points._replace(
+                            x_world=torch.stack([q.x_world for q in pts])),
                         lm.stacked(stats), torch.stack(valid))

@@ -185,6 +185,7 @@ class PhotometricBundleAdjustment:
             self._n_coarse = k
         self.offsets = patches_mod.patch_offsets(cfg.patchRadius,
                                                  device=self.device)
+        self._coarse_cams = {}          # level -> Camera (`_coarse_level`)
 
         # Depth-prior scale in disparity-pixel units; monocular (baseline 0)
         # falls back to an fx * 0.3 m virtual baseline.
@@ -331,12 +332,14 @@ class PhotometricBundleAdjustment:
         src = (pyramid_mod.gaussian_blur_sigma(ch, cfg.gradientSigma)
                if cfg.gradientSigma > 0 else ch)
         gx, gy = interp.image_gradients(src)
-        cam = self.camera.scaled(0.5 ** k)
+        if k not in self._coarse_cams:
+            self._coarse_cams[k] = self.camera.scaled(0.5 ** k)
+        cam = self._coarse_cams[k]      # one object: a batch's windows share it
         found, ok = [], []
         for f in range(window.size):
             t_cw = se3.se3_inverse(t_wc[off + f])
             uv, in_front = cam_mod.project(
-                cam, x_world @ t_cw[:3, :3].T + t_cw[:3, 3])
+                cam, se3.transform_points(t_cw, x_world))
             p, inside = patches_mod.extract_patches(ch[f], uv, self.offsets)
             found.append(p)
             ok.append(inside & in_front)
@@ -405,7 +408,7 @@ class PhotometricBundleAdjustment:
                           or cfg.posePriorRotWeight > 0) else None)
         # Motion-prior anchor: the initialization's relative poses, shared
         # by every level of the schedule.
-        anchor = (se3.se3_inverse(window.t_wc[:-1]) @ window.t_wc[1:]
+        anchor = (se3.mm(se3.se3_inverse(window.t_wc[:-1]), window.t_wc[1:])
                   if cfg.motionPriorWeight > 0 else None)
         gradient_mode = cfg.resolve_gradient_mode()
         normalize = cfg.resolve_normalization()
@@ -507,7 +510,7 @@ class PhotometricBundleAdjustment:
         # Points left out of the solve were positioned with their reference
         # frame's pre-solve pose: move them rigidly with that frame
         # (X <- T_new T_old^{-1} X) so they stay consistent.
-        delta = t_wc @ se3.se3_inverse(window.t_wc)           # (W, 4, 4)
+        delta = se3.mm(t_wc, se3.se3_inverse(window.t_wc))    # (W, 4, 4)
         moved = se3.transform_points(delta[torch.clamp(ref_slot, min=0)],
                                      x_world)
         reanchor = points.active & ~point_valid & (ref_slot >= 0)

@@ -48,15 +48,16 @@ which raises. Every host decision (`_drive`'s termination read) reads
 replicated values: each rank sees the same reduced buffers, so all ranks
 replay the same number of bodies.
 
-B solves of one configuration run as one program (`lm_solve_batched`,
-`batched_program`; the batched engine's, core/batched.py): start and
-body run every window's own start and body, written as generators
-(`program_steps`) that yield their kernel launch (residuals.KernelCall:
-K1, sorted K1, K2, K3/K5 or K4's row store, by configuration), so that
-one launch of that kernel's batch axis serves all B windows per
-evaluation (the twin of jax.vmap over each pallas_call); everything else
-is the single solve's, so each window's results are bitwise its own
-solve's.
+The program is written over a leading batch axis: B solves of one
+configuration (`lm_solve_batched`, the batched engine's, core/batched.py)
+run one start and one body whose every operation carries the B windows,
+the twin of jax.vmap over the JAX package's loop, and `lm_solve` is the
+batch of one. Each evaluation launches the configuration's kernel (K1,
+sorted K1, K2, K3/K5 or K4's row store) once over its batch axis; no
+operation rounds by B (sums in `ops/ordered_sum.row_dot`'s order, the
+reduced systems by `ops/chol_solve`, one block per window, the pose
+products written out), so each window's results are bitwise its own
+solve's, and the body's launches do not grow with B.
 
 Lambda policy: Nielsen's adaptive damping (the policy Ceres uses):
   accept: lam *= max(1/3, 1 - (2*rho - 1)^3); nu = 2
@@ -77,11 +78,11 @@ from ..geometry import se3
 from ..geometry.camera import Camera
 from ..image import patches as patches_mod
 from ..ops import _common
+from ..ops.ordered_sum import row_sum
 from . import schur
 from .residuals import (CompressedResiduals, dispatch_key,
-                        evaluate_compressed_steps, grouped_stats_from_env,
-                        launch_batched, make_cuda_ctx,
-                        patch_warp_ref_geometry, run_steps,
+                        evaluate_compressed, grouped_stats_from_env,
+                        make_cuda_ctx, patch_warp_ref_geometry,
                         sorted_dispatch_order)
 
 # Bodies between two host reads of the termination code. Results do not
@@ -135,22 +136,24 @@ class ShardCtx(NamedTuple):
 
         hpp, bp          summed over 'frames'   (point blocks: all frames)
         hcc, bc          summed over 'points', gathered over 'frames'
-        hpc              gathered over 'frames' (dim 0), point-minor
-                         (W_local, 3, 6, N_local) -> (W, 3, 6, N_local)
+        hpc              gathered over 'frames' (the frame axis, dim 1
+                         after the batch axis), point-minor
+                         (B, W_local, 3, 6, N_local) -> (B, W, 3, 6, N_local)
         S, rhs           summed over 'points'
         cost / n_res     summed over both axes
 
     and the reduced 6W x 6W solve is replicated on every rank. Each hook
     takes one or more tensors and returns them (one alone, else a tuple)
-    summed, or gathered along dim 0; the collectives pack the tensors of
-    one call into one buffer per dtype (parallel/sharded.Collective).
+    summed, or gathered along the frame axis (dim 1: the program's tensors
+    carry the batch axis first); the collectives pack the tensors of one
+    call into one buffer per dtype (parallel/sharded.Collective).
     Hooks are hashable (they join the graph key). A points-only mesh is
     the context with identity frames hooks (`points_only_ctx`)."""
 
     reduce_points: Callable     # sum over the points axis
     reduce_frames: Callable     # sum over the frames axis
     reduce_obs: Callable        # sum over both axes (per-observation sums)
-    gather_frames: Callable     # gather over the frames axis, dim 0
+    gather_frames: Callable     # gather over the frames axis, dim 1
     frame_offset: int           # global slot index of local frame 0
 
 
@@ -173,7 +176,8 @@ def capturable(ctx: ShardCtx | None) -> bool:
 
 class LMState(NamedTuple):
     """The loop state (the JAX package's `_LoopState`), device tensors
-    only. Logs hold NaN (False) past the last iteration."""
+    only, each with the leading batch axis B of `program` (shapes below
+    after it). Logs hold NaN (False) past the last iteration."""
 
     t_wc: torch.Tensor             # (W, 4, 4)
     x_world: torch.Tensor          # (N, 3)
@@ -276,28 +280,66 @@ def _twist_weights(wa_t: float, wa_r: float, like: torch.Tensor):
 def prior_cost(t, *, motion_prior_weight: float = 0.0, rel0=None,
                pose_prior=None):
     """0.5*||r||^2 of the pose-prior terms (relative-motion + absolute),
-    exactly as lm_solve's objective counts them.
+    exactly as lm_solve's objective counts them; one per window of t's
+    leading batch axes (..., W, 4, 4).
 
     rel0: (W-1, 4, 4) relative-pose anchor (required when
     motion_prior_weight > 0). pose_prior: (T_vo, w_trans[, w_rot]).
     """
-    c = torch.zeros((), dtype=t.dtype, device=t.device)
+    c = torch.zeros(t.shape[:-3], dtype=t.dtype, device=t.device)
     wm = float(motion_prior_weight)
     if wm > 0.0 and rel0 is not None:
-        rel = se3.se3_inverse(t[:-1]) @ t[1:]
-        r = wm * se3.se3_log(se3.se3_inverse(rel0) @ rel)
-        c = c + 0.5 * torch.sum(r * r)
+        rel = se3.mm(se3.se3_inverse(t[..., :-1, :, :]), t[..., 1:, :, :])
+        r = wm * se3.se3_log(se3.mm(se3.se3_inverse(rel0), rel))
+        c = c + 0.5 * row_sum(r * r, 2)
     if pose_prior is not None:
         wa_t, wa_r = float(pose_prior[1]), _rot_weight(pose_prior)
         if wa_t > 0.0 or wa_r > 0.0:
             r = _twist_weights(wa_t, wa_r, t) * se3.se3_log(
-                se3.se3_inverse(pose_prior[0]) @ t)
-            c = c + 0.5 * torch.sum(r * r)
+                se3.mm(se3.se3_inverse(pose_prior[0]), t))
+            c = c + 0.5 * row_sum(r * r, 2)
     return c
 
 
+def _where(cond, new, old):
+    """torch.where with `cond` (one value per window of the leading batch
+    axis) broadcast over the trailing axes of `new`."""
+    cond = cond.reshape(*cond.shape, *(1,) * (new.dim() - cond.dim()))
+    return torch.where(cond, new, old)
+
+
 def _select(take, new, old):
-    return type(old)(*(torch.where(take, a, b) for a, b in zip(new, old)))
+    return type(old)(*(_where(take, a, b) for a, b in zip(new, old)))
+
+
+def _equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """x and y hold the same values: one tensor, or equal (a host read
+    on a card, so a caller that shares its camera and offsets costs
+    none)."""
+    return x is y or (x.shape == y.shape and bool(torch.equal(x, y)))
+
+
+def stack_problems(problems) -> LMProblem:
+    """B windows' problems (`setup`, one configuration: equal shapes, the
+    same camera and patch offsets) as one with a leading batch axis on
+    every tensor but the camera and the offsets, which the body shares.
+    Raises ValueError where the windows' cameras or offsets differ."""
+    first = problems[0]
+    for q in problems[1:]:
+        if not (_equal(q.offsets, first.offsets)
+                and all(_equal(u, v) for u, v in zip(q.cam, first.cam))):
+            raise ValueError("the windows of a batch must share one camera "
+                             "and one patch offset grid")
+
+    def stack(*fields):
+        if fields[0] is None:
+            return None
+        if isinstance(fields[0], tuple):
+            return tuple(stack(*f) for f in zip(*fields))
+        return torch.stack(fields)
+    return first._replace(**{
+        name: stack(*(getattr(q, name) for q in problems))
+        for name in LMProblem._fields if name not in ("cam", "offsets")})
 
 
 def setup(
@@ -411,24 +453,27 @@ def setup(
 
 
 def program(p: LMProblem, c: LMConfig):
-    """(start, body) of one solve: start() -> (LMState, LMStart) runs the
-    initial evaluation; body(LMState) -> LMState one LM iteration, a no-op
-    on a finished state. Both read the tensors of `p` when they run (a
+    """(start, body) of B solves of one configuration: start() ->
+    (LMState, LMStart) runs the initial evaluation; body(LMState) ->
+    LMState one LM iteration of every window, a no-op on a window that has
+    ended. `p` carries the windows on a leading batch axis
+    (`stack_problems`); a problem of one window without it (`setup`'s) is
+    the batch of one. Every tensor of the state and of LMStart has the
+    leading axis: each window keeps its own lam, nu, iteration count,
+    termination and logs. Both read the tensors of `p` when they run (a
     graph's static inputs), and body reads what the last start computed
-    (the loop invariants: sampling planes, masks, prior anchors). They run
-    `program_steps`' generators, each kernel launch on this window."""
-    start_steps, body_steps = program_steps(p, c)
-    return (lambda: run_steps(start_steps()),
-            lambda st: run_steps(body_steps(st)))
+    (the loop invariants: sampling planes, masks, prior anchors).
 
-
-def program_steps(p: LMProblem, c: LMConfig):
-    """`program`'s start and body as generator functions: each yields the
-    kernel launch of its evaluation (residuals.KernelCall, for the cuda
-    backend), is sent its result, and returns what `program`'s returns.
-    `start_steps(ctx)` takes a prebuilt sampling context of the cuda
-    backend (`batched_program` passes window b's view
-    of planes built for all its windows); by default it builds its own."""
+    The twin of jax.vmap over the JAX package's loop: each operation runs
+    once for all windows. Each evaluation launches the configuration's
+    kernel (K1, sorted K1, K2, K3/K5 or K4's row store) once over its
+    batch axis; every sum of more than three terms runs in
+    `ops/ordered_sum.row_dot`'s order, the reduced systems are solved by
+    `ops/chol_solve`, one block per window, and the pose products are
+    written out (geometry/se3), so each window's results are bitwise
+    those of a batch of one: `lm_solve` is that batch."""
+    if p.t_wc.dim() == 3:
+        p = stack_problems([p])
     cam = Camera(*p.cam)
     max_it = c.max_iterations
     wm = c.motion_prior_weight
@@ -438,8 +483,8 @@ def program_steps(p: LMProblem, c: LMConfig):
     use_any_prior = use_motion or use_abs
     pose_prior = (p.pose_prior_t, wa_t, wa_r) if use_abs else None
     sc = UNSHARDED if c.shard is None else c.shard
-    w_local = p.channels.shape[0]
-    frames_sharded = c.shard is not None and w_local != p.t_wc.shape[0]
+    w_local = p.channels.shape[-4]
+    frames_sharded = c.shard is not None and w_local != p.t_wc.shape[-3]
     off = sc.frame_offset if frames_sharded else 0
     inv = {}                     # the loop invariants, set by start()
 
@@ -452,13 +497,13 @@ def program_steps(p: LMProblem, c: LMConfig):
             pw = (c.patch_warp,
                   *patch_warp_ref_geometry(t, x, p.warp_ref_slot))
         if frames_sharded:
-            t = t[off:off + w_local]
-        return (yield from evaluate_compressed_steps(
+            t = t[..., off:off + w_local, :, :]
+        return evaluate_compressed(
             cam, t, x, p.patch, p.channels, p.grads, inv["obs"], p.offsets,
             c.huber_delta, c.gradient_mode, depth_prior=inv["depth_prior"],
             backend=c.backend, ctx=inv["ctx"], normalize=c.normalize,
             robust_kind=c.robust_kind, patch_warp=pw,
-            point_order=p.point_order, grouped_stats=c.grouped_stats))
+            point_order=p.point_order, grouped_stats=c.grouped_stats)
 
     def prior_cost_terms(t):
         return prior_cost(t, motion_prior_weight=wm, rel0=inv["rel0"],
@@ -473,39 +518,44 @@ def program_steps(p: LMProblem, c: LMConfig):
     def prior_system(t):
         """(hcc_diag (W,6,6), coupling (W,W,6,6) | None, bc (W,6))."""
         dtype, dev = t.dtype, t.device
-        w_sz = t.shape[0]
+        lead, w_sz = t.shape[:-3], t.shape[-3]
         eye6 = torch.eye(6, dtype=dtype, device=dev)
-        hd = torch.zeros((w_sz, 6, 6), dtype=dtype, device=dev)
-        bc = torch.zeros((w_sz, 6), dtype=dtype, device=dev)
+        hd = torch.zeros((*lead, w_sz, 6, 6), dtype=dtype, device=dev)
+        bc = torch.zeros((*lead, w_sz, 6), dtype=dtype, device=dev)
         coup = None
         if use_motion:
-            rel = se3.se3_inverse(t[:-1]) @ t[1:]
-            r = wm * se3.se3_log(se3.se3_inverse(inv["rel0"]) @ rel)
-            ad = se3.adjoint(se3.se3_inverse(rel))                # (W-1,6,6)
-            idx = torch.arange(w_sz - 1, device=dev)
-            hd[idx + 1] += wm * wm * eye6[None]
-            hd[idx] += wm * wm * torch.einsum("fki,fkj->fij", ad, ad)
-            coup = torch.zeros((w_sz, w_sz, 6, 6), dtype=dtype, device=dev)
-            coup[idx, idx + 1] += -wm * wm * ad.transpose(-1, -2)
-            coup[idx + 1, idx] += -wm * wm * ad
-            bc[idx + 1] += -wm * r
-            bc[idx] += wm * torch.einsum("fki,fk->fi", ad, r)
+            rel = se3.mm(se3.se3_inverse(t[..., :-1, :, :]), t[..., 1:, :, :])
+            r = wm * se3.se3_log(se3.mm(se3.se3_inverse(inv["rel0"]), rel))
+            ad = se3.adjoint(se3.se3_inverse(rel))             # (W-1,6,6)
+            ad_t = ad.transpose(-1, -2)
+            hd[..., 1:, :, :] += wm * wm * eye6
+            hd[..., :-1, :, :] += wm * wm * se3.mm(ad_t, ad)
+            coup = torch.zeros((*lead, w_sz, w_sz, 6, 6), dtype=dtype,
+                               device=dev)
+            # The blocks (f, f + 1) and (f + 1, f): the window axes' first
+            # diagonals.
+            coup.diagonal(1, -4, -3).add_((-wm * wm * ad_t).movedim(-3, -1))
+            coup.diagonal(-1, -4, -3).add_((-wm * wm * ad).movedim(-3, -1))
+            bc[..., 1:, :] += -wm * r
+            bc[..., :-1, :] += wm * se3.mv(ad_t, r)
         if use_abs:
             w6 = inv["w6"]
-            hd = hd + torch.diag(w6 * w6)[None]
-            r_abs = w6 * se3.se3_log(se3.se3_inverse(p.pose_prior_t) @ t)
+            hd = hd + torch.diag(w6 * w6)
+            r_abs = w6 * se3.se3_log(se3.mm(se3.se3_inverse(p.pose_prior_t),
+                                            t))
             bc = bc - w6 * r_abs
         return hd, coup, bc
 
-    def start(ctx=None):
+    def start():
         t_wc, x_world = p.t_wc, p.x_world
         dtype, dev = t_wc.dtype, t_wc.device
+        lead = t_wc.shape[:-3]
         # The cuda backend's planes (by gradient mode; the warped grid
-        # reads the 'sampled' planes) are loop-invariant: built here.
-        if ctx is None and c.backend == "cuda":
-            ctx = make_cuda_ctx(p.channels, p.grads, c.gradient_mode)
-        inv["ctx"] = ctx
-        inv["obs"] = p.obs_mask & p.point_valid[:, None]
+        # reads the 'sampled' planes) are loop-invariant: built here, for
+        # all windows at once.
+        inv["ctx"] = (make_cuda_ctx(p.channels, p.grads, c.gradient_mode)
+                      if c.backend == "cuda" else None)
+        inv["obs"] = p.obs_mask & p.point_valid[..., None]
         inv["depth_prior"] = None
         if p.depth_prior is not None:
             # ref_slot holds global window slots; under frames sharding
@@ -518,32 +568,34 @@ def program_steps(p: LMProblem, c: LMConfig):
         inv["rel0"] = None
         if use_motion:
             inv["rel0"] = (p.motion_anchor if p.motion_anchor is not None
-                           else se3.se3_inverse(t_wc[:-1]) @ t_wc[1:])
+                           else se3.mm(se3.se3_inverse(t_wc[..., :-1, :, :]),
+                                       t_wc[..., 1:, :, :]))
         inv["w6"] = _twist_weights(wa_t, wa_r, t_wc)
         inv["slots"] = torch.arange(max_it, dtype=torch.int32, device=dev)
-        res = yield from eval_stats(t_wc, x_world)
+        res = eval_stats(t_wc, x_world)
         cost, n_res = sc.reduce_obs(res.cost, res.n_residuals)
         init_cost = cost + prior_cost_terms(t_wc)
         obs_per_frame = sc.gather_frames(sc.reduce_points(
-            torch.sum(res.valid, dim=0, dtype=torch.int32)))
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        nan = torch.full((max_it,), torch.nan, dtype=dtype, device=dev)
+            torch.sum(res.valid, dim=-2, dtype=torch.int32)))
+        zero = torch.zeros(lead, dtype=torch.int32, device=dev)
+        nan = torch.full((*lead, max_it), torch.nan, dtype=dtype, device=dev)
         # Fresh tensors throughout: a graph's body writes the state in
         # place, and LMStart and the inputs must not change with it.
         state = LMState(
             t_wc=t_wc.clone(), x_world=x_world.clone(), res=res,
             cost=init_cost.clone(),
-            lam=torch.full((), c.initial_lambda, dtype=dtype, device=dev),
-            nu=torch.full((), 2.0, dtype=dtype, device=dev),
+            lam=torch.full(lead, c.initial_lambda, dtype=dtype, device=dev),
+            nu=torch.full(lead, 2.0, dtype=dtype, device=dev),
             it=zero, accepted=zero.clone(), term=zero.clone(),
             cost_log=nan, lambda_log=nan.clone(), step_log=nan.clone(),
-            accept_log=torch.zeros((max_it,), dtype=torch.bool, device=dev))
+            accept_log=torch.zeros((*lead, max_it), dtype=torch.bool,
+                                   device=dev))
         return state, LMStart(
             initial_cost=init_cost, n_residuals=n_res.clone(),
             obs_per_frame=obs_per_frame)
 
     def body(st: LMState) -> LMState:
-        running = (st.it < max_it) & (st.term == 0)
+        running = (st.it < max_it) & (st.term == 0)          # (B,)
         dtype = st.cost.dtype
         # The carried statistics are those of the current point (evaluated
         # when it was the accepted candidate).
@@ -556,7 +608,7 @@ def program_steps(p: LMProblem, c: LMConfig):
         # observation counts (as floats: exact below 2^24).
         hpp, bp = sc.reduce_frames(eq.hpp, eq.bp)
         hcc, bc, hpc, obs_per_frame = sc.gather_frames(
-            eq.hcc, eq.bc, eq.hpc, torch.sum(res.valid, dim=0, dtype=dtype))
+            eq.hcc, eq.bc, eq.hpc, torch.sum(res.valid, dim=-2, dtype=dtype))
         eq = schur.NormalEq(hpp=hpp, hpc=hpc, hcc=hcc, bp=bp, bc=bc)
         terms = schur.point_terms(eq, st.lam, p.point_valid)
         hcc, bc, obs_per_frame, s_off, rhs_off = sc.reduce_points(
@@ -579,16 +631,17 @@ def program_steps(p: LMProblem, c: LMConfig):
 
         t_new = se3.retract_right(st.t_wc, dc)
         x_new = st.x_world + dp
-        res_new = yield from eval_stats(t_new, x_new)
+        res_new = eval_stats(t_new, x_new)
         new_cost = sc.reduce_obs(res_new.cost) + prior_cost_terms(t_new)
 
         # The point terms of the model decrease and of the step, parameter
         # and gradient norms sum over the rank's points, so they are
         # reduced (one buffer); the pose terms are replicated.
         term_p, dp2, x2, bp2 = sc.reduce_points(
-            schur.predicted_point_term(eq, st.lam, dp), torch.sum(dp * dp),
-            torch.sum(st.x_world ** 2),
-            torch.sum((eq.bp * p.point_valid.to(dtype)[None, :]) ** 2))
+            schur.predicted_point_term(eq, st.lam, dp), row_sum(dp * dp, 2),
+            row_sum(st.x_world ** 2, 2),
+            row_sum((eq.bp * p.point_valid.to(dtype)[..., None, :]) ** 2,
+                    2))
         pred = torch.clamp(schur.predicted_reduction(
             eq, st.lam, dc, dp, term_p=term_p), min=1e-20)
         actual = st.cost - new_cost
@@ -603,8 +656,8 @@ def program_steps(p: LMProblem, c: LMConfig):
             torch.clamp(st.lam * st.nu, max=c.max_lambda * 10.0))
         nu_new = torch.where(accept, 2.0, st.nu * 2.0)
 
-        step_norm = torch.sqrt(dp2 + torch.sum(dc * dc))
-        param_norm2 = x2 + torch.sum(se3.se3_log(st.t_wc) ** 2)
+        step_norm = torch.sqrt(dp2 + row_sum(dc * dc, 2))
+        param_norm2 = x2 + row_sum(se3.se3_log(st.t_wc) ** 2, 2)
 
         cost_out = torch.where(accept, new_cost, st.cost)
         # Termination tests (only on accepted steps, Ceres-style).
@@ -613,7 +666,7 @@ def program_steps(p: LMProblem, c: LMConfig):
             torch.sqrt(param_norm2) + c.parameter_tolerance))
         lam_hit = ~accept & (st.lam >= c.max_lambda)
         # Gradient stop: ||J^T r||_2 over free poses + valid points.
-        g2 = torch.sum((eq.bc * (~frz).to(dtype)[:, None]) ** 2) + bp2
+        g2 = row_sum((eq.bc * (~frz).to(dtype)[..., None]) ** 2, 2) + bp2
         gtol_hit = ((torch.sqrt(g2) <= c.gradient_tolerance)
                     & (c.gradient_tolerance > 0))
         zero = torch.zeros_like(st.term)
@@ -621,13 +674,13 @@ def program_steps(p: LMProblem, c: LMConfig):
             ftol_hit, 2, torch.where(xtol_hit, 3,
                                      torch.where(lam_hit, 4, zero))))
 
-        # A finished state passes through unchanged: nothing is accepted,
+        # A finished window passes through unchanged: nothing is accepted,
         # no log slot is written, `it` stays.
         take = accept & running
-        slot = (inv["slots"] == st.it) & running
+        slot = (inv["slots"] == st.it[..., None]) & running[..., None]
         return LMState(
-            t_wc=torch.where(take, t_new, st.t_wc),
-            x_world=torch.where(take, x_new, st.x_world),
+            t_wc=_where(take, t_new, st.t_wc),
+            x_world=_where(take, x_new, st.x_world),
             res=_select(take, res_new, res),
             cost=torch.where(running, cost_out, st.cost),
             lam=torch.where(running, lam_new, st.lam),
@@ -635,10 +688,10 @@ def program_steps(p: LMProblem, c: LMConfig):
             it=st.it + running.to(torch.int32),
             accepted=st.accepted + take.to(torch.int32),
             term=torch.where(running, term, st.term),
-            cost_log=torch.where(slot, cost_out, st.cost_log),
-            lambda_log=torch.where(slot, st.lam, st.lambda_log),
-            step_log=torch.where(slot, step_norm, st.step_log),
-            accept_log=torch.where(slot, accept, st.accept_log))
+            cost_log=torch.where(slot, cost_out[..., None], st.cost_log),
+            lambda_log=torch.where(slot, st.lam[..., None], st.lambda_log),
+            step_log=torch.where(slot, step_norm[..., None], st.step_log),
+            accept_log=torch.where(slot, accept[..., None], st.accept_log))
 
     return start, body
 
@@ -651,75 +704,9 @@ def stacked(trees) -> tuple:
         for f in zip(*trees)))
 
 
-def _lockstep(steps: list, planes):
-    """Run B windows' generators of evaluation steps together (the start
-    or the body of each window's `program_steps`). They ask for their
-    kernel launches in lockstep (one configuration): each round of them is
-    one launch of that kernel's batch axis over `planes` (the windows'
-    sampling planes stacked, (B, ...)), of which window b's calls read
-    planes[b] (`residuals.launch_batched`, which raises if the windows ask
-    for different kernels, radii or modes), and each window is sent a copy
-    of its slice of the result, bitwise what its own launch returns.
-    Returns the windows' results."""
-    results, ended = [None] * len(steps), [False] * len(steps)
-
-    def advance(k, sums):
-        try:
-            return steps[k].send(sums)
-        except StopIteration as done:
-            results[k], ended[k] = done.value, True
-            return None
-
-    calls = [advance(k, None) for k in range(len(steps))]
-    while not all(ended):
-        if any(ended):
-            raise RuntimeError("the windows of a batched solve left "
-                               "lockstep")
-        out = launch_batched(calls, planes)
-        calls = [advance(k, out[k].clone()) for k in range(len(steps))]
-    return results
-
-
-def batched_program(problems: tuple, c: LMConfig):
-    """(start, body) of B solves of one configuration as one program: the
-    state is the tuple of the windows' `LMState`s (start returns it and
-    the tuple of their `LMStart`s); start and body run every window's own
-    start and body (`program_steps`, the single solve's operations in its
-    order, on tensors of the single solve's layouts), with the
-    configuration's kernel (K1, sorted K1, K2, K3/K5 or K4's row store)
-    launched once per evaluation for all the windows over its batch axis
-    (`_lockstep`). Each window keeps its own lam, nu, iteration count,
-    termination and logs, and an ended window passes through a body
-    unchanged, so every window's results are bitwise those of its own
-    solve. The cuda backend's sampling planes (texel or value planes, by
-    gradient mode) are built for all windows at once; window b's view of
-    them is its sampling context."""
-    steps = [program_steps(p, c) for p in problems]
-    kept = {}
-
-    def start():
-        planes = None
-        if c.backend == "cuda":
-            planes = make_cuda_ctx(torch.stack([p.channels for p in problems]),
-                                   torch.stack([p.grads for p in problems]),
-                                   c.gradient_mode)[1]
-        kept["planes"] = planes
-        out = _lockstep([start_steps(None if planes is None
-                                     else (c.gradient_mode, planes[k]))
-                         for k, (start_steps, _) in enumerate(steps)], planes)
-        states, begun = zip(*out)
-        return states, begun
-
-    def body(states: tuple) -> tuple:
-        return tuple(_lockstep([body_steps(st) for st, (_, body_steps)
-                                in zip(states, steps)], kept["planes"]))
-
-    return start, body
-
-
-def _all_ended(states: tuple) -> bool:
-    """The host read of a batched solve: every window has ended."""
-    return bool(torch.all(torch.stack([st.term for st in states]) != 0))
+def _all_ended(state: LMState) -> bool:
+    """The host read of the termination codes: every window has ended."""
+    return bool(torch.all(state.term != 0))
 
 
 def _drive(step, ended, max_iterations: int) -> None:
@@ -816,13 +803,11 @@ def _capture(fn, what: str):
 
 class _Graphs:
     """One problem key's captured start and body, and their static
-    inputs (copies of the first call's tensors, same strides). `make`
-    builds (start, body) from the problem (`program`, or
-    `batched_program` from a tuple of B problems)."""
+    inputs (copies of the first call's tensors, same strides)."""
 
-    def __init__(self, spec, leaves: list, make):
+    def __init__(self, spec, leaves: list, config: LMConfig):
         self.inputs = [t.clone() for t in leaves]
-        start, body = make(_rebuild(spec, iter(self.inputs)))
+        start, body = program(_rebuild(spec, iter(self.inputs)), config)
         dev = leaves[0].device
         # Warm-up on a side stream: what runs once per process or per
         # kernel (library load, shared-memory attributes, library
@@ -845,9 +830,8 @@ class _Graphs:
                 dst.copy_(src)
 
         self.body, _, self.body_launches = _capture(step, "body")
-        self.out_spec = _leaves((self.state, self.begun), [])
 
-    def run(self, leaves: list, max_iterations: int, ended):
+    def run(self, leaves: list, max_iterations: int):
         for dst, src in zip(self.inputs, leaves):
             dst.copy_(src)
         self.start.replay()
@@ -859,10 +843,12 @@ class _Graphs:
             runs["bodies"] += 1
             _common.add_launches(self.body_launches)
 
-        _drive(step, lambda: ended(self.state), max_iterations)
-        # Copies: the next call of this key overwrites the static state.
-        out = [t.clone() for t in _flat((self.state, self.begun))]
-        return _rebuild(self.out_spec, iter(out))
+        _drive(step, lambda: _all_ended(self.state), max_iterations)
+        # Copies of what the solve returns (the next call of this key
+        # overwrites the static state); the carried statistics stay.
+        st = self.state
+        return (st.t_wc.clone(), st.x_world.clone(),
+                LMStats(*(t.clone() for t in _stats(st, self.begun))))
 
 
 _GRAPHS: OrderedDict = OrderedDict()
@@ -874,33 +860,23 @@ def clear_graph_cache() -> None:
     _GRAPHS.clear()
 
 
-def _program(problem, config: LMConfig):
-    """(start, body, the host read of the end) of one solve's problem or
-    of a tuple of B problems (`batched_program`)."""
-    if isinstance(problem, LMProblem):
-        return (*program(problem, config), lambda st: bool(st.term))
-    return (*batched_program(problem, config), _all_ended)
-
-
-def _run_captured(problem, config: LMConfig):
+def _run_captured(problem: LMProblem, config: LMConfig):
     leaves = []
     key = (config, _leaves(problem, leaves))
     dev = leaves[0].device
-    ended = _program(problem, config)[2]
     with torch.cuda.device(dev):
         graphs = _GRAPHS.get(key)
         if graphs is None:
-            graphs = _Graphs(key[1], leaves,
-                             lambda p: _program(p, config)[:2])
+            graphs = _Graphs(key[1], leaves, config)
             _GRAPHS[key] = graphs
             while len(_GRAPHS) > GRAPH_CACHE_SIZE:
                 _GRAPHS.popitem(last=False)
         _GRAPHS.move_to_end(key)
-        return graphs.run(leaves, config.max_iterations, ended)
+        return graphs.run(leaves, config.max_iterations)
 
 
-def _run_eager(problem, config: LMConfig):
-    start, body, ended = _program(problem, config)
+def _run_eager(problem: LMProblem, config: LMConfig):
+    start, body = program(problem, config)
     state, begun = start()
     runs["starts"] += 1
     cur = [state]
@@ -909,8 +885,8 @@ def _run_eager(problem, config: LMConfig):
         cur[0] = body(cur[0])
         runs["bodies"] += 1
 
-    _drive(step, lambda: ended(cur[0]), config.max_iterations)
-    return cur[0], begun
+    _drive(step, lambda: _all_ended(cur[0]), config.max_iterations)
+    return cur[0].t_wc, cur[0].x_world, _stats(cur[0], begun)
 
 
 def lm_solve(*args, capture: bool | None = None, **options):
@@ -918,7 +894,8 @@ def lm_solve(*args, capture: bool | None = None, **options):
 
     Arguments: those of `setup` (cam, t_wc, x_world, patch, channels,
     grads, obs_mask, point_valid, frozen, offsets, then the options by
-    keyword, `shard_ctx` for a sharded solve). capture:
+    keyword, `shard_ctx` for a sharded solve). The batch of one of
+    `program`'s body, its leading axis taken off the results. capture:
     None (default) replays the solve's CUDA graphs for tensors on a card
     (where its collectives can be captured: no gloo group) and runs the
     eager host loop on the CPU; False runs the eager loop on a card too
@@ -926,8 +903,8 @@ def lm_solve(*args, capture: bool | None = None, **options):
     on a card."""
     problem, config = setup(*args, **options)
     run = _runner(problem.t_wc.device, config, capture)
-    state, begun = run(problem, config)
-    return state.t_wc, state.x_world, _stats(state, begun)
+    t_wc, x_world, stats = run(stack_problems([problem]), config)
+    return t_wc[0], x_world[0], LMStats(*(t[0] for t in stats))
 
 
 def _runner(device: torch.device, config: LMConfig, capture: bool | None):
@@ -946,10 +923,11 @@ def _runner(device: torch.device, config: LMConfig, capture: bool | None):
 
 
 def lm_solve_batched(requests: list, capture: bool | None = None):
-    """B solves of one configuration as one program (`batched_program`),
-    the twin of the JAX package's vmapped solve. Returns (t_wc (B, W, 4,
-    4), x_world (B, N, 3), LMStats with a leading B axis); window b's
-    results are bitwise those of `lm_solve` on its request.
+    """B solves of one configuration as one program (`program` on their
+    problems stacked), the twin of the JAX package's vmapped solve.
+    Returns (t_wc (B, W, 4, 4), x_world (B, N, 3), LMStats with a leading
+    B axis); window b's results are bitwise those of `lm_solve` on its
+    request.
 
     requests: B (args, options) pairs, each what `lm_solve` takes for one
     window; shapes and options must agree. capture: as `lm_solve`'s. On a
@@ -961,8 +939,6 @@ def lm_solve_batched(requests: list, capture: bool | None = None):
     config = setups[0][1]
     if any(c != config for _, c in setups):
         raise ValueError("the solves of a batch must share every option")
-    problems = tuple(p for p, _ in setups)
-    run = _runner(problems[0].t_wc.device, config, capture)
-    states, begun = run(problems, config)
-    state, begun = stacked(states), stacked(begun)
-    return state.t_wc, state.x_world, _stats(state, begun)
+    problem = stack_problems([p for p, _ in setups])
+    run = _runner(problem.t_wc.device, config, capture)
+    return run(problem, config)

@@ -50,10 +50,16 @@ Two backends:
   fixed grid's bilinear path with mean or no normalization samples through
   K4's row store (ops/patch_samples.warp_patches) and reduces in plain
   tensor ops, the JAX package's unfused branch.
-  `evaluate_compressed_steps` is the evaluation as a generator that
-  yields its K1 launch (`KernelCall`) and is sent the sums: a batched
-  solve (core/lm.py `batched_program`) launches K1 once for all its
-  windows; `evaluate_compressed` launches it on its own window.
+
+Leading batch axes: the compressed evaluation (`evaluate_compressed`,
+both backends) also takes B windows stacked on a leading axis (t_wc (B,
+W, 4, 4), x_world (B, N, 3), patch, channels, grads, obs_mask and the
+prior and warp tensors likewise), the twin of jax.vmap over the JAX
+package's evaluation: one pass for all of them, the kernel launched once
+over its batch axis, every field of the result with the leading axis.
+Every sum runs in an order fixed by its own length
+(ops/ordered_sum.row_dot, geometry/se3's written-out products), so window
+b's statistics are bitwise those of its evaluation alone.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..image import interp
 from ..image import patches as patches_mod
+from ..ops import ordered_sum
 from ..ops import patch_bicubic as pb_mod
 from ..ops import patch_samples as samples_mod
 from ..ops import patch_scaled as ps_mod
@@ -161,19 +168,20 @@ def _normalize_sampled(s, g, mode: str):
 
 def _observation_geometry(cam, t_wc_f, x_world):
     """One frame's geometry for all points: camera point y (N, 3), pixel
-    uv (N, 2), in_front (N,) and A = du/d[pose|point] (N, 2, 9). The tiny
-    products are broadcast multiplies, as in the JAX package."""
+    uv (N, 2), in_front (N,) and A = du/d[pose|point] (N, 2, 9), with any
+    leading batch axes of t_wc_f (..., 4, 4) and x_world (..., N, 3). The
+    tiny products are written out (se3.mm), as the JAX package writes
+    them as broadcast multiplies."""
     t_cw = se3.se3_inverse(t_wc_f)
-    r_cw = t_cw[:3, :3]
-    y = (x_world[:, None, :] * r_cw[None, :, :]).sum(-1) + t_cw[:3, 3]
+    r_cw = t_cw[..., None, :3, :3]                        # (..., 1, 3, 3)
+    y = se3.transform_points(t_cw[..., None, :, :], x_world)
     uv, in_front = cam_mod.project(cam, y)
-    jproj = cam_mod.project_jacobian(cam, y)              # (N, 2, 3)
+    jproj = cam_mod.project_jacobian(cam, y)              # (..., N, 2, 3)
     # dy/d(pose twist) under T <- T @ exp(xi): [-I | hat(y)] -> (N, 3, 6)
-    n = x_world.shape[0]
     eye = torch.eye(3, dtype=y.dtype, device=y.device)
-    dy_dpose = torch.cat([(-eye).expand(n, 3, 3), se3.hat(y)], dim=-1)
-    a_pose = (jproj[..., :, :, None] * dy_dpose[..., None, :, :]).sum(-2)
-    a_point = (jproj[..., :, :, None] * r_cw[None, None, :, :]).sum(-2)
+    dy_dpose = torch.cat([(-eye).expand(*y.shape, 3), se3.hat(y)], dim=-1)
+    a_pose = se3.mm(jproj, dy_dpose)
+    a_point = se3.mm(jproj, r_cw)
     return y, uv, in_front, torch.cat([a_pose, a_point], dim=-1)
 
 
@@ -182,7 +190,9 @@ def patch_warp_ref_geometry(t_wc, x_world, ref_slot):
     (cfg.patchWarp), at the CURRENT estimates: (z_ref (N,), r_wc_ref
     (N, 3, 3)), the point's depth in its reference frame and that
     camera's world rotation. z_ref is -1 where ref_slot < 0 (reference
-    frame not in the window): the warp is the identity there.
+    frame not in the window): the warp is the identity there. Leading
+    batch axes of t_wc (..., W, 4, 4), x_world (..., N, 3) and ref_slot
+    (..., N) carry through.
 
     Both depths of the warp factor come from the current iterate, so the
     factor is exactly 1 in the reference frame (the JAX package's
@@ -190,14 +200,15 @@ def patch_warp_ref_geometry(t_wc, x_world, ref_slot):
     z_ref is summed in the order `_observation_geometry_pm` sums the
     camera-frame depth, so the kernel path's reference-frame rho is 1.0
     exactly. `t_wc` is the full window (W, 4, 4)."""
-    w = t_wc.shape[0]
-    t_cw = se3.se3_inverse(t_wc)                           # (W, 4, 4)
-    safe = torch.clamp(ref_slot, 0, w - 1).long()
-    row2 = t_cw[safe, 2]                                   # (N, 4)
-    z_ref = (row2[:, 0] * x_world[:, 0] + row2[:, 1] * x_world[:, 1]
-             + row2[:, 2] * x_world[:, 2]) + row2[:, 3]
+    w = t_wc.shape[-3]
+    t_cw = se3.se3_inverse(t_wc)                           # (..., W, 4, 4)
+    safe = torch.clamp(ref_slot, 0, w - 1).long()[..., None]
+    row2 = torch.take_along_dim(t_cw[..., 2, :], safe, dim=-2)  # (..., N, 4)
+    z_ref = (row2[..., 0] * x_world[..., 0] + row2[..., 1] * x_world[..., 1]
+             + row2[..., 2] * x_world[..., 2]) + row2[..., 3]
     z_ref = torch.where(ref_slot >= 0, z_ref, -1.0)
-    return z_ref, t_wc[safe][:, :3, :3]
+    r_wc = torch.take_along_dim(t_wc[..., :3, :3].flatten(-2), safe, dim=-2)
+    return z_ref, r_wc.unflatten(-1, (3, 3))
 
 
 def patch_warp_frame(mode: str, cam, t_wc_f, y, z_ref, r_wc_ref):
@@ -217,25 +228,25 @@ def patch_warp_frame(mode: str, cam, t_wc_f, y, z_ref, r_wc_ref):
     PATCH_SCALE_MAX]; a near-singular M (sqrt|det| < 0.1 PATCH_SCALE_MIN)
     falls back to the identity. Jacobians hold the warp frozen at the
     linearization point (photobundle_tpu/core/residuals.py:212-264)."""
-    z_f = torch.clamp(y[:, 2], min=1e-6)
+    z_f = torch.clamp(y[..., 2], min=1e-6)
     if mode == "scale":
         rho = torch.clamp(z_ref / z_f, PATCH_SCALE_MIN, PATCH_SCALE_MAX)
         return torch.where(z_ref > 0, rho, 1.0)
     if mode != "affine":
         raise ValueError(f"unknown patch warp mode '{mode}'")
-    r_cw = se3.se3_inverse(t_wc_f)[:3, :3]
-    rel = (r_cw[None, :, :, None] * r_wc_ref[:, None, :, :]).sum(-2)
+    r_cw = se3.se3_inverse(t_wc_f)[..., None, :3, :3]
+    rel = se3.mm(r_cw, r_wc_ref)                           # (..., N, 3, 3)
     f_xy = torch.stack([cam.fx, cam.fy]).to(z_ref.dtype)
-    dy = rel[:, :, :2] * (z_ref[:, None, None] / f_xy)     # (N, 3, 2)
+    dy = rel[..., :, :2] * (z_ref[..., None, None] / f_xy)  # (N, 3, 2)
     jproj = cam_mod.project_jacobian(cam, y)               # (N, 2, 3)
-    m = (jproj[:, :, :, None] * dy[:, None, :, :]).sum(-2)  # (N, 2, 2)
-    det = torch.abs(m[:, 0, 0] * m[:, 1, 1] - m[:, 0, 1] * m[:, 1, 0])
+    m = se3.mm(jproj, dy)                                  # (N, 2, 2)
+    det = torch.abs(m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0])
     s = torch.sqrt(torch.clamp(det, min=1e-12))
     m = m * (torch.clamp(s, PATCH_SCALE_MIN, PATCH_SCALE_MAX)
-             / s)[:, None, None]
+             / s)[..., None, None]
     eye = torch.eye(2, dtype=m.dtype, device=m.device)
     ok = (z_ref > 0) & (s > 0.1 * PATCH_SCALE_MIN)
-    return torch.where(ok[:, None, None], m, eye)
+    return torch.where(ok[..., None, None], m, eye)
 
 
 def _sample_patches(channels_f, grads_f, uv, offsets, gradient_mode: str,
@@ -245,32 +256,34 @@ def _sample_patches(channels_f, grads_f, uv, offsets, gradient_mode: str,
     channels_f (C, H, W), grads_f (C, H, W, 2), uv (N, 2), offsets (P, 2).
     scale: optional per-point patch-grid warp, (N,) isotropic scale or
     (N, 2, 2) map applied to the offsets. Returns s (N, C, P),
-    g (N, C, P, 2), valid (N,)."""
+    g (N, C, P, 2), valid (N,). Leading batch axes of uv (..., N, 2),
+    channels_f, grads_f and scale carry through."""
+    nb = uv.dim() - 2
     if scale is not None:
-        if scale.ndim == 1:
-            offsets = scale[:, None, None] * offsets      # (N, P, 2)
+        if scale.dim() == nb + 1:
+            offsets = scale[..., None, None] * offsets    # (N, P, 2)
         else:
-            offsets = (scale[:, None, :, :]
-                       * offsets[None, :, None, :]).sum(-1)
-    pts = uv[:, None, :] + offsets                        # (N, P, 2)
+            offsets = se3.mv(scale[..., None, :, :], offsets)
+    pts = uv[..., None, :] + offsets                      # (N, P, 2)
     if gradient_mode == "bicubic":
         # Ceres-parity mode: the Catmull-Rom surface and its exact gradient.
-        s, g, ok = interp.bicubic_with_grad(channels_f, pts)
-        s = torch.movedim(s, 0, 1)
-        g = torch.movedim(g, 0, 1)
+        s, g, ok = interp.bicubic_with_grad(channels_f, pts, nb)
+        s = torch.movedim(s, -3, -2)
+        g = torch.movedim(g, -4, -3)
     elif gradient_mode == "exact":
-        s, g, ok = interp.bilinear_with_grad(channels_f, pts)
-        s = torch.movedim(s, 0, 1)
-        g = torch.movedim(g, 0, 1)
+        s, g, ok = interp.bilinear_with_grad(channels_f, pts, nb)
+        s = torch.movedim(s, -3, -2)
+        g = torch.movedim(g, -4, -3)
     elif gradient_mode == "sampled":
-        c = channels_f.shape[0]
+        c = channels_f.shape[-3]
         # One gather over C*3 planes: values + both gradient components.
         stacked = torch.cat([channels_f, grads_f[..., 0], grads_f[..., 1]],
-                            dim=0)                        # (3C, H, W)
-        vals, ok = interp.bilinear(stacked, pts)          # (3C, N, P)
-        vals = torch.movedim(vals, 0, 1)                  # (N, 3C, P)
-        s = vals[:, :c]
-        g = torch.stack([vals[:, c:2 * c], vals[:, 2 * c:]], dim=-1)
+                            dim=-3)                       # (3C, H, W)
+        vals, ok = interp.bilinear(stacked, pts, batch=nb)  # (3C, N, P)
+        vals = torch.movedim(vals, -3, -2)                # (N, 3C, P)
+        s = vals[..., :c, :]
+        g = torch.stack([vals[..., c:2 * c, :], vals[..., 2 * c:, :]],
+                        dim=-1)
     else:
         raise ValueError(f"unknown gradient_mode '{gradient_mode}' (want "
                          "'sampled', 'exact' or 'bicubic')")
@@ -281,22 +294,24 @@ def _observation_geometry_pm(cam, t_wc, x_world):
     """Point-minor observation geometry for every window frame at once.
 
     Returns y (W, 3, N), uv (W, 2, N), in_front (W, N), a (W, 2, 9, N),
-    r_cw (W, 3, 3). The A-chain is written in closed form (zero entries of
-    jproj / hat dropped)."""
+    r_cw (W, 3, 3), each with the leading batch axes of t_wc (..., W, 4,
+    4) and x_world (..., N, 3). The A-chain is written in closed form
+    (zero entries of jproj / hat dropped)."""
     t_cw = se3.se3_inverse(t_wc)                           # (W, 4, 4)
-    r_cw = t_cw[:, :3, :3]
-    tt = t_cw[:, :3, 3]
-    xt = x_world.T                                         # (3, N)
-    y = (r_cw[:, :, 0, None] * xt[0] + r_cw[:, :, 1, None] * xt[1]
-         + r_cw[:, :, 2, None] * xt[2]) + tt[:, :, None]   # (W, 3, N)
-    xc, yc, zc_raw = y[:, 0], y[:, 1], y[:, 2]             # (W, N)
+    r_cw = t_cw[..., :3, :3]
+    tt = t_cw[..., :3, 3]
+    xt = x_world.transpose(-1, -2)[..., None, :, None, :]  # (1, 3, 1, N)
+    y = (r_cw[..., :, 0, None] * xt[..., 0, :, :]
+         + r_cw[..., :, 1, None] * xt[..., 1, :, :]
+         + r_cw[..., :, 2, None] * xt[..., 2, :, :]) + tt[..., None]  # W,3,N
+    xc, yc, zc_raw = y[..., 0, :], y[..., 1, :], y[..., 2, :]  # (W, N)
     in_front = zc_raw > 1e-6
     zc = torch.clamp(zc_raw, min=1e-6)
     iz = 1.0 / zc
     iz2 = iz * iz
     u = cam.fx * (xc / zc) + cam.cx
     v = cam.fy * (yc / zc) + cam.cy
-    uv = torch.stack([u, v], dim=1)                        # (W, 2, N)
+    uv = torch.stack([u, v], dim=-2)                       # (W, 2, N)
     zero = torch.zeros_like(xc)
     j00 = cam.fx * iz
     j02 = -cam.fx * xc * iz2
@@ -307,55 +322,56 @@ def _observation_geometry_pm(cam, t_wc, x_world):
     row0 = torch.stack([
         -j00, zero, -j02,
         -j02 * yc, -j00 * zc_raw + j02 * xc, j00 * yc,
-        j00 * r2[:, 0, 0] + j02 * r2[:, 2, 0],
-        j00 * r2[:, 0, 1] + j02 * r2[:, 2, 1],
-        j00 * r2[:, 0, 2] + j02 * r2[:, 2, 2]], dim=1)     # (W, 9, N)
+        j00 * r2[..., 0, 0, :] + j02 * r2[..., 2, 0, :],
+        j00 * r2[..., 0, 1, :] + j02 * r2[..., 2, 1, :],
+        j00 * r2[..., 0, 2, :] + j02 * r2[..., 2, 2, :]], dim=-2)  # (W,9,N)
     row1 = torch.stack([
         zero, -j11, -j12,
         j11 * zc_raw - j12 * yc, j12 * xc, -j11 * xc,
-        j11 * r2[:, 1, 0] + j12 * r2[:, 2, 0],
-        j11 * r2[:, 1, 1] + j12 * r2[:, 2, 1],
-        j11 * r2[:, 1, 2] + j12 * r2[:, 2, 2]], dim=1)
-    a = torch.stack([row0, row1], dim=1)                   # (W, 2, 9, N)
+        j11 * r2[..., 1, 0, :] + j12 * r2[..., 2, 0, :],
+        j11 * r2[..., 1, 1, :] + j12 * r2[..., 2, 1, :],
+        j11 * r2[..., 1, 2, :] + j12 * r2[..., 2, 2, :]], dim=-2)
+    a = torch.stack([row0, row1], dim=-3)                  # (W, 2, 9, N)
     return y, uv, in_front, a, r_cw
 
 
 def _prior_terms_pm(r_cw, y, valid, depth_prior, dtype):
-    """Inverse-depth prior rows, point-minor: rp (W, N), jp (W, 9, N).
+    """Inverse-depth prior rows, point-minor: rp (W, N), jp (W, 9, N),
+    with the leading batch axes of y (..., W, 3, N).
     dz/dpose = [-e_z | hat(y) row 2], dz/dX = R_cw row 2."""
-    w = y.shape[0]
+    w = y.shape[-3]
     ref_slot, q_seed, wd = depth_prior
-    z = torch.clamp(y[:, 2], min=1e-6)                     # (W, N)
+    z = torch.clamp(y[..., 2, :], min=1e-6)                # (W, N)
     f_idx = torch.arange(w, dtype=ref_slot.dtype, device=y.device)[:, None]
-    m = ((ref_slot[None, :] == f_idx) & valid).to(dtype)
-    rp = wd * (1.0 / z - q_seed[None]) * m
+    m = ((ref_slot[..., None, :] == f_idx) & valid).to(dtype)
+    rp = wd * (1.0 / z - q_seed[..., None, :]) * m
     coef = (-wd / (z * z)) * m
-    xc, yc = y[:, 0], y[:, 1]
+    xc, yc = y[..., 0, :], y[..., 1, :]
     zero = torch.zeros_like(z)
-    r2 = r_cw[:, 2]                                        # (W, 3)
+    r2 = r_cw[..., 2, :, None]                             # (W, 3, 1)
     jp = torch.stack([
         zero, zero, -coef,
         coef * (-yc), coef * xc, zero,
-        coef * r2[:, 0, None], coef * r2[:, 1, None], coef * r2[:, 2, None]],
-        dim=1)                                             # (W, 9, N)
+        coef * r2[..., 0, :], coef * r2[..., 1, :], coef * r2[..., 2, :]],
+        dim=-2)                                            # (W, 9, N)
     return rp, jp
 
 
 def _prior_terms(f: int, t_wc_f, y, valid, depth_prior, dtype):
     """Inverse-depth prior row of window frame f, point-major: rp (N,),
-    jp (N, 9). dz/dpose = [-e_z | hat(y) row 2], dz/dX = R_cw row 2."""
-    n = y.shape[0]
+    jp (N, 9), with the leading batch axes of y (..., N, 3).
+    dz/dpose = [-e_z | hat(y) row 2], dz/dX = R_cw row 2."""
     ref_slot, q_seed, wd = depth_prior
-    z = torch.clamp(y[:, 2], min=1e-6)
+    z = torch.clamp(y[..., 2], min=1e-6)
     m = ((ref_slot == f) & valid).to(dtype)
     rp = wd * (1.0 / z - q_seed) * m
     coef = (-wd / (z * z)) * m
-    r_cw = se3.se3_inverse(t_wc_f)[:3, :3]
-    neg_ez = torch.zeros((n, 3), dtype=dtype, device=y.device)
-    neg_ez[:, 2] = -1.0
-    dz = torch.cat([neg_ez, se3.hat(y)[:, 2, :], r_cw[2].expand(n, 3)],
-                   dim=-1)                                 # (N, 9)
-    return rp, coef[:, None] * dz
+    r_cw = se3.se3_inverse(t_wc_f)[..., None, :3, :3]
+    neg_ez = torch.zeros(y.shape, dtype=dtype, device=y.device)
+    neg_ez[..., 2] = -1.0
+    dz = torch.cat([neg_ez, se3.hat(y)[..., 2, :],
+                    r_cw[..., 2, :].expand(y.shape)], dim=-1)  # (N, 9)
+    return rp, coef[..., None] * dz
 
 
 def _frame_samples(cam, t_wc_f, x_world, channels_f, grads_f, offsets,
@@ -512,104 +528,76 @@ def sorted_dispatch_order(key):
 
 def _whiten(a, gtg, gtr, jp, rp, valid, rnorm2, huber_delta, robust_kind):
     """Robust IRLS weights applied to the (W, ..., N) statistics; `valid`
-    (W, N). Invalid observations contribute exact zeros: they are selected
-    away, not multiplied by 0, since the gather path samples a NaN
-    coordinate to NaN (XLA turns the JAX package's multiply by the mask
-    into the same select)."""
+    (W, N); leading batch axes carry through (the cost and the count are
+    per window). Invalid observations contribute exact zeros: they are
+    selected away, not multiplied by 0, since the gather path samples a
+    NaN coordinate to NaN (XLA turns the JAX package's multiply by the
+    mask into the same select)."""
     vf = valid.to(gtg.dtype)
     rnorm2 = torch.where(valid, rnorm2, 0.0)
     w_robust, rho = robust_weight(rnorm2, huber_delta, robust_kind)
     wv = w_robust * vf        # J^T J / J^T r carry the squared whitening
     sw = torch.sqrt(w_robust) * vf
-    v = valid[:, None, :]
+    v = valid[..., None, :]
     return CompressedResiduals(
         a=a,
-        gtg=torch.where(v[:, None], gtg * wv[:, None, None, :], 0.0),
-        gtr=torch.where(v, gtr * wv[:, None, :], 0.0),
-        jp=torch.where(v, jp * sw[:, None, :], 0.0),
+        gtg=torch.where(v[..., None, :, :], gtg * wv[..., None, None, :],
+                        0.0),
+        gtr=torch.where(v, gtr * wv[..., None, :], 0.0),
+        jp=torch.where(v, jp * sw[..., None, :], 0.0),
         rp=torch.where(valid, rp * sw, 0.0),
-        valid=valid.T,
-        cost=0.5 * torch.sum(rho * vf),
-        n_residuals=torch.sum(valid, dtype=torch.int32),
+        valid=valid.transpose(-1, -2),
+        cost=0.5 * ordered_sum.row_sum(rho * vf, 2),
+        n_residuals=torch.sum(valid, dim=(-2, -1), dtype=torch.int32),
     )
 
 
-class KernelCall(NamedTuple):
-    """A kernel launch an evaluation's steps ask for
-    (`evaluate_compressed_steps`), for one window: `kernel` names it (a
-    key of KERNELS), `operands` are its per-observation tensors after the
-    planes, in the order KERNELS' launcher takes them, and `mode` its
-    normalization (the row store's: its layout)."""
-
-    kernel: str
-    planes: torch.Tensor
-    operands: tuple
-    patch_radius: int
-    mode: str
-
-
-# The kernels an evaluation yields, each called as launcher(planes,
-# *operands, patch_radius, mode), the operands as listed; every one takes a
-# leading batch axis on its planes and operands (one launch for B
-# windows). Each looks its wrapper up when it runs, so a wrapper replaced
-# on its module (a test's counter) is the one called.
-KERNELS = {
-    # K1, K2 (value planes): uv, valid, patch
-    "patch_stats": lambda *a: pw_mod.patch_stats(*a),
-    "bicubic_stats": lambda *a: pb_mod.bicubic_stats(*a),
-    # K3 (K5 in the affine mode): uv, rho, valid, patch
-    "scaled_stats": lambda *a: ps_mod.scaled_stats(*a),
-    # sorted K1: uv, valid, patch, feed, inverse
-    "sorted_patch_stats": lambda planes, uv, valid, patch, feed, inverse, pr,
-    mode: pw_mod.sorted_patch_stats(planes, uv, valid, patch, pr,
-                                    (feed, inverse), mode),
-    # K4's row store: uv, valid; mode 'rows', its layout
-    "warp_patches": lambda *a: samples_mod.store(*a),
-}
-
-
-def launch(call: KernelCall) -> torch.Tensor:
-    """Launch one window's KernelCall: its kernel's result."""
-    return KERNELS[call.kernel](call.planes, *call.operands,
-                                call.patch_radius, call.mode)
-
-
-def launch_batched(calls: list, planes: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel B windows' KernelCalls ask for, over its
-    batch axis: window b's call must read planes[b] of `planes` (the B
-    windows' planes stacked); its operands are stacked along a new leading
-    axis. Returns the (B, ...) result, window b's slice bitwise its own
-    `launch`'s. Raises unless every call asks for the same kernel, radius
-    and mode (the windows left lockstep)."""
-    first = calls[0]
-    key = (first.kernel, first.patch_radius, first.mode)
-    for b, call in enumerate(calls):
-        if (call.kernel, call.patch_radius, call.mode) != key:
-            raise RuntimeError(
-                f"the windows of a batched solve left lockstep: window {b} "
-                f"asks for {call.kernel} (R = {call.patch_radius}, "
-                f"{call.mode}), window 0 for {first.kernel} (R = "
-                f"{first.patch_radius}, {first.mode})")
-        if call.planes.data_ptr() != planes[b].data_ptr():
-            raise RuntimeError(f"the windows of a batched solve left "
-                               f"lockstep: window {b}'s call does not read "
-                               f"its slice of the batch's planes")
-    operands = [torch.stack(ts) for ts in zip(*(c.operands for c in calls))]
-    return KERNELS[first.kernel](planes, *operands, first.patch_radius,
-                                 first.mode)
-
-
-def run_steps(steps):
-    """Drive a generator of evaluation steps (`evaluate_compressed_steps`,
-    or a solve's start or body built on it, core/lm.py): launch each
-    KernelCall it yields on its own window (`launch`) and send the result
-    back. Returns the generator's result."""
-    try:
-        call = next(steps)
-        while True:
-            call = steps.send(launch(call))
-    except StopIteration as done:
-        return done.value
+def kernel_geometry(cam, t_wc, x_world, channels, obs_mask,
+                    depth_prior: tuple | None, mode: str,
+                    patch_warp: tuple | None, pr: int):
+    """The cuda path's geometry, everything its kernel reads but the
+    planes: (uv_nm (N, W, 2), valid_nm (N, W), rho_nm (N, W) with the
+    scale warp else None, and for the whitening a (W, 2, 9, N), valid
+    (W, N), the prior rows rp (W, N) and jp (W, 9, N)); leading batch axes
+    carry through. See `_evaluate_compressed_cuda`."""
+    n = obs_mask.shape[-2]
+    img_h, img_w = channels.shape[-2], channels.shape[-1]
+    y_pm, uv, in_front, a, r_cw = _observation_geometry_pm(cam, t_wc,
+                                                           x_world)
+    rho = None
+    if patch_warp is not None:
+        if mode != "sampled" or patch_warp[0] != "scale":
+            raise ValueError("cuda backend implements patchWarp='scale' "
+                             "with gradient_mode='sampled' only; use "
+                             "solverBackend=torch")
+        z_ref = patch_warp[1][..., None, :]                # (1, N)
+        z_f = torch.clamp(y_pm[..., 2, :], min=1e-6)       # (W, N)
+        rho = torch.where(z_ref > 0, torch.clamp(
+            z_ref / z_f, PATCH_SCALE_MIN, PATCH_SCALE_MAX), 1.0)
+        # The warped patch reaches rho*pr from its centre; the bilinear
+        # taps need one more pixel on each side.
+        ext = rho * pr
+        u, v = uv[..., 0, :], uv[..., 1, :]
+        in_bounds = ((u >= 1 + ext) & (u <= (img_w - 2) - ext)
+                     & (v >= 1 + ext) & (v <= (img_h - 2) - ext))
+    else:
+        # Whole-patch support, the Pallas margins: bilinear needs 2x2 taps
+        # per sample, bicubic 4x4 (one more pixel on each side).
+        lo, hi = (pr + 1, 3 + pr) if mode == "bicubic" else (pr, 2 + pr)
+        u, v = uv[..., 0, :], uv[..., 1, :]
+        in_bounds = ((u >= lo) & (u <= img_w - hi)
+                     & (v >= lo) & (v <= img_h - hi))
+    valid = obs_mask.transpose(-1, -2) & in_front & in_bounds  # (W, N)
+    if depth_prior is not None and depth_prior[2] > 0.0:
+        rp, jp = _prior_terms_pm(r_cw, y_pm, valid, depth_prior, uv.dtype)
+    else:
+        rp = torch.zeros(valid.shape, dtype=uv.dtype, device=uv.device)
+        jp = torch.zeros((*valid.shape[:-1], 9, n), dtype=uv.dtype,
+                         device=uv.device)
+    uv_nm = uv.movedim(-1, -3).contiguous()                # (N, W, 2)
+    valid_nm = valid.transpose(-1, -2).contiguous()
+    rho_nm = None if rho is None else rho.transpose(-1, -2).contiguous()
+    return uv_nm, valid_nm, rho_nm, a, valid, rp, jp
 
 
 def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
@@ -622,11 +610,7 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
                               grouped_stats: bool = True):
     """Kernel path (twin of the JAX package's `_evaluate_compressed_pallas`):
     the fused kernel returns the six un-whitened sums per observation; the
-    prior row and the whitening are added here, outside it. A generator:
-    its kernel launch, whichever the configuration runs, is yielded as a
-    `KernelCall` and its result received (`run_steps` launches it; a
-    batched solve launches it once for all its windows, over the kernel's
-    batch axis); it returns the CompressedResiduals. Dispatch:
+    prior row and the whitening are added here, outside it. Dispatch:
 
       fixed grid, bilinear        -> patch_stats   (K1; affine: K4), or
                                      sorted_patch_stats with a point_order
@@ -648,75 +632,46 @@ def _evaluate_compressed_cuda(cam, t_wc, x_world, patch, channels, grads,
 
     With the scale warp, rho = clip(z_ref / max(z_f, 1e-6)) point-minor (1
     where z_ref <= 0), and the kernel's own margin
-    1 + rho R <= u <= W - 2 - rho R (the Pallas path's, residuals.py:744)."""
-    n, w = obs_mask.shape
-    pr = (int(round(patch.shape[2] ** 0.5)) - 1) // 2     # P = (2R+1)^2
+    1 + rho R <= u <= W - 2 - rho R (the Pallas path's, residuals.py:744).
+
+    With leading batch axes (B windows) the kernel is launched once, over
+    its batch axis, for every window. Each wrapper is looked up on its
+    module when it runs, so a wrapper replaced there (a test's counter) is
+    the one called."""
+    pr = (int(round(patch.shape[-1] ** 0.5)) - 1) // 2    # P = (2R+1)^2
     norm_mode = patches_mod.norm_mode(normalize)
-    img_h, img_w = channels.shape[-2], channels.shape[-1]
-
-    y_pm, uv, in_front, a, r_cw = _observation_geometry_pm(cam, t_wc,
-                                                           x_world)
-    rho = None
-    if patch_warp is not None:
-        if mode != "sampled" or patch_warp[0] != "scale":
-            raise ValueError("cuda backend implements patchWarp='scale' "
-                             "with gradient_mode='sampled' only; use "
-                             "solverBackend=torch")
-        z_ref = patch_warp[1][None]                        # (1, N)
-        z_f = torch.clamp(y_pm[:, 2], min=1e-6)            # (W, N)
-        rho = torch.where(z_ref > 0, torch.clamp(
-            z_ref / z_f, PATCH_SCALE_MIN, PATCH_SCALE_MAX), 1.0)
-        # The warped patch reaches rho*pr from its centre; the bilinear
-        # taps need one more pixel on each side.
-        ext = rho * pr
-        in_bounds = ((uv[:, 0] >= 1 + ext) & (uv[:, 0] <= (img_w - 2) - ext)
-                     & (uv[:, 1] >= 1 + ext)
-                     & (uv[:, 1] <= (img_h - 2) - ext))
-    else:
-        # Whole-patch support, the Pallas margins: bilinear needs 2x2 taps
-        # per sample, bicubic 4x4 (one more pixel on each side).
-        lo, hi = (pr + 1, 3 + pr) if mode == "bicubic" else (pr, 2 + pr)
-        in_bounds = ((uv[:, 0] >= lo) & (uv[:, 0] <= img_w - hi)
-                     & (uv[:, 1] >= lo) & (uv[:, 1] <= img_h - hi))
-    valid = obs_mask.T & in_front & in_bounds              # (W, N)
-    if depth_prior is not None and depth_prior[2] > 0.0:
-        rp, jp = _prior_terms_pm(r_cw, y_pm, valid, depth_prior, uv.dtype)
-    else:
-        rp = torch.zeros((w, n), dtype=uv.dtype, device=uv.device)
-        jp = torch.zeros((w, 9, n), dtype=uv.dtype, device=uv.device)
-
+    uv_nm, valid_nm, rho_nm, a, valid, rp, jp = kernel_geometry(
+        cam, t_wc, x_world, channels, obs_mask, depth_prior, mode,
+        patch_warp, pr)
     if ctx is None:
         ctx = make_cuda_ctx(channels, grads, mode)
     ctx_mode, planes = ctx
     if ctx_mode != mode:
         raise ValueError(f"cuda ctx built for mode '{ctx_mode}', evaluation "
                          f"requested '{mode}'")
-    uv_nm = uv.permute(2, 0, 1).contiguous()               # (N, W, 2)
-    valid_nm = valid.T.contiguous()
     patch = patch.contiguous()
-    if (not grouped_stats and rho is None and mode == "sampled"
+    if (not grouped_stats and rho_nm is None and mode == "sampled"
             and norm_mode in ("mean", "off")):
-        gtg, gtr, rr = yield from _ungrouped_stats(planes, uv_nm, valid_nm,
-                                                   patch, pr, norm_mode)
+        gtg, gtr, rr = _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr,
+                                        norm_mode)
         return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
                        robust_kind)
-    if rho is not None:
-        call = KernelCall("scaled_stats", planes,
-                          (uv_nm, rho.T.contiguous(), valid_nm, patch), pr,
-                          norm_mode)
+    if rho_nm is not None:
+        stats = ps_mod.scaled_stats(planes, uv_nm, rho_nm, valid_nm, patch,
+                                    pr, norm_mode)
     elif point_order is not None and mode == "sampled":
-        call = KernelCall("sorted_patch_stats", planes,
-                          (uv_nm, valid_nm, patch, *point_order), pr,
-                          norm_mode)
+        stats = pw_mod.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
+                                          tuple(point_order), norm_mode)
+    elif mode == "bicubic":
+        stats = pb_mod.bicubic_stats(planes, uv_nm, valid_nm, patch, pr,
+                                     norm_mode)
     else:
-        call = KernelCall(
-            "bicubic_stats" if mode == "bicubic" else "patch_stats", planes,
-            (uv_nm, valid_nm, patch), pr, norm_mode)
-    stats = yield call
-    g00, g01, g11, gxr, gyr, rr = stats                    # (W, N) each
-    gtg = torch.stack([torch.stack([g00, g01], dim=1),
-                       torch.stack([g01, g11], dim=1)], dim=1)  # (W,2,2,N)
-    gtr = torch.stack([gxr, gyr], dim=1)                        # (W, 2, N)
+        stats = pw_mod.patch_stats(planes, uv_nm, valid_nm, patch, pr,
+                                   norm_mode)
+    g00, g01, g11, gxr, gyr, rr = stats.unbind(-3)         # (W, N) each
+    gtg = torch.stack([torch.stack([g00, g01], dim=-2),
+                       torch.stack([g01, g11], dim=-2)], dim=-3)  # (W,2,2,N)
+    gtr = torch.stack([gxr, gyr], dim=-2)                        # (W, 2, N)
     return _whiten(a, gtg, gtr, jp, rp, valid, rr + rp * rp, huber_delta,
                    robust_kind)
 
@@ -734,27 +689,26 @@ def _ungrouped_stats(planes, uv_nm, valid_nm, patch, pr: int,
     """(gtg (W,2,2,N), gtr (W,2,N), rnorm2 (W,N)) from K4's row-store
     samples, reduced in plain tensor ops in the order of the JAX package's
     unfused branch (residuals.py:822-850): each plane centred on its patch
-    mean (mean normalization), then r = s - d. A generator: the store's
-    launch is yielded as a `KernelCall` and the stored rows received, as
-    `_evaluate_compressed_cuda` yields its fused kernels."""
-    n, w = valid_nm.shape
-    rows = yield KernelCall("warp_patches", planes, (uv_nm, valid_nm), pr,
-                            "rows")
-    s, gx, gy = (t.permute(1, 2, 3, 0) for t in samples_mod.unpack(
-        rows, uv_nm, valid_nm, pr, "rows"))                # (W, C, P, N)
+    mean (mean normalization), then r = s - d. Leading batch axes carry
+    through; each sum over the patch runs in `ordered_sum.row_dot`'s
+    order."""
+    p = patch.shape[-1]
+    rows = samples_mod.store(planes, uv_nm, valid_nm, pr, "rows")
+    s, gx, gy = samples_mod.unpack(rows, uv_nm, valid_nm, pr,
+                                   "rows")                 # (N, W, C, P)
     if norm_mode != "off":
-        s = s - s.mean(dim=2, keepdim=True)
-        gx = gx - gx.mean(dim=2, keepdim=True)
-        gy = gy - gy.mean(dim=2, keepdim=True)
-    r = (s - patch.permute(1, 2, 0)[None]).reshape(w, -1, n)     # (W, D, N)
-    gx, gy = gx.reshape(w, -1, n), gy.reshape(w, -1, n)
-    g00 = (gx * gx).sum(dim=1)                                   # (W, N)
-    g01 = (gx * gy).sum(dim=1)
-    g11 = (gy * gy).sum(dim=1)
-    gtg = torch.stack([torch.stack([g00, g01], dim=1),
-                       torch.stack([g01, g11], dim=1)], dim=1)   # (W,2,2,N)
-    gtr = torch.stack([(gx * r).sum(dim=1), (gy * r).sum(dim=1)], dim=1)
-    return gtg, gtr, (r * r).sum(dim=1)
+        s, gx, gy = (t - ordered_sum.row_dot(t)[..., None] / p
+                     for t in (s, gx, gy))
+    r = s - patch[..., :, None, :, :]                      # (N, W, C, P)
+
+    def total(a, b):                                       # (W, N)
+        return ordered_sum.row_sum(a * b, 2).transpose(-1, -2)
+
+    g01 = total(gx, gy)
+    gtg = torch.stack([torch.stack([total(gx, gx), g01], dim=-2),
+                       torch.stack([g01, total(gy, gy)], dim=-2)], dim=-3)
+    gtr = torch.stack([total(gx, r), total(gy, r)], dim=-2)
+    return gtg, gtr, total(r, r)
 
 
 def _evaluate_compressed_torch(cam, t_wc, x_world, patch, channels, grads,
@@ -764,63 +718,62 @@ def _evaluate_compressed_torch(cam, t_wc, x_world, patch, channels, grads,
                                patch_warp: tuple | None = None
                                ) -> CompressedResiduals:
     """Gather path (twin of the JAX package's `xla` backend): one pass per
-    window frame, then the point-minor layout."""
-    n, w = obs_mask.shape
+    window frame (all windows of a leading batch axis at once), then the
+    point-minor layout."""
+    n, w = obs_mask.shape[-2:]
+    nb = obs_mask.dim() - 2
     use_prior = depth_prior is not None and depth_prior[2] > 0.0
     norm_mode = patches_mod.norm_mode(normalize)
     dtype, dev = x_world.dtype, x_world.device
+    lead = x_world.shape[:nb]
     frames = []
     for f in range(w):
+        t_f = t_wc[..., f, :, :]
         y, in_front, a, s, g, in_bounds = _frame_samples(
-            cam, t_wc[f], x_world, channels[f], grads[f], offsets,
-            gradient_mode, patch_warp)
-        valid = obs_mask[:, f] & in_front & in_bounds          # (N,)
+            cam, t_f, x_world, channels[..., f, :, :, :],
+            grads[..., f, :, :, :, :], offsets, gradient_mode, patch_warp)
+        valid = obs_mask[..., f] & in_front & in_bounds        # (N,)
         s, g = _normalize_sampled(s, g, norm_mode)
-        r = (s - patch).reshape(n, -1)                         # (N, D)
-        g_c = g.reshape(n, -1, 2)
-        gtg = torch.einsum("ndi,ndj->nij", g_c, g_c)           # (N, 2, 2)
-        gtr = torch.einsum("ndi,nd->ni", g_c, r)               # (N, 2)
-        r_norm2 = torch.sum(r * r, dim=-1)                     # (N,)
+        r = (s - patch).reshape(*lead, n, 1, -1)               # (N, 1, D)
+        g_c = g.reshape(*lead, n, -1, 2).transpose(-1, -2).contiguous()
+        gtg = ordered_sum.contract(g_c, g_c)                 # (N, 2, 2)
+        gtr = ordered_sum.contract(g_c, r)[..., 0]           # (N, 2)
+        r_norm2 = ordered_sum.row_dot(r, r)[..., 0, 0]         # (N,)
         if use_prior:
-            rp, jp = _prior_terms(f, t_wc[f], y, valid, depth_prior, dtype)
+            rp, jp = _prior_terms(f, t_f, y, valid, depth_prior, dtype)
             r_norm2 = r_norm2 + rp * rp
         else:
-            rp = torch.zeros((n,), dtype=dtype, device=dev)
-            jp = torch.zeros((n, 9), dtype=dtype, device=dev)
+            rp = torch.zeros((*lead, n), dtype=dtype, device=dev)
+            jp = torch.zeros((*lead, n, 9), dtype=dtype, device=dev)
         frames.append((a, gtg, gtr, jp, rp, valid, r_norm2))
-    a, gtg, gtr, jp, rp, valid, r_norm2 = (torch.stack(t) for t in
+    a, gtg, gtr, jp, rp, valid, r_norm2 = (torch.stack(t, dim=nb) for t in
                                            zip(*frames))
     # Frame-major (W, N, ...) -> point-minor (W, ..., N).
-    return _whiten(torch.movedim(a, 1, -1), torch.movedim(gtg, 1, -1),
-                   torch.movedim(gtr, 1, -1), torch.movedim(jp, 1, -1), rp,
-                   valid, r_norm2, huber_delta, robust_kind)
+    return _whiten(torch.movedim(a, nb + 1, -1),
+                   torch.movedim(gtg, nb + 1, -1),
+                   torch.movedim(gtr, nb + 1, -1),
+                   torch.movedim(jp, nb + 1, -1), rp, valid, r_norm2,
+                   huber_delta, robust_kind)
 
 
-def evaluate_compressed(*args, **kwargs) -> CompressedResiduals:
+def evaluate_compressed(cam, t_wc, x_world, patch, channels, grads,
+                        obs_mask, offsets, huber_delta: float,
+                        gradient_mode: str = "sampled",
+                        depth_prior: tuple | None = None,
+                        backend: str = "torch",
+                        ctx=None,
+                        normalize=True,
+                        robust_kind: str = "huber",
+                        patch_warp: tuple | None = None,
+                        point_order=None,
+                        grouped_stats: bool = True
+                        ) -> CompressedResiduals:
     """Factored Gauss-Newton statistics of all (point, window-frame)
-    observations: `evaluate_compressed_steps` run to its end, its kernel
-    launch on its own window (`run_steps`). Arguments as there."""
-    return run_steps(evaluate_compressed_steps(*args, **kwargs))
+    observations; the cuda backend launches one kernel (K1, sorted K1,
+    K2, K3/K5 or K4's row store, by configuration) for all of them.
 
-
-def evaluate_compressed_steps(cam, t_wc, x_world, patch, channels, grads,
-                              obs_mask, offsets, huber_delta: float,
-                              gradient_mode: str = "sampled",
-                              depth_prior: tuple | None = None,
-                              backend: str = "torch",
-                              ctx=None,
-                              normalize=True,
-                              robust_kind: str = "huber",
-                              patch_warp: tuple | None = None,
-                              point_order=None,
-                              grouped_stats: bool = True):
-    """Factored Gauss-Newton statistics of all (point, window-frame)
-    observations, as a generator: the cuda backend yields its kernel
-    launch (K1, sorted K1, K2, K3/K5 or K4's row store, by configuration)
-    as a `KernelCall`, is sent its result, and returns the
-    CompressedResiduals (the torch backend yields nothing).
-
-    Args:
+    Args (each tensor may carry leading batch axes, see the module
+    docstring):
       cam: Camera. t_wc: (W, 4, 4) window poses. x_world: (N, 3) points.
       patch: (N, C, P) reference descriptors. channels / grads:
         (W, C, H, Wi) / (W, C, H, Wi, 2) window images.
@@ -849,11 +802,11 @@ def evaluate_compressed_steps(cam, t_wc, x_world, patch, channels, grads,
         if gradient_mode not in CUDA_MODES:
             raise ValueError(f"cuda backend implements gradient_mode "
                              f"{CUDA_MODES}, not '{gradient_mode}'")
-        return (yield from _evaluate_compressed_cuda(
+        return _evaluate_compressed_cuda(
             cam, t_wc, x_world, patch, channels, grads, obs_mask,
             huber_delta, depth_prior, ctx, normalize, robust_kind,
             mode=gradient_mode, patch_warp=patch_warp,
-            point_order=point_order, grouped_stats=grouped_stats))
+            point_order=point_order, grouped_stats=grouped_stats)
     if backend != "torch":
         raise ValueError(f"unknown backend '{backend}' (want one of "
                          f"{BACKENDS})")

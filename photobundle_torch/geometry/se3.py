@@ -10,6 +10,12 @@ Conventions
 - `exp` uses the closed-form SE(3) exponential (Rodrigues + left Jacobian
   V) with branch-free small-angle Taylor guards (`torch.where`), so a
   batch never splits into host-side branches.
+- Every product of small matrices and vectors is written out over its
+  contracted axis (`mm`, `mv`): elementwise operations, so each pose
+  rounds alike whatever the leading axes hold. A matmul or einsum goes to
+  cuBLAS, whose kernel (and rounding) changes with the batch count; the
+  batched window solve (core/lm.py) needs window b of a batch to round as
+  its own solve does.
 """
 
 from __future__ import annotations
@@ -17,6 +23,31 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for small matrices (..., m, k) x (..., k, n), broadcasting the
+    leading axes: sum_j a[..., :, j] b[..., j, :] added in order j = 0, 1,
+    ..."""
+    out = a[..., :, 0, None] * b[..., None, 0, :]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., :, j, None] * b[..., None, j, :]
+    return out
+
+
+def mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """a @ v for (..., m, k) x (..., k), broadcasting the leading axes, in
+    `mm`'s order."""
+    out = a[..., :, 0] * v[..., 0, None]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., :, j] * v[..., j, None]
+    return out
+
+
+def _norm2(w: torch.Tensor) -> torch.Tensor:
+    """sum of squares over the last axis of 3, in order."""
+    return ((w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1])
+            + w[..., 2] * w[..., 2])
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -56,10 +87,10 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """SO(3) exponential (Rodrigues): (..., 3) -> (..., 3, 3)."""
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     a, b, _ = _sinc_coeffs(theta2)
     wh = hat(w)
-    wh2 = wh @ wh
+    wh2 = mm(wh, wh)
     return _eye3(w) + a[..., None, None] * wh + b[..., None, None] * wh2
 
 
@@ -92,14 +123,14 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """SE(3) exponential: twist (..., 6) [rho|omega] -> (..., 4, 4)."""
     rho, w = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     a, b, c = _sinc_coeffs(theta2)
     wh = hat(w)
-    wh2 = wh @ wh
+    wh2 = mm(wh, wh)
     eye = _eye3(xi)
     r = eye + a[..., None, None] * wh + b[..., None, None] * wh2
     v = eye + b[..., None, None] * wh + c[..., None, None] * wh2
-    t = torch.einsum("...ij,...j->...i", v, rho)
+    t = mv(v, rho)
     return _rt_to_mat(r, t)
 
 
@@ -108,10 +139,10 @@ def se3_log(t_mat: torch.Tensor) -> torch.Tensor:
     r = t_mat[..., :3, :3]
     t = t_mat[..., :3, 3]
     w = so3_log(r)
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _norm2(w)
     a, b, _ = _sinc_coeffs(theta2)
     wh = hat(w)
-    wh2 = wh @ wh
+    wh2 = mm(wh, wh)
     # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2  (standard closed form)
     coef = torch.where(
         theta2 < 1e-8,
@@ -119,7 +150,7 @@ def se3_log(t_mat: torch.Tensor) -> torch.Tensor:
         (1.0 - a / (2.0 * b)) / torch.where(theta2 == 0, 1.0, theta2),
     )
     v_inv = _eye3(t_mat) - 0.5 * wh + coef[..., None, None] * wh2
-    rho = torch.einsum("...ij,...j->...i", v_inv, t)
+    rho = mv(v_inv, t)
     return torch.cat([rho, w], dim=-1)
 
 
@@ -141,13 +172,12 @@ def se3_inverse(t_mat: torch.Tensor) -> torch.Tensor:
     r = t_mat[..., :3, :3]
     t = t_mat[..., :3, 3]
     rt = r.transpose(-1, -2)
-    return _rt_to_mat(rt, -torch.einsum("...ij,...j->...i", rt, t))
+    return _rt_to_mat(rt, -mv(rt, t))
 
 
 def transform_points(t_mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., 3) with broadcasting."""
-    return (torch.einsum("...ij,...j->...i", t_mat[..., :3, :3], x)
-            + t_mat[..., :3, 3])
+    return mv(t_mat[..., :3, :3], x) + t_mat[..., :3, 3]
 
 
 def _dot3(m: torch.Tensor, v: torch.Tensor, fuse_last: bool) -> torch.Tensor:
@@ -185,13 +215,13 @@ def retract_right(t_mat: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     (core/residuals.py) are d(x_cam)/d(rho) = -I and
     d(x_cam)/d(omega) = [x_cam]_x for the inverse pose action.
     """
-    return t_mat @ se3_exp(xi)
+    return mm(t_mat, se3_exp(xi))
 
 
 def rotation_geodesic_distance(ra: torch.Tensor,
                                rb: torch.Tensor) -> torch.Tensor:
     """Angle (rad) between rotations, batched."""
-    rtr = ra.transpose(-1, -2) @ rb
+    rtr = mm(ra.transpose(-1, -2), rb)
     trace = rtr[..., 0, 0] + rtr[..., 1, 1] + rtr[..., 2, 2]
     return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
 
@@ -202,6 +232,6 @@ def adjoint(t_mat: torch.Tensor) -> torch.Tensor:
     r = t_mat[..., :3, :3]
     t = t_mat[..., :3, 3]
     z = torch.zeros_like(r)
-    top = torch.cat([r, hat(t) @ r], dim=-1)             # d rho
+    top = torch.cat([r, mm(hat(t), r)], dim=-1)         # d rho
     bot = torch.cat([z, r], dim=-1)                      # d omega
     return torch.cat([top, bot], dim=-2)

@@ -84,11 +84,12 @@ def bilinear(img: torch.Tensor, uv: torch.Tensor, eps_margin: float = 0.0,
     return values, valid
 
 
-def bilinear_with_grad(img: torch.Tensor, uv: torch.Tensor):
+def bilinear_with_grad(img: torch.Tensor, uv: torch.Tensor, batch: int = 0):
     """Bilinear sample + the exact gradient of the bilinear surface.
 
     Returns (values, grad, valid) where grad[..., 0] = d/dx, grad[..., 1] =
-    d/dy (shape (C, ..., 2) for 3D img).
+    d/dy (shape (C, ..., 2) for 3D img). `batch` as `bilinear`'s: with
+    leading batch axes L, (*L, C, ..., 2).
     """
     h, w = img.shape[-2], img.shape[-1]
     x = uv[..., 0]
@@ -101,10 +102,12 @@ def bilinear_with_grad(img: torch.Tensor, uv: torch.Tensor):
     fx = xc - x0.to(img.dtype)
     fy = yc - y0.to(img.dtype)
 
-    v00 = _gather2d(img, y0, x0)
-    v01 = _gather2d(img, y0, x1)
-    v10 = _gather2d(img, y1, x0)
-    v11 = _gather2d(img, y1, x1)
+    v00 = _gather2d(img, y0, x0, batch)
+    v01 = _gather2d(img, y0, x1, batch)
+    v10 = _gather2d(img, y1, x0, batch)
+    v11 = _gather2d(img, y1, x1, batch)
+    if batch and img.ndim - batch == 3:
+        fx, fy = fx.unsqueeze(batch), fy.unsqueeze(batch)
 
     values = (v00 * (1.0 - fx) * (1.0 - fy)
               + v01 * fx * (1.0 - fy)
@@ -135,11 +138,12 @@ def catmull_rom_dweights(t: torch.Tensor):
             0.5 * (3.0 * t2 - 2.0 * t))
 
 
-def bicubic_with_grad(img: torch.Tensor, uv: torch.Tensor):
+def bicubic_with_grad(img: torch.Tensor, uv: torch.Tensor, batch: int = 0):
     """Catmull-Rom bicubic sample + analytic surface gradient.
 
-    img: (H, W) or (C, H, W); uv (..., 2) as [x, y]. Returns (values,
-    grad (..., 2), valid) like `bilinear_with_grad`. `valid` is True where
+    img: (H, W) or (C, H, W); uv (..., 2) as [x, y]; `batch` leading batch
+    axes as `bilinear`'s. Returns (values, grad (..., 2), valid) like
+    `bilinear_with_grad`. `valid` is True where
     the full 4x4 support is interior (1 <= x <= W - 3); out-of-range
     coordinates are clamped (finite values, masked downstream). Rows are
     interpolated first (value and d/dx), then combined over columns, in
@@ -155,14 +159,16 @@ def bicubic_with_grad(img: torch.Tensor, uv: torch.Tensor):
     y0 = torch.floor(yc).long()
     tx = xc - x0.to(img.dtype)
     ty = yc - y0.to(img.dtype)
+    if batch and img.ndim - batch == 3:
+        tx, ty = tx.unsqueeze(batch), ty.unsqueeze(batch)
     wx, dwx = catmull_rom_weights(tx), catmull_rom_dweights(tx)
     wy, dwy = catmull_rom_weights(ty), catmull_rom_dweights(ty)
 
     rows, drows = [], []
     for j in range(4):
         yj = torch.clamp(y0 + (j - 1), 0, h - 1)
-        taps = [_gather2d(img, yj, torch.clamp(x0 + (i - 1), 0, w - 1))
-                for i in range(4)]
+        taps = [_gather2d(img, yj, torch.clamp(x0 + (i - 1), 0, w - 1),
+                          batch) for i in range(4)]
         rows.append(sum(a * p for a, p in zip(wx, taps)))
         drows.append(sum(d * p for d, p in zip(dwx, taps)))
     values = sum(a * r for a, r in zip(wy, rows))

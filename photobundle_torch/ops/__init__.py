@@ -29,4 +29,13 @@ The other kernels answer the JAX package's remaining Pallas kernels:
 
 Every kernel that samples the fixed grid bilinearly shares
 csrc/patch_bilinear.cuh, so their samples are bitwise alike.
+
+Two kernels stand behind no Pallas kernel (the JAX package runs these
+steps in XLA): the LM body's own, which let a batched window solve round
+each window as its own solve does (core/lm.py):
+
+- `ordered_sum.row_dot`: every sum of the body longer than three terms,
+  in an order fixed by the row's length;
+- `chol_solve.chol_solve`: the reduced camera systems' Cholesky
+  factor-and-solve, one block per window.
 """

@@ -109,7 +109,8 @@ def check_batch(what: str, lead: tuple) -> None:
 def stats_from_samples(s, gx, gy, patch, valid, norm: str = "mean"):
     """The plain statistics epilogue shared by the kernels' plain versions.
 
-    s, gx, gy (N, W, C, P): samples; patch (N, C, P); valid (N, W).
+    s, gx, gy (N, W, C, P): samples; patch (N, C, P), or (N, W, C, P)
+    one per observation; valid (N, W).
     Returns (6, W, N) rows [g00, g01, g11, gxr, gyr, rr], summed over
     channels, in the dtype of `s`, exact zeros for invalid observations:
 
@@ -124,7 +125,7 @@ def stats_from_samples(s, gx, gy, patch, valid, norm: str = "mean"):
     def centred(a):
         return a - a.sum(-1, keepdim=True) * inv_p
 
-    d = patch[:, None]
+    d = patch[:, None] if patch.dim() == 3 else patch
     if norm == "affine":
         c, gx, gy = centred(s), centred(gx), centred(gy)
         n = torch.sqrt((c * c).sum(-1, keepdim=True)

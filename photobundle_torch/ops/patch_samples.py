@@ -191,27 +191,36 @@ def unpack(out: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     """A stored tensor of `layout` -> (s, gx, gy), each (N, W, C, P): the
     JAX package's relayout (and for 'raw' its bilinear combine) after the
     kernel, as one permute-copy to (plane, N, W, C, PSy, PSx) unbound
-    along the plane axis (three contiguous views)."""
-    n, w = valid.shape
+    along the plane axis (three contiguous views). The 'rows' layout also
+    takes a leading batch axis (valid (B, N, W), out (B, <layout>)):
+    each (B, N, W, C, P), in the same one copy."""
+    lead = valid.shape[:-2]
+    n, w = valid.shape[-2:]
     ps = 2 * patch_radius + 1
-    c = out.shape[0]
+    c = out.shape[len(lead)]
     if layout == "rows":
         # (C, PSy, W, N, PSx, 3) -> (3, N, W, C, PSy, PSx). Lane = 3*x + k.
-        out = out.reshape(c, ps, w, n, ps, 3).permute(5, 3, 2, 0, 1, 4)
-    else:
-        if layout == "raw":
-            # The bilinear combine as dense tensor ops, weights per
-            # observation, frame-major like the stored layout.
-            x = torch.where(valid, uv[..., 0], 0.0)
-            y = torch.where(valid, uv[..., 1], 0.0)
-            fxm = (x - torch.floor(x)).T.reshape(1, n * w, 1, 1)
-            fym = (y - torch.floor(y)).T.reshape(1, n * w, 1, 1)
-            out = ((1 - fxm) * (1 - fym) * out[..., :ps, :3 * ps]
-                   + fxm * (1 - fym) * out[..., :ps, 3:]
-                   + (1 - fxm) * fym * out[..., 1:, :3 * ps]
-                   + fxm * fym * out[..., 1:, 3:])
-        # (C, W, N, PSy, PSx, 3) -> (3, N, W, C, PSy, PSx).
-        out = out.reshape(c, w, n, ps, ps, 3).permute(5, 2, 1, 0, 3, 4)
+        nl = len(lead)
+        out = out.reshape(*lead, c, ps, w, n, ps, 3).permute(
+            nl + 5, *range(nl), nl + 3, nl + 2, nl, nl + 1, nl + 4)
+        return out.contiguous().reshape(3, *lead, n, w, c,
+                                        ps * ps).unbind(0)
+    if lead:
+        raise ValueError(f"unpack takes a batch axis in the 'rows' layout "
+                         f"alone, not '{layout}'")
+    if layout == "raw":
+        # The bilinear combine as dense tensor ops, weights per
+        # observation, frame-major like the stored layout.
+        x = torch.where(valid, uv[..., 0], 0.0)
+        y = torch.where(valid, uv[..., 1], 0.0)
+        fxm = (x - torch.floor(x)).T.reshape(1, n * w, 1, 1)
+        fym = (y - torch.floor(y)).T.reshape(1, n * w, 1, 1)
+        out = ((1 - fxm) * (1 - fym) * out[..., :ps, :3 * ps]
+               + fxm * (1 - fym) * out[..., :ps, 3:]
+               + (1 - fxm) * fym * out[..., 1:, :3 * ps]
+               + fxm * fym * out[..., 1:, 3:])
+    # (C, W, N, PSy, PSx, 3) -> (3, N, W, C, PSy, PSx).
+    out = out.reshape(c, w, n, ps, ps, 3).permute(5, 2, 1, 0, 3, 4)
     return out.contiguous().reshape(3, n, w, c, ps * ps).unbind(0)
 
 

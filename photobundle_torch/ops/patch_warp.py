@@ -116,16 +116,31 @@ def patch_stats_reference(planes: torch.Tensor, uv: torch.Tensor,
     """Plain PyTorch version of the kernel, same contract.
 
     planes (W, C, H, Wi, 4) from `build_planes`; uv (N, W, 2) f32;
-    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2; norm one of
+    valid (N, W) bool; patch (N, C, P) f32 with P = (2R+1)^2 (or (N, W,
+    C, P), one descriptor per observation); norm one of
     ops/_common.NORMS. Returns (6, W, N) f32 rows [g00, g01, g11, gxr,
     gyr, rr], un-whitened, exact zeros for invalid observations. With a
     leading batch axis (planes (B, W, C, H, Wi, 4), uv (B, N, W, 2), valid
     (B, N, W), patch (B, N, C, P)) it returns (B, 6, W, N), each window's
     rows as its unbatched call gives them."""
     if planes.dim() == 6:
-        return torch.stack([
-            patch_stats_reference(*window, patch_radius, norm)
-            for window in zip(planes, uv, valid, patch)])
+        # The B windows as one of B * W frames, each observation reading
+        # its own window's frame: the same gathers and per-row sums, so
+        # each window's rows are bitwise its unbatched call's.
+        b, w = planes.shape[:2]
+        n = valid.shape[1]
+
+        def fold(t):                         # (B, N, W, ...) -> (N, BW, ...)
+            return t.transpose(0, 1).clone(
+                memory_format=torch.contiguous_format).view(
+                n, b * w, *t.shape[3:])
+
+        rows = patch_stats_reference(
+            planes.reshape(b * w, *planes.shape[2:]), fold(uv), fold(valid),
+            fold(patch[:, :, None].expand(b, n, w, *patch.shape[2:])),
+            patch_radius, norm)
+        return rows.view(6, b, w, n).transpose(0, 1).clone(
+            memory_format=torch.contiguous_format)
     n, w = valid.shape
     c = planes.shape[1]
     ps = 2 * patch_radius + 1
@@ -256,10 +271,14 @@ def sorted_patch_stats_reference(planes, uv, valid, patch,
     window's rows as its unbatched call gives them."""
     feed, inverse = order
     if planes.dim() == 6:
-        return torch.stack([
-            sorted_patch_stats_reference(p, q, v, d, patch_radius, o, norm)
-            for p, q, v, d, *o in zip(planes, uv, valid, patch, feed,
-                                      inverse)])
+        # Each window's rows gathered in its own order, K1's batched plain
+        # version over all of them, each window scattered back.
+        def sort(t):
+            return torch.take_along_dim(
+                t, feed.reshape(*feed.shape, *(1,) * (t.dim() - 2)), dim=1)
+        rows = patch_stats_reference(planes, sort(uv), sort(valid),
+                                     sort(patch), patch_radius, norm)
+        return torch.take_along_dim(rows, inverse[:, None, None, :], dim=-1)
     rows = patch_stats_reference(planes, uv[feed], valid[feed], patch[feed],
                                  patch_radius, norm)
     return rows[:, :, inverse].contiguous()

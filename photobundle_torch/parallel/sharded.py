@@ -23,8 +23,8 @@ Layouts:
     in contiguous slots (a rank holds W / n_frames frames); poses, frame
     ids and the count stay replicated. Per iteration: hpp, bp summed over
     'frames'; hcc, bc summed over 'points' and gathered over 'frames'; the
-    point-minor coupling hpc gathered over 'frames' on dim 0 (the layout
-    all_gather_into_tensor gives).
+    point-minor coupling hpc gathered over 'frames' on the frame axis
+    (dim 1, after the LM program's batch axis).
   - ('windows', 'points'): the batched engine's B windows split over
     'windows' (B / n_windows each, no cross-talk), points within each
     window over 'points'; results gathered over both.
@@ -54,15 +54,16 @@ IMAGE_LEAVES = ("channels", "grads", "saliency", "depth", "depth_ok")
 
 @dataclass(frozen=True)
 class Collective:
-    """A ShardCtx hook: the sum ('sum') or the gather along dim 0
+    """A ShardCtx hook: the sum ('sum') or the gather along `dim`
     ('gather', ranks in group order) of one or more tensors over `group`.
     The tensors of a call travel as one flat buffer per dtype (bool as
     uint8, for gathers only); the results are fresh contiguous tensors.
-    Equal (and hashed) by group identity and kind, so it can join a CUDA
-    graph's key."""
+    Equal (and hashed) by group identity, kind and dim, so it can join a
+    CUDA graph's key."""
 
     group: object
     kind: str
+    dim: int = 0
 
     @property
     def size(self) -> int:
@@ -99,9 +100,14 @@ class Collective:
             for i in idx:
                 t = tensors[i]
                 k = t.numel()
-                shape = (t.shape if self.kind == "sum"
-                         else (lead * t.shape[0], *t.shape[1:]))
-                out[i] = rows[:, at:at + k].reshape(shape).to(dtype).clone()
+                part = rows[:, at:at + k]
+                if self.kind == "sum":
+                    part = part.reshape(t.shape)
+                else:            # rank-major blocks, then along `dim`
+                    part = part.reshape(lead, *t.shape).movedim(
+                        0, self.dim).flatten(self.dim, self.dim + 1)
+                out[i] = part.to(dtype).clone(
+                    memory_format=torch.contiguous_format)
                 at += k
         return out
 
@@ -137,7 +143,8 @@ def frames_shard_ctx(mesh, w_local: int) -> lm.ShardCtx:
         reduce_frames=Collective(mesh.get_group(FRAMES_AXIS), "sum"),
         # The mesh spans the world (parallel/mesh.mesh_of).
         reduce_obs=Collective(dist.group.WORLD, "sum"),
-        gather_frames=Collective(mesh.get_group(FRAMES_AXIS), "gather"),
+        gather_frames=Collective(mesh.get_group(FRAMES_AXIS), "gather",
+                                 dim=1),
         frame_offset=axis_rank(mesh, FRAMES_AXIS) * w_local)
 
 

@@ -49,8 +49,14 @@ Huber delta 0.05, the cuda backend), in two parts.
    (torch.profiler can miss device activities); `complete` in the JSON
    line says so. The first trace is printed.
 
+3. With --batch B (B > 1), part 2 again on B windows as one body (the
+   batched window solve's, `lm.lm_solve_batched`: window b the problem
+   with x_world + 1e-4 b), its table beside the single window's, and its
+   replayed body's median time: how each phase's device time and kernel
+   count move with the batch.
+
     python -m photobundle_torch.tools.bench_lm_breakdown [n_pts] [w] [K] \
-        [--height H --width WI] [--device cpu]
+        [--height H --width WI] [--batch B] [--device cpu]
 
 Prints the phase lines, the body's table, then one JSON line. Runs on
 the card unless given --device cpu, and raises where there is none.
@@ -117,29 +123,21 @@ class BodyTrace:
         self.calls = []
         self._saved = []
 
-    def _wrap(self, module, name: str, phase: str, generator=False):
+    def _wrap(self, module, name: str, phase: str):
         fn = getattr(module, name)
         calls = self.calls
 
-        if generator:
-            def wrapped(*args, **kwargs):
-                with torch.profiler.record_function(f"pb::{phase}"):
-                    out = yield from fn(*args, **kwargs)
-                calls.append((phase, fn, args, kwargs, out))
-                return out
-        else:
-            def wrapped(*args, **kwargs):
-                with torch.profiler.record_function(f"pb::{phase}"):
-                    out = fn(*args, **kwargs)
-                calls.append((phase, fn, args, kwargs, out))
-                return out
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(f"pb::{phase}"):
+                out = fn(*args, **kwargs)
+            calls.append((phase, fn, args, kwargs, out))
+            return out
 
         self._saved.append((module, name, fn))
         setattr(module, name, wrapped)
 
     def __enter__(self):
-        self._wrap(lm, "evaluate_compressed_steps", "evaluate",
-                   generator=True)
+        self._wrap(lm, "evaluate_compressed", "evaluate")
         self._wrap(schur, "build_normal_equations_compressed", "assemble")
         self._wrap(schur, "point_terms", "reduce")
         self._wrap(schur, "reduce_camera_system", "reduce")
@@ -161,45 +159,56 @@ def phase_table(prof, on_card: bool) -> dict:
     """{phase: {ms, kernels, top: [(name, us)]}} of the traced body: on a
     card the device activities each pb:: range launched (bookkeeping: the
     body's own, outside every phase), on the CPU the host time and the
-    operators of each range. On a card "_launches" counts the host's
-    launch calls inside the body (LAUNCH_CALLS)."""
+    operators of each range (a kernel's plain version registered as an
+    operator, `photobundle::`, is one: its kernel's one launch on a card).
+    On a card "_launches" counts the host's
+    launch calls inside the body (LAUNCH_CALLS), and "_activities" the
+    device activities of the trace. Activities are matched to launch calls
+    in order (one stream runs them in launch order): torch.profiler links
+    a kernel to the operator that launched it, and a kernel launched by a
+    wrapper's library (csrc/, through ctypes) to none."""
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     body = [e for e in events if e.name == "pb::body"]
     if len(body) != 1:
         raise RuntimeError(f"the trace holds {len(body)} LM bodies, not 1")
     table = {p: {"ms": 0.0, "kernels": 0, "by_name": {}} for p in PHASES}
-    launches = 0
+    launches = []                 # (host start, phase) of each launch call
 
     def visit(evt, phase):
-        nonlocal launches
         if evt.name.startswith("pb::") and evt.name != "pb::body":
             phase = evt.name[4:]
         row = table[phase]
         if on_card:
             if not evt.cpu_children and evt.name.startswith("cu") and any(
                     c in evt.name for c in LAUNCH_CALLS):
-                launches += 1
-            for k in evt.kernels:
-                if k.name.startswith("pb::"):
-                    continue        # the range's own device annotation
-                row["ms"] += k.duration / 1e3
-                row["kernels"] += 1
-                row["by_name"][k.name] = (row["by_name"].get(k.name, 0.0)
-                                          + k.duration)
-        elif not evt.cpu_children and not evt.name.startswith("pb::"):
+                launches.append((evt.time_range.start, phase))
+        elif ((not evt.cpu_children and not evt.name.startswith("pb::"))
+              or evt.name.startswith("photobundle::")):
             row["ms"] += evt.cpu_time_total / 1e3
             row["kernels"] += 1
             row["by_name"][evt.name] = (row["by_name"].get(evt.name, 0.0)
                                         + evt.cpu_time_total)
+            return
         for child in evt.cpu_children:
             visit(child, phase)
 
     visit(body[0], "bookkeeping")
+    if on_card:
+        device = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith("pb::")),
+                        key=lambda e: e.time_range.start)
+        for (_, phase), act in zip(sorted(launches), device):
+            row, us = table[phase], act.time_range.elapsed_us()
+            row["ms"] += us / 1e3
+            row["kernels"] += 1
+            row["by_name"][act.name] = row["by_name"].get(act.name, 0.0) + us
     for row in table.values():
         top = sorted(row.pop("by_name").items(), key=lambda kv: -kv[1])
         row["top"] = [(name, us) for name, us in top[:TOP]]
     if on_card:
-        table["_launches"] = launches
+        table["_launches"] = len(launches)
+        table["_activities"] = len(device)
     return table
 
 
@@ -227,35 +236,9 @@ def replayed_body_ms(dev) -> float:
     return statistics.median(times)
 
 
-def _short(name: str, width: int = 48) -> str:
-    return name if len(name) <= width else name[:width - 3] + "..."
-
-
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(prog="bench_lm_breakdown")
-    ap.add_argument("n_pts", type=int, nargs="?", default=4096)
-    ap.add_argument("w", type=int, nargs="?", default=5)
-    ap.add_argument("calls", type=int, nargs="?", default=None,
-                    help="K, calls per timed phase (default: max(30, "
-                         "2^22 / n_pts))")
-    ap.add_argument("--height", type=int, default=H)
-    ap.add_argument("--width", type=int, default=WI)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    dev = require_device(args.device)
-    on_card = dev.type == "cuda"
-    k = args.calls or default_calls(args.n_pts)
-    kp = min(k, PROFILED_CALLS)
-    cam, offsets, problem = entry.make_problem(
-        args.n_pts, args.w, args.height, args.width, R, seed=1, device=dev)
-    t_wc, x_world, patch, channels, grads, obs, pv, frozen = problem
-    solve_kw = dict(huber_delta=HUBER, gradient_mode="sampled",
-                    backend="cuda", max_iterations=1,
-                    function_tolerance=0.0, parameter_tolerance=0.0)
-
-    # -- one LM body, capture=False, traced phase by phase --------------
-    p, c = lm.setup(cam, t_wc, x_world, patch, channels, grads, obs, pv,
-                    frozen, offsets, **solve_kw)
+def traced_body(p, c, dev, on_card: bool):
+    """Part 2 on one stacked problem: (the first trace's BodyTrace, the
+    body's state after it, the TRACES tables)."""
     start, body = lm.program(p, c)
     state, _ = start()
     body(state)                      # warm-up: kernel loads, handles
@@ -275,7 +258,44 @@ def main(argv=None) -> dict:
         return trace, after, phase_table(prof, on_card)
 
     trace, after, table = trace_body()
-    tables = [table] + [trace_body()[2] for _ in range(TRACES - 1)]
+    return trace, after, [table] + [trace_body()[2]
+                                    for _ in range(TRACES - 1)]
+
+
+def _short(name: str, width: int = 48) -> str:
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="bench_lm_breakdown")
+    ap.add_argument("n_pts", type=int, nargs="?", default=4096)
+    ap.add_argument("w", type=int, nargs="?", default=5)
+    ap.add_argument("calls", type=int, nargs="?", default=None,
+                    help="K, calls per timed phase (default: max(30, "
+                         "2^22 / n_pts))")
+    ap.add_argument("--height", type=int, default=H)
+    ap.add_argument("--width", type=int, default=WI)
+    ap.add_argument("--batch", type=int, default=1,
+                    help="B > 1: the body's table at B windows too")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = require_device(args.device)
+    on_card = dev.type == "cuda"
+    k = args.calls or default_calls(args.n_pts)
+    kp = min(k, PROFILED_CALLS)
+    cam, offsets, problem = entry.make_problem(
+        args.n_pts, args.w, args.height, args.width, R, seed=1, device=dev)
+    t_wc, x_world, patch, channels, grads, obs, pv, frozen = problem
+    solve_kw = dict(huber_delta=HUBER, gradient_mode="sampled",
+                    backend="cuda", max_iterations=1,
+                    function_tolerance=0.0, parameter_tolerance=0.0)
+
+    # -- one LM body, capture=False, traced phase by phase --------------
+    p, c = lm.setup(cam, t_wc, x_world, patch, channels, grads, obs, pv,
+                    frozen, offsets, **solve_kw)
+    trace, after, tables = traced_body(lm.stack_problems([p]), c, dev,
+                                       on_card)
+    table = tables[0]
 
     # -- the phases alone: the body's inputs first, then K varied calls --
     ctx = res_mod.make_cuda_ctx(channels, grads, "sampled")
@@ -302,7 +322,8 @@ def main(argv=None) -> dict:
     sol = trace.first("solve")
     t_full, x_full, st_full = full(x_world)
     same = {
-        "evaluate": bitwise(evaluate(t_new, x_new), ev[4]),
+        "evaluate": bitwise(evaluate(t_new[0], x_new[0]),
+                            type(ev[4])(*(f[0] for f in ev[4]))),
         "build_normal_equations": bitwise(
             schur.build_normal_equations_compressed(eq_call[2][0]),
             eq_call[4]),
@@ -310,7 +331,8 @@ def main(argv=None) -> dict:
             reduce_solve(red[2][0], red[2][1], red[2][3]), sol[4]),
         "full LM iteration": bitwise(
             (t_full, x_full, st_full.final_cost, st_full.cost_log),
-            (after.t_wc, after.x_world, after.cost, after.cost_log)),
+            (after.t_wc[0], after.x_world[0], after.cost[0],
+             after.cost_log[0])),
     }
 
     res0 = evaluate(t_wc, x_world)
@@ -365,14 +387,33 @@ def main(argv=None) -> dict:
 
     replay_ms = replayed_body_ms(dev) if on_card else None
     complete = whole(tables) if on_card else None
+    batch = None
+    if args.batch > 1:
+        requests = [((cam, t_wc, x_world + 1e-4 * b, patch, channels, grads,
+                      obs, pv, frozen, offsets), solve_kw)
+                    for b in range(args.batch)]
+        _, _, btables = traced_body(lm.stack_problems(
+            [lm.setup(*a, **o)[0] for a, o in requests]), c, dev, on_card)
+        if on_card:
+            lm.lm_solve_batched(requests)    # captures the batch's graphs
+        batch = dict(tables=btables,
+                     replay_ms=replayed_body_ms(dev) if on_card else None,
+                     complete=whole(btables) if on_card else None)
     what = "device ms" if on_card else "host ms"
+    unit = "kernels" if on_card else "operators"
+    b_head = ("" if batch is None
+              else f" | at B = {args.batch}: {what} | {unit}")
     print(f"one LM body (capture=False, torch.profiler): phase | {what} | "
-          f"{'kernels' if on_card else 'operators'} | heaviest", flush=True)
+          f"{unit}{b_head} | heaviest", flush=True)
     for phase in PHASES:
         row = table[phase]
         top = ", ".join(f"{_short(n)} {us:.1f} us" for n, us in row["top"])
-        print(f"  {phase:12s} {row['ms']:8.3f} {row['kernels']:5d}  {top}",
-              flush=True)
+        b_txt = ""
+        if batch is not None:
+            b_row = batch["tables"][0][phase]
+            b_txt = f"  {b_row['ms']:8.3f} {b_row['kernels']:5d}"
+        print(f"  {phase:12s} {row['ms']:8.3f} {row['kernels']:5d}{b_txt}  "
+              f"{top}", flush=True)
     body_ms = sum(table[p]["ms"] for p in PHASES)
     n_kernels = sum(table[p]["kernels"] for p in PHASES)
     traced = [sum(t[p]["kernels"] for p in PHASES) for t in tables]
@@ -383,7 +424,26 @@ def main(argv=None) -> dict:
                   f"; the replayed body (CUDA graph, median of {REPLAYS} "
                   f"replays, CUDA events): {replay_ms:.3f} ms")
     print(f"  body total {body_ms:.3f} ms{trace_txt}, {n_kernels} "
-          f"{'kernels' if on_card else 'operators'}{replay_txt}", flush=True)
+          f"{unit}{replay_txt}", flush=True)
+    if batch is not None:
+        bt = batch["tables"]
+        b_ms = sum(bt[0][p]["ms"] for p in PHASES)
+        b_kernels = sum(bt[0][p]["kernels"] for p in PHASES)
+        b_replay = ("" if batch["replay_ms"] is None else
+                    f"; its replayed body {batch['replay_ms']:.3f} ms")
+        b_whole = ("" if not on_card else
+                   f" (launches {bt[0]['_launches']}; complete: "
+                   f"{batch['complete']})")
+        print(f"  body total at B = {args.batch}: {b_ms:.3f} ms, "
+              f"{b_kernels} {unit}{b_whole}{b_replay}", flush=True)
+        batch = {"batch": args.batch,
+                 "body": {ph: bt[0][ph] for ph in PHASES},
+                 "body_ms": b_ms, "body_kernels": b_kernels,
+                 "launches": bt[0].get("_launches"),
+                 "trace_kernels": [sum(t[p]["kernels"] for p in PHASES)
+                                   for t in bt],
+                 "trace_complete": batch["complete"],
+                 "replayed_body_ms": batch["replay_ms"]}
     rec = {"tool": "bench_lm_breakdown", "device": device_name(dev),
            "n_pts": args.n_pts, "w": args.w, "calls": k,
            "image": [args.height, args.width], "phases": rows,
@@ -392,7 +452,7 @@ def main(argv=None) -> dict:
            "launches": table.get("_launches"),
            "trace_kernels": traced,
            "trace_complete": complete,
-           "replayed_body_ms": replay_ms}
+           "replayed_body_ms": replay_ms, "batched": batch}
     print(json.dumps(rec), flush=True)
     return rec
 

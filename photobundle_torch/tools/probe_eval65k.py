@@ -2,16 +2,16 @@
 
 Twin of tools/probe_eval65k.py at its problem
 (`entry.make_problem(N, W, 370, 1226, 2, seed=1)`, defaults 65 536 x 5,
-R = 2), through the port's own steps (`residuals.evaluate_compressed_steps`,
-which yields its K1 launch), not the JAX tool's TPU lane packing:
+R = 2), through the port's own cuda evaluation, not the JAX tool's TPU
+lane packing:
 
   geometry (pm)                    `_observation_geometry_pm`
-  geometry + kernel(fused)         the steps up to their K1 launch, and
-                                   K1 (the six sums per observation)
-  full evaluate_compressed         the steps to their end (the prior rows
+  geometry + kernel(fused)         all that K1 reads (`kernel_geometry`),
+                                   and K1 (the six sums per observation)
+  full evaluate_compressed         the evaluation (with the prior rows
                                    and the robust whitening)
-  geometry + kernel(nofuse)        the same steps' geometry and K4's row
-                                   store (the samples, no sums)
+  geometry + kernel(nofuse)        the same geometry and K4's row store
+                                   (the samples, no sums)
   full, PB_GROUPED_STATS=0         the evaluation with the row store and
                                    the unfused stats (`_ungrouped_stats`)
 
@@ -35,7 +35,7 @@ import json
 from .. import entry
 from ..core import residuals as res_mod
 from ..core.engine import require_device
-from ..ops import patch_samples
+from ..ops import patch_samples, patch_warp
 from . import device_name, device_us_per_call, ms_per_call
 
 H, WI, PR = 370, 1226, 2
@@ -63,33 +63,33 @@ def main(argv=None) -> dict:
     print(f"[N={args.n_pts} W={args.w} K={k}; device {device_name(dev)}]",
           flush=True)
 
-    def steps(x, grouped=True):
-        return res_mod.evaluate_compressed_steps(
+    planes = ctx[1]
+
+    def full(x, grouped=True):
+        return res_mod.evaluate_compressed(
             cam, t_wc, x, patch, channels, grads, obs, offsets, HUBER,
             backend="cuda", ctx=ctx, grouped_stats=grouped)
 
-    def kernel_call(x):
-        """The steps up to their K1 launch: its KernelCall."""
-        return next(steps(x))
+    def geometry(x):
+        """uv and valid (N, W, ...) as K1 reads them."""
+        return res_mod.kernel_geometry(cam, t_wc, x, channels, obs, None,
+                                       "sampled", None, PR)[:2]
 
     def fused(x):
-        return res_mod.launch(kernel_call(x))
+        return patch_warp.patch_stats(planes, *geometry(x), patch, PR,
+                                      "mean")
 
     def nofuse(x):
-        call = kernel_call(x)
-        uv, valid = call.operands[:2]
-        return patch_samples.warp_patches(call.planes, uv, valid,
-                                          call.patch_radius, "rows")
+        return patch_samples.warp_patches(planes, *geometry(x), PR, "rows")
 
     stages = (
         ("geometry (pm)",
          lambda x: res_mod._observation_geometry_pm(cam, t_wc, x)),
         ("geometry + kernel(fused)", fused),
-        ("full evaluate_compressed",
-         lambda x: res_mod.run_steps(steps(x))),
+        ("full evaluate_compressed", full),
         ("geometry + kernel(nofuse)", nofuse),
         ("full, PB_GROUPED_STATS=0 (row store)",
-         lambda x: res_mod.run_steps(steps(x, grouped=False))),
+         lambda x: full(x, grouped=False)),
     )
     rows = {}
     for label, fn in stages:

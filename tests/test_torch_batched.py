@@ -285,20 +285,20 @@ def test_ended_window_passes_through_bodies(scene, solves):
         args, options = next(pba._optimize_plan(win, points))
         requests.append((args, dict(options, function_tolerance=0.99)))
     problems = [tlm.setup(*a, **o) for a, o in requests]
-    start, body = tlm.batched_program(tuple(p for p, _ in problems),
-                                      problems[0][1])
-    states, _ = start()
+    start, body = tlm.program(tlm.stack_problems([p for p, _ in problems]),
+                              problems[0][1])
+    state, _ = start()
     ended = None
     for k in range(SOLVE_ITERS):
-        states = body(states)
-        if ended is None and int(states[0].term) != 0:
-            ended = [t.clone() for t in tlm._flat(states[0])]
+        state = body(state)
+        if ended is None and int(state.term[0]) != 0:
+            ended = [t[0].clone() for t in tlm._flat(state)]
             ended_at = k
     assert ended is not None and ended_at < SOLVE_ITERS - 2
-    assert int(states[0].term) == 2                 # function tolerance
-    assert int(states[1].it) == SOLVE_ITERS > int(states[0].it)
-    for a, b in zip(ended, tlm._flat(states[0])):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())   # NaN-aware
+    assert int(state.term[0]) == 2                  # function tolerance
+    assert int(state.it[1]) == SOLVE_ITERS > int(state.it[0])
+    for a, b in zip(ended, tlm._flat(state)):
+        np.testing.assert_array_equal(a.numpy(), b[0].numpy())  # NaN-aware
 
 
 @pytest.mark.parametrize("mesh", ["meshWindows", "meshPoints"])

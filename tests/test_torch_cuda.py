@@ -1132,3 +1132,56 @@ def test_batched_solve_is_bitwise_each_window(cuda_device):
     assert (runs["warm_ups"], runs["captures"]) == (1, 2)
     assert pw.patch_stats.launches["mean"] == runs["starts"] + runs["bodies"]
     assert runs["bodies"] >= max(int(s.iterations) for _, _, s in singles)
+
+
+@pytest.mark.parametrize("w", [5, 10, 32, 45])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_solve_kernel_matches_plain_version(cuda_device, w, dtype):
+    """The batched Cholesky kernel (shared memory to W = 40 in f32, 28 in
+    f64; global scratch above) against cholesky_ex + cholesky_solve on
+    well-conditioned systems, bitwise its single launches, NaN in the
+    non-SPD window alone."""
+    from photobundle_torch.ops import chol_solve as cs
+
+    n, b = 6 * w, 4
+    g = torch.Generator().manual_seed(w)
+    m = torch.randn((b, n, n), generator=g, dtype=torch.float64)
+    s = (m @ m.transpose(-1, -2) / n + torch.eye(n, dtype=torch.float64))
+    s = s.to(dtype)
+    s[1, 3, 3] = -1.0
+    rhs = torch.randn((b, n), generator=g, dtype=torch.float64).to(dtype)
+    s, rhs = s.to(cuda_device), rhs.to(cuda_device)
+    got = cs.chol_solve(s, rhs)
+    want = cs.chol_solve_reference(s, rhs)
+    bad = torch.tensor([False, True, False, False], device=cuda_device)
+    assert torch.equal(torch.isnan(got).all(-1), bad)
+    assert torch.equal(torch.isnan(got).any(-1), bad)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((got - want)[~bad].abs().max()) <= rtol * float(
+        want[~bad].abs().max())
+    singles = torch.cat([cs.chol_solve(s[k:k + 1], rhs[k:k + 1])
+                         for k in range(b)])
+    assert torch.equal(torch.nan_to_num(got, 7.0),
+                       torch.nan_to_num(singles, 7.0))
+
+
+@pytest.mark.parametrize("k", [5, 64, 65, 12288])
+@pytest.mark.parametrize("dot", [False, True])
+def test_row_dot_kernel_matches_plain_version(cuda_device, k, dot):
+    """The ordered sums on both sides of their design change (one thread
+    per output to 64 terms, a block above), through a transposed view,
+    within 1e-5 of each output's sum of |terms|, bitwise the same rows
+    summed alone."""
+    from photobundle_torch.ops import ordered_sum as osm
+
+    g = torch.Generator().manual_seed(k)
+    a = torch.randn((3, 4, k, 7), generator=g).to(cuda_device)
+    a = a.transpose(-1, -2)                       # (3, 4, 7, k), strided
+    c = (torch.randn((3, 4, 5, k), generator=g).to(cuda_device) if dot
+         else None)
+    got = osm.row_dot(a, c)
+    want = osm.row_dot_reference(a, c)
+    mag = osm.row_dot_reference(a.abs(), None if c is None else c.abs())
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+    alone = osm.row_dot(a[1:2], None if c is None else c[1:2])
+    assert torch.equal(alone[0], got[1])

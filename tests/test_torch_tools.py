@@ -197,7 +197,7 @@ def test_bench_lm_breakdown_times_the_bodys_work(capsys):
     assert rec["replayed_body_ms"] is None      # no graphs on the CPU
     # The wrappers are taken off again.
     from photobundle_torch.core import lm, schur
-    assert lm.evaluate_compressed_steps is res_mod.evaluate_compressed_steps
+    assert lm.evaluate_compressed is res_mod.evaluate_compressed
     assert schur.solve_reduced.__module__ == schur.__name__
 
 
