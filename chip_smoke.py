@@ -130,10 +130,13 @@ descriptors and the shipped configurations' own sizes), from seeds:
      at W = 5, 10, 32 and B = 1, 4, 8 against its plain version
      (cholesky_ex + cholesky_solve) within 1e-4 of the solution's scale,
      bitwise its single-window launches, NaN in the one non-SPD window
-     alone, timed beside `torch.linalg.solve`; every ordered sum
+     alone, timed beside `torch.linalg.solve` (and at B = 1 beside
+     cholesky_ex + cholesky_solve); every ordered sum
      (csrc/ordered_sum.cu) of one eager body at B = 4 against its plain
-     version, timed beside torch's sum / matmul; the body's aten
-     operations at B = 1 and 4, equal; then the
+     version and bitwise its kernel-order twin (`row_dot_ordered`), timed
+     beside torch's sum / matmul, and so one body's ordered sums at
+     65 536 x 5 and 32 768 x 32 (B = 1) against their plain versions; the
+     body's aten operations at B = 1 and 4, equal; then the
      batched engine in the default configuration, 8 frames, B = 4
      sequences, sequence k phase 6's frames shifted k px and brightened
      0.001 k and drifted from its own seed (k + 1): every batched
@@ -190,7 +193,8 @@ descriptors and the shipped configurations' own sizes), from seeds:
      process but for verify_e2e's command line and the breakdown: (a)
      `bench_lm_breakdown` in one process of its own at 4096 (and the body
      at B = 4 windows beside it: as many kernels per body) and 65 536
-     points x 5: each phase's ms (CUDA events) and
+     points x 5, and in another at 32 768 points x 32: each phase's ms
+     (CUDA events) and
      device ms against its bytes floor (none below it), each phase
      bitwise the outputs of one capture=False body on that body's
      inputs, and the body's per-phase device time, kernel count and
@@ -387,6 +391,12 @@ BATCH_BRIGHTEN, INGEST_BATCHES, INGEST_CALLS = 0.001, (1, 2, 4, 8), 5
 CHOL_WINDOWS, CHOL_BATCHES = (5, 10, 32), (1, 4, 8)
 CHOL_BAD, CHOL_RTOL = 2, 1e-4
 BODY_BATCH, ORDERED_RTOL, ORDERED_CALLS = 4, 1e-5, 20
+# One body's ordered sums are also held and timed at these sizes (points,
+# poses; B = 1): phase 11's 65 536 points and bench_scaling's widest
+# window. Their plain versions are taken over slices of rows, no products
+# tensor past ORDERED_SLICE elements (s_off at 32 768 x 32 would be 3.6e9).
+ORDERED_SIZES = ((65536, 5), (32768, 32))
+ORDERED_SLICE = 1 << 28
 # Phase 17: the multi-sequence runs' units and their time limit.
 MULTI_FRAMES_PER_UNIT, MULTI_TIMEOUT_S = 6, 600
 MULTI_DIR = os.path.join("build", "chip_smoke_multi")
@@ -421,7 +431,15 @@ GOLDEN_FRAMES = 16
 # JAX tool's 1024) spends ~30 s of host time on event-timed calls; 256
 # average as well.
 BREAKDOWN_CALLS = 256
-BREAKDOWN_TIMEOUT_S = 300
+BREAKDOWN_TIMEOUT_S = 420
+# Its sizes (points, poses, calls per phase at most), by child process:
+# phase 3's and phase 11's 65 536 points in one; bench_scaling's widest
+# window (fewer calls: a body there takes ~5 ms) in one of its own, as
+# after the other two a process's traces of it missed one activity of
+# 539 (two traces, one whole run).
+BREAKDOWN_PROCESSES = (((N_PTS, W, BREAKDOWN_CALLS),
+                        (DENSE_PTS, W, BREAKDOWN_CALLS)),
+                       ((32768, 32, 30),))
 GOLDEN_CONFIGS = ("W5_production", "reference_exact")
 # bench_scaling's smallest, widest-point and widest-window sizes of its six
 # (all six until phase 20 took the time).
@@ -686,9 +704,12 @@ def print_ptxas_typed(name: str, built) -> None:
     cells, current = {}, None
     for line in built.log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )"
-                      r"\w*?(chol_solve|row_dot_\w+?)I([fd])E", line)
+                      r"\w*?\d(chol_solve\w*?|row_dot_\w+?)I([fd])"
+                      r"((?:L[ib]\d+E)*)E", line)
         if m:
-            current = f"{m.group(1)}<{m.group(2)}>"
+            args = ",".join([m.group(2), *re.findall(r"L[ib](\d+)E",
+                                                      m.group(3))])
+            current = f"{m.group(1)}<{args}>"
             cells.setdefault(current, [None, None])
             continue
         if current is None:
@@ -2894,6 +2915,11 @@ def chol_phase(dev) -> dict:
                                           match="chol_solve")
             lib_us, _ = library_us_per_call(lambda: torch.linalg.solve(s,
                                                                        rhs))
+            # cuSOLVER's factor-and-solve route for one system.
+            cho_us = (library_us_per_call(
+                lambda: torch.cholesky_solve(
+                    rhs[..., None], torch.linalg.cholesky_ex(s)[0]))[0]
+                if b == 1 else None)
             # A symmetric solve reads the lower triangle alone.
             bound = bytes_ops_bound(
                 b * (n * (n + 1) // 2 + 2 * n) * s.element_size(),
@@ -2906,8 +2932,12 @@ def chol_phase(dev) -> dict:
                 f"{bad.nonzero().flatten().tolist()} alone; bitwise its {b} "
                 f"single launches: {same} | median kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms | device time per launch "
-                f"{us_text(dev_us)} (L2 flushed), torch.linalg.solve "
-                f"{us_text(lib_us)} | bound {bound['bound_ms'] * 1e3:.3f} us "
+                f"{us_text(dev_us)} (L2 flushed, mode "
+                f"{cs.mode(n, s.dtype)}), torch.linalg.solve "
+                f"{us_text(lib_us)}"
+                + ("" if cho_us is None else
+                   f", cholesky_ex + cholesky_solve {us_text(cho_us)}")
+                + f" | bound {bound['bound_ms'] * 1e3:.3f} us "
                 f"by {bound['bound_by']}, roofline share {share_text(share)}")
             if (w, b) == (W, BODY_BATCH):
                 out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2932,15 +2962,134 @@ def body_problem(cam, offsets, args, b: int):
     return lm.stack_problems([p for p, _ in setups]), setups[0][1]
 
 
-def ordered_phase(cam, offsets, args) -> dict:
-    """The ordered sums of one eager body at BODY_BATCH windows: every
-    call recorded, then each held to its plain version and timed at its
-    shapes; and the body's aten operations at B = 1 and BODY_BATCH.
-    Returns the body's summed numbers for the JSON line."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, for equality that tells -0 from 0 and NaN
+    from NaN."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
 
+
+def ordered_plain(a, c):
+    """(row_dot_reference(a, c), the sums of |terms|), over slices of a's
+    rows so that no products tensor holds more than ORDERED_SLICE
+    elements (one slice where it fits: row_dot_reference itself)."""
+    from photobundle_torch.ops import ordered_sum as osm
+
+    if c is None:
+        return osm.row_dot_reference(a), osm.row_dot_reference(a.abs())
+    per_row = max(1, c[..., 0].numel() * a.shape[-1])
+    rows = max(1, ORDERED_SLICE // per_row)
+    parts = [(osm.row_dot_reference(a[..., i:i + rows, :], c),
+              osm.row_dot_reference(a[..., i:i + rows, :].abs(), c.abs()))
+             for i in range(0, a.shape[-2], rows)]
+    return (torch.cat([w for w, _ in parts], -2),
+            torch.cat([m for _, m in parts], -2))
+
+
+def record_body_sums(cam, offsets, args, b: int) -> list:
+    """Every row_dot call of one eager LM body at b windows of a problem:
+    [(a, c, out)]."""
     from photobundle_torch.core import lm
     from photobundle_torch.ops import ordered_sum as osm
+
+    recorded, real = [], osm.row_dot
+
+    def rec(a, c=None):
+        out = real(a, c)
+        recorded.append((a, c, out))
+        return out
+
+    rec.launches = real.launches      # the wrapper counts under its name
+
+    start, body = lm.program(*body_problem(cam, offsets, args, b))
+    state, _ = start()
+    osm.row_dot = rec                 # contract, row_sum, sum_over call it
+    try:
+        body(state)
+    finally:
+        osm.row_dot = real
+    torch.cuda.synchronize()
+    return recorded
+
+
+def measure_body_sums(tag: str, recorded: list, twin: bool) -> dict:
+    """Each recorded call held to its plain version (within ORDERED_RTOL of
+    each output's sum of |terms|) and, with `twin`, bitwise its
+    kernel-order twin; timed (kernel and plain: median of ORDERED_CALLS,
+    CUDA events; device time L2 flushed; torch's sum / matmul), its bound
+    summed. Returns the sums over the calls and the heaviest call."""
+    from photobundle_torch.ops import ordered_sum as osm
+
+    real = osm.row_dot
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, device_us=0.0, max_abs_err=0.0, worst=0.0)
+    heaviest = (0.0, None, 0.0)
+    twins = 0
+    for a, c, out in recorded:
+        want, mag = ordered_plain(a, c)
+        err = (out - want).abs()
+        worst = float((err / (ORDERED_RTOL * mag + 1e-30)).max())
+        tot["max_abs_err"] = max(tot["max_abs_err"], float(err.max()))
+        tot["worst"] = max(tot["worst"], worst)
+        del want, mag, err
+        if twin:
+            same = torch.equal(bits(out), bits(osm.row_dot_ordered(a, c)))
+            check(same, f"{tag}: row_dot of {tuple(a.shape)} x "
+                  f"{None if c is None else tuple(c.shape)} is not bitwise "
+                  f"its kernel-order twin")
+            twins += same
+        k = a.shape[-1]
+        nbytes = (a.numel() + (0 if c is None else c.numel())
+                  + out.numel()) * a.element_size()
+        flops = out.numel() * k * (1 if c is None else 2)
+        lib = ((lambda a=a: a.sum(-1)) if c is None else
+               (lambda a=a, c=c: torch.matmul(a, c.transpose(-1, -2))))
+        tot["ms"] += median_ms(lambda a=a, c=c: real(a, c), ORDERED_CALLS)
+        tot["plain_ms"] += median_ms(lambda a=a, c=c: ordered_plain(a, c)[0],
+                                     ORDERED_CALLS)
+        tot["library_ms"] += (library_us_per_call(lib)[0] or 0.0) / 1e3
+        dev_us = device_us_per_launch(lambda a=a, c=c: real(a, c),
+                                      match="row_dot") or 0.0
+        tot["device_us"] += dev_us
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        tot["t_bytes"] += t_bytes
+        tot["t_ops"] += t_ops
+        if dev_us > heaviest[0]:
+            heaviest = (dev_us, (tuple(a.shape), None if c is None
+                                 else tuple(c.shape)),
+                        max(t_bytes, t_ops) * 1e6)
+    tot["bound_ms"] = max(tot["t_bytes"], tot["t_ops"]) * 1e3
+    tot["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                       else "operations")
+    shapes = sorted({tuple(a.shape) for a, _, _ in recorded})
+    say(f"{tag}: {len(recorded)} calls in one body (shapes {shapes}), each "
+        f"held to its plain version: max abs err {tot['max_abs_err']:.3e}, "
+        f"worst {tot['worst']:.3f} of the tolerance ({ORDERED_RTOL:g} x the "
+        f"sum of |terms|)"
+        + (f"; {twins} of {len(recorded)} bitwise their kernel-order twin"
+           if twin else "")
+        + f" | summed over the body: kernel {tot['ms']:.4f} ms (median per "
+        f"call, CUDA events), plain {tot['plain_ms']:.4f} ms, device "
+        f"{tot['device_us']:.2f} us (L2 flushed before each), torch "
+        f"sum / matmul {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms'] * 1e3:.3f} us by {tot['bound_by']} | heaviest "
+        f"call {heaviest[1]}: device {heaviest[0]:.2f} us, bound "
+        f"{heaviest[2]:.3f} us")
+    check(tot["worst"] <= 1.0, f"{tag}: row_dot differs from its plain "
+          f"version by {tot['worst']:.3f} of its tolerance")
+    return tot
+
+
+def ordered_phase(cam, offsets, args) -> dict:
+    """The ordered sums of one eager body at BODY_BATCH windows: every
+    call recorded, then each held to its plain version and its
+    kernel-order twin and timed at its shapes; one body's at each of
+    ORDERED_SIZES (B = 1) against their plain versions, timed; and the
+    body's aten operations at B = 1 and BODY_BATCH. Returns the
+    BODY_BATCH body's summed numbers for the JSON line."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from photobundle_torch import entry
+    from photobundle_torch.core import lm
 
     class Ops(TorchDispatchMode):
         def __init__(self):
@@ -2963,64 +3112,24 @@ def ordered_phase(cam, offsets, args) -> dict:
         f"{ops[1]} at B = 1, {ops[BODY_BATCH]} at B = {BODY_BATCH}")
     check(ops[1] == ops[BODY_BATCH], "the LM body's operations grow with B")
 
-    recorded, real = [], osm.row_dot
-
-    def rec(a, c=None):
-        out = real(a, c)
-        recorded.append((a, c, out))
-        return out
-
-    rec.launches = real.launches      # the wrapper counts under its name
-
-    start, body = lm.program(*body_problem(cam, offsets, args, BODY_BATCH))
-    state, _ = start()
-    osm.row_dot = rec                 # contract, row_sum, sum_over call it
-    try:
-        body(state)
-    finally:
-        osm.row_dot = real
-    torch.cuda.synchronize()
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_bytes=0.0,
-               t_ops=0.0, device_us=0.0, max_abs_err=0.0, worst=0.0)
-    for a, c, out in recorded:
-        want = osm.row_dot_reference(a, c)
-        mag = osm.row_dot_reference(a.abs(), None if c is None else c.abs())
-        err = (out - want).abs()
-        worst = float((err / (ORDERED_RTOL * mag + 1e-30)).max())
-        tot["max_abs_err"] = max(tot["max_abs_err"], float(err.max()))
-        tot["worst"] = max(tot["worst"], worst)
-        k = a.shape[-1]
-        nbytes = (a.numel() + (0 if c is None else c.numel())
-                  + out.numel()) * a.element_size()
-        flops = out.numel() * k * (1 if c is None else 2)
-        lib = ((lambda a=a: a.sum(-1)) if c is None else
-               (lambda a=a, c=c: torch.matmul(a, c.transpose(-1, -2))))
-        tot["ms"] += median_ms(lambda a=a, c=c: real(a, c), ORDERED_CALLS)
-        tot["plain_ms"] += median_ms(
-            lambda a=a, c=c: osm.row_dot_reference(a, c), ORDERED_CALLS)
-        tot["library_ms"] += (library_us_per_call(lib)[0] or 0.0) / 1e3
-        tot["device_us"] += device_us_per_launch(
-            lambda a=a, c=c: real(a, c), match="row_dot") or 0.0
-        tot["t_bytes"] += nbytes / H100_BYTES_PER_S
-        tot["t_ops"] += flops / H100_F32_FLOPS
-    bound_ms = max(tot["t_bytes"], tot["t_ops"]) * 1e3
-    bound_by = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
-    shapes = sorted({tuple(a.shape) for a, _, _ in recorded})
-    say(f"phase 16 row_dot: {len(recorded)} calls in one body at B = "
-        f"{BODY_BATCH} (shapes {shapes}), each held to its plain version: "
-        f"max abs err "
-        f"{tot['max_abs_err']:.3e}, worst {tot['worst']:.3f} of the "
-        f"tolerance ({ORDERED_RTOL:g} x the sum of |terms|) | summed over "
-        f"the body: kernel {tot['ms']:.4f} ms (median per call, CUDA "
-        f"events), plain {tot['plain_ms']:.4f} ms, device "
-        f"{tot['device_us']:.2f} us (L2 flushed before each), torch "
-        f"sum / matmul {tot['library_ms']:.4f} ms, bound "
-        f"{bound_ms * 1e3:.3f} us by {bound_by}")
-    check(tot["worst"] <= 1.0, f"row_dot differs from its plain version by "
-          f"{tot['worst']:.3f} of its tolerance")
+    tot = measure_body_sums(
+        f"phase 16 row_dot at {N_PTS} x {W}, B = {BODY_BATCH}",
+        record_body_sums(cam, offsets, args, BODY_BATCH), twin=True)
+    dev = args[0].device
+    for n_pts, w in ORDERED_SIZES:
+        t0 = time.perf_counter()
+        cam_s, off_s, args_s = entry.make_problem(
+            n_pts, w, H, WI, PATCH_RADIUS, seed=SEED, device=dev)
+        measure_body_sums(f"phase 16 row_dot at {n_pts} x {w}, B = 1",
+                          record_body_sums(cam_s, off_s, args_s, 1),
+                          twin=False)
+        del cam_s, off_s, args_s
+        torch.cuda.empty_cache()
+        say(f"phase 16 row_dot at {n_pts} x {w}: "
+            f"{time.perf_counter() - t0:.1f} s")
     return dict(max_abs_err=tot["max_abs_err"], ms=tot["ms"],
-                plain_ms=tot["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=tot["library_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by=tot["bound_by"], library_ms=tot["library_ms"],
                 device_us=tot["device_us"])
 
 
@@ -3742,31 +3851,36 @@ def tools_phase_19(dev, kernels) -> None:
     shutil.rmtree(TOOLS_DIR, ignore_errors=True)
     os.makedirs(TOOLS_DIR)
     # (a) one LM iteration phase by phase, and one body's profile.
-    # One process of its own for both sizes: in this process, after
-    # phases 3-18, the body's traces missed most of the assembly's device
-    # activities (two whole runs); a fresh process traces them all, and a
-    # trace that misses one fails the phase.
-    sizes = [(n, min(BREAKDOWN_CALLS, bench_lm_breakdown.default_calls(n)))
-             for n in (N_PTS, DENSE_PTS)]
-    code = "from photobundle_torch.tools import bench_lm_breakdown as b\n"
-    # At phase 3's size the body is also traced at BODY_BATCH windows.
-    code += "".join(
-        f"b.main(['{n}', '{W}', '{k}'"
-        f"{f', \'--batch\', \'{BODY_BATCH}\'' if n == N_PTS else ''}])\n"
-        for n, k in sizes)
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=BREAKDOWN_TIMEOUT_S)
-    sys.stdout.write(run.stdout)
-    check(run.returncode == 0, f"bench_lm_breakdown exited "
-          f"{run.returncode}:\n{run.stderr[-4000:]}")
-    recs = [json.loads(line) for line in run.stdout.splitlines()
-            if line.startswith('{"tool": "bench_lm_breakdown"')]
-    check(len(recs) == len(sizes), f"bench_lm_breakdown printed "
-          f"{len(recs)} records, not {len(sizes)}")
-    say(f"phase 19a bench_lm_breakdown at {len(sizes)} sizes in one process: "
-        f"{time.perf_counter() - t0:.1f} s")
-    for (n, calls), rec in zip(sizes, recs):
+    # Child processes of their own (BREAKDOWN_PROCESSES): in this process,
+    # after phases 3-18, the body's traces missed most of the assembly's
+    # device activities (two whole runs); a fresh process traces them all,
+    # and a trace that misses one fails the phase.
+    sizes, recs = [], []
+    for group in BREAKDOWN_PROCESSES:
+        part = [(n, w, min(calls, bench_lm_breakdown.default_calls(n)))
+                for n, w, calls in group]
+        code = "from photobundle_torch.tools import bench_lm_breakdown as b\n"
+        # At phase 3's size the body is also traced at BODY_BATCH windows.
+        code += "".join(
+            f"b.main(['{n}', '{w}', '{k}'"
+            f"{f', \'--batch\', \'{BODY_BATCH}\'' if n == N_PTS else ''}])\n"
+            for n, w, k in part)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True,
+                             timeout=BREAKDOWN_TIMEOUT_S)
+        sys.stdout.write(run.stdout)
+        check(run.returncode == 0, f"bench_lm_breakdown exited "
+              f"{run.returncode}:\n{run.stderr[-4000:]}")
+        got = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"tool": "bench_lm_breakdown"')]
+        check(len(got) == len(part), f"bench_lm_breakdown printed "
+              f"{len(got)} records, not {len(part)}")
+        say(f"phase 19a bench_lm_breakdown at {len(part)} size(s) in one "
+            f"process: {time.perf_counter() - t0:.1f} s")
+        sizes += part
+        recs += got
+    for (n, w, calls), rec in zip(sizes, recs):
         for key, row in rec["phases"].items():
             check(row["bitwise"], f"bench_lm_breakdown {n}: the phase "
                   f"{key} is not bitwise the body's on its inputs")
@@ -3780,7 +3894,7 @@ def tools_phase_19(dev, kernels) -> None:
         check(rec["trace_complete"], f"bench_lm_breakdown {n}: the body's "
               f"traces hold {rec['trace_kernels']} device activities for "
               f"{rec['launches']} launches")
-        say(f"phase 19a bench_lm_breakdown {n} x {W}, K = {calls}: every "
+        say(f"phase 19a bench_lm_breakdown {n} x {w}, K = {calls}: every "
             f"phase bitwise the body's and above its bytes floor; the "
             f"body's phases {rec['body_ms']:.3f} ms of device time in "
             f"{rec['body_kernels']} kernels (every trace whole: "
@@ -3795,7 +3909,7 @@ def tools_phase_19(dev, kernels) -> None:
         check(bat["body_kernels"] == rec["body_kernels"], f"bench_lm_breakdown"
               f" {n}: {bat['body_kernels']} kernels per body at B = "
               f"{bat['batch']}, {rec['body_kernels']} at B = 1")
-        say(f"phase 19a bench_lm_breakdown {n} x {W} per body phase, device "
+        say(f"phase 19a bench_lm_breakdown {n} x {w} per body phase, device "
             f"ms / kernels at B = 1 | B = {bat['batch']}: " + ", ".join(
                 f"{ph} {rec['body'][ph]['ms']:.3f}/"
                 f"{rec['body'][ph]['kernels']} | {bat['body'][ph]['ms']:.3f}/"
@@ -4661,7 +4775,7 @@ def main() -> None:
                    "photobundle_tpu/core/schur.py:282 (XLA's cho_factor; "
                    "no TPU kernel)", chol_launches, chol),
         entry_json(f"row_dot/batch{BODY_BATCH}", "ordered_sum.cu",
-                   "photobundle_tpu/core/schur.py:97 (XLA's einsums and "
+                   "photobundle_tpu/core/schur.py:134 (XLA's einsums and "
                    "sums; no TPU kernel)", dot_launches, dots),
     ]}))
     print(nvidia_smi())

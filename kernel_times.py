@@ -25,8 +25,17 @@ R = 2; and K1, sorted K1 and K8 also at 65 536 points,
 R = 2 (phase 11's dense windows); K1's batch axis (`K1_batch`, where the
 checkout's `patch_stats` takes one) at R = 2 on chip_smoke.py phase 16's
 windows at B = 1, 2 and 4. --kernels keeps the kernels whose names
-start with one of the given prefixes (K1 always runs) and builds only
-their sources. For each: the
+start with one of the given prefixes (K1 always runs, but where only the
+LM body's own kernels are named) and builds only their sources. The LM
+body's own kernels: `row_dot` (ops/ordered_sum) times every call of one
+eager LM body (chip_smoke.py's `record_body_sums`) at 4096 points x 5
+poses, B = 4, and at 65 536 x 5 and 32 768 x 32, B = 1 (each call's
+inputs as the tree's own body gave them), L2 flushed before each call,
+their device times summed over the body; `chol` (ops/chol_solve) times
+the solve on chip_smoke.py's `chol_systems` at W = 5 (B = 1, 4, 8), 10
+(B = 4), 32 (B = 1, 4) and 45 (B = 1) in f32, and W = 5 (B = 4) and 32
+(B = 1) in f64 (equal hashes across trees: bitwise equal solutions).
+For each: the
 median time per call over 50 calls (CUDA events), and the device time per
 launch over 20 launches (torch.profiler, L2 flushed before each launch by
 writing 256 MiB) in ROUNDS rounds that take the kernels in turns, forward
@@ -66,6 +75,14 @@ K8_THREADS = 64
 
 
 # Each kernel source and the names of the kernels timed from it.
+# The LM body's own kernels (no TPU kernel stands behind them), timed
+# apart from the patch kernels.
+BODY_KERNELS = ("row_dot", "chol")
+BODY_SIZES = ((cs.N_PTS, cs.W, cs.BODY_BATCH),
+              *((n, w, 1) for n, w in cs.ORDERED_SIZES))
+CHOL_CASES = ((5, 1, "f32"), (5, 4, "f32"), (5, 8, "f32"), (10, 4, "f32"),
+              (32, 1, "f32"), (32, 4, "f32"), (45, 1, "f32"), (5, 4, "f64"),
+              (32, 1, "f64"))
 SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1", "K1_batch"),
                   "patch_bicubic": ("K2_mean", "K2_affine"),
                   "patch_scaled": ("K3", "K5"),
@@ -111,8 +128,127 @@ def use_tree(tree: str):
     return package
 
 
+def launches_us(fns, match: str):
+    """Device time of each launch of fns' kernels (names holding `match`),
+    in order, one fn after another with L2 flushed before each: one
+    torch.profiler trace, taken again (up to three times) until it holds
+    one launch per fn. None if no trace does."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in fns:
+                cs.flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and match in e.name),
+                      key=lambda e: e.time_range.start)
+        if len(evts) == len(fns):
+            return [e.time_range.elapsed_us() for e in evts]
+    return None
+
+
+def body_one(tree: str, prefixes) -> dict:
+    """The LM body's own kernels of one checkout, in this process."""
+    use_tree(tree)
+    from photobundle_torch import entry
+    from photobundle_torch.ops import _build
+    from photobundle_torch.ops import chol_solve as chol
+    from photobundle_torch.ops import ordered_sum as osm
+
+    dev = torch.device("cuda", 0)
+    builds = _build.build_all(["ordered_sum", "chol_solve"])
+    for name, built in builds.items():
+        print(f"[kernel_times] {tree} {name}:", flush=True)
+        cs.print_ptxas_typed(name, built)
+    out = {"tree": tree, "rounds": ROUNDS}
+    cases = {}
+    if "row_dot" in prefixes:
+        for n_pts, w, b in BODY_SIZES:
+            cam, offsets, args = entry.make_problem(
+                n_pts, w, cs.H, cs.WI, cs.PATCH_RADIUS, seed=cs.SEED,
+                device=dev)
+            recorded = cs.record_body_sums(cam, offsets, args, b)
+            fns = [lambda a=a, c=c: osm.row_dot(a, c)
+                   for a, c, _ in recorded]
+            t_bytes = t_ops = 0.0
+            for a, c, o in recorded:
+                t_bytes += (a.numel() + (0 if c is None else c.numel())
+                            + o.numel()) * a.element_size()
+                t_ops += o.numel() * a.shape[-1] * (1 if c is None else 2)
+            bound_us = max(t_bytes / cs.H100_BYTES_PER_S,
+                           t_ops / cs.H100_F32_FLOPS) * 1e6
+            cases[f"row_dot_{n_pts}x{w}_B{b}"] = (
+                fns, "row_dot", bound_us,
+                torch.cat([o.flatten() for _, _, o in recorded]))
+    if "chol" in prefixes:
+        for w, b, dt in CHOL_CASES:
+            s, rhs = cs.chol_systems(w, b, dev, 100 * w + b)
+            if dt == "f64":
+                s, rhs = s.double(), rhs.double()
+            n = 6 * w
+            bound = cs.bytes_ops_bound(
+                b * (n * (n + 1) // 2 + 2 * n) * s.element_size(),
+                b * (n ** 3 / 3 + 2 * n * n), b * n * s.element_size())
+            cases[f"chol_W{w}_B{b}_{dt}"] = (
+                [lambda s=s, rhs=rhs: chol.chol_solve(s, rhs)], "chol_solve",
+                bound["bound_ms"] * 1e3, chol.chol_solve(s, rhs))
+            if b == 1 and dt == "f32":
+                lib = {"cholesky_ex + cholesky_solve": lambda s=s, rhs=rhs:
+                       torch.cholesky_solve(rhs[..., None],
+                                            torch.linalg.cholesky_ex(s)[0]),
+                       "torch.linalg.solve": lambda s=s, rhs=rhs:
+                       torch.linalg.solve(s, rhs)}
+                for label, fn in lib.items():
+                    us, _ = cs.library_us_per_call(fn)
+                    out[f"chol_W{w}_B{b}_{label}_us"] = us
+                    print(f"[kernel_times] {tree} chol W = {w}, B = 1: "
+                          f"{label} {cs.us_text(us)}", flush=True)
+    names = list(cases)
+    times = {name: [] for name in names}
+    for r in range(ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            fns, match = cases[name][:2]
+            times[name].append(launches_us(fns, match))
+    for name in names:
+        fns, match, bound_us, result = cases[name]
+        rounds = [t for t in times[name] if t is not None]
+        sums = [sum(t) for t in rounds]
+        out[f"{name}_device_us"] = statistics.median(sums) if sums else None
+        out[f"{name}_device_us_min"] = min(sums) if sums else None
+        out[f"{name}_device_us_max"] = max(sums) if sums else None
+        out[f"{name}_bound_us"] = bound_us
+        out[f"{name}_launches"] = len(fns)
+        out[f"{name}_hash"] = output_hash(result)
+        heaviest = ""
+        if len(fns) > 1 and rounds:
+            per = [statistics.median(t[i] for t in rounds)
+                   for i in range(len(fns))]
+            out[f"{name}_per_call_us"] = per
+            top = max(range(len(fns)), key=per.__getitem__)
+            heaviest = f" | heaviest call {top}: {per[top]:.2f} us"
+        print(f"[kernel_times] {tree} {name}: {len(fns)} launch(es), device "
+              f"us summed, over {ROUNDS} rounds median "
+              f"{cs.us_text(out[f'{name}_device_us'])}, range "
+              f"{cs.us_text(out[f'{name}_device_us_min'])} .. "
+              f"{cs.us_text(out[f'{name}_device_us_max'])} | bound "
+              f"{bound_us:.3f} us{heaviest} | output hash "
+              f"{out[f'{name}_hash']}", flush=True)
+    out["nvidia_smi"] = cs.nvidia_smi()
+    return out
+
+
 def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
     """The numbers of one checkout, in this process."""
+    if prefixes and all(p in BODY_KERNELS for p in prefixes):
+        return body_one(tree, prefixes)
     use_tree(tree)
     from photobundle_torch import entry
     from photobundle_torch.core import lm

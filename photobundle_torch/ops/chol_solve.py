@@ -12,15 +12,17 @@ No TPU kernel stands behind it: the JAX package solves with XLA's
 cho_factor / cho_solve (photobundle_tpu/core/schur.py:282-283). It was
 added because torch's batched cholesky_solve on a card goes through
 MAGMA, which allocates and so cannot be captured in a CUDA graph, and
-because cuSOLVER's batched and single-matrix code differ: one block per
-system, every sum in a fixed order, makes each system's x independent of
-the batch.
+because cuSOLVER's batched and single-matrix code differ: every sum in a
+fixed order makes each system's x independent of the batch.
 
 `chol_solve` launches the kernel for tensors on a card and runs
 `chol_solve_reference` (torch.linalg.cholesky_ex and cholesky_solve) for
 tensors on the CPU; a CUDA tensor gets the kernel or an exception.
-`chol_solve.launches` counts launches by mode ('shared' for n <=
-MAX_SHARED of the dtype, 'global' above).
+`chol_solve.launches` counts launches by mode (`mode(n, dtype)`: 'warp'
+for n <= WARP_N, a warp per system; 'shared' for n <= MAX_SHARED of the
+dtype, a block per system in shared memory; 'global' above, the same in
+a global scratch). The mode depends on n and the dtype alone, and every
+mode gives each system the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -32,11 +34,21 @@ import torch
 from . import _build
 from ._common import count_launch, reset_launches
 
-MODES = ("shared", "global")
-# csrc/chol_solve.cu kMaxShared: the largest n solved in shared memory
-# (f32: 6W for W <= 40; f64: W <= 28).
+MODES = ("warp", "shared", "global")
+# csrc/chol_solve.cu kWarpN: the largest n a warp solves (6W for W <= 5);
+# kMaxShared: the largest n solved in shared memory (f32: 6W for W <= 40;
+# f64: W <= 28).
+WARP_N = 32
 MAX_SHARED = {torch.float32: 240, torch.float64: 168}
 DTYPES = (torch.float32, torch.float64)
+
+
+def mode(n: int, dtype: torch.dtype) -> str:
+    """The kernel's path for systems of n unknowns: a function of n and
+    the dtype alone, never of the batch."""
+    if n <= WARP_N:
+        return "warp"
+    return "shared" if n <= MAX_SHARED[dtype] else "global"
 
 
 def chol_solve_reference(s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,8 +95,8 @@ def chol_solve(s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b2 = b.reshape(-1, n).contiguous()
     g = s3.shape[0]
     x = torch.empty((g, n), dtype=s.dtype, device=s.device)
-    in_global = n > MAX_SHARED[s.dtype]
-    scratch = torch.empty_like(s3) if in_global else None
+    path = mode(n, s.dtype)
+    scratch = torch.empty_like(s3) if path == "global" else None
     lib = _kernel()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
@@ -95,7 +107,7 @@ def chol_solve(s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         msg = lib.pb_chol_error_string(err).decode()
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    count_launch(chol_solve, MODES[in_global])
+    count_launch(chol_solve, path)
     return x.reshape(*lead, n)
 
 

@@ -10,11 +10,16 @@ each window must round as its own solve does (core/lm.py). torch's
 reductions on a card choose their split over threads and blocks by the
 number of outputs, and cuBLAS its kernel by the batch count, so their
 results for window b change with B. The kernel sums every output in an
-order fixed by K (one thread per output up to 64 terms, one block and a
-fixed tree above), so each output depends on its own row alone. Sums
+order fixed by K (`order(k)`): up to THREAD_ROW terms in turn; above, in
+chunks of CHUNK terms, each chunk as 32 lane sums (lane s the terms s, s
++ 32, ... in turn) added as a warp's xor butterfly, the chunk sums then
+in chunk order. So each output depends on its own row alone, whatever the
+batch, the tile it falls in or the blocks a chunk range is split over.
+`row_dot_ordered` writes that order out in torch operations (the kernel's
+twin: bitwise its results, in f32 and f64; no main path runs it). Sums
 are taken in the operands' type, f32 or f64, as XLA takes the JAX
 package's. No TPU kernel stands behind it: the JAX package leaves these
-sums to XLA (photobundle_tpu/core/schur.py:94-106, 223-241).
+sums to XLA (photobundle_tpu/core/schur.py:134, 246).
 
 `row_dot` launches the kernel for f32 or f64 tensors on a card and runs
 `row_dot_reference` for tensors on the CPU; a CUDA tensor gets the kernel
@@ -38,6 +43,27 @@ from . import _build
 from ._common import count_launch, reset_launches
 
 MODES = ("sum", "dot")
+# csrc/ordered_sum.cu kThreadRow and kChunk: the order's constants.
+THREAD_ROW = 64
+CHUNK = 1024
+LANES = 32
+
+
+def order(k: int) -> tuple:
+    """The order of a sum of k terms, a function of k alone: ('thread',
+    k) for k <= THREAD_ROW (the terms in turn), else ('chunks', n) for n
+    chunks of CHUNK terms (the last one shorter), each summed by LANES
+    lanes and a butterfly, then added in chunk order."""
+    if k <= THREAD_ROW:
+        return ("thread", k)
+    return ("chunks", -(-k // CHUNK))
+
+
+def scratch_elements(k: int, outputs: int) -> int:
+    """Elements of the chunk sums' scratch the kernel may write for
+    `outputs` sums of k terms (0 where a sum is one chunk or fewer)."""
+    how, n = order(k)
+    return n * outputs if how == "chunks" and n > 1 else 0
 
 
 def row_dot_reference(a: torch.Tensor, c: torch.Tensor | None = None
@@ -47,6 +73,35 @@ def row_dot_reference(a: torch.Tensor, c: torch.Tensor | None = None
     if c is None:
         return a.sum(-1)
     return (a[..., :, None, :] * c[..., None, :, :]).sum(-1)
+
+
+def row_dot_ordered(a: torch.Tensor, c: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """The kernel's order written out in torch operations, each product and
+    each sum one rounding: bitwise the kernel where those operations round
+    as the card's (any device; the products' (..., P, Q, K) tensor is
+    formed whole, so small shapes or the card)."""
+    t = a if c is None else a[..., :, None, :] * c[..., None, :, :]
+    k = t.shape[-1]
+    how, n = order(k)
+    if how == "thread":
+        out = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+        for i in range(k):
+            out = out + t[..., i]
+        return out
+    t = torch.nn.functional.pad(t, (0, n * CHUNK - k))
+    t = t.unflatten(-1, (n, CHUNK // LANES, LANES))    # chunk, step, lane
+    lanes = torch.zeros((*t.shape[:-3], n, LANES), dtype=t.dtype,
+                        device=t.device)
+    for j in range(CHUNK // LANES):
+        lanes = lanes + t[..., j, :]
+    while lanes.shape[-1] > 1:                          # 16 apart, 8, ...
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    out = lanes[..., 0, 0]
+    for i in range(1, n):
+        out = out + lanes[..., i, 0]
+    return out
 
 
 def _matmul(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -79,7 +134,7 @@ def _kernel():
     built = _build.library("ordered_sum")
     fn = built.lib.pb_row_dot               # ctypes caches the attribute
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 4
                        + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.POINTER(ctypes.c_longlong)] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
@@ -133,6 +188,9 @@ def row_dot(a: torch.Tensor, c: torch.Tensor | None = None
     out = torch.empty((g, h, p, q), dtype=a.dtype, device=a.device)
     if out.numel() and k == 0:
         return out.zero_().reshape(*lead, p, *(() if c is None else (q,)))
+    n_part = scratch_elements(k, out.numel())
+    part = (torch.empty(n_part, dtype=a.dtype, device=a.device) if n_part
+            else None)
     lib = _kernel()
     dims = (ctypes.c_int * 5)(g, h, p, q, k)
     sa = (ctypes.c_longlong * 4)(*a4.stride())
@@ -140,8 +198,9 @@ def row_dot(a: torch.Tensor, c: torch.Tensor | None = None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.pb_row_dot(a4.data_ptr(), 0 if c4 is None else
-                             c4.data_ptr(), out.data_ptr(), dims, sa, sc,
-                             dtypes.index(a.dtype), stream)
+                             c4.data_ptr(), out.data_ptr(),
+                             0 if part is None else part.data_ptr(), dims,
+                             sa, sc, dtypes.index(a.dtype), stream)
     if err != 0:
         msg = lib.pb_row_dot_error_string(err).decode()
         raise RuntimeError(f"row_dot kernel launch failed: CUDA error {err} "

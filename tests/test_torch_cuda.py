@@ -1134,13 +1134,14 @@ def test_batched_solve_is_bitwise_each_window(cuda_device):
     assert runs["bodies"] >= max(int(s.iterations) for _, _, s in singles)
 
 
-@pytest.mark.parametrize("w", [5, 10, 32, 45])
+@pytest.mark.parametrize("w", [1, 5, 6, 10, 32, 45])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_chol_solve_kernel_matches_plain_version(cuda_device, w, dtype):
-    """The batched Cholesky kernel (shared memory to W = 40 in f32, 28 in
-    f64; global scratch above) against cholesky_ex + cholesky_solve on
-    well-conditioned systems, bitwise its single launches, NaN in the
-    non-SPD window alone."""
+    """The batched Cholesky kernel on both sides of its paths (a warp per
+    system to n = 32, W <= 5; panels of 32 columns above, in shared
+    memory to W = 40 in f32, 28 in f64; global scratch above) against
+    cholesky_ex + cholesky_solve on well-conditioned systems, bitwise its
+    single launches, NaN in the non-SPD window alone."""
     from photobundle_torch.ops import chol_solve as cs
 
     n, b = 6 * w, 4
@@ -1165,13 +1166,22 @@ def test_chol_solve_kernel_matches_plain_version(cuda_device, w, dtype):
                        torch.nan_to_num(singles, 7.0))
 
 
-@pytest.mark.parametrize("k", [5, 64, 65, 12288])
+# Lengths on both sides of the ordered sums' paths (a thread per output to
+# 64 terms) and of their chunks (1024 terms): one chunk, one and a bit,
+# several.
+ROW_DOT_K = (5, 64, 65, 1023, 1024, 1025, 3 * 1024 + 7, 12288)
+
+
+def bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+@pytest.mark.parametrize("k", ROW_DOT_K)
 @pytest.mark.parametrize("dot", [False, True])
 def test_row_dot_kernel_matches_plain_version(cuda_device, k, dot):
-    """The ordered sums on both sides of their design change (one thread
-    per output to 64 terms, a block above), through a transposed view,
-    within 1e-5 of each output's sum of |terms|, bitwise the same rows
-    summed alone."""
+    """The ordered sums through a transposed view within 1e-5 of each
+    output's sum of |terms|, bitwise their kernel-order twin and the same
+    rows summed alone."""
     from photobundle_torch.ops import ordered_sum as osm
 
     g = torch.Generator().manual_seed(k)
@@ -1183,5 +1193,75 @@ def test_row_dot_kernel_matches_plain_version(cuda_device, k, dot):
     want = osm.row_dot_reference(a, c)
     mag = osm.row_dot_reference(a.abs(), None if c is None else c.abs())
     assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+    assert torch.equal(bits(got), bits(osm.row_dot_ordered(a, c)))
     alone = osm.row_dot(a[1:2], None if c is None else c[1:2])
     assert torch.equal(alone[0], got[1])
+    if c is None:
+        one, want_one = osm.row_dot(a[2:3, 1:2, 6:7]), got[2, 1, 6]
+    else:
+        one = osm.row_dot(a[2:3, 1:2, 6:7], c[2:3, 1:2, 4:5])
+        want_one = got[2, 1, 6, 4]
+    assert torch.equal(bits(one.reshape(1)), bits(want_one.reshape(1)))
+
+
+@pytest.mark.parametrize("case", ["s_off", "one_output", "batch", "rhs_off",
+                                  "one_row", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_dot_kernel_at_body_shapes(cuda_device, case, dtype):
+    """The body's shapes: s_off's (6W, 3N) rows at W = 32 on few points
+    (contiguous rows: the 16-byte copies; 3 chunks, tiles of 32 x 16 split
+    over blocks), one sum of 3 x 65 536 terms (192 chunks over blocks),
+    hcc-sized products on a batch of 4 windows (2 x 4 warp tiles), and
+    the other warp tiles: rhs_off's (6W, 3N) rows against one (8 x 1), one
+    row against 100 (8 x 8, one row used), the sums of 100 rows (8 x 1).
+    Within 1e-5 of
+    the sums of |terms|; every output of a tile bitwise its row pair
+    summed alone; window b bitwise its own call; bitwise the kernel-order
+    twin."""
+    from photobundle_torch.ops import ordered_sum as osm
+
+    g = torch.Generator().manual_seed(7)
+    shapes = {"s_off": ((1, 1, 192, 2100), (1, 1, 192, 2100)),
+              "one_output": ((1, 3 * 65536), None),
+              "batch": ((4, 5, 6, 3 * 700), (4, 5, 6, 3 * 700)),
+              "rhs_off": ((1, 1, 192, 2100), (1, 1, 1, 2100)),
+              "one_row": ((1, 1, 1, 2100), (1, 1, 100, 2100)),
+              "rows": ((2, 100, 2100), None)}[case]
+    a = torch.randn(shapes[0], generator=g, dtype=dtype).to(cuda_device)
+    c = (None if shapes[1] is None else
+         torch.randn(shapes[1], generator=g, dtype=dtype).to(cuda_device))
+    got = osm.row_dot(a, c)
+    want = osm.row_dot_reference(a, c)
+    mag = osm.row_dot_reference(a.abs(), None if c is None else c.abs())
+    rtol = 1e-5 if dtype == torch.float32 else 1e-13
+    assert bool(((got - want).abs() <= rtol * mag + 1e-300).all())
+    assert torch.equal(bits(got), bits(osm.row_dot_ordered(a, c)))
+    if case == "s_off":
+        for p, q in ((0, 0), (29, 30), (31, 16), (100, 177), (191, 191)):
+            one = osm.row_dot(a[..., p:p + 1, :], c[..., q:q + 1, :])
+            assert torch.equal(bits(one[0, 0, 0, 0]),
+                               bits(got[0, 0, p, q]))
+    if case == "batch":
+        for b in range(4):
+            assert torch.equal(bits(osm.row_dot(a[b], c[b])), bits(got[b]))
+
+
+@pytest.mark.parametrize("w", [5, 32])
+def test_sum_over_kernel_at_the_solve_layout(cuda_device, w):
+    """solve_reduced's rhs_p: the (W, 3, 6, N) products summed over the
+    window and pose axes (a copy of 6W-term rows, one sum per point and
+    axis) within 1e-5 of the sums of |terms|, bitwise the kernel-order
+    twin and each point's sums alone."""
+    from photobundle_torch.ops import ordered_sum as osm
+
+    g = torch.Generator().manual_seed(w)
+    x = torch.randn((1, w, 3, 6, 700), generator=g).to(cuda_device)
+    got = osm.sum_over(x, (-4, -2))                       # (1, 3, 700)
+    want = x.sum((-4, -2))
+    mag = x.abs().sum((-4, -2))
+    assert bool(((got - want).abs() <= 1e-5 * mag).all())
+    moved = x.movedim((-4, -2), (-2, -1)).flatten(-2)
+    assert torch.equal(bits(got), bits(osm.row_dot_ordered(moved)))
+    one = osm.sum_over(x[..., 17:18], (-4, -2))
+    assert torch.equal(bits(one[..., 0]), bits(got[..., 17]))
+
