@@ -232,10 +232,13 @@ descriptors and the shipped configurations' own sizes), from seeds:
      and stereo ms per frame, window-solve ms, LM iterations, ATE, peak
      device memory and the card; (B) K1 with the IntensityAndGradient (C =
      3) and BitPlanes (C = 8) descriptors at R = 2 and 19 and K2 with C = 3
-     at R = 2, each against its plain version at 4096 x 5 with its bound,
-     then the engine over 8 frames of phase 6's scene with each
-     descriptor (K1) and in kitti_sgbm_bicubic.cfg's settings with C = 3
-     (K2), each first window held across backends.
+     at both, each against its plain version at 4096 x 5 with its bound,
+     each C-channel launch bitwise the sum, from zeros in channel order,
+     of its C one-channel launches (every normalization), a B = 2 launch
+     at C = 3 bitwise its two single launches (hashes printed), then the
+     engine over 8 frames of phase 6's scene with each descriptor (K1)
+     and in kitti_sgbm_bicubic.cfg's settings with C = 3 (K2), each first
+     window held across backends, with a hash of its refined poses.
 
 Each phase prints its time ("phase N took ... s").
 
@@ -266,6 +269,7 @@ raises and exits non-zero without that line. Needs a CUDA card: without
 one it exits non-zero before doing anything.
 """
 
+import hashlib
 import json
 import os
 import re
@@ -4252,50 +4256,141 @@ def descriptor_instance(dev, descriptor: str, pr: int):
             patches_mod.mean_normalize(patch).contiguous())
 
 
-def descriptor_phase(dev, kernels, scene, drifted) -> dict:
-    """Phase 20 (B): K1 with the DESCRIPTORS' channels (C = 3 and 8) at
-    DESCRIPTOR_RADII and K2 with C = 3 at R = 2, each against its plain
-    version at 4096 x 5 with its bound; then the engine over
-    DEFAULT_FRAMES of phase 6's scene in the default configuration with
-    each descriptor (K1) and in kitti_sgbm_bicubic.cfg's settings with
-    IntensityAndGradient (K2), each first window held across backends.
-    Returns {label: (numbers for the JSON line, the engine's launches)}."""
-    from photobundle_torch.config import ConfigFile, PBAConfig
+def descriptor_calls(dev, radii=DESCRIPTOR_RADII):
+    """Phase 20 (B)'s kernel calls, each on `descriptor_instance`'s inputs:
+    {label: (kernel call, plain call, valid (N, W), bound, the instance's
+    (kernel wrapper, planes, uv, valid, patch, radius))} for K1 with each
+    of the DESCRIPTORS at each of `radii` ("K1 C=<C> R=<R>") and
+    K2 with the first ("K2 C=3 R=<R>"; its observations inside the
+    bicubic margins, R+1 <= u <= Wi-3-R), the mean normalization."""
     from photobundle_torch.ops import patch_bicubic as pb
     from photobundle_torch.ops import patch_warp as pw
 
     out = {}
     for descriptor in DESCRIPTORS:
-        for pr in DESCRIPTOR_RADII:
+        for pr in radii:
             channels, planes, uv_nm, valid_nm, patch = descriptor_instance(
                 dev, descriptor, pr)
             c = channels.shape[1]
             texels = window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, H, WI)
-            numbers = kernel_phase(
-                "20", f"K1 C={c} ({descriptor})",
-                lambda: pw.patch_stats(planes, uv_nm, valid_nm, patch, pr),
-                lambda: pw.patch_stats_reference(planes, uv_nm, valid_nm,
-                                                 patch, pr),
-                valid_nm, kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm, c,
-                                       pr, "bilinear", "mean"),
-                radius=pr, calls=KERNEL_CALLS if pr == 2 else WIDE_CALLS)
-            if pr == PATCH_RADIUS:
-                out[f"K1 C{c}"] = numbers
-            if descriptor == DESCRIPTORS[0] and pr == PATCH_RADIUS:
+            args = (planes, uv_nm, valid_nm, patch, pr)
+            out[f"K1 C={c} R={pr}"] = (
+                lambda args=args: pw.patch_stats(*args),
+                lambda args=args: pw.patch_stats_reference(*args), valid_nm,
+                kernel_bound(texels, GRAD_TEXEL_BYTES, valid_nm, c, pr,
+                             "bilinear", "mean"), (pw.patch_stats, *args))
+            if descriptor == DESCRIPTORS[0]:
                 x, y = uv_nm[..., 0], uv_nm[..., 1]
                 valid_bc = (valid_nm & (x >= pr + 1) & (x <= WI - 3 - pr)
                             & (y >= pr + 1) & (y <= H - 3 - pr)).contiguous()
                 texels_bc = window_texels(uv_nm, valid_bc, pr, 2 * pr + 4,
                                           pr + 1, H, WI)
-                out[f"K2 C{c}"] = kernel_phase(
-                    "20", f"K2 C={c} ({descriptor})",
-                    lambda: pb.bicubic_stats(channels, uv_nm, valid_bc, patch,
-                                             pr),
-                    lambda: pb.bicubic_stats_reference(channels, uv_nm,
-                                                       valid_bc, patch, pr),
+                args = (channels, uv_nm, valid_bc, patch, pr)
+                out[f"K2 C={c} R={pr}"] = (
+                    lambda args=args: pb.bicubic_stats(*args),
+                    lambda args=args: pb.bicubic_stats_reference(*args),
                     valid_bc, kernel_bound(texels_bc, VALUE_TEXEL_BYTES,
                                            valid_bc, c, pr, "bicubic",
-                                           "mean"))
+                                           "mean"), (pb.bicubic_stats, *args))
+    return out
+
+
+def output_hash(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes: equal
+    hashes, bitwise equal tensors."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def channel_composition(label, kernel, planes, uv, valid, patch, pr) -> None:
+    """Phase 20 (B)'s composition check, in every normalization: a
+    C-channel launch of `kernel` (K1 or K2) equals, bitwise, the sum from
+    0.f, in channel order, of C one-channel launches on each channel's
+    planes and descriptor slice (each channel's six sums are taken apart
+    from the others and only then added, in order, to zeros). Prints both
+    hashes."""
+    from photobundle_torch.ops import _common
+
+    c = planes.shape[1]
+    for norm in _common.NORMS:
+        got = kernel(planes, uv, valid, patch, pr, norm)
+        summed = torch.zeros_like(got)
+        for ch in range(c):
+            summed = summed + kernel(planes[:, ch:ch + 1].contiguous(), uv,
+                                     valid, patch[:, ch:ch + 1].contiguous(),
+                                     pr, norm)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(got), bits(summed))
+        say(f"phase 20 {label} {norm}: the C={c} launch {output_hash(got)}, "
+            f"the channel-ordered sum of {c} one-channel launches "
+            f"{output_hash(summed)}: "
+            f"{'bitwise equal' if same else 'DIFFERENT'}")
+        check(same and bool(torch.isfinite(got).all())
+              and float(got.abs().sum()) > 0,
+              f"phase 20 {label} {norm}: the C={c} launch is not the "
+              f"channel-ordered sum of its one-channel launches (max abs "
+              f"difference {float((got - summed).abs().max()):.3e})")
+
+
+def batch_composition(label, kernel, planes, uv, valid, patch, pr) -> None:
+    """Phase 20 (B): a B = 2 launch of `kernel`, the instance and a second
+    window (its frames and points rolled by one), equals its two single
+    launches bitwise, in every normalization. Prints both hashes."""
+    from photobundle_torch.ops import _common
+
+    second = (planes.roll(1, 0), uv, valid, patch.roll(1, 0))
+    batch = [torch.stack(pair).contiguous()
+             for pair in zip((planes, uv, valid, patch), second)]
+    for norm in _common.NORMS:
+        got = kernel(*batch, pr, norm)
+        want = torch.stack([kernel(planes, uv, valid, patch, pr, norm),
+                            kernel(*second, pr, norm)])
+        torch.cuda.synchronize()
+        same = torch.equal(bits(got), bits(want))
+        say(f"phase 20 {label} {norm}: a B = 2 launch {output_hash(got)}, "
+            f"its two single launches {output_hash(want)}: "
+            f"{'bitwise equal' if same else 'DIFFERENT'}")
+        check(same, f"phase 20 {label} {norm}: the B = 2 launch is not its "
+              f"two single launches")
+
+
+def descriptor_phase(dev, kernels, scene, drifted) -> dict:
+    """Phase 20 (B): K1 with the DESCRIPTORS' channels (C = 3 and 8) at
+    DESCRIPTOR_RADII and K2 with C = 3 at both (`descriptor_calls`), each
+    against its plain version at 4096 x 5 with its bound, each C-channel
+    launch bitwise the channel-ordered sum of its one-channel launches in
+    every normalization, and a B = 2 launch at C = 3 bitwise its two
+    single launches; then the descriptor engines (`descriptor_engines`).
+    Returns {label: (numbers for the JSON line, the engine's launches)}."""
+    out = {}
+    for label, (kernel, plain, valid, bound, args) in descriptor_calls(
+            dev).items():
+        pr = args[-1]
+        name, c = label.split()[0], label.split()[1]
+        numbers = kernel_phase(
+            "20", f"{name} {c}", kernel, plain, valid, bound, radius=pr,
+            calls=KERNEL_CALLS if pr == PATCH_RADIUS else WIDE_CALLS)
+        if pr == PATCH_RADIUS:
+            out[f"{name} {c.replace('=', '')}"] = numbers
+        channel_composition(label, *args)
+        if c == "C=3":
+            batch_composition(label, *args)
+    engines = descriptor_engines(kernels, scene, drifted)
+    return {label: (out[label], launches)
+            for label, launches in engines.items()}
+
+
+def descriptor_engines(kernels, scene, drifted) -> dict:
+    """Phase 20 (B)'s engines: over DEFAULT_FRAMES of phase 6's scene in
+    the default configuration with each of the DESCRIPTORS (K1) and in
+    kitti_sgbm_bicubic.cfg's settings with IntensityAndGradient (K2), each
+    first window held across backends; prints a hash of each run's
+    refined poses and first window's start. Returns {label: the engine's
+    launches}."""
+    from photobundle_torch.config import ConfigFile, PBAConfig
+    from photobundle_torch.ops import patch_bicubic as pb
+    from photobundle_torch.ops import patch_warp as pw
+
+    out = {}
     sgbm = PBAConfig.from_config_file(ConfigFile(
         os.path.join("configs", "kitti_sgbm_bicubic.cfg")))
     for label, cfg, counted in (
@@ -4310,7 +4405,12 @@ def descriptor_phase(dev, kernels, scene, drifted) -> dict:
                          kernels, ate_must_fall=False)
         check_first_window(tag, run,
                            restrict_torch=cfg.interpolation != "bicubic")
-        out[label] = (out[label], run["launches"])
+        poses = np.concatenate([r.poses for r in run["results"]])
+        start = run["first_state"][1]
+        say(f"phase {tag} hashes: refined poses of every window "
+            f"{hashlib.sha256(poses.tobytes()).hexdigest()[:16]}, the first "
+            f"window's start points {output_hash(start.x_world)}")
+        out[label] = run["launches"]
     return out
 
 

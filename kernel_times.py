@@ -3,6 +3,7 @@
 and K8 in one or more checkouts.
 
     python3 kernel_times.py [--radii R,...] [--store-radii R,...]
+                            [--descriptor-radii R,...]
                             [--kernels NAME,...] [TREE ...]
                                   (default: this checkout)
 
@@ -24,7 +25,13 @@ checkout's K7 takes them); K8
 R = 2; and K1, sorted K1 and K8 also at 65 536 points,
 R = 2 (phase 11's dense windows); K1's batch axis (`K1_batch`, where the
 checkout's `patch_stats` takes one) at R = 2 on chip_smoke.py phase 16's
-windows at B = 1, 2 and 4. --kernels keeps the kernels whose names
+windows at B = 1, 2 and 4; the descriptor kernels (`K1_C3_R2`,
+`K1_C3_R19`, `K1_C8_R2`, `K1_C8_R19`: K1 with the IntensityAndGradient and
+BitPlanes channels, C = 3 and 8, at R = 2 and 19; `K2_C3_R2`,
+`K2_C3_R19`: K2 with C = 3; other radii with --descriptor-radii;
+`--kernels K1_C,K2_C` keeps them) on chip_smoke.py phase
+20 (B)'s inputs (`chip_smoke.descriptor_calls`, mean normalization).
+--kernels keeps the kernels whose names
 start with one of the given prefixes (K1 always runs, but where only the
 LM body's own kernels are named) and builds only their sources. The LM
 body's own kernels: `row_dot` (ops/ordered_sum) times every call of one
@@ -54,7 +61,6 @@ Prints each kernel instance's ptxas registers and spills and one JSON
 line per tree. Needs a CUDA card.
 """
 
-import hashlib
 import json
 import os
 import statistics
@@ -83,8 +89,8 @@ BODY_SIZES = ((cs.N_PTS, cs.W, cs.BODY_BATCH),
 CHOL_CASES = ((5, 1, "f32"), (5, 4, "f32"), (5, 8, "f32"), (10, 4, "f32"),
               (32, 1, "f32"), (32, 4, "f32"), (45, 1, "f32"), (5, 4, "f64"),
               (32, 1, "f64"))
-SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1", "K1_batch"),
-                  "patch_bicubic": ("K2_mean", "K2_affine"),
+SOURCE_KERNELS = {"patch_warp": ("K1", "sorted_K1", "K1_batch", "K1_C"),
+                  "patch_bicubic": ("K2_mean", "K2_affine", "K2_C"),
                   "patch_scaled": ("K3", "K5"),
                   "patch_samples": ("store_rows", "store_block",
                                     "store_raw"),
@@ -104,10 +110,6 @@ def kernel_radii(common, samples) -> dict:
             "K7": (range(1, common.STATS_MAX + 1)
                    if hasattr(common, "STATS_MAX") else common.RADII),
             "store": samples.RADII}
-
-
-def output_hash(out: torch.Tensor) -> str:
-    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def use_tree(tree: str):
@@ -226,7 +228,7 @@ def body_one(tree: str, prefixes) -> dict:
         out[f"{name}_device_us_max"] = max(sums) if sums else None
         out[f"{name}_bound_us"] = bound_us
         out[f"{name}_launches"] = len(fns)
-        out[f"{name}_hash"] = output_hash(result)
+        out[f"{name}_hash"] = cs.output_hash(result)
         heaviest = ""
         if len(fns) > 1 and rounds:
             per = [statistics.median(t[i] for t in rounds)
@@ -245,7 +247,46 @@ def body_one(tree: str, prefixes) -> dict:
     return out
 
 
-def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
+def time_calls(tree: str, calls: dict, keys: dict, out: dict) -> None:
+    """Hash, time per call and device time per launch (ROUNDS rounds, L2
+    flushed) of each of `calls`, {name: (call, bound, kernel name match)},
+    into `out` under keys[name]; prints a line for each."""
+    names = list(calls)
+    for name in names:
+        out[f"{keys[name]}_hash"] = cs.output_hash(calls[name][0]())
+        out[f"{keys[name]}_ms"] = cs.median_ms(calls[name][0],
+                                               cs.KERNEL_CALLS)
+    times = {name: [] for name in names}
+    for r in range(ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name].append(cs.device_us_per_launch(
+                calls[name][0], match=calls[name][2]))
+    for name in names:
+        us = [t for t in times[name] if t is not None]
+        bound_us = calls[name][1]["bound_ms"] * 1e3
+        key = keys[name]
+        if name.startswith("store"):
+            out[f"{key}_clean_us"] = cs.device_us_per_launch(
+                calls[name][0], match="samples", flush="read")
+        out[f"{key}_bound_us"] = bound_us
+        out[f"{key}_device_us"] = statistics.median(us) if us else None
+        out[f"{key}_device_us_min"] = min(us) if us else None
+        out[f"{key}_device_us_max"] = max(us) if us else None
+        print(f"[kernel_times] {tree} {key}: device us per launch over "
+              f"{ROUNDS} rounds median "
+              f"{cs.us_text(out[f'{key}_device_us'])}, range "
+              f"{cs.us_text(out[f'{key}_device_us_min'])} .. "
+              f"{cs.us_text(out[f'{key}_device_us_max'])} | bound "
+              f"{bound_us:.3f} us | median per call "
+              f"{out[f'{key}_ms']:.4f} ms | output hash "
+              f"{out[f'{key}_hash']}"
+              + (f" | after a read flush "
+                 f"{cs.us_text(out[f'{key}_clean_us'])}"
+                 if f"{key}_clean_us" in out else ""), flush=True)
+
+
+def one(tree: str, radii_timed, store_radii, prefixes,
+        descriptor_radii=cs.DESCRIPTOR_RADII) -> dict:
     """The numbers of one checkout, in this process."""
     if prefixes and all(p in BODY_KERNELS for p in prefixes):
         return body_one(tree, prefixes)
@@ -392,40 +433,9 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
                             K8_THREADS),
                         cs.ablate_bound(uv_nm, valid_k1, pr, stage, "own",
                                         K8_THREADS), "ablate")
-        names = list(calls)
         keys = {name: f"{name}_R{pr}{f'_N{n_case}' if dense else ''}"
-                for name in names}
-        for name in names:
-            out[f"{keys[name]}_hash"] = output_hash(calls[name][0]())
-            out[f"{keys[name]}_ms"] = cs.median_ms(calls[name][0],
-                                                   cs.KERNEL_CALLS)
-        times = {name: [] for name in names}
-        for r in range(ROUNDS):
-            for name in names if r % 2 == 0 else names[::-1]:
-                times[name].append(cs.device_us_per_launch(
-                    calls[name][0], match=calls[name][2]))
-        for name in names:
-            us = [t for t in times[name] if t is not None]
-            bound_us = calls[name][1]["bound_ms"] * 1e3
-            key = keys[name]
-            if name.startswith("store"):
-                out[f"{key}_clean_us"] = cs.device_us_per_launch(
-                    calls[name][0], match="samples", flush="read")
-            out[f"{key}_bound_us"] = bound_us
-            out[f"{key}_device_us"] = statistics.median(us) if us else None
-            out[f"{key}_device_us_min"] = min(us) if us else None
-            out[f"{key}_device_us_max"] = max(us) if us else None
-            print(f"[kernel_times] {tree} {key}: device us per launch over "
-                  f"{ROUNDS} rounds median "
-                  f"{cs.us_text(out[f'{key}_device_us'])}, range "
-                  f"{cs.us_text(out[f'{key}_device_us_min'])} .. "
-                  f"{cs.us_text(out[f'{key}_device_us_max'])} | bound "
-                  f"{bound_us:.3f} us | median per call "
-                  f"{out[f'{key}_ms']:.4f} ms | output hash "
-                  f"{out[f'{key}_hash']}"
-                  + (f" | after a read flush "
-                     f"{cs.us_text(out[f'{key}_clean_us'])}"
-                     if f"{key}_clean_us" in out else ""), flush=True)
+                for name in calls}
+        time_calls(tree, calls, keys, out)
         if pr == 2 and not dense and (not prefixes or "K1" in prefixes):
             out["K1_R2_warm_us"] = cs.device_us_per_launch(calls["K1"][0],
                                                            flush=False)
@@ -442,6 +452,17 @@ def one(tree: str, radii_timed, store_radii, prefixes) -> dict:
                       f"per launch over {n_situ} traced launches", flush=True)
             print(f"[kernel_times] {tree} K1_R2: warm (back to back) "
                   f"{cs.us_text(out['K1_R2_warm_us'])}", flush=True)
+    if wanted("K1_C") or wanted("K2_C"):
+        # The descriptor kernels on chip_smoke.py phase 20 (B)'s inputs:
+        # "K1 C=3 R=2" -> K1_C3_R2.
+        calls, keys = {}, {}
+        for label, (call, _, _, bound, _) in cs.descriptor_calls(
+                dev, descriptor_radii).items():
+            name = "_".join(label.replace("=", "").split())
+            if wanted(name):
+                calls[name] = (call, bound, "stats")
+                keys[name] = name
+        time_calls(tree, calls, keys, out)
     out["nvidia_smi"] = cs.nvidia_smi()
     return out
 
@@ -452,6 +473,7 @@ def main() -> None:
     args = sys.argv[1:]
     opts = {"--radii": ",".join(map(str, RADII)),
             "--store-radii": ",".join(map(str, STORE_RADII)),
+            "--descriptor-radii": ",".join(map(str, cs.DESCRIPTOR_RADII)),
             "--kernels": ""}
     while args[:1] and args[0] in opts:
         opts[args[0]], args = args[1], args[2:]
@@ -459,7 +481,8 @@ def main() -> None:
         print(json.dumps(one(
             args[1], tuple(int(r) for r in opts["--radii"].split(",")),
             tuple(int(r) for r in opts["--store-radii"].split(",")),
-            tuple(k for k in opts["--kernels"].split(",") if k))),
+            tuple(k for k in opts["--kernels"].split(",") if k),
+            tuple(int(r) for r in opts["--descriptor-radii"].split(",")))),
             flush=True)
         return
     for tree in args or ["."]:

@@ -15,6 +15,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace pb {
 
 struct WindowOffsets {
@@ -30,6 +32,22 @@ __device__ __forceinline__ WindowOffsets window_offsets(int n, int w, int c,
   const long long b = blockIdx.y;
   const long long obs = static_cast<long long>(n) * w;
   return {b * w * c * h * wi, b * obs, b * n * c * p};
+}
+
+// Blocks along x of a launch whose blocks loop over `groups` groups and
+// whose grid holds `per_sm` blocks an SM over its `b` windows on grid y
+// (per_sm 0: one block a group). The SM count is read once (the port
+// drives one card a process).
+inline unsigned resident_blocks(long long groups, int per_sm, int b) {
+  if (per_sm == 0) return static_cast<unsigned>(groups);
+  static const int sms = [] {
+    int device = 0, count = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    return count;
+  }();
+  const long long resident = std::max(1LL, 1LL * sms * per_sm / b);
+  return static_cast<unsigned>(std::min(groups, resident));
 }
 
 }  // namespace pb

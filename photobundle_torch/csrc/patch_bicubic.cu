@@ -67,6 +67,29 @@
 // hides behind the first one's loads, so the mean and off modes keep
 // sampling on every pass.
 //
+// With more than one channel (the IntensityAndGradient descriptor, C =
+// 3; BitPlanes, C = 8) the first design ran an observation's channels one
+// after another in its thread: its time grew with C (23.7-24.2 us at C =
+// 3, R = 2, against 9.5 at C = 1), ~155 threads an SM each a chain C
+// channels long. bicubic_split_stats_kernel gives each (observation,
+// channel) pair its own thread running the unchanged per-channel code
+// (channel_sums), the C partials added in channel order by one thread
+// per observation: C times the threads, and sums bitwise the first
+// design's (pb_bicubic_stats_one_thread keeps it). What bounds it then:
+// at R = 2 the window loads, as at C = 1 (0.18 of its bound); at wide
+// radii L1, where each thread's window rows must survive until its next
+// sweep: from
+// pb::kRolledRowRadius the grid holds kSplitBlocksWide blocks of
+// kSplitWindows threads an SM (256 threads), each looping over groups.
+// Measured at C = 3, 4096 x 5, cold (PERF.md, kernel_times.py, H100 at
+// 700 W): R = 2 22.78 us against the first design's 24.04-24.06, R = 4
+// 51.61 (58.36-58.43), R = 9 176.85 (215.67-217.41), R = 19 5203
+// (6155-6189). Measured and not kept: blocks of 64, 128, 192 or 256
+// threads with no cap (23.1-28.3 us at R = 2; 64 at R = 19: 8731, 1.4x
+// the first design: resident windows evict each other's rows), and
+// caps of 2, 4, 6, 8 blocks of 64 threads (R = 19: 9989, 5427, 8609,
+// 8702), 4 of 32 (9609) or 2 of 128 (5382).
+//
 // Patch radii: compile-time instances 1..pb::kMaxSolveRadius, and above
 // it, to kMaxBicubicRadius, one instance per normalization with the
 // radius a run-time argument: every loop rolled, each sample filtering its
@@ -101,6 +124,20 @@ namespace {
 constexpr int kThreads = 64;           // threads (= observations) per block
 constexpr int kMaxTileRadius = 4;      // the affine mode's register tile
 constexpr int kMaxBicubicRadius = 61;  // ops/_common.BICUBIC_MAX
+// K2's design at C > 1 (bicubic_split_stats_kernel; chosen by one
+// kernel_times.py call, PERF.md): the threads, each an (observation,
+// channel) pair, of a block. The channel count a launch takes is
+// kMaxChannels.
+constexpr int kSplitWindows = 32;
+// Blocks an SM (0: one block a group) to pb::kRolledRowRadius, and from it
+// (the rolled rows and the runtime radius).
+constexpr int kSplitBlocks = 0;
+constexpr int kSplitBlocksWide = 8;
+template <int R>
+constexpr int kSplitBlocksAt =
+    R >= 1 && R < pb::kRolledRowRadius ? kSplitBlocks : kSplitBlocksWide;
+constexpr int kMaxChannels = 32;       // ops/_common.MAX_CHANNELS
+static_assert(kSplitWindows >= kMaxChannels, "a block holds every channel");
 
 // Whether instance <R, NORM> samples each patch once into a register tile
 // (measured faster there: see the note above).
@@ -244,6 +281,38 @@ __device__ __forceinline__ void sweep(const float* __restrict__ win, int wi,
   }
 }
 
+// One channel's six sums of one observation, added to acc: its window
+// `win` (rows `wi` apart), weights wt (window_at), descriptor desc.
+template <int R, int NORM>
+__device__ __forceinline__ void channel_sums(const float* win, int wi,
+                                             const float* wt, int r,
+                                             const float* __restrict__ desc,
+                                             int P, float acc[6]) {
+  auto sweep_channel = [&](auto&& emit) {
+    sweep<R>(pb::opaque(win), wi, wt, wt + 4, wt + 8, wt + 12, r, emit);
+  };
+  if constexpr (kRegisterTile<R, NORM>) {
+    // The register tile: the patch sampled once, its 3P samples held
+    // in registers (every index a constant), the passes read them.
+    constexpr int kP = (2 * R + 1) * (2 * R + 1);
+    float t[3 * kP];
+    sweep_channel([&](int k, float v, float gx, float gy) {
+      t[k] = v;
+      t[kP + k] = gx;
+      t[2 * kP + k] = gy;
+    });
+    auto tile = [&](auto&& emit) {
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        emit(k, t[k], t[kP + k], t[2 * kP + k]);
+      }
+    };
+    pb::channel_stats<NORM>(tile, desc, P, acc);
+  } else {
+    pb::channel_stats<NORM>(sweep_channel, desc, P, acc);
+  }
+}
+
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
 bicubic_stats_kernel(const float* __restrict__ planes,
@@ -277,30 +346,9 @@ bicubic_stats_kernel(const float* __restrict__ planes,
       const float* win = planes +
                          (static_cast<long long>(f) * c + ch) * h * wi +
                          static_cast<long long>(y0) * wi + x0;
-      auto sweep_channel = [&](auto&& emit) {
-        sweep<R>(pb::opaque(win), wi, wt, wt + 4, wt + 8, wt + 12, r, emit);
-      };
-      const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
-      if constexpr (kRegisterTile<R, NORM>) {
-        // The register tile: the patch sampled once, its 3P samples held
-        // in registers (every index a constant), the passes read them.
-        constexpr int kP = (2 * R + 1) * (2 * R + 1);
-        float t[3 * kP];
-        sweep_channel([&](int k, float v, float gx, float gy) {
-          t[k] = v;
-          t[kP + k] = gx;
-          t[2 * kP + k] = gy;
-        });
-        auto tile = [&](auto&& emit) {
-#pragma unroll
-          for (int k = 0; k < kP; ++k) {
-            emit(k, t[k], t[kP + k], t[2 * kP + k]);
-          }
-        };
-        pb::channel_stats<NORM>(tile, desc, P, acc);
-      } else {
-        pb::channel_stats<NORM>(sweep_channel, desc, P, acc);
-      }
+      channel_sums<R, NORM>(
+          win, wi, wt, r, patch + (static_cast<long long>(p) * c + ch) * P,
+          P, acc);
     }
   }
   const long long o = static_cast<long long>(f) * n + p;
@@ -308,11 +356,87 @@ bicubic_stats_kernel(const float* __restrict__ planes,
   for (int k = 0; k < 6; ++k) out[k * total + o] = acc[k];
 }
 
+// K2 at C > 1: each (observation, channel) pair its own thread. A block
+// of kSplitWindows threads takes groups of obs = kSplitWindows / C
+// consecutive observations (frame-major), thread t channel t / obs of
+// observation t % obs (threads past obs * C idle). Each runs the
+// unchanged per-channel code (channel_sums from zero, its design's
+// register tile or sweeps) on its channel's window and leaves its six
+// partial sums in shared memory; after the barrier thread o adds its
+// observation's C partials into 0.f in channel order and stores. The
+// grid holds kSplitBlocksAt<R> blocks an SM (0: one block a group), each
+// looping over groups: at wide radii more resident windows than that
+// evict each other's rows from L1 between their sweeps.
+template <int R, int NORM>
+__global__ void __launch_bounds__(kSplitWindows)
+bicubic_split_stats_kernel(const float* __restrict__ planes,
+                           const float2* __restrict__ uv,
+                           const unsigned char* __restrict__ valid,
+                           const float* __restrict__ patch,
+                           float* __restrict__ out,
+                           int n, int w, int c, int h, int wi, int radius) {
+  __shared__ float part[6 * kSplitWindows];
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int P = (2 * r + 1) * (2 * r + 1);
+  const long long total = static_cast<long long>(n) * w;
+  const pb::WindowOffsets at = pb::window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
+  const int obs_per_block = kSplitWindows / c;
+  const long long groups = (total + obs_per_block - 1) / obs_per_block;
+  const int t = threadIdx.x;
+  const int ch = t / obs_per_block;
+  const int o = t - ch * obs_per_block;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long idx = g * obs_per_block + o;
+    const bool live = ch < c && idx < total;
+    const int f = live ? static_cast<int>(idx / n) : 0;
+    const int p =
+        live ? static_cast<int>(idx - static_cast<long long>(f) * n) : 0;
+    const long long obs = static_cast<long long>(p) * w + f;
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live && valid[obs]) {
+      int x0, y0;
+      float wt[16];
+      window_at(uv[obs], r, h, wi, &x0, &y0, wt);
+      const float* win = planes +
+                         (static_cast<long long>(f) * c + ch) * h * wi +
+                         static_cast<long long>(y0) * wi + x0;
+      channel_sums<R, NORM>(
+          win, wi, wt, r, patch + (static_cast<long long>(p) * c + ch) * P,
+          P, acc);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) part[t * 6 + k] = acc[k];
+    __syncthreads();
+    if (t < obs_per_block && idx < total) {
+      pb::store_channel_sums(part, 6, obs_per_block, t, c, out, total, idx);
+    }
+    __syncthreads();   // the next group refills the partials
+  }
+}
+
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int b, int n, int w, int c, int h,
-            int wi, int radius, cudaStream_t stream) {
+            int wi, int radius, bool split, cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * w;
+  if (split) {
+    const int obs_per_block = kSplitWindows / c;
+    const dim3 blocks(
+        pb::resident_blocks((total + obs_per_block - 1) / obs_per_block,
+                            kSplitBlocksAt<R>, b),
+        static_cast<unsigned>(b));
+    bicubic_split_stats_kernel<R, NORM><<<blocks, kSplitWindows, 0, stream>>>(
+        static_cast<const float*>(planes), static_cast<const float2*>(uv),
+        static_cast<const unsigned char*>(valid),
+        static_cast<const float*>(patch), static_cast<float*>(out), n, w, c,
+        h, wi, radius);
+    return;
+  }
   const dim3 blocks(static_cast<unsigned>((total + kThreads - 1) / kThreads),
                     static_cast<unsigned>(b));
   bicubic_stats_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
@@ -329,12 +453,16 @@ extern "C" int pb_bicubic_stats(const void* planes, const void* uv,
                                 const void* valid, const void* patch,
                                 void* out, int b, int n, int w, int c, int h,
                                 int wi, int radius, int norm, void* stream) {
+  if (c < 1 || c > kMaxChannels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, b, n, w, c, h, wi, radius, s);
+            planes, uv, valid, patch, out, b, n, w, c, h, wi, radius, c > 1,
+            s);
       },
       kMaxBicubicRadius);
   return bad ? bad : static_cast<int>(cudaGetLastError());
@@ -356,7 +484,8 @@ extern "C" int pb_bicubic_stats_one_thread(const void* planes,
       norm,
       [&](auto r, auto m) {
         launch<decltype(r)::value, decltype(m)::value>(
-            planes, uv, valid, patch, out, 1, n, w, c, h, wi, radius, s);
+            planes, uv, valid, patch, out, 1, n, w, c, h, wi, radius, false,
+            s);
       },
       std::integral_constant<int, pb::kRuntimeRadius>{});
   return bad ? bad : static_cast<int>(cudaGetLastError());

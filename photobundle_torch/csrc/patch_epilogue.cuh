@@ -129,6 +129,29 @@ __device__ __forceinline__ void channel_stats(const Sweep& sweep,
   acc[5] += s5;
 }
 
+// K1's and K2's designs at C > 1 (csrc/patch_warp.cu, csrc/patch_bicubic.cu)
+// give each (observation, channel) pair its own thread, which leaves its
+// channel's six sums (channel_stats from zero) at
+// part + (ch * obs + o) * stride. The thread of observation o adds its C
+// partials into 0.f in channel order and stores them at out[k * total +
+// idx]: the order of the one-thread designs, whose acc starts at 0.f and
+// takes the channels in turn, so the sums are bitwise theirs.
+__device__ __forceinline__ void store_channel_sums(const float* part,
+                                                   int stride, int obs,
+                                                   int o, int c,
+                                                   float* __restrict__ out,
+                                                   long long total,
+                                                   long long idx) {
+  float sum[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ch = 0; ch < c; ++ch) {
+    const float* q = part + (ch * obs + o) * stride;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sum[k] += q[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out[k * total + idx] = sum[k];
+}
+
 // The patch radii with compile-time instances of the solve's kernels (K1
 // with its sorted entry, K2, K3): 1..kMaxSolveRadius, the radii the JAX
 // package runs its warped grid on (photobundle_torch/ops/_common.py

@@ -89,4 +89,26 @@ __device__ __forceinline__ void stage_channel(
   }
 }
 
+// stage_channel for a group of THREADS threads of a block, this one of
+// rank `rank` in it (0..THREADS-1; K1 at C > 1 stages each warp's
+// windows by its own lanes): observation o's window (origin base[o]) to
+// buf[o * kStride ...], base[o] < 0 copying nothing.
+template <int R, int OBS, int THREADS>
+__device__ __forceinline__ void stage_windows(
+    float4* buf, const float4* __restrict__ planes, const long long* base,
+    int wi, int rank) {
+  using PL = Plan<R, OBS>;
+  for (int i = rank; i < PL::kObs * PL::kTex; i += THREADS) {
+    const int o = i / PL::kTex;
+    const int t = i - o * PL::kTex;
+    const int row = t / PL::kWin;
+    const long long b = base[o];
+    if (b >= 0) {
+      cp_async16(buf + o * PL::kStride + t,
+                 planes + b + static_cast<long long>(row) * wi +
+                     (t - row * PL::kWin));
+    }
+  }
+}
+
 }  // namespace pb

@@ -39,9 +39,9 @@
 // takes kThreads consecutive observations (frame-major, so neighbouring
 // threads store neighbouring outputs) and stages their windows in shared
 // memory, one channel at a time, with coalesced 16-byte cp.async.cg copies
-// (csrc/patch_stage.cuh, shared with the ablation K8). Channels
-// are double-buffered: channel c+1 is in flight while channel c is summed,
-// so the tile never holds more than two channels (C = 8 for bitplanes).
+// (csrc/patch_stage.cuh, shared with the ablation K8). It runs at C = 1
+// (its channel double-buffering, channel c+1 in flight while channel c
+// is summed, was the C > 1 path until the design below replaced it).
 // After the barrier, each thread runs K1's unchanged per-observation
 // epilogue (observation_stats) on its own window in the tile; its second
 // and third sweeps read shared memory.
@@ -59,6 +59,35 @@
 // Where windows overlap (65 536 points) the staged K1 runs 1.04x the
 // one-thread design: the copy bypasses L1, which that design's
 // neighbouring threads share.
+//
+// With more than one channel (the IntensityAndGradient descriptor, C =
+// 3; BitPlanes, C = 8) the first design walked an observation's channels
+// one after another in one thread (the staged block: two channel
+// buffers, 3 blocks of 2 warps an SM), so its time grew with C (R = 2:
+// 13.4, 33.7, 71.5 us at C = 1, 3, 8; R = 19: 1358, 4040, 11 445).
+// What bounds it then: to R = 4, the window rows' random DRAM reads (16-B
+// texels, padding lane included, 32-B sectors; 0.2-0.3 of a bound that
+// counts distinct 12-B texels at the peak rate), so more threads alone
+// gain little; from R = 5, L1, where each thread's window rows must
+// survive until its next sweep. What this design does about it
+// (split_staged_stats_kernel, split_gathered_stats_kernel below): each
+// (observation, channel) pair its own thread, so C times the threads;
+// to kSplitStagedRadius every warp stages and sums its own 32 windows
+// with no block barrier (the warps of an SM drift apart, copies of some
+// in flight while others sum); above, the grid holds kSplitGatherBlocks
+// blocks an SM looping over groups (256 resident windows: L1 holds
+// their rows). Measured (PERF.md, kernel_times.py, 4096 x 5, cold, H100
+// at 700 W, the first design in brackets): C = 3, R = 2 34.5 us [34.0],
+// R = 3 57.4 [71.3], R = 4 80.9 [82.3], R = 9 662 [793], R = 19 3297
+// [4038]; C = 8, R = 2 67.8 [71.9], R = 3 136.7 [191], R = 4 210.9 [201.4],
+// R = 9 1733 [2147], R = 19 8950 [11 443]. Measured and not kept: one
+// thread per window in blocks of 64, 128 or 192 barrier-synchronised
+// windows (C = 3, R = 2: 34.2, 40.9, 42.0 us) or of 64 double-buffered
+// windows looping over groups (34.2 at C = 3, 73.5 at C = 8); warps of 1
+// or 4 a block (C = 3, R = 2: 35.9, 37.5); gathering to R = 4 (C = 3, R
+// = 2: 39.0; R = 4: 93.9 and 223.7 at C = 3 and 8); no cap above (C = 8,
+// R = 19: 32.6 ms, resident windows evict each other's rows), and caps
+// of 2, 3, 6, 8 blocks (C = 8, R = 19: 14.9, 11.4, 8.9, 13.0 ms).
 //
 // The sums are bitwise those of the one-thread-per-observation design:
 // the per-observation arithmetic and its order are unchanged (-fmad=false,
@@ -105,9 +134,24 @@ constexpr int kStageTexels = 1024;      // the sorted entry's union box
 constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 
 // K1's staging plan (csrc/patch_stage.cuh): a block stages the windows of
-// its kThreads observations, two channel buffers.
+// its kThreads observations, two channel buffers (one at C = 1).
+template <int R, int OBS = kThreads>
+using Plan = pb::Plan<R, OBS>;
+
+// K1's design at C > 1 (split_staged_stats_kernel,
+// split_gathered_stats_kernel; chosen by kernel_times.py calls, PERF.md):
+// the radii whose windows are staged and the warps of such a block;
+// above, the threads (each an (observation, channel) window) of a block
+// and the blocks an SM. The channel count a launch takes is kMaxChannels.
+constexpr int kSplitStagedRadius = 4;
+constexpr int kSplitWarps = 2;
+constexpr int kSplitWindows = 64;
+constexpr int kSplitGatherBlocks = 4;
+constexpr int kMaxChannels = 32;       // ops/_common.MAX_CHANNELS
+static_assert(kSplitWindows >= kMaxChannels && 32 >= kMaxChannels,
+              "a warp and a block hold every channel");
 template <int R>
-using Plan = pb::Plan<R, kThreads>;
+constexpr bool kSplitStaged = R >= 1 && R <= kSplitStagedRadius;
 
 // K1 for R <= kMaxStagedRadius: the block's windows staged in shared
 // memory one channel at a time, then each thread's sums from its tile
@@ -224,6 +268,153 @@ patch_stats_kernel(const float4* __restrict__ planes,
   for (int k = 0; k < 6; ++k) out[k * total + o] = acc[k];
 }
 
+// K1 at C > 1, every radius: each (observation, channel) pair its own
+// thread, running K1's unchanged per-channel arithmetic
+// (observation_stats over its one channel, from zero) and leaving its six
+// partial sums in shared memory; one thread per observation then adds its
+// C partials into 0.f in channel order and stores.
+//
+// To kSplitStagedRadius: each warp takes obs = 32 / C consecutive
+// observations (frame-major), lane l channel l / obs of observation
+// l % obs (lanes past obs * C idle), and stages its 32 windows by its own
+// lanes as the C = 1 design stages a block's (every channel's copy in
+// flight at once); each lane sums its window and leaves its partials in
+// its own window slot, which no other lane reads; lanes 0..obs-1 add
+// and store. No block barrier: the warps of a block (kSplitWarps) run
+// apart.
+template <int R, int NORM>
+__global__ void __launch_bounds__(kSplitWarps * 32)
+split_staged_stats_kernel(const float4* __restrict__ planes,
+                          const float2* __restrict__ uv,
+                          const unsigned char* __restrict__ valid,
+                          const float* __restrict__ patch,
+                          float* __restrict__ out,
+                          int n, int w, int c, int h, int wi) {
+  using PL = Plan<R, 32>;
+  static_assert(kSplitWarps * 32 * PL::kBuffer + pb::kStaticReserve <=
+                    pb::kMaxSharedBytes,
+                "a block's windows must fit its shared memory");
+  constexpr int P = (2 * R + 1) * (2 * R + 1);
+  extern __shared__ float4 tile[];
+  __shared__ long long base[kSplitWarps * 32];
+  const long long total = static_cast<long long>(n) * w;
+  const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int obs_per_warp = 32 / c;
+  const int ch = lane / obs_per_warp;
+  const int o = lane - ch * obs_per_warp;
+  const long long idx =
+      (static_cast<long long>(blockIdx.x) * kSplitWarps + warp) *
+          obs_per_warp + o;
+  const bool live = ch < c && idx < total;
+  const int f = live ? static_cast<int>(idx / n) : 0;
+  const int p = live ? static_cast<int>(idx - static_cast<long long>(f) * n)
+                     : 0;
+  const long long obs = static_cast<long long>(p) * w + f;
+  const bool ok = live && valid[obs];
+  const long long chan = static_cast<long long>(h) * wi;
+  int x0 = 0, y0 = 0;
+  Weights wt = {0.f, 0.f, 0.f, 0.f};
+  if (ok) window_at<R>(uv[obs], h, wi, &x0, &y0, &wt);
+  float4* const windows = tile + warp * 32 * PL::kStride;
+  long long* const origins = base + warp * 32;
+  origins[lane] = ok ? (static_cast<long long>(f) * c + ch) * chan +
+                           static_cast<long long>(y0) * wi + x0
+                     : -1;
+  __syncwarp();
+  pb::stage_windows<R, 32, 32>(windows, planes, origins, wi, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (ok) {
+    observation_stats<R, NORM>(
+        windows + lane * PL::kStride, 0, PL::kWin, wt,
+        patch + (static_cast<long long>(p) * c + ch) * P, 1, LoadPlain{},
+        acc);
+  }
+  float* const slots = reinterpret_cast<float*>(windows);
+  constexpr int kSlot = 4 * PL::kStride;          // floats per window slot
+#pragma unroll
+  for (int k = 0; k < 6; ++k) slots[lane * kSlot + k] = acc[k];
+  __syncwarp();
+  if (lane < obs_per_warp && idx < total) {
+    pb::store_channel_sums(slots, kSlot, obs_per_warp, lane, c, out, total,
+                           idx);
+  }
+}
+
+// Above kSplitStagedRadius: a block of kSplitWindows threads takes groups
+// of obs = kSplitWindows / C consecutive observations, thread t channel
+// t / obs of observation t % obs (channel-major: a warp holds one channel
+// of neighbouring observations; threads past obs * C idle). Each thread
+// gathers its channel's window through the read-only path as the
+// one-thread design does and leaves its partials in a shared array;
+// after the barrier threads 0..obs-1 add and store. The grid holds
+// kSplitGatherBlocks blocks an SM, each looping over groups: more
+// resident windows than that evict each other's rows from L1 before
+// their next sweep.
+template <int R, int NORM>
+__global__ void __launch_bounds__(kSplitWindows)
+split_gathered_stats_kernel(const float4* __restrict__ planes,
+                            const float2* __restrict__ uv,
+                            const unsigned char* __restrict__ valid,
+                            const float* __restrict__ patch,
+                            float* __restrict__ out,
+                            int n, int w, int c, int h, int wi,
+                            int radius) {
+  __shared__ float partials[6 * kSplitWindows];
+  const int r = R == pb::kRuntimeRadius ? radius : R;
+  const int P = (2 * r + 1) * (2 * r + 1);
+  const long long total = static_cast<long long>(n) * w;
+  const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
+  planes += at.planes;
+  uv += at.obs;
+  valid += at.obs;
+  patch += at.patch;
+  out += 6 * at.obs;
+  const int obs_per_block = kSplitWindows / c;
+  const long long groups = (total + obs_per_block - 1) / obs_per_block;
+  const int t = threadIdx.x;
+  const int ch = t / obs_per_block;
+  const int o = t - ch * obs_per_block;
+  const long long chan = static_cast<long long>(h) * wi;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long idx = g * obs_per_block + o;
+    const bool live = ch < c && idx < total;
+    const int f = live ? static_cast<int>(idx / n) : 0;
+    const int p =
+        live ? static_cast<int>(idx - static_cast<long long>(f) * n) : 0;
+    const long long obs = static_cast<long long>(p) * w + f;
+    const bool ok = live && valid[obs];
+    int x0 = 0, y0 = 0;
+    Weights wt = {0.f, 0.f, 0.f, 0.f};
+    if (ok) window_at(uv[obs], r, h, wi, &x0, &y0, &wt);
+    const long long origin = (static_cast<long long>(f) * c + ch) * chan +
+                             static_cast<long long>(y0) * wi + x0;
+    const float* desc = patch + (static_cast<long long>(p) * c + ch) * P;
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (ok) {
+      observation_stats<R, NORM>(planes + origin, chan, wi, wt, desc, 1,
+                                 LoadGlobal{}, acc, r);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) partials[t * 6 + k] = acc[k];
+    __syncthreads();
+    if (t < obs_per_block && idx < total) {
+      pb::store_channel_sums(partials, 6, obs_per_block, t, c, out, total,
+                             idx);
+    }
+    __syncthreads();   // the next group refills the partials
+  }
+}
+
 template <int R, int NORM>
 void launch(const void* planes, const void* uv, const void* valid,
             const void* patch, void* out, int b, int n, int w, int c, int h,
@@ -237,6 +428,33 @@ void launch(const void* planes, const void* uv, const void* valid,
   const auto* ok = static_cast<const unsigned char*>(valid);
   const auto* d = static_cast<const float*>(patch);
   auto* o = static_cast<float*>(out);
+  if (c > 1) {
+    if constexpr (kSplitStaged<R>) {
+      const int per_block = kSplitWarps * (32 / c);
+      const dim3 split(
+          static_cast<unsigned>((total + per_block - 1) / per_block),
+          static_cast<unsigned>(b));
+      const int bytes = kSplitWarps * 32 * Plan<R, 32>::kBuffer;
+      // The dynamic shared memory opt-in, once per instance.
+      static const cudaError_t opted = cudaFuncSetAttribute(
+          split_staged_stats_kernel<R, NORM>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      (void)opted;
+      split_staged_stats_kernel<R, NORM>
+          <<<split, kSplitWarps * 32, bytes, stream>>>(pl, q, ok, d, o, n, w,
+                                                       c, h, wi);
+    } else {
+      const int obs_per_block = kSplitWindows / c;
+      const dim3 split(
+          pb::resident_blocks((total + obs_per_block - 1) / obs_per_block,
+                              kSplitGatherBlocks, b),
+          static_cast<unsigned>(b));
+      split_gathered_stats_kernel<R, NORM>
+          <<<split, kSplitWindows, 0, stream>>>(pl, q, ok, d, o, n, w, c, h,
+                                                wi, radius);
+    }
+    return;
+  }
   if constexpr (PL::kStaged) {
     // Above 48 KB a kernel's dynamic shared memory must be opted into;
     // once per instance (the port drives one card per process). A failure
@@ -394,6 +612,9 @@ extern "C" int pb_patch_stats(const void* planes, const void* uv,
                               const void* valid, const void* patch, void* out,
                               int b, int n, int w, int c, int h, int wi,
                               int radius, int norm, void* stream) {
+  if (c < 1 || c > kMaxChannels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = pb::dispatch<pb::kMaxSolveRadius, true>(
       radius, norm,

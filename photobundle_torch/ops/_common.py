@@ -29,6 +29,10 @@ BICUBIC_MAX = 61
 STATS_MAX = 62
 WARPED_RADII = tuple(range(1, 10))
 NORMS = ("off", "mean", "affine")   # kernel codes 0, 1, 2
+# Channels one launch of K1 (with its sorted entry) or K2 takes: a block
+# of their C > 1 designs holds every channel of its observations
+# (kMaxChannels in csrc/patch_warp.cu and csrc/patch_bicubic.cu).
+MAX_CHANNELS = 32
 
 
 def norm_code(norm: str) -> int:
@@ -89,6 +93,12 @@ def check_tensors(what: str, device, want: dict) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def check_channels(what: str, c: int) -> None:
+    """Raise ValueError unless 1 <= c <= MAX_CHANNELS."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"{what} takes 1..{MAX_CHANNELS} channels, not {c}")
 
 
 # Windows one launch of a kernel's batch axis takes: the grid's y extent.

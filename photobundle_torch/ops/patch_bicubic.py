@@ -22,6 +22,12 @@ tensors on a card and runs `bicubic_stats_reference`, the plain PyTorch
 version of the same contract, for tensors on the CPU. A CUDA tensor gets
 the kernel or an exception.
 
+With more than one channel (at most `_common.MAX_CHANNELS`) the kernel
+gives each (observation, channel) pair its own thread and adds the C
+channel sums in channel order: bitwise the channel-ordered sum of C
+one-channel launches, and its one-thread design's sums
+(csrc/patch_bicubic.cu).
+
 `bicubic_stats` also takes a leading batch axis of B windows of the same
 shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas call
 (photobundle_tpu/ops/patch_warp.py:265): one launch for all B windows,
@@ -43,8 +49,9 @@ import torch
 
 from ..image import interp
 from . import _build
-from ._common import (BICUBIC_MAX, check_batch, check_tensors, count_launch,
-                      norm_code, reset_launches, stats_from_samples)
+from ._common import (BICUBIC_MAX, check_batch, check_channels, check_tensors,
+                      count_launch, norm_code, reset_launches,
+                      stats_from_samples)
 
 
 def build_value_planes(channels: torch.Tensor) -> torch.Tensor:
@@ -142,6 +149,7 @@ def _check(planes, uv, valid, patch, patch_radius: int):
         "valid": (valid, torch.bool, (*lead, n, w)),
         "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
     check_batch("bicubic_stats", lead)
+    check_channels("bicubic_stats", c)
     if planes.data_ptr() % 16 or uv.data_ptr() % 8:
         raise ValueError("bicubic_stats: planes must be 16-byte and uv "
                          "8-byte aligned (16-byte window copies, float2 "

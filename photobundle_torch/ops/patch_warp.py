@@ -34,7 +34,11 @@ shared memory once (the second entry of csrc/patch_warp.cu).
 Both kernels take patch radii `_common.FIXED_RADII` (1..19, the JAX
 package's fixed-grid limit); to R = 3, K1 stages each block's windows in
 shared memory, and above R = 9 both run one instance with a runtime
-radius.
+radius. With more than one channel (the IntensityAndGradient and
+BitPlanes descriptors, C = 3 and 8; at most `_common.MAX_CHANNELS`) K1
+gives each (observation, channel) pair its own thread and adds the C
+channel sums in channel order: its sums are bitwise the channel-ordered
+sum of C one-channel launches (csrc/patch_warp.cu).
 
 Both kernels also take a leading batch axis of B windows of the same
 shapes, the twin of the grid axis that `jax.vmap` adds to the Pallas call
@@ -52,8 +56,9 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import (FIXED_RADII, check_batch, check_tensors, count_launch,
-                      norm_code, reset_launches, stats_from_samples)
+from ._common import (FIXED_RADII, check_batch, check_channels, check_tensors,
+                      count_launch, norm_code, reset_launches,
+                      stats_from_samples)
 
 
 def build_planes(channels: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -171,6 +176,7 @@ def _check(planes, uv, valid, patch, patch_radius: int):
         "valid": (valid, torch.bool, (*lead, n, w)),
         "patch": (patch, torch.float32, (*lead, n, c, ps * ps))})
     check_batch("patch_stats", lead)
+    check_channels("patch_stats", c)
     # Window b's slices start b whole windows on: aligned as the first.
     check_texels("patch_stats", planes[0] if lead else planes,
                  uv[0] if lead else uv, patch_radius)

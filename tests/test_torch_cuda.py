@@ -665,10 +665,11 @@ def test_k1_is_bitwise_k8_full_own(cuda_device, n_pts, threads):
 
 
 def test_k1_with_eight_channels(cuda_device):
-    """C = 8 (the bitplanes descriptor's channel count) at R = 2: the two
-    channel buffers of the staged K1 alternate four times. Every
+    """C = 8 (the bitplanes descriptor's channel count) at R = 2: K1's
+    C > 1 design (a thread per observation and channel). Every
     normalization within the kernel tolerance of the plain version; the
-    mean mode bitwise K8's full/own."""
+    mean mode bitwise K8's full/own (K1's staged design with its channels
+    in turn, two channel buffers)."""
     planes, uv, valid, patch, _ = full_size_instance(cuda_device, 4096, 2,
                                                      channels=8)
     for norm in _common.NORMS:
@@ -683,6 +684,82 @@ def test_k1_with_eight_channels(cuda_device):
         own = pa.ablate_stats(planes, uv, valid, patch, "full", "own",
                               threads)
         assert torch.equal(pw.patch_stats(planes, uv, valid, patch, 2), own)
+
+
+def channel_ordered_sum(kernel, planes, uv, valid, patch, radius, norm):
+    """The sum, from zeros in channel order, of one-channel launches of
+    `kernel` on each channel's planes and descriptor slice."""
+    out = 0
+    for ch in range(planes.shape[1]):
+        part = kernel(planes[:, ch:ch + 1].contiguous(), uv, valid,
+                      patch[:, ch:ch + 1].contiguous(), radius, norm)
+        out = torch.zeros_like(part) + part if ch == 0 else out + part
+    return out
+
+
+def bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("radius", K1_RADII)
+@pytest.mark.parametrize("channels", [2, 3, 8])
+def test_k1_is_the_channel_ordered_sum(cuda_device, radius, channels):
+    """K1 at C > 1 (a thread per observation and channel, its partials
+    added in channel order; staged windows to R = 4, gathered above)
+    equals bitwise the sum, from zeros in channel order, of its C
+    one-channel launches, in every normalization: each channel's sums
+    come from the unchanged per-channel arithmetic."""
+    rng = np.random.default_rng(600 + radius * 10 + channels)
+    planes, uv, valid, patch = random_inputs(rng, cuda_device, radius,
+                                             channels)
+    for norm in _common.NORMS:
+        before = pw.patch_stats.launches[norm]
+        got = pw.patch_stats(planes, uv, valid, patch, radius, norm)
+        assert pw.patch_stats.launches[norm] == before + 1
+        want = channel_ordered_sum(pw.patch_stats, planes, uv, valid, patch,
+                                   radius, norm)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got), bits(want)), norm
+        assert float(got.abs().sum()) > 0
+        assert float(got[:, ~valid.T].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("radius", K2_RADII)
+@pytest.mark.parametrize("channels", [2, 3, 8])
+def test_bicubic_kernel_is_the_channel_ordered_sum(cuda_device, radius,
+                                                   channels):
+    """K2 at C > 1 (a thread per observation and channel) equals bitwise
+    the channel-ordered sum of its C one-channel launches and its
+    one-thread design (the channels in turn in one thread), in every
+    normalization."""
+    rng = np.random.default_rng(700 + radius * 10 + channels)
+    planes, uv, valid, patch = bicubic_inputs(rng, cuda_device, radius,
+                                              channels)
+    for norm in _common.NORMS:
+        got = pb.bicubic_stats(planes, uv, valid, patch, radius, norm)
+        want = channel_ordered_sum(pb.bicubic_stats, planes, uv, valid, patch,
+                                   radius, norm)
+        one = pb.bicubic_stats_one_thread(planes, uv, valid, patch, radius,
+                                          norm)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got), bits(want)), norm
+        assert torch.equal(bits(got), bits(one)), norm
+        assert float(got.abs().sum()) > 0
+
+
+def test_kernels_refuse_more_channels_than_a_block_holds(cuda_device):
+    """K1, sorted K1 and K2 take 1..MAX_CHANNELS channels: a block of their
+    C > 1 designs holds every channel of its observations."""
+    rng = np.random.default_rng(8)
+    c = _common.MAX_CHANNELS + 1
+    planes, uv, valid, patch = random_inputs(rng, cuda_device, 1, c, n=9)
+    with pytest.raises(ValueError, match="channels"):
+        pw.patch_stats(planes, uv, valid, patch, 1)
+    order = res_mod.sorted_dispatch_order(torch.arange(9, device=cuda_device))
+    with pytest.raises(ValueError, match="channels"):
+        pw.sorted_patch_stats(planes, uv, valid, patch, 1, order)
+    with pytest.raises(ValueError, match="channels"):
+        pb.bicubic_stats(planes[..., 0].contiguous(), uv, valid, patch, 1)
 
 
 def test_ungrouped_solve_at_a_wide_patch_runs_k1(cuda_device, monkeypatch):
