@@ -68,8 +68,10 @@ descriptors and the shipped configurations' own sizes), from seeds:
      (entry.make_problem, the same frames), in the order lm_solve builds
      under PB_SORTED_DISPATCH=1: bitwise equal to K1's unsorted sums (mean
      and off) and within the kernel tolerance of its plain version; device
-     time per launch sorted and unsorted, the sort's own ms, the share of
-     blocks that staged their windows in shared memory, the bound;
+     time per launch sorted and unsorted, the sort's own ms, the blocks
+     by branch (union box, own windows, gathered), the bound; then at
+     both sizes bitwise K1 at SORTED_RADII with C = 1 and 3 (the frames'
+     channels scaled by 0.5 .. 1.5), the blocks by branch of each;
  12. the command line on a KITTI-format sequence at 370x1226: phase 6's
      scene written as 12 stereo PNG pairs (the port's stdlib PNG writer),
      calib.txt, times.txt, poses/00.txt and a drifted VO input, refined
@@ -124,7 +126,9 @@ descriptors and the shipped configurations' own sizes), from seeds:
      same windows (each inside its own margins; K3's scales phase 8's
      draw; sorted K1's order each window's own), each bitwise 4
      single-window launches at R = 2 and at its wide radius (AXES: 19,
-     9, 9, 19, 19), then at B = 3 against its plain version and timed,
+     9, 9, 19, 19; sorted K1 also at SORTED_RADII with C = 1 and 3, and
+     bitwise K1's batch axis on the same windows), then at B = 3 against
+     its plain version and timed,
      and its device time at B = 1, 2, 3 and 4 beside its bound; the LM
      body's own kernels: the batched Cholesky solve (csrc/chol_solve.cu)
      at W = 5, 10, 32 and B = 1, 4, 8 against its plain version
@@ -238,7 +242,13 @@ descriptors and the shipped configurations' own sizes), from seeds:
      at C = 3 bitwise its two single launches (hashes printed), then the
      engine over 8 frames of phase 6's scene with each descriptor (K1)
      and in kitti_sgbm_bicubic.cfg's settings with C = 3 (K2), each first
-     window held across backends, with a hash of its refined poses.
+     window held across backends, with a hash of its refined poses;
+ 21. se3 on the card (geometry/se3.py, whose small-angle sin and cos are
+     taken in f64 and rounded to f32 on every device): se3_exp and
+     se3_log over SE3_TWISTS twists at rotation angles SE3_ANGLES, held to
+     the port's CPU result (equal NaN rows; max |d| printed and held to
+     SE3_EXP_ATOL and SE3_LOG_ATOL), and how many of the card's f32 sin
+     and cos of those angles differ from the f64 values rounded.
 
 Each phase prints its time ("phase N took ... s").
 
@@ -320,6 +330,17 @@ DRIFT_TRANS, DRIFT_ROT = 0.005, 0.0005      # VO drift per frame (m, rad)
 ENGINE_COST_RTOL = 1e-5
 RHO_SEED, RHO_LO, RHO_HI = 1, 0.45, 2.3     # phase 8's scales
 DENSE_PTS = 65536                           # phase 11's second instance
+# Sorted K1 held bitwise to K1 (phase 11, at N_PTS and DENSE_PTS) and to
+# its single launches and K1's batch axis (phase 16, B = BATCH_KERNEL) at
+# these radii and channel counts: each branch of its design (own windows,
+# union box, gathered) and the runtime radius.
+SORTED_RADII, SORTED_CHANNELS = (1, 2, 3, 4, 10, 19), (1, 3)
+# Phase 21: se3 on the card over twists at rotation angles SE3_ANGLES
+# (log-uniform; se3_log's NaN band 1e-4 to 2.44e-4 and the cancelling
+# range above it), held to the port's CPU result: se3_exp within
+# SE3_EXP_ATOL, se3_log within SE3_LOG_ATOL, equal NaN rows.
+SE3_TWISTS, SE3_ANGLES, SE3_SEED = 20000, (1e-5, 0.3), 21
+SE3_EXP_ATOL, SE3_LOG_ATOL = 1e-6, 1e-4
 # Wider patches, held to their plain versions in phases 3 (K1), 5 (K2),
 # 8 (K3) and 9 (their affine modes), in every normalization: the rolled
 # rows (6, 9) and, for K1, sorted K1 and K2, the runtime-radius instances
@@ -1521,7 +1542,7 @@ def sorted_phase(dev) -> dict:
                 f"({int(valid_nm.sum())} valid), {norm}: bitwise equal | vs "
                 f"plain: max abs err {max_abs:.3e}, {worst:.3f} of the "
                 f"tolerance")
-        share = float(staged.float().mean())
+        counts = branch_counts(staged)
 
         def sorted_call():
             return pw.sorted_patch_stats(planes, uv_nm, valid_nm, patch, pr,
@@ -1554,7 +1575,7 @@ def sorted_phase(dev) -> dict:
             f"per call "
             f"sorted {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms"
             f" | the sort (key + stable sort) {sort_ms:.4f} ms per solve | "
-            f"blocks that staged: {share:.4f} of {staged.numel()} | bound "
+            f"blocks by branch: {counts} | bound "
             f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} "
             f"({bound['bytes'] / 1e6:.2f} MB, {bound['flops'] / 1e6:.2f} "
             f"MFLOP)")
@@ -1563,7 +1584,44 @@ def sorted_phase(dev) -> dict:
                            bound_ms=bound["bound_ms"],
                            bound_by=bound["bound_by"], library_ms=None,
                            device_us=dev_sorted)
+        for r in SORTED_RADII:
+            planes_r, uv_r, valid_r, patch_r, order_r, _ = (
+                (planes, uv_nm, valid_nm, patch, order, None) if r == pr
+                else sorted_instance(n_pts, dev, r, time_sort=False))
+            for c in SORTED_CHANNELS:
+                planes_c, patch_c = with_channels(planes_r, patch_r, c)
+                staged = torch.zeros(pw.sorted_blocks(n_pts, W),
+                                     dtype=torch.uint8, device=dev)
+                got = pw.sorted_patch_stats(planes_c, uv_r, valid_r, patch_c,
+                                            r, order_r, staged=staged)
+                k1 = pw.patch_stats(planes_c, uv_r, valid_r, patch_c, r)
+                torch.cuda.synchronize()
+                check(torch.equal(got, k1), f"sorted kernel differs from K1 "
+                      f"at {n_pts} points, R = {r}, C = {c}")
+                say(f"phase 11 sorted bitwise K1 at {n_pts} points, R = {r}, "
+                    f"C = {c}: blocks by branch {branch_counts(staged)}")
+                del got, k1, planes_c
     return numbers
+
+
+def with_channels(planes, patch, c: int):
+    """planes (..., W, 1, H, Wi, 4) and patch (..., N, 1, P) as C channels:
+    channel k the one channel scaled by linspace(0.5, 1.5, C)[k] (the
+    descriptor repeated), so every channel's sums differ."""
+    if c == 1:
+        return planes, patch
+    gain = torch.linspace(0.5, 1.5, c, device=planes.device).tolist()
+    return (torch.cat([planes * g for g in gain], dim=-4).contiguous(),
+            patch.repeat_interleave(c, dim=-2).contiguous())
+
+
+def branch_counts(staged) -> str:
+    """A sorted launch's blocks by branch, from its `staged` flags
+    (SortedBranch in csrc/patch_warp.cu: 0 gathered, 1 union box, 2 own
+    windows)."""
+    n = torch.bincount(staged.flatten().long(), minlength=3).tolist()
+    return (f"union box {n[1]}, own windows {n[2]}, gathered {n[0]} "
+            f"of {staged.numel()}")
 
 
 def grid_sample_call(planes, uv_nm, valid_nm, pr):
@@ -2435,6 +2493,76 @@ def batched_axes_phase(planes, channels, uv_nm, seen_nm, patch) -> dict:
         numbers["device_us_by_batch"] = cold
         out[label] = numbers
     return out
+
+
+def sorted_axes_phase(planes, uv_nm, seen_nm, patch) -> None:
+    """Phase 16's sorted K1 at SORTED_RADII with SORTED_CHANNELS: a
+    B = BATCH_KERNEL launch on `axis_inputs`' windows (each in its own
+    order; C > 1 as `with_channels` makes them) bitwise its single-window
+    launches and K1's batch axis on the same windows."""
+    from photobundle_torch.ops import patch_warp as pw
+
+    b = BATCH_KERNEL
+    for r in SORTED_RADII:
+        kernel, _, args, valid, _, _ = axis_inputs(
+            "sorted_patch_stats", planes, None, uv_nm, seen_nm, patch, r, b)
+        for c in SORTED_CHANNELS:
+            tex, desc = with_channels(args[0], args[3], c)
+            call = (tex, args[1], args[2], desc, *args[4:])
+            got = kernel(*call)
+            singles = torch.stack([kernel(*(a[k] for a in call))
+                                   for k in range(b)])
+            k1 = pw.patch_stats(*call[:4], r)
+            torch.cuda.synchronize()
+            check(torch.equal(got, singles) and torch.equal(got, k1),
+                  f"phase 16 sorted K1 batch axis at R = {r}, C = {c} is not "
+                  f"bitwise its single-window launches and K1's batch axis")
+            say(f"phase 16 sorted K1 batch axis, B = {b}, R = {r}, C = {c} "
+                f"({int(valid.sum())} valid observations): bitwise {b} "
+                f"single-window launches and K1's batch axis")
+            del got, singles, k1, tex
+
+
+def se3_phase(dev) -> None:
+    """Phase 21: the port's se3_exp and se3_log on the card against its
+    CPU result over SE3_TWISTS twists at rotation angles SE3_ANGLES
+    (translations of scale 0.5), and the card's own f32 sin and cos of
+    those angles against the f64 values rounded to f32."""
+    from photobundle_torch.geometry import se3
+
+    rng = np.random.default_rng(SE3_SEED)
+    lo, hi = np.log(SE3_ANGLES[0]), np.log(SE3_ANGLES[1])
+    angle = np.exp(rng.uniform(lo, hi, SE3_TWISTS))
+    axis = rng.standard_normal((SE3_TWISTS, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    xi = torch.as_tensor(np.concatenate(
+        [rng.standard_normal((SE3_TWISTS, 3)) * 0.5, axis * angle[:, None]],
+        axis=1).astype(np.float32))
+    t_cpu = se3.se3_exp(xi)
+    t_card = se3.se3_exp(xi.to(dev)).cpu()
+    exp_err = float((t_card - t_cpu).abs().max())
+    log_cpu = se3.se3_log(t_cpu)
+    log_card = se3.se3_log(t_cpu.to(dev)).cpu()
+    nan_cpu = torch.isnan(log_cpu).any(dim=1)
+    nan_card = torch.isnan(log_card).any(dim=1)
+    same_nan = torch.equal(nan_cpu, nan_card)
+    log_err = float((log_card - log_cpu)[~nan_cpu & ~nan_card].abs().max())
+    theta = torch.sqrt(se3._norm2(xi[:, 3:].to(dev)) + se3._EPS * se3._EPS)
+    off = {name: int((fn(theta) != fn(theta.double()).float()).sum())
+           for name, fn in (("cos", torch.cos), ("sin", torch.sin))}
+    say(f"phase 21 se3 on the card over {SE3_TWISTS} twists at angles "
+        f"{SE3_ANGLES[0]:g} .. {SE3_ANGLES[1]:g} rad: se3_exp max |d| vs the "
+        f"CPU {exp_err:.3e} (limit {SE3_EXP_ATOL:g}); se3_log NaN rows card "
+        f"{int(nan_card.sum())}, CPU {int(nan_cpu.sum())}, "
+        f"{'equal' if same_nan else 'DIFFERENT'}, max |d| elsewhere "
+        f"{log_err:.3e} (limit {SE3_LOG_ATOL:g}) | the card's f32 cos / sin "
+        f"differ from the f64 values rounded on {off['cos']} / {off['sin']} "
+        f"of {SE3_TWISTS} angles (the port takes the latter)")
+    check(same_nan, "phase 21: se3_log's NaN rows on the card differ from "
+          "the CPU's")
+    check(exp_err <= SE3_EXP_ATOL and log_err <= SE3_LOG_ATOL,
+          f"phase 21: se3 on the card differs from the CPU: se3_exp "
+          f"{exp_err:.3e}, se3_log {log_err:.3e}")
 
 
 def shifted_sequence(scene, k: int):
@@ -4789,6 +4917,7 @@ def main() -> None:
     seen_nm = (obs.T & in_front).T.contiguous()
     k1b = batched_kernel_phase(planes, uv_nm, seen_nm, patch)
     axes = batched_axes_phase(planes, channels, uv_nm, seen_nm, patch)
+    sorted_axes_phase(planes, uv_nm, seen_nm, patch)
     chol = chol_phase(dev)
     dots = ordered_phase(cam, offsets, args)
     batched_launches, dot_launches, chol_launches = batched_phase(scene,
@@ -4815,6 +4944,10 @@ def main() -> None:
     lap("phase 20 (A)")
     described = descriptor_phase(dev, kernels, scene, drifted)
     lap("phase 20 (B)")
+
+    # -- phase 21: se3's small-angle rounding on the card ----------------
+    se3_phase(dev)
+    lap("phase 21")
 
     pw_py = "photobundle_tpu/ops/patch_warp.py"
 

@@ -3,7 +3,7 @@
 and K8 in one or more checkouts.
 
     python3 kernel_times.py [--radii R,...] [--store-radii R,...]
-                            [--descriptor-radii R,...]
+                            [--descriptor-radii R,...] [--dense-radii R,...]
                             [--kernels NAME,...] [TREE ...]
                                   (default: this checkout)
 
@@ -23,13 +23,19 @@ layouts rows, block and raw) at R = 2 and 9 (or --store-radii); K7
 checkout's K7 takes them); K8
 (`patch_ablate.ablate_stats`, full/own and loads/own at 64 threads) at
 R = 2; and K1, sorted K1 and K8 also at 65 536 points,
-R = 2 (phase 11's dense windows); K1's batch axis (`K1_batch`, where the
+R = 2 (phase 11's dense windows; K1 and sorted K1 at --dense-radii),
+with the blocks of sorted K1 by branch where the checkout's kernel
+reports it; K1's batch axis (`K1_batch`, where the
 checkout's `patch_stats` takes one) at R = 2 on chip_smoke.py phase 16's
-windows at B = 1, 2 and 4; the descriptor kernels (`K1_C3_R2`,
-`K1_C3_R19`, `K1_C8_R2`, `K1_C8_R19`: K1 with the IntensityAndGradient and
-BitPlanes channels, C = 3 and 8, at R = 2 and 19; `K2_C3_R2`,
-`K2_C3_R19`: K2 with C = 3; other radii with --descriptor-radii;
-`--kernels K1_C,K2_C` keeps them) on chip_smoke.py phase
+windows at B = 1, 2 and 4, and sorted K1's (`sorted_K1_batch`, each
+window in its own order as phase 16 orders them); sorted K1 and K1 with
+the IntensityAndGradient channels (`sorted_K1_C3_R<R>`, `K1_C3_R<R>`)
+at --descriptor-radii on chip_smoke.py phase 20 (B)'s inputs, the order
+`chip_smoke.uv_dispatch_key` of their coordinates; the descriptor
+kernels (`K1_C3_R2`, `K1_C3_R19`, `K1_C8_R2`, `K1_C8_R19`: K1 with the
+IntensityAndGradient and BitPlanes channels, C = 3 and 8, at R = 2 and
+19; `K2_C3_R2`, `K2_C3_R19`: K2 with C = 3; other radii with
+--descriptor-radii; `--kernels K1_C,K2_C` keeps them) on chip_smoke.py phase
 20 (B)'s inputs (`chip_smoke.descriptor_calls`, mean normalization).
 --kernels keeps the kernels whose names
 start with one of the given prefixes (K1 always runs, but where only the
@@ -285,8 +291,20 @@ def time_calls(tree: str, calls: dict, keys: dict, out: dict) -> None:
                  if f"{key}_clean_us" in out else ""), flush=True)
 
 
+def sorted_branches(tree, pw, key, call_args, n, w) -> None:
+    """Prints the blocks of one sorted launch by branch, where the tree's
+    kernel reports its branch (SortedBranch in csrc/patch_warp.cu; a tree
+    without it flags 1 for a staged union box)."""
+    staged = torch.zeros(pw.sorted_blocks(n, w), dtype=torch.uint8,
+                         device=call_args[0].device)
+    pw.sorted_patch_stats(*call_args, staged=staged)
+    counts = torch.bincount(staged.long(), minlength=3).tolist()
+    print(f"[kernel_times] {tree} {key}: blocks by branch (0 gathered, 1 "
+          f"union box, 2 own windows): {counts}", flush=True)
+
+
 def one(tree: str, radii_timed, store_radii, prefixes,
-        descriptor_radii=cs.DESCRIPTOR_RADII) -> dict:
+        descriptor_radii=cs.DESCRIPTOR_RADII, dense_radii=(2,)) -> dict:
     """The numbers of one checkout, in this process."""
     if prefixes and all(p in BODY_KERNELS for p in prefixes):
         return body_one(tree, prefixes)
@@ -324,7 +342,7 @@ def one(tree: str, radii_timed, store_radii, prefixes,
     out = {"tree": tree, "rounds": ROUNDS}
     radii = kernel_radii(_common, smp)
     cases = [(n_pts, r) for r in sorted(set(radii_timed) | set(store_radii))]
-    for n_case, pr in cases + [(cs.DENSE_PTS, 2)]:
+    for n_case, pr in cases + [(cs.DENSE_PTS, r) for r in dense_radii]:
         if pr not in radii["K1"]:
             continue
         dense = n_case != n_pts
@@ -359,6 +377,22 @@ def one(tree: str, radii_timed, store_radii, prefixes,
                 lambda: pw.sorted_patch_stats(planes, uv_nm, valid_k1, patch,
                                               pr, order), bound_k1,
                 "stats")
+            sorted_branches(tree, pw, f"sorted_K1_R{pr}"
+                            f"{f'_N{n_case}' if dense else ''}",
+                            (planes, uv_nm, valid_k1, patch, pr, order),
+                            n_case, w)
+        if (pr == 2 and not dense and has_sorted
+                and wanted("sorted_K1_batch")
+                and "batch axis" in (pw.sorted_patch_stats.__doc__ or "")):
+            kernel, _, sargs, _, sbounds, _ = cs.axis_inputs(
+                "sorted_patch_stats", planes, value_planes, uv_nm,
+                (obs.T & in_front).T.contiguous(), patch, pr,
+                cs.BATCH_KERNEL)
+            for b in (1, 2, cs.BATCH_KERNEL):
+                part = tuple(a[:b] for a in sargs)
+                calls[f"sorted_K1_batch{b}"] = (
+                    lambda part=part: kernel(*part),
+                    cs.summed_bound(sbounds[:b]), "sorted")
         if (pr == 2 and not dense and wanted("K1_batch")
                 and "batch axis" in (pw.patch_stats.__doc__ or "")):
             batch = cs.batched_inputs(planes, uv_nm,
@@ -452,6 +486,30 @@ def one(tree: str, radii_timed, store_radii, prefixes,
                       f"per launch over {n_situ} traced launches", flush=True)
             print(f"[kernel_times] {tree} K1_R2: warm (back to back) "
                   f"{cs.us_text(out['K1_R2_warm_us'])}", flush=True)
+    if has_sorted and wanted("sorted_K1_C"):
+        # Sorted K1 beside K1 with three channels: "sorted_K1_C3_R2".
+        calls, keys = {}, {}
+        for pr in descriptor_radii:
+            channels, planes, uv_nm, valid_nm, patch = cs.descriptor_instance(
+                dev, cs.DESCRIPTORS[0], pr)
+            c = channels.shape[1]
+            order = res_mod.sorted_dispatch_order(
+                cs.uv_dispatch_key(uv_nm, valid_nm))
+            bound = cs.kernel_bound(
+                cs.window_texels(uv_nm, valid_nm, pr, 2 * pr + 2, pr, h, wi),
+                cs.GRAD_TEXEL_BYTES, valid_nm, c, pr, "bilinear", "mean")
+            args = (planes, uv_nm, valid_nm, patch, pr)
+            for name, call in (
+                    (f"sorted_K1_C{c}_R{pr}",
+                     lambda args=args, order=order:
+                     pw.sorted_patch_stats(*args, order)),
+                    (f"K1_C{c}_R{pr}",
+                     lambda args=args: pw.patch_stats(*args))):
+                calls[name] = (call, bound, "stats")
+                keys[name] = name
+            sorted_branches(tree, pw, f"sorted_K1_C{c}_R{pr}", (*args, order),
+                            n_pts, w)
+        time_calls(tree, calls, keys, out)
     if wanted("K1_C") or wanted("K2_C"):
         # The descriptor kernels on chip_smoke.py phase 20 (B)'s inputs:
         # "K1 C=3 R=2" -> K1_C3_R2.
@@ -474,6 +532,7 @@ def main() -> None:
     opts = {"--radii": ",".join(map(str, RADII)),
             "--store-radii": ",".join(map(str, STORE_RADII)),
             "--descriptor-radii": ",".join(map(str, cs.DESCRIPTOR_RADII)),
+            "--dense-radii": "2",
             "--kernels": ""}
     while args[:1] and args[0] in opts:
         opts[args[0]], args = args[1], args[2:]
@@ -482,7 +541,8 @@ def main() -> None:
             args[1], tuple(int(r) for r in opts["--radii"].split(",")),
             tuple(int(r) for r in opts["--store-radii"].split(",")),
             tuple(k for k in opts["--kernels"].split(",") if k),
-            tuple(int(r) for r in opts["--descriptor-radii"].split(",")))),
+            tuple(int(r) for r in opts["--descriptor-radii"].split(",")),
+            tuple(int(r) for r in opts["--dense-radii"].split(",")))),
             flush=True)
         return
     for tree in args or ["."]:

@@ -101,8 +101,8 @@
 // per-observation code.
 //
 // A second entry, pb_patch_stats_sorted, is K1's sort-reuse variant: the
-// same sums with observations visited in a sorted point order and each
-// block's union box staged in shared memory where it fits (see below).
+// same sums with observations visited in a sorted point order, each block
+// staging its union box or its own windows in shared memory (see below).
 // Both entries take patch radii 1..kMaxFixedRadius in every
 // normalization: compile-time instances to pb::kMaxSolveRadius, and above
 // it one instance per normalization with the radius a run-time argument
@@ -112,6 +112,8 @@
 // R = 19 (photobundle_tpu/ops/patch_warp.py, lane_stride).
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "patch_batch.cuh"
 #include "patch_bilinear.cuh"
@@ -130,7 +132,6 @@ using pb::window_offsets;
 using pb::WindowOffsets;
 
 constexpr int kThreads = 64;            // threads (observations) per block
-constexpr int kStageTexels = 1024;      // the sorted entry's union box
 constexpr int kMaxFixedRadius = 19;     // ops/_common.FIXED_RADII
 
 // K1's staging plan (csrc/patch_stage.cuh): a block stages the windows of
@@ -481,24 +482,54 @@ void launch(const void* planes, const void* uv, const void* valid,
 // (panel, image-row) order under PB_SORTED_DISPATCH=1 and which skips a
 // group's window load when the previous group loaded the same rows. Here a
 // block takes kThreads consecutive sorted ranks of one frame (feed[rank] is
-// the point; its sums go to its own slot, so nothing is unscattered), finds
-// the union box of its valid observations' windows, and, when that box
-// fits kStageTexels, copies it into shared memory once with coalesced
-// float4 loads; every thread then samples from the tile. A block whose box
-// does not fit samples from global memory as K1's one-thread design does.
-// Both branches run `sample` and the epilogue on the same texel values, so
-// the sums are bitwise K1's.
+// the point; its sums go to its own slot, so nothing is unscattered).
 //
-// What bounds it: the same distinct texels as K1 (bytes); what it adds is
-// one copy per staged block and a block reduction. Whether a block stages
-// depends on the density of points: at 4096 points on a 370x1226 frame a
-// run of 64 sorted points spans thousands of texels and no block fits;
-// at 65 536 points a 64-point run of a 16-row band spans ~21x33 texels.
-// `staged` (may be null) receives each block's choice. A block whose box
-// does not fit does not stage its observations' own windows as the staged
-// K1 does: reserving the shared memory for them (37 KB a block at R = 2)
-// made the dense case, for which this entry exists, 1.14x slower (fewer
-// blocks per SM; PERF.md's K1 rows).
+// What bounds it: where the windows are few and far apart (4096 points on
+// a 370x1226 frame: a run of 64 sorted points spans thousands of texels),
+// the window rows' scattered reads, as for K1, and one more dependent
+// load (feed, then the observation) before them. Where they overlap
+// (65 536 points: a 64-point run of a 16-row band spans ~21x33 texels at
+// R = 2), the union box holds a third of the windows' texels.
+//
+// The design: one dynamic shared buffer a block, sized from the radius
+// and the block's observation count: to pb::kMaxStagedRadius, K1's staged
+// tile (64 windows, two channel buffers at C > 1). It holds either the
+// block's union box or its observations' own windows, never both. The
+// union box comes from a warp-shuffle min / max and one cross-warp step;
+// then the block chooses by texels (`staged` receives its branch):
+//   1 (the union box): its texels, C channels of it, fit the buffer and
+//     are no more than the valid windows' texels summed (the windows
+//     overlap): its rows (contiguous float4 runs of `planes`) copied once
+//     with cp.async, every observation sampled from it;
+//   2 (own windows): each observation's window staged as K1's staged
+//     design stages it (csrc/patch_stage.cuh);
+//   0 (gathered): above pb::kMaxStagedRadius every block, and below it a
+//     block with no valid observation (nothing to sum): each thread
+//     gathers its own window through the read-only path as K1's
+//     one-thread design does, at that design's occupancy.
+// Every branch feeds the same texel values to pb::observation_stats,
+// channel by channel in order, so the sums are bitwise K1's.
+//
+// Measured on the H100 (PERF.md's sorted K1 row; kernel_times.py, cold,
+// the first design in brackets, K1 after the semicolon): 4096 x 5, R = 2
+// 15.3 us [16.3; 13.4], R = 10 490 [930; 415], R = 19 1640-1700 [3100;
+// 1355]; 65 536 x 5, R = 2 77.5-79 [75.1; 77.7], R = 4 189-196 [203;
+// 287], R = 10 3200-3460 [8890; 8760], R = 19 11 000-11 600 [30 400;
+// 28 700]; B = 4, R = 2 42-44 [52; 38.6]. Measured and not kept: the
+// first design (a static 1024-texel box tile, 16 KB, and global gathers
+// elsewhere, the box found with shared atomics: its gathers took 2.2x
+// K1's time at R = 10 and 19); a box buffer of 2048 texels above R = 3
+// (65 536 points: R = 4 177 us, but R = 10 5080 and R = 19 30 900; 4096
+// points 1.9x slower at R = 10 and 19: the buffer halves the gathers'
+// occupancy); staging own windows where the box would do (65 536, R = 2:
+// 106-114 us: the box copies a third of the texels); blocks taking one
+// run of every frame in turn (65 536, R = 2: 85 us).
+
+enum SortedBranch : unsigned char {
+  kGathered = 0,
+  kUnionBox = 1,
+  kOwnWindows = 2,
+};
 
 template <int R, int NORM>
 __global__ void __launch_bounds__(kThreads)
@@ -509,12 +540,16 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
                           const long long* __restrict__ feed,
                           float* __restrict__ out,
                           unsigned char* __restrict__ staged,
-                          int n, int w, int c, int h, int wi, int radius) {
+                          int n, int w, int c, int h, int wi, int radius,
+                          int buffer_texels) {
+  using PL = Plan<R>;
+  constexpr int kWarps = kThreads / 32;
   const int r = R == pb::kRuntimeRadius ? radius : R;
   const int win = 2 * r + 2;
   const int P = (2 * r + 1) * (2 * r + 1);
-  __shared__ float4 tile[kStageTexels];
-  __shared__ int box[4];     // min x0, min y0, max x0, max y0
+  extern __shared__ float4 tile[];
+  __shared__ long long base[PL::kStaged ? kThreads : 1];
+  __shared__ int part[kWarps][5];   // min x0, min y0, max x0, max y0, valid
   const WindowOffsets at = window_offsets(n, w, c, h, wi, P);
   planes += at.planes;
   uv += at.obs;
@@ -536,50 +571,104 @@ patch_stats_sorted_kernel(const float4* __restrict__ planes,
   int x0 = 0, y0 = 0;
   Weights wt = {0.f, 0.f, 0.f, 0.f};
   if (ok) window_at(uv[obs], r, h, wi, &x0, &y0, &wt);
-  if (threadIdx.x == 0) {
-    box[0] = box[1] = wi + h;
-    box[2] = box[3] = -1;
-  }
-  __syncthreads();
-  if (ok) {
-    atomicMin(&box[0], x0);
-    atomicMin(&box[1], y0);
-    atomicMax(&box[2], x0);
-    atomicMax(&box[3], y0);
-  }
-  __syncthreads();
-  const int bx0 = box[0], by0 = box[1];
-  const int bw = box[2] - bx0 + win;
-  const int bh = box[3] - by0 + win;
   const long long chan = static_cast<long long>(h) * wi;
   const float4* frame = planes + static_cast<long long>(f) * c * chan;
-  const bool stage = box[2] >= 0 &&
-                     static_cast<long long>(bw) * bh * c <= kStageTexels;
-  if (stage) {
-    const int area = bw * bh;
-    for (int i = threadIdx.x; i < area * c; i += kThreads) {
-      const int ch = i / area;
-      const int t = i - ch * area;
-      const int row = t / bw;
-      tile[i] = __ldg(frame + ch * chan +
-                      static_cast<long long>(by0 + row) * wi + bx0 +
-                      (t - row * bw));
+
+  int branch = kGathered;
+  int bx0 = 0, by0 = 0, bw = 0, area = 0;
+  if constexpr (PL::kStaged) {
+    // The union box: each warp's min / max by shuffles, then one step
+    // across the block's warps.
+    const unsigned all = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int wp = threadIdx.x >> 5;
+    const int lo_x = __reduce_min_sync(all, ok ? x0 : INT_MAX);
+    const int lo_y = __reduce_min_sync(all, ok ? y0 : INT_MAX);
+    const int hi_x = __reduce_max_sync(all, ok ? x0 : -1);
+    const int hi_y = __reduce_max_sync(all, ok ? y0 : -1);
+    const int count = __popc(__ballot_sync(all, ok));
+    if (lane == 0) {
+      part[wp][0] = lo_x;
+      part[wp][1] = lo_y;
+      part[wp][2] = hi_x;
+      part[wp][3] = hi_y;
+      part[wp][4] = count;
+    }
+    base[threadIdx.x] = ok ? static_cast<long long>(f) * c * chan +
+                                 static_cast<long long>(y0) * wi + x0
+                           : -1;
+    __syncthreads();
+    int bx1 = -1, by1 = -1, n_ok = 0;
+    bx0 = by0 = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      bx0 = min(bx0, part[k][0]);
+      by0 = min(by0, part[k][1]);
+      bx1 = max(bx1, part[k][2]);
+      by1 = max(by1, part[k][3]);
+      n_ok += part[k][4];
+    }
+    if (n_ok > 0) {
+      bw = bx1 - bx0 + win;
+      area = bw * (by1 - by0 + win);
+      const long long box = static_cast<long long>(area) * c;
+      const long long own = static_cast<long long>(n_ok) * win * win * c;
+      branch = box <= buffer_texels && box <= own ? kUnionBox : kOwnWindows;
     }
   }
-  __syncthreads();
-  if (staged != nullptr && threadIdx.x == 0) staged[blockIdx.x] = stage;
+  if (staged != nullptr && threadIdx.x == 0) staged[blockIdx.x] = branch;
 
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (ok) {
-    const float* desc = patch + static_cast<long long>(p) * c * P;
-    if (stage) {
-      observation_stats<R, NORM>(tile + (y0 - by0) * bw + (x0 - bx0),
-                                 static_cast<long long>(bw) * bh, bw, wt,
-                                 desc, c, LoadPlain{}, acc, r);
-    } else {
+  const float* desc = patch + static_cast<long long>(p) * c * P;
+  if constexpr (!PL::kStaged) {
+    if (ok) {
       observation_stats<R, NORM>(
           frame + static_cast<long long>(y0) * wi + x0, chan, wi, wt, desc,
           c, LoadGlobal{}, acc, r);
+    }
+  } else if (branch != kGathered) {
+    if (branch == kUnionBox) {
+      // Every channel of the box, row by row: consecutive threads copy
+      // consecutive texels of a row.
+      for (int i = threadIdx.x; i < area * c; i += kThreads) {
+        const int ch = i / area;
+        const int t = i - ch * area;
+        const int row = t / bw;
+        pb::cp_async16(tile + i,
+                       frame + ch * chan +
+                           static_cast<long long>(by0 + row) * wi + bx0 +
+                           (t - row * bw));
+      }
+    } else {
+      pb::stage_channel<R, kThreads, kThreads>(tile, planes, base, 0, wi);
+    }
+    cp_async_commit();
+    for (int ch = 0; ch < c; ++ch) {
+      int offset = ch * area + (y0 - by0) * bw + (x0 - bx0);
+      int stride = bw;
+      if (branch == kOwnWindows) {
+        // K1's staged loop: channel ch + 1 in flight while ch is summed.
+        if (ch + 1 < c) {
+          pb::stage_channel<R, kThreads, kThreads>(
+              tile + ((ch + 1) & 1) * PL::kObs * PL::kStride, planes, base,
+              (ch + 1) * chan, wi);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        offset = ((ch & 1) * PL::kObs + threadIdx.x) * PL::kStride;
+        stride = PL::kWin;
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (ok) {
+        observation_stats<R, NORM>(tile + offset, 0, stride, wt,
+                                   desc + static_cast<long long>(ch) * P, 1,
+                                   LoadPlain{}, acc, r);
+      }
+      __syncthreads();   // an own-window buffer is refilled two channels on
     }
   }
   if (!live) return;
@@ -594,15 +683,24 @@ void launch_sorted(const void* planes, const void* uv, const void* valid,
                    const void* patch, const void* feed, void* out,
                    void* staged, int b, int n, int w, int c, int h, int wi,
                    int radius, cudaStream_t stream) {
+  using PL = Plan<R>;
   const dim3 blocks(
       static_cast<unsigned>(w) * ((n + kThreads - 1) / kThreads),
       static_cast<unsigned>(b));
-  patch_stats_sorted_kernel<R, NORM><<<blocks, kThreads, 0, stream>>>(
+  if constexpr (PL::kStaged) {
+    // The dynamic shared memory opt-in, once per instance.
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        patch_stats_sorted_kernel<R, NORM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, PL::kMaxBytes);
+    (void)opted;
+  }
+  const int bytes = PL::bytes(c);
+  patch_stats_sorted_kernel<R, NORM><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const float4*>(planes), static_cast<const float2*>(uv),
       static_cast<const unsigned char*>(valid),
       static_cast<const float*>(patch), static_cast<const long long*>(feed),
       static_cast<float*>(out), static_cast<unsigned char*>(staged), n, w, c,
-      h, wi, radius);
+      h, wi, radius, bytes / 16);
 }
 
 }  // namespace
@@ -628,7 +726,9 @@ extern "C" int pb_patch_stats(const void* planes, const void* uv,
 
 // feed: (B, N) int64, each window's sorted rank -> point. staged: null,
 // or (B, W * ceil(N / 64)) bytes, one per block (frame-major within a
-// window), set to 1 where the block sampled from its staged union box.
+// window), set to the block's branch: 1 where it sampled from its staged
+// union box, 2 from its observations' staged own windows, 0 where it
+// gathered from global memory.
 extern "C" int pb_patch_stats_sorted(const void* planes, const void* uv,
                                      const void* valid, const void* patch,
                                      const void* feed, void* out,

@@ -69,15 +69,29 @@ def vee(m: torch.Tensor) -> torch.Tensor:
     return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
 
 
+def _sin_cos(theta: torch.Tensor):
+    """sin and cos of `theta`, correctly rounded for f32 input: taken in
+    f64 and rounded once. B = (1 - cos t)/t^2 and C = (t - sin t)/t^3
+    cancel, so one ulp of cos or sin moves them by orders of magnitude at
+    small angles. torch's f32 sin / cos (the CPU's and CUDA's alike) are
+    not correctly rounded; the reference's (XLA's) are, but for a few
+    arguments in 1e5, and rounding from f64 gives the same values on
+    every device."""
+    if theta.dtype != torch.float32:
+        return torch.sin(theta), torch.cos(theta)
+    t64 = theta.double()
+    return torch.sin(t64).float(), torch.cos(t64).float()
+
+
 def _sinc_coeffs(theta2: torch.Tensor):
     """Branch-free (A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3)."""
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     small = theta2 < 1e-8
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / theta2)
+    sin_t, cos_t = _sin_cos(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin_t / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos_t) / theta2)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - torch.sin(theta)) / (theta2 * theta))
+                    (theta - sin_t) / (theta2 * theta))
     return a, b, c
 
 

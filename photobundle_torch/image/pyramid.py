@@ -50,9 +50,15 @@ def gaussian_kernel(sigma: float, radius: int | None = None) -> torch.Tensor:
     """Normalized f32 Gaussian taps, truncated at ~3 sigma."""
     if radius is None:
         radius = max(1, int(3.0 * sigma + 0.5))
+    # Rounded as the reference's taps: x times the f32 reciprocal of
+    # sigma, exp correctly rounded (from f64), the taps summed in order.
     xs = torch.arange(-radius, radius + 1, dtype=torch.float32)
-    k = torch.exp(-0.5 * (xs / sigma) ** 2)
-    return k / torch.sum(k)
+    inv = torch.reciprocal(torch.tensor(sigma, dtype=torch.float32))
+    k = torch.exp((-0.5 * (xs * inv) ** 2).double()).float()
+    total = torch.zeros((), dtype=torch.float32)
+    for v in k:
+        total = total + v
+    return k / total
 
 
 def gaussian_blur_sigma(img: torch.Tensor, sigma: float,

@@ -303,9 +303,10 @@ def sorted_patch_stats(planes: torch.Tensor, uv: torch.Tensor,
     `core/residuals.sorted_dispatch_order`: sorted rank -> point and back;
     (B, N) each with a batch axis. `staged`, for CUDA tensors only: None,
     or a uint8 tensor of `sorted_blocks(N, W)` ((B, sorted_blocks(N, W))
-    with a batch axis) that receives each block's choice (1: its union
-    box was staged in shared memory). CPU tensors run
-    `sorted_patch_stats_reference`; CUDA tensors launch the kernel on the
+    with a batch axis) that receives each block's branch (SortedBranch
+    in csrc/patch_warp.cu: 1 its union box staged in shared memory, 2 its
+    observations' own windows, 0 gathered from global memory). CPU
+    tensors run `sorted_patch_stats_reference`; CUDA tensors launch the kernel on the
     current stream (and raise if it cannot launch).
     `sorted_patch_stats.launches` counts kernel launches by
     normalization mode."""

@@ -458,16 +458,43 @@ def test_warped_evaluation_on_card_matches_cpu(cuda_device, warp, normalize):
 # K1's sort-reuse variant (csrc/patch_warp.cu, pb_patch_stats_sorted)
 # ---------------------------------------------------------------------------
 
+# The sorted kernel's branches, as its `staged` flags give them
+# (SortedBranch in csrc/patch_warp.cu), and the radii whose blocks stage
+# (pb::kMaxStagedRadius: K1's staged radii).
+SORTED_GATHERED, SORTED_UNION_BOX, SORTED_OWN_WINDOWS = 0, 1, 2
+SORTED_STAGED_RADIUS = 3
+
+
+def sorted_branch(radius: int, channels: int, box_texels: int,
+                  window_texels: int) -> int:
+    """The branch a block of the sorted kernel takes: its union box holds
+    `box_texels` texels a channel and its valid observations' windows
+    `window_texels` summed (0 without a valid observation). To
+    SORTED_STAGED_RADIUS, the box where its C channels fit the block's
+    buffer (K1's staged tile of SORTED_RUN windows, two channel buffers at
+    C > 1) and it holds no more texels than the windows, else the own
+    windows; above, and without a valid observation, gathered."""
+    if window_texels == 0 or radius > SORTED_STAGED_RADIUS:
+        return SORTED_GATHERED
+    stride = (2 * radius + 2) ** 2 | 1
+    buffer = pw.SORTED_RUN * stride * (2 if channels > 1 else 1)
+    if box_texels * channels <= buffer and box_texels <= window_texels:
+        return SORTED_UNION_BOX
+    return SORTED_OWN_WINDOWS
+
+
 @pytest.mark.parametrize("radius", K1_RADII)
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("norm", _common.NORMS)
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
                                      layout):
-    """The sorted kernel's sums equal K1's bitwise, whether a block stages
-    its union box in shared memory (points packed into a corner of the
-    image: the blocks whose box fits) or samples from global memory as K1
-    does (points over the whole image: no full block's box fits)."""
+    """The sorted kernel's sums equal K1's bitwise, whichever branch a
+    block takes: its union box staged in shared memory (points packed
+    into a corner of the image: overlapping windows), its observations'
+    own windows staged (points over the whole image: no full block's box
+    holds fewer texels than its windows), or, above the staged radii,
+    each window gathered from global memory."""
     rng = np.random.default_rng(300 + radius * 10 + channels)
     w, h, wi, n = 3, 40, 70, 257
     planes = torch.as_tensor(rng.standard_normal((w, channels, h, wi, 4)),
@@ -493,13 +520,14 @@ def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
     torch.cuda.synchronize()
     assert pw.sorted_patch_stats.launches[norm] == before + 1
     assert torch.equal(got, want)
-    assert set(staged.unique().tolist()) <= {0, 1}
-    # Each block (64 consecutive sorted ranks of one frame) stages where
-    # it has a valid observation and the union box of its valid windows,
-    # C channels of it, fits the 1024 texels of its tile: in the dense
-    # layout every block to R = 4 with three channels, to R = 9 with one;
-    # in the sparse one no full block (the last block of each frame holds
-    # one observation, whose own window fits to R = 9).
+    # Each block (64 consecutive sorted ranks of one frame) takes the
+    # branch `sorted_branch` gives for its union box and its valid
+    # windows: in the dense layout the box in every block with a valid
+    # observation to the staged radii; in the sparse one the own windows
+    # in every full block to R = 2 (the last block of each frame holds one
+    # observation, whose box is its window; at R = 3 the whole 70x40
+    # image, 2800 texels, is fewer than ~51 windows of 64); above the
+    # staged radii every block gathers.
     win = 2 * radius + 2
     q = torch.where(valid[..., None], uv, 0.0)[order[0]]          # (N, W, 2)
     x0 = torch.clamp(torch.floor(q[..., 0]).long() - radius, 0, wi - win)
@@ -510,20 +538,21 @@ def test_sorted_kernel_is_bitwise_k1(cuda_device, radius, channels, norm,
         for j in range(runs):
             sel = slice(j * pw.SORTED_RUN, (j + 1) * pw.SORTED_RUN)
             ok = valid[order[0]][sel, f]
-            if not bool(ok.any()):
-                expect.append(False)
-                continue
             bx, by = x0[sel, f][ok], y0[sel, f][ok]
-            area = (int(bx.max() - bx.min()) + win) * (int(by.max()
-                                                           - by.min()) + win)
-            expect.append(area * channels <= 1024)
-    assert staged.bool().tolist() == expect
-    if layout == "dense" and (radius <= 4 or channels == 1 and radius <= 9):
-        assert all(expect[f * runs + j] for f in range(w) for j in range(runs)
-                   if bool(valid[order[0]][j * 64:(j + 1) * 64, f].any()))
-    elif layout == "sparse" and radius <= 9:
-        assert not any(expect[f * runs + j] for f in range(w)
-                       for j in range(runs - 1))
+            area = 0
+            if bool(ok.any()):
+                area = ((int(bx.max() - bx.min()) + win)
+                        * (int(by.max() - by.min()) + win))
+            expect.append(sorted_branch(radius, channels, area,
+                                           int(ok.sum()) * win * win))
+    assert staged.tolist() == expect
+    full = [expect[f * runs + j] for f in range(w) for j in range(runs - 1)]
+    if radius > SORTED_STAGED_RADIUS:
+        assert set(expect) == {SORTED_GATHERED}
+    elif layout == "dense" and radius <= SORTED_STAGED_RADIUS:
+        assert set(full) == {SORTED_UNION_BOX}
+    elif layout == "sparse" and radius <= 2:
+        assert set(full) == {SORTED_OWN_WINDOWS}
     plain = pw.sorted_patch_stats_reference(planes, uv, valid, patch, radius,
                                             order, norm)
     row_max = plain.abs().amax(dim=(1, 2), keepdim=True)
@@ -1342,3 +1371,30 @@ def test_sum_over_kernel_at_the_solve_layout(cuda_device, w):
     one = osm.sum_over(x[..., 17:18], (-4, -2))
     assert torch.equal(bits(one[..., 0]), bits(got[..., 17]))
 
+
+
+def test_se3_on_card_matches_cpu_at_small_angles(cuda_device):
+    """se3_exp and se3_log on the card over twists at rotation angles 1e-5
+    to 1e-2 rad (se3_log's NaN band, 1e-4 to 2.44e-4, and the cancelling
+    range above it): sin and cos are taken in f64 and rounded to f32 on
+    both devices, so the card's NaN rows are the CPU's and its values
+    within 1e-6 (se3_exp) and 1e-4 (se3_log, translations of scale 0.5)."""
+    from photobundle_torch.geometry import se3
+
+    rng = np.random.default_rng(21)
+    n = 4096
+    angle = np.exp(rng.uniform(np.log(1e-5), np.log(1e-2), n))
+    axis = rng.standard_normal((n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    xi = torch.as_tensor(np.concatenate(
+        [rng.standard_normal((n, 3)) * 0.5, axis * angle[:, None]],
+        axis=1).astype(np.float32))
+    t_cpu = se3.se3_exp(xi)
+    t_card = se3.se3_exp(xi.to(cuda_device)).cpu()
+    assert float((t_card - t_cpu).abs().max()) <= 1e-6
+    log_cpu = se3.se3_log(t_cpu)
+    log_card = se3.se3_log(t_cpu.to(cuda_device)).cpu()
+    nan_cpu = torch.isnan(log_cpu).any(dim=1)
+    assert torch.equal(torch.isnan(log_card).any(dim=1), nan_cpu)
+    assert 0 < int(nan_cpu.sum()) < n
+    assert float((log_card - log_cpu)[~nan_cpu].abs().max()) <= 1e-4

@@ -36,7 +36,8 @@ from photobundle_torch.ops import patch_warp as pw
 
 from synthetic import make_sequence, perturb_poses
 from test_engine import small_cfg
-from torch_parity import EngineTrace, port_camera, port_config
+from torch_parity import (EngineTrace, intra_op_threads, port_camera,
+                          port_config)
 
 N_FRAMES = 10
 SOLVE_ITERS = 8       # every window solve runs to max_iterations
@@ -115,7 +116,12 @@ def test_window_solve_matches_reference_from_carried_state(
         type(window_np)(*map(jnp.asarray, window_np)),
         type(points_np)(*map(jnp.asarray, points_np)))
     points, win = convert.engine_state_from_numpy(points_np, window_np)
-    tw, tp, got, tpv = tpba._optimize(win, points)
+    # On two intra-op threads, whatever the host's cores: torch's CPU sums
+    # and matrix products split their terms by thread, so the port's f32
+    # rounding moves with the thread count, and with it a point that few
+    # observations hold (ROADMAP queue 3).
+    with intra_op_threads(2):
+        tw, tp, got, tpv = tpba._optimize(win, points)
     assert int(got.termination) == int(want.termination) == 1
     assert int(got.iterations) == int(want.iterations) == SOLVE_ITERS
     np.testing.assert_array_equal(got.accept_log.numpy(),

@@ -73,6 +73,125 @@ def test_se3_matches_jax(name):
                                rtol=1e-5)
 
 
+def band_twists(rng, n=256):
+    """Twists at rotation angles 1e-5 to 1e-2 rad (log-uniform, random
+    axes), translations of scale 0.5: through se3_log's NaN band (1e-4 to
+    2.44e-4 rad, where f32 1 - cos theta rounds to 0) and the range above
+    it where (1 - A/(2B)) / theta^2 cancels."""
+    angle = np.exp(rng.uniform(np.log(1e-5), np.log(1e-2), n))
+    axis = rng.standard_normal((n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    return np.concatenate([rng.standard_normal((n, 3)) * 0.5,
+                           axis * angle[:, None]], axis=1).astype(np.float32)
+
+
+def band_poses(rng, n=256):
+    return np.asarray(jax.jit(jse3.se3_exp)(jnp.asarray(band_twists(rng, n))))
+
+
+def band_pairs(rng, n=256):
+    """Rotations R and R exp(w), w of `band_twists`' angles: 1e-5 to 1e-2
+    rad apart."""
+    r = band_poses(rng, n)[:, :3, :3]
+    w = jax.jit(jse3.so3_exp)(jnp.asarray(band_twists(rng, n)[:, 3:]))
+    return r, np.asarray(jnp.asarray(r) @ w)
+
+
+# (case, abs tolerance): the twists of `band_twists` through each function
+# whose small-angle arithmetic cancels.
+BAND_CASES = {
+    "so3_exp": (lambda m, rng: m.so3_exp(band_twists(rng)[:, 3:]), 1e-6),
+    "so3_log": (lambda m, rng: m.so3_log(band_poses(rng)[:, :3, :3]), 1e-6),
+    "se3_exp": (lambda m, rng: m.se3_exp(band_twists(rng)), 1e-6),
+    "se3_log": (lambda m, rng: m.se3_log(band_poses(rng)), 1e-4),
+    # arccos of (trace(Ra^T Rb) - 1) / 2 within a few ulps of 1: one ulp of
+    # the trace (2^-22 at 3) moves it by 2^-23 and the angle by up to
+    # 4.9e-4 rad, and the two packages' matrix products round the trace
+    # apart. Held in the cosine domain, within two ulps of the trace.
+    "rotation_geodesic_distance": (lambda m, rng: m.rotation_geodesic_distance(
+        *band_pairs(rng)), 2.0 ** -22),
+}
+@pytest.mark.parametrize("name", sorted(BAND_CASES))
+def test_se3_matches_jax_at_small_angles(name):
+    """The port rounds sin and cos as the reference does (f64, then f32):
+    with torch's f32 cos, se3_log was NaN on 167 of 20 000 twists where
+    the reference's is not (1 - cos theta rounded to 0 up to 2.67e-4 rad
+    against 2.44e-4) and 0.81 apart elsewhere. NaN rows equal, the rest
+    within the tolerance."""
+    case, atol = BAND_CASES[name]
+    ref = np.asarray(case(_Jax(), np.random.default_rng(6)))
+    out = to_np(case(_Torch(), np.random.default_rng(6)))
+    if name == "rotation_geodesic_distance":
+        ref, out = np.cos(ref.astype(np.float64)), np.cos(out.astype(np.float64))
+    rows = len(ref)
+    nan_ref = np.isnan(ref.reshape(rows, -1)).any(axis=1)
+    nan_out = np.isnan(out.reshape(rows, -1)).any(axis=1)
+    np.testing.assert_array_equal(nan_out, nan_ref)
+    if name == "se3_log":      # the band is there, and rows above it
+        assert 20 <= nan_ref.sum() < rows - 20
+    np.testing.assert_allclose(out[~nan_ref], ref[~nan_ref], atol=atol,
+                               rtol=0)
+
+
+def _so3_log_guards():
+    """so3_log's arccos and sin through its Taylor guard (theta < 1e-4)
+    and its near-pi branch (theta > 3)."""
+    rng = np.random.default_rng(7)
+    angle = np.concatenate([np.exp(rng.uniform(np.log(1e-6), np.log(1e-3),
+                                               128)),
+                            rng.uniform(2.9, 3.14, 64)])
+    axis = rng.standard_normal((len(angle), 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    r = np.array(jax.jit(jse3.so3_exp)(jnp.asarray(
+        (axis * angle[:, None]).astype(np.float32))))
+    return (jax.jit(jse3.so3_log)(jnp.asarray(r)),
+            tse3.so3_log(torch.as_tensor(r)), 1e-6, 0.0)
+
+
+def _cauchy():
+    """Cauchy's log1p (Ceres' CauchyLoss) over s / delta^2 from 1e-10 to
+    4e6: XLA's f32 log1p and torch's differ by an ulp on ~4 % of these."""
+    from photobundle_tpu.core import residuals as jres
+    from photobundle_torch.core import residuals as tres
+    s = np.exp(np.random.default_rng(8).uniform(np.log(2.5e-13), np.log(1e4),
+                                                4096)).astype(np.float32)
+    ref = jax.jit(lambda v: jres.robust_weight(v, 0.05, "cauchy"))(
+        jnp.asarray(s))
+    out = tres.robust_weight(torch.as_tensor(s), 0.05, "cauchy")
+    return np.stack([np.asarray(a) for a in ref]), torch.stack(out), 0.0, 1e-6
+
+
+def _gaussian_taps():
+    """The pyramid's Gaussian exp: the impulse response of the separable
+    blur is tap_i * tap_j, each rounded once, so equal taps make it
+    bitwise equal."""
+    from photobundle_tpu.image import pyramid as jpyr
+    from photobundle_torch.image import pyramid as tpyr
+    img = np.zeros((4, 17, 17), np.float32)
+    img[:, 8, 8] = 1.0
+    sigmas = (0.5, 0.75, 1.5, 2.5)
+    ref = [jax.jit(jpyr.gaussian_blur_sigma, static_argnums=1)(
+        jnp.asarray(img[k]), s) for k, s in enumerate(sigmas)]
+    out = [tpyr.gaussian_blur_sigma(torch.as_tensor(img[k]), s)
+           for k, s in enumerate(sigmas)]
+    return np.stack([np.asarray(a) for a in ref]), torch.stack(out), 0.0, 0.0
+
+
+AUDIT_CASES = {"so3_log_guards": _so3_log_guards, "cauchy_log1p": _cauchy,
+               "gaussian_exp": _gaussian_taps}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIT_CASES))
+def test_transcendentals_match_jax(name):
+    """The solve's and ingest's other transcendentals against the jitted
+    JAX functions where they cancel or are rounded apart: NaN where the
+    reference is NaN, values within the case's (atol, rtol)."""
+    ref, out, atol, rtol = AUDIT_CASES[name]()
+    ref, out = np.asarray(ref), to_np(out)
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    np.testing.assert_allclose(out, ref, atol=atol, rtol=rtol)
+
+
 def test_se3_exp_log_roundtrip_and_zero_twist_identity():
     xi = twists(np.random.default_rng(4))[3:]
     back = tse3.se3_log(tse3.se3_exp(torch.as_tensor(xi)))

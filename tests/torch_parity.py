@@ -2,6 +2,8 @@
 reference) and photobundle_torch (the port): inputs go to both packages as
 the same numpy arrays, results come back as numpy arrays."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -15,10 +17,20 @@ def few_threads():
     that imports this fixture uses it): the test workers share the host's
     cores, and oversubscribed thread pools made such runs several times
     slower than with two."""
+    with intra_op_threads(min(2, torch.get_num_threads())):
+        yield
+
+
+@contextlib.contextmanager
+def intra_op_threads(n: int):
+    """torch's CPU intra-op thread count set to `n` for the block, then
+    restored."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(min(2, threads))
-    yield
-    torch.set_num_threads(threads)
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def port_problem(problem, device="cpu"):
